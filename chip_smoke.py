@@ -9,28 +9,42 @@ Phases; any failure exits non-zero and no phase's failure is caught:
 2. build the three CUDA kernels from deseq2_tpu_torch/csrc (one nvcc per
    source, started together) and print ptxas' registers / shared memory /
    spills per instantiation.
-3. hold each kernel against its plain PyTorch version on the card, in
-   float32 and float64, for p = 1, 2, 3, at S = 24 and S = 3000 with a
-   ragged gene count; in float32 both are also held against the plain
-   version run in float64 (readings and limits:
-   deseq2_tpu_torch/ops/checks.py).
+3. hold each kernel, unweighted and weighted, against its plain PyTorch
+   version on the card, in float32 and float64, for p = 1, 2, 3, at S = 24
+   and S = 3000 with a ragged gene count (weighted: forced Cox-Reid column
+   drops); in float32 both are also held against the plain version run in
+   float64 (readings and limits: deseq2_tpu_torch/ops/checks.py).
 4. the main path at full width: 60,000 genes x 1,024 samples, ~ condition,
    public deseq() + results() in float32 (a cold and a warm call; the
    launch counters are zeroed just before the warm call and read just
    after it), then the same in float64, then one more float32 call with
    the stage timers on under torch.profiler (stage table, kernels by
-   device time, the device's busy share).
-5. accuracy gate on a 2,048 x 1,024 slice with bench.py's generator and
+   device time, the device's busy share).  Then two variants at the same
+   width in float32, cold and warm, each with its own counters:
+   a. observation weights (uniform(0.3, 1), 5% of the zero counts at 1e-3,
+      below the Cox-Reid threshold): needs weighted K1 and K2 launches;
+   b. the LRT of ~ batch + condition against ~ batch with gene x sample
+      normalization factors: needs >= 3 K1 launches and a K2 launch;
+   each followed by a third call with the stage timers on.  And the local
+   trend's state and evaluation at the main path's genes in float32
+   against float64 (error, time and peak memory: the pipeline fits it in
+   float64).
+5. accuracy gates on a 2,048 x 1,024 slice with bench.py's generator and
    thresholds: the port in float32 on the card against the port in float64
-   on the CPU (the plain versions).
-6. each kernel at the main path's shapes, on the inputs the pipeline's own
-   stages hand it: held against its plain version and the float64
+   on the CPU (the plain versions), for the default Wald path, the
+   weighted Wald path, the LRT with normalization factors and
+   fit_type="local".
+6. each kernel and mode at the main path's shapes, on the inputs the
+   pipeline's own stages hand it (the weighted modes at the weighted
+   path's inputs): held against its plain version and the float64
    reference with phase 3's limits, then timed beside its plain version
    and its bound; one JSON line {"kernels": [...]}.
 
-The last two lines are the card's nvidia-smi line and the JSON result line.
+Each phase prints its seconds.  The last two lines are the card's
+nvidia-smi line and the JSON result line.
 """
 
+import functools
 import json
 import subprocess
 import sys
@@ -74,7 +88,10 @@ def smi_line():
 # inputs (copies of bench.py's generators: make_inputs, _gate_inputs)
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=2)
 def make_inputs(G, S, seed=0):
+    """bench.py's make_inputs; cached, since every full-width phase uses the
+    same seed-0 matrix (callers only read it)."""
     rng = np.random.default_rng(seed)
     S2 = S // 2
     x = np.column_stack([np.ones(S), np.repeat([0.0, 1.0], [S2, S - S2])])
@@ -110,56 +127,61 @@ def fmt(r):
                     for k, v in r.items() if k != "ok")
 
 
-def check_kernels(torch, dev):
+def check_kernels(torch, dev, modes=(False, True)):
+    """Each kernel, unweighted and weighted, against its plain version."""
     from deseq2_tpu_torch.ops import checks, disp, irls
     from deseq2_tpu_torch.ops.cuda_grid import fit_disp_grid
     from deseq2_tpu_torch.ops.cuda_irls import fit_beta
     from deseq2_tpu_torch.ops.cuda_ls import fit_disp_line_search
 
-    worst = {"irls": 0.0, "disp_ls": 0.0, "disp_grid": 0.0}
+    worst = {k + sfx: 0.0 for k in ("irls", "disp_ls", "disp_grid")
+             for sfx in ("", "_w")}
     failed = []
     log(f"  limits: {checks.TOL}")
-    for dname in ("float32", "float64"):
-        dt = getattr(torch, dname)
-        f32 = dname == "float32"
-        for S, G in ((24, 333), (3000, 77)):
-            for p in (1, 2, 3):
-                raw = checks.solver_inputs(G, S, p, 10 * p + S)
-                d = checks.as_tensors(raw, dt, dev)
-                args = (d["y"], d["x"], torch.ones(S, dtype=dt, device=dev),
-                        d["alpha"], d["b0"], checks.ridge_for(p, dt, dev))
-                k1 = fit_beta(*args)
-                r1 = checks.check_irls(k1, irls.fit_beta_plain(*args))
-                torch.cuda.synchronize()
-                case = f"{dname} p={p} S={S} G={G}"
-                log(f"  {case} irls: {fmt(r1)}")
-                if not r1["ok"]:
-                    failed.append(f"{case} irls")
-                worst["irls"] = max(worst["irls"], r1["max_abs_err"])
-                for use_prior in (False, True):
-                    ls_args = (d["y"], d["x"], d["mu"], d["la0"], d["pm"],
-                               checks.PRIOR_VAR, checks.MIN_LA)
-                    k2 = fit_disp_line_search(*ls_args, use_prior=use_prior)
-                    p2 = disp.fit_disp_line_search_plain(
-                        *ls_args, use_prior=use_prior)
-                    g_args = (d["y"], d["x"], d["mu"], d["grid"], d["pm"],
-                              checks.PRIOR_VAR)
-                    k3 = fit_disp_grid(*g_args, use_prior=use_prior)
-                    p3 = disp.fit_disp_grid_plain(*g_args,
-                                                  use_prior=use_prior)
+    for weighted in modes:
+        sfx = "_w" if weighted else ""
+        for dname in ("float32", "float64"):
+            dt = getattr(torch, dname)
+            f32 = dname == "float32"
+            for S, G in checks.SHAPES:
+                for p in (1, 2, 3):
+                    raw = checks.solver_inputs(G, S, p, 10 * p + S,
+                                               weighted=weighted)
+                    d = checks.as_tensors(raw, dt, dev)
+                    k1 = checks.run_irls(fit_beta, d)
+                    r1 = checks.check_irls(
+                        k1, checks.run_irls(irls.fit_beta_plain, d))
                     torch.cuda.synchronize()
-                    r2 = checks.check_ls(
-                        k2, p2, d, use_prior, ref=checks.line_search_reference(
-                            d, use_prior) if f32 else None)
-                    r3 = checks.check_grid(
-                        k3, p3, d, use_prior, ref=checks.grid_reference(
-                            d, use_prior) if f32 else None)
-                    log(f"  {case} prior={use_prior} ls: {fmt(r2)}")
-                    log(f"  {case} prior={use_prior} grid: {fmt(r3)}")
-                    for name, r in (("disp_ls", r2), ("disp_grid", r3)):
-                        if not r["ok"]:
-                            failed.append(f"{case} prior={use_prior} {name}")
-                        worst[name] = max(worst[name], r["max_abs_err"])
+                    case = f"{dname} p={p} S={S} G={G} weighted={weighted}"
+                    log(f"  {case} irls: {fmt(r1)}")
+                    if not r1["ok"]:
+                        failed.append(f"{case} irls")
+                    worst["irls" + sfx] = max(worst["irls" + sfx],
+                                              r1["max_abs_err"])
+                    for use_prior in (False, True):
+                        k2 = checks.run_ls(fit_disp_line_search, d, use_prior)
+                        p2 = checks.run_ls(disp.fit_disp_line_search_plain,
+                                           d, use_prior)
+                        k3 = checks.run_grid(fit_disp_grid, d, use_prior)
+                        p3 = checks.run_grid(disp.fit_disp_grid_plain, d,
+                                             use_prior)
+                        torch.cuda.synchronize()
+                        r2 = checks.check_ls(
+                            k2, p2, d, use_prior,
+                            ref=checks.line_search_reference(d, use_prior)
+                            if f32 else None)
+                        r3 = checks.check_grid(
+                            k3, p3, d, use_prior,
+                            ref=checks.grid_reference(d, use_prior)
+                            if f32 else None)
+                        log(f"  {case} prior={use_prior} ls: {fmt(r2)}")
+                        log(f"  {case} prior={use_prior} grid: {fmt(r3)}")
+                        for name, r in (("disp_ls", r2), ("disp_grid", r3)):
+                            if not r["ok"]:
+                                failed.append(f"{case} prior={use_prior} "
+                                              f"{name}")
+                            worst[name + sfx] = max(worst[name + sfx],
+                                                    r["max_abs_err"])
     if failed:
         raise SystemExit(f"kernel checks failed: {failed}")
     return worst
@@ -169,29 +191,57 @@ def check_kernels(torch, dev):
 # main path
 # ---------------------------------------------------------------------------
 
-def launch_counts():
+COUNTERS = {"irls": ("fit_beta", "launches"),
+            "irls_w": ("fit_beta", "launches_weighted"),
+            "disp_ls": ("fit_disp_line_search", "launches"),
+            "disp_ls_w": ("fit_disp_line_search", "launches_weighted"),
+            "disp_grid": ("fit_disp_grid", "launches"),
+            "disp_grid_w": ("fit_disp_grid", "launches_weighted")}
+
+
+def _wrappers():
     from deseq2_tpu_torch.ops.cuda_grid import fit_disp_grid
     from deseq2_tpu_torch.ops.cuda_irls import fit_beta
     from deseq2_tpu_torch.ops.cuda_ls import fit_disp_line_search
-    return {"irls": fit_beta, "disp_ls": fit_disp_line_search,
-            "disp_grid": fit_disp_grid}
+    return {"fit_beta": fit_beta, "fit_disp_line_search": fit_disp_line_search,
+            "fit_disp_grid": fit_disp_grid}
 
 
-def public_run(torch, counts, dtype_name, sf=None, device="cuda"):
+def zero_counts():
+    fns = _wrappers()
+    for fn, attr in COUNTERS.values():
+        setattr(fns[fn], attr, 0)
+
+
+def read_counts():
+    fns = _wrappers()
+    return {k: getattr(fns[fn], attr) for k, (fn, attr) in COUNTERS.items()}
+
+
+def public_run(torch, counts, dtype_name, sf=None, device="cuda",
+               design="~ condition", weights=None, nf=None, **deseq_kw):
     """bench.py's _public_run through the port: build the dataset from
-    the matrix, deseq(), results().  The outer steps are profiling stages
-    (no-ops unless profiling is on)."""
+    the matrix, deseq(), results().  `design` "~ batch + condition" adds a
+    two-level batch alternating over the samples; `weights` and `nf` are
+    set as the weights assay and the normalization factors.  The outer
+    steps are profiling stages (no-ops unless profiling is on)."""
     import deseq2_tpu_torch as dt
     from deseq2_tpu_torch import profiling
     g, s = counts.shape
-    cond = np.repeat(["A", "B"], [s // 2, s - s // 2])
+    col_data = {"condition": np.repeat(["A", "B"], [s // 2, s - s // 2])}
+    if "batch" in design:
+        col_data["batch"] = np.tile(["1", "2"], s // 2 + 1)[:s]
     with profiling.stage("smoke.datasetFromMatrix", genes=g):
         dds = dt.dataset_from_matrix(
-            counts, {"condition": cond}, "~ condition",
+            counts, col_data, design,
             config=dt.DESeqConfig(dtype=dtype_name))
     if sf is not None:
         dds.size_factors = sf
-    fit = dt.deseq(dds, device=device)
+    if weights is not None:
+        dds.assays["weights"] = weights
+    if nf is not None:
+        dds.normalization_factors = nf
+    fit = dt.deseq(dds, device=device, **deseq_kw)
     with profiling.stage("smoke.results", genes=g):
         res = dt.results(fit)
     if device != "cpu":
@@ -199,17 +249,33 @@ def public_run(torch, counts, dtype_name, sf=None, device="cuda"):
     return res, fit
 
 
+@functools.lru_cache(maxsize=1)
+def _main_variant_inputs():
+    return variant_inputs(make_inputs(G_MAIN, S_MAIN)[0])
+
+
+def variant_inputs(counts, seed=0):
+    """The weights assay and the (G,S) normalization factors of the
+    variant paths, from `seed`: weights uniform(0.3, 1) with 5% of the
+    zero-count entries at 1e-3 (below the Cox-Reid threshold, as zinbwave
+    down-weights zeros); factors exp(N(0, 0.2)), row-centred."""
+    rng = np.random.default_rng(seed)
+    w = rng.uniform(0.3, 1.0, counts.shape)
+    w[(counts == 0) & (rng.random(counts.shape) < 0.05)] = 1e-3
+    nf = np.exp(rng.normal(0.0, 0.2, counts.shape))
+    nf /= np.exp(np.log(nf).mean(axis=1))[:, None]
+    return w, nf
+
+
 def main_path(torch):
     counts, _ = make_inputs(G_MAIN, S_MAIN)
-    fns = launch_counts()
     out = {}
     for dname in ("float32", "float64"):
         t0 = time.perf_counter()
         public_run(torch, counts, dname)
         cold = time.perf_counter() - t0
         if dname == "float32":
-            for f in fns.values():
-                f.launches = 0
+            zero_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res, _ = public_run(torch, counts, dname)
@@ -225,9 +291,10 @@ def main_path(torch):
                 or np.isfinite(padj).mean() <= 0.5:
             raise SystemExit(f"main path output malformed ({dname})")
         if dname == "float32":
-            launches = {k: f.launches for k, f in fns.items()}
+            launches = read_counts()
             log(f"  float32 warm-call kernel launches: {launches}")
-            missing = [k for k, n in launches.items() if n == 0]
+            missing = [k for k in ("irls", "disp_ls", "disp_grid")
+                       if launches[k] == 0]
             if missing:
                 raise SystemExit(f"main path never launched {missing}")
             out["launches"] = launches
@@ -278,24 +345,103 @@ def stage_breakdown(torch):
                 busy_share=busy_s / wall if rows else None)
 
 
-def accuracy_gate(torch):
-    """bench.py's accuracy gate with its thresholds (bench.py:240-245)."""
-    sub, _ = gate_inputs(G_GATE, S_MAIN)
-    ones = np.ones(S_MAIN)
-    est32, fit32 = public_run(torch, sub, "float32")
-    res32, _ = public_run(torch, sub, "float32", sf=ones)
+def variant_path(torch, name):
+    """A variant of the main path at full width, float32, cold and warm:
+    "weights" (the weighted Wald path) or "lrt_nf" (the LRT of ~ batch +
+    condition against ~ batch with normalization factors).  The counters
+    are zeroed just before the warm call and read just after it."""
+    counts, _ = make_inputs(G_MAIN, S_MAIN)
+    w, nf = _main_variant_inputs()
+    if name == "weights":
+        kw = dict(weights=w)
+    else:
+        kw = dict(nf=nf, design="~ batch + condition", test="LRT",
+                  reduced="~ batch")
     t0 = time.perf_counter()
-    res64, _ = public_run(torch, sub, "float64", sf=ones, device="cpu")
-    log(f"  float64 CPU reference run: {time.perf_counter() - t0:.1f} s")
+    public_run(torch, counts, "float32", **kw)
+    cold = time.perf_counter() - t0
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, _ = public_run(torch, counts, "float32", **kw)
+    warm = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    stat, padj = np.asarray(res["stat"]), np.asarray(res["padj"])
+    log(f"  {name}: cold {cold:.3f} s, warm {warm:.3f} s = "
+        f"{G_MAIN / warm:,.0f} genes/s, peak device memory {peak:.2f} GiB, "
+        f"finite stat {np.isfinite(stat).mean():.4f}, finite padj "
+        f"{np.isfinite(padj).mean():.4f}, rejections "
+        f"{int(np.sum(padj < 0.1))}")
+    log(f"  {name} warm-call kernel launches: {launches}")
+    if stat.shape != (G_MAIN,) or np.isfinite(stat).mean() <= 0.95 \
+            or np.isfinite(padj).mean() <= 0.5:
+        raise SystemExit(f"{name} path output malformed")
+    if name == "weights":
+        missing = [k for k in ("irls_w", "disp_ls_w") if launches[k] == 0]
+    else:
+        missing = ([] if launches["irls"] >= 3 else ["irls x3"]) + \
+            ([] if launches["disp_ls"] > 0 else ["disp_ls"])
+    if missing:
+        raise SystemExit(f"{name} path never launched {missing}")
+    # a third call with the stage timers on (they synchronize the card)
+    from deseq2_tpu_torch import profiling
+    profiling.reset()
+    profiling.enable()
+    public_run(torch, counts, "float32", **kw)
+    profiling.disable()
+    log(f"  {name} stage timings (third call, timers synchronize):")
+    for line in profiling.report().splitlines():
+        log(f"    {line}")
+    return dict(cold_s=cold, warm_s=warm, genes_per_s=G_MAIN / warm,
+                peak_gib=peak, launches=launches)
 
-    logc = np.log(np.asarray(sub, np.float64))
-    with np.errstate(divide="ignore"):
-        lg = logc.mean(axis=1)
-    sf_host = np.array([np.exp(np.median(
-        (logc[:, j] - lg)[np.isfinite(lg) & (sub[:, j] > 0)]))
-        for j in range(sub.shape[1])])
-    sf_err = float(np.max(np.abs(fit32.size_factors / sf_host - 1.0)))
 
+def local_trend_dtype(torch, dev):
+    """The local trend's state and evaluation at the main path's genes in
+    float32 and in float64 on the card: the float32 version's largest
+    relative difference from the float64 one, and each one's time."""
+    from deseq2_tpu_torch.parallel.fused import (Stages, default_grid,
+                                                 local_trend_eval,
+                                                 local_trend_state)
+    counts, x_np = make_inputs(G_MAIN, S_MAIN)
+    dt = torch.float32
+    x = torch.as_tensor(x_np, dtype=dt, device=dev)
+    st = Stages(x, torch.ones(S_MAIN, dtype=dt, device=dev),
+                torch.as_tensor(default_grid(S_MAIN), dtype=dt, device=dev))
+    est = st.gene_est(torch.as_tensor(counts, device=dev).to(dt))
+    bm, dge, az = est["base_mean"], est["disp_gene_est"], est["all_zero"]
+    use = (dge > 1e-6) & ~az
+    bm_safe = torch.where(az, torch.ones_like(bm), bm)
+    fits, ms, peak = {}, {}, {}
+    for dname in ("float32", "float64"):
+        d = getattr(torch, dname)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ts = local_trend_state(bm.to(d), dge.to(d), use)
+        fits[dname] = local_trend_eval(ts, torch.log(bm_safe.to(d)))
+        torch.cuda.synchronize()
+        ms[dname] = (time.perf_counter() - t0) * 1e3
+        peak[dname] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    rel = ((fits["float32"].double() - fits["float64"]).abs()
+           / fits["float64"]).max().item()
+    log(f"  local trend at {G_MAIN} genes ({int(use.sum())} fit points): "
+        f"float32 {ms['float32']:.1f} ms, float64 {ms['float64']:.1f} ms, "
+        f"peak memory over the inputs {peak['float32']:.2f} / "
+        f"{peak['float64']:.2f} GiB, float32 largest relative difference "
+        f"from float64 {rel:.3g}")
+    return dict(local_trend_f32_ms=ms["float32"],
+                local_trend_f64_ms=ms["float64"],
+                local_trend_f32_peak_gib=peak["float32"],
+                local_trend_f64_peak_gib=peak["float64"],
+                local_trend_f32_max_rel=rel)
+
+
+def gate_compare(res32, res64):
+    """bench.py's gate readings and thresholds (bench.py:240-245) on a
+    float32 card run against a float64 CPU run."""
     lfc32 = np.asarray(res32["log2FoldChange"], float)
     lfc64 = np.asarray(res64["log2FoldChange"], float)
     p32, p64 = np.asarray(res32["pvalue"]), np.asarray(res64["pvalue"])
@@ -318,18 +464,66 @@ def accuracy_gate(torch):
     gate = dict(gate_genes=G_GATE, gate_max_dlfc=d_lfc,
                 gate_logp_excess=excess, gate_rejection_jaccard=jacc,
                 gate_confident_flips=flips, gate_finite_match=finite_match,
-                gate_sf_max_rel_err=sf_err,
-                gate_rejections=int(rej64.sum()),
-                gate_est_sf_finite=float(np.isfinite(
-                    np.asarray(est32["stat"])).mean()))
+                gate_rejections=int(rej64.sum()))
+    checks = dict(finite=finite_match >= 0.999, lfc=d_lfc < 0.01,
+                  logp=excess < 0.5, jaccard=jacc >= 0.995, flips=flips == 0)
+    return gate, checks
+
+
+def accuracy_gate(torch):
+    """bench.py's accuracy gate with its thresholds (bench.py:240-245)."""
+    sub, _ = gate_inputs(G_GATE, S_MAIN)
+    ones = np.ones(S_MAIN)
+    est32, fit32 = public_run(torch, sub, "float32")
+    res32, _ = public_run(torch, sub, "float32", sf=ones)
+    t0 = time.perf_counter()
+    res64, _ = public_run(torch, sub, "float64", sf=ones, device="cpu")
+    log(f"  float64 CPU reference run: {time.perf_counter() - t0:.1f} s")
+
+    logc = np.log(np.asarray(sub, np.float64))
+    with np.errstate(divide="ignore"):
+        lg = logc.mean(axis=1)
+    sf_host = np.array([np.exp(np.median(
+        (logc[:, j] - lg)[np.isfinite(lg) & (sub[:, j] > 0)]))
+        for j in range(sub.shape[1])])
+    sf_err = float(np.max(np.abs(fit32.size_factors / sf_host - 1.0)))
+    gate, checks = gate_compare(res32, res64)
+    gate.update(gate_sf_max_rel_err=sf_err, gate_est_sf_finite=float(
+        np.isfinite(np.asarray(est32["stat"])).mean()))
+    checks["sf"] = sf_err < 1e-5
     log(f"  gate: {json.dumps(gate)}")
-    checks = dict(sf=sf_err < 1e-5, finite=finite_match >= 0.999,
-                  lfc=d_lfc < 0.01, logp=excess < 0.5, jaccard=jacc >= 0.995,
-                  flips=flips == 0)
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise SystemExit(f"accuracy gate failed: {failed}")
     return gate
+
+
+def variant_gates(torch):
+    """The gate for the variants: the weighted Wald path, the LRT of
+    ~ batch + condition against ~ batch with normalization factors, and
+    fit_type="local", each in float32 on the card against float64 on the
+    CPU, on the gate slice with the variant inputs of that slice."""
+    sub, _ = gate_inputs(G_GATE, S_MAIN)
+    w, nf = variant_inputs(sub)
+    ones = np.ones(S_MAIN)
+    cases = {"weights": dict(sf=ones, weights=w),
+             "lrt_nf": dict(nf=nf, design="~ batch + condition",
+                            test="LRT", reduced="~ batch"),
+             "local": dict(sf=ones, fit_type="local")}
+    out, failed = {}, []
+    for name, kw in cases.items():
+        res32, _ = public_run(torch, sub, "float32", **kw)
+        t0 = time.perf_counter()
+        res64, _ = public_run(torch, sub, "float64", device="cpu", **kw)
+        cpu_s = time.perf_counter() - t0
+        gate, checks = gate_compare(res32, res64)
+        log(f"  gate {name} (float64 CPU reference {cpu_s:.1f} s): "
+            f"{json.dumps(gate)}")
+        failed += [f"{name}:{k}" for k, v in checks.items() if not v]
+        out[name] = gate
+    if failed:
+        raise SystemExit(f"variant accuracy gates failed: {failed}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -373,11 +567,14 @@ def bound(bytes_, ops, dname):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_timings(torch, dev, launches, worst):
+def kernel_timings(torch, dev, launches, worst, weighted=False):
     """Each kernel at the main path's shapes (float32, 60,000 x 1,024,
     ~ condition), on the inputs the pipeline hands it, built by the
     pipeline's own stages: held against its plain version and the float64
-    reference with the limits of phase 3 (a failure exits), then timed."""
+    reference with the limits of phase 3 (a failure exits), then timed.
+    `weighted`: the weighted modes at the weighted path's inputs (the
+    gene-wise search and grid at the max-1 weights floored at 1e-6, the
+    IRLS at the max-1 weights), `launches` that path's counters."""
     from deseq2_tpu_torch.ops import checks, disp, irls
     from deseq2_tpu_torch.ops.cuda_grid import fit_disp_grid
     from deseq2_tpu_torch.ops.cuda_irls import fit_beta
@@ -390,50 +587,63 @@ def kernel_timings(torch, dev, launches, worst):
     x = torch.as_tensor(x_np, dtype=dt, device=dev)
     sf = torch.ones(S_MAIN, dtype=dt, device=dev)
     grid = torch.as_tensor(default_grid(S_MAIN), dtype=dt, device=dev)
-    st = Stages(x, sf, grid)
-    init = st.dispersion_init(y)
+    st = Stages(x, sf, grid, linear_mu=not weighted)
+    w_n = w_ge = None
+    if weighted:
+        w = torch.as_tensor(_main_variant_inputs()[0], device=dev).to(dt)
+        w_n = w / w.max(dim=1, keepdim=True).values
+        w_ge = torch.clamp(w_n, min=1e-6)
+        init = st.dispersion_init(y, w)
+    else:
+        init = st.dispersion_init(y)
     y_s, mu_s = init["y_safe"], init["mu_safe"]
     la0 = torch.log(init["alpha_init"])
     G, S, P = G_MAIN, S_MAIN, 2
     it = 4   # itemsize
+    nw = int(weighted)   # weight rows read
+    sfx = "_w" if weighted else ""
     rows, failed = [], []
 
     # K2: the gene-wise line search
     ls_args = (y_s, x, mu_s, la0, la0, 1.0, st.min_la)
-    k2 = fit_disp_line_search(*ls_args)
-    p2 = disp.fit_disp_line_search_plain(*ls_args)
+    k2 = fit_disp_line_search(*ls_args, weights=w_ge)
+    p2 = disp.fit_disp_line_search_plain(*ls_args, weights=w_ge)
     d2 = dict(y=y_s, mu=mu_s, x=x, la0=la0, pm=la0)
+    if weighted:
+        d2["w"] = w_ge
     ref2 = checks.line_search_reference(d2, False, prior_var=1.0,
                                         min_log_alpha=st.min_la)
     r2 = checks.check_ls(k2, p2, d2, False, prior_var=1.0, ref=ref2)
-    log(f"  disp_ls: {fmt(r2)}")
+    log(f"  disp_ls{sfx}: {fmt(r2)}")
     lk = checks.lp_at(k2["log_alpha"], d2, False, 1.0)
     lpl = checks.lp_at(p2["log_alpha"], d2, False, 1.0)
     rel = (lpl - lk) / lpl.abs().clamp(min=1.0)
     i = int(rel.argmax())
-    log(f"  disp_ls: over all genes the largest shortfall below the plain "
-        f"solution is {rel[i].item():.3g} of |lp| (gene {i}: |lp| "
+    log(f"  disp_ls{sfx}: over all genes the largest shortfall below the "
+        f"plain solution is {rel[i].item():.3g} of |lp| (gene {i}: |lp| "
         f"{lpl[i].abs().item():.4g}, iter kernel {int(k2['iter'][i])} / "
         f"plain {int(p2['iter'][i])} / reference {int(ref2['iter'][i])}, "
         f"log alpha {k2['log_alpha'][i].item():.4f} / "
         f"{p2['log_alpha'][i].item():.4f} / "
         f"{ref2['log_alpha'][i].item():.4f})")
     if not r2["ok"]:
-        failed.append("disp_ls")
-    ms2 = time_ms(torch, lambda: fit_disp_line_search(*ls_args), 3)
-    pms2 = time_ms(torch, lambda: disp.fit_disp_line_search_plain(*ls_args),
-                   1)
+        failed.append("disp_ls" + sfx)
+    ms2 = time_ms(torch, lambda: fit_disp_line_search(*ls_args,
+                                                      weights=w_ge), 3)
+    pms2 = time_ms(torch, lambda: disp.fit_disp_line_search_plain(
+        *ls_args, weights=w_ge), 1)
     evals = float((k2["iter"].double() + 1).sum())
-    b2, by2 = bound(it * (2 * G * S + S * P + 2 * G + 8 * G),
-                    evals * S * ops_ls(P), dname)
-    rows.append(dict(name="disp_ls", route="cuda",
+    b2, by2 = bound(it * ((2 + nw) * G * S + S * P + 2 * G + 8 * G),
+                    evals * S * (ops_ls(P) + 2 * nw), dname)
+    rows.append(dict(name="disp_ls" + sfx, route="cuda",
                      source="deseq2_tpu_torch/csrc/disp_ls.cu",
                      replaces="deseq2_tpu/ops/pallas_ls.py:409",
-                     launches=launches["disp_ls"],
-                     max_abs_err=max(worst["disp_ls"], r2["max_abs_err"]),
+                     launches=launches["disp_ls" + sfx],
+                     max_abs_err=max(worst["disp_ls" + sfx],
+                                     r2["max_abs_err"]),
                      ms=ms2, plain_ms=pms2, bound_ms=b2, bound_by=by2,
                      library_ms=None))
-    log(f"  disp_ls: {evals / G:.1f} evaluations/gene")
+    log(f"  disp_ls{sfx}: {evals / G:.1f} evaluations/gene")
 
     # K3: the grid fallback on the genes whose line search did not converge
     conv = (k2["iter"] < 100) & (k2["iter"] != 1)
@@ -443,28 +653,33 @@ def kernel_timings(torch, dev, launches, worst):
         need = torch.arange(4096, device=dev)
     gy, gm, gpm = y_s[need], mu_s[need], torch.zeros(len(need), dtype=dt,
                                                       device=dev)
+    gw = None if w_ge is None else w_ge[need]
     g_args = (gy, x, gm, grid, gpm, 1.0)
-    k3 = fit_disp_grid(*g_args)
-    p3 = disp.fit_disp_grid_plain(*g_args)
+    k3 = fit_disp_grid(*g_args, weights=gw)
+    p3 = disp.fit_disp_grid_plain(*g_args, weights=gw)
     d3 = dict(y=gy, mu=gm, x=x, grid=grid, pm=gpm)
+    if weighted:
+        d3["w"] = gw
     r3 = checks.check_grid(k3, p3, d3, False, prior_var=1.0,
                            ref=checks.grid_reference(d3, False, 1.0))
-    log(f"  disp_grid: {fmt(r3)}")
+    log(f"  disp_grid{sfx}: {fmt(r3)}")
     if not r3["ok"]:
-        failed.append("disp_grid")
-    ms3 = time_ms(torch, lambda: fit_disp_grid(*g_args), 3)
-    pms3 = time_ms(torch, lambda: disp.fit_disp_grid_plain(*g_args), 1)
+        failed.append("disp_grid" + sfx)
+    ms3 = time_ms(torch, lambda: fit_disp_grid(*g_args, weights=gw), 3)
+    pms3 = time_ms(torch, lambda: disp.fit_disp_grid_plain(
+        *g_args, weights=gw), 1)
     Gn = len(need)
-    b3, by3 = bound(it * (2 * Gn * S + S * P + 2 * Gn + 40),
-                    40.0 * Gn * S * ops_grid(P), dname)
-    rows.append(dict(name="disp_grid", route="cuda",
+    b3, by3 = bound(it * ((2 + nw) * Gn * S + S * P + 2 * Gn + 40),
+                    40.0 * Gn * S * (ops_grid(P) + nw), dname)
+    rows.append(dict(name="disp_grid" + sfx, route="cuda",
                      source="deseq2_tpu_torch/csrc/disp_grid.cu",
                      replaces="deseq2_tpu/ops/pallas_disp.py:244",
-                     launches=launches["disp_grid"],
-                     max_abs_err=max(worst["disp_grid"], r3["max_abs_err"]),
+                     launches=launches["disp_grid" + sfx],
+                     max_abs_err=max(worst["disp_grid" + sfx],
+                                     r3["max_abs_err"]),
                      ms=ms3, plain_ms=pms3, bound_ms=b3, bound_by=by3,
                      library_ms=None))
-    log(f"  disp_grid: {n_need} genes need the grid at this shape "
+    log(f"  disp_grid{sfx}: {n_need} genes need the grid at this shape "
         f"(timed on {Gn})")
 
     # K1: the final ridge IRLS at the gene-wise dispersions
@@ -473,26 +688,28 @@ def kernel_timings(torch, dev, launches, worst):
                                          @ x).T).T
     ridge = st.lam_nat
     i_args = (y_s, x, sf, alpha, beta0, ridge)
-    k1 = fit_beta(*i_args)
-    r1 = checks.check_irls(k1, irls.fit_beta_plain(*i_args))
-    log(f"  irls: {fmt(r1)}")
+    k1 = fit_beta(*i_args, weights=w_n)
+    r1 = checks.check_irls(k1, irls.fit_beta_plain(*i_args, weights=w_n))
+    log(f"  irls{sfx}: {fmt(r1)}")
     if not r1["ok"]:
-        failed.append("irls")
-    ms1 = time_ms(torch, lambda: fit_beta(*i_args), 3)
-    pms1 = time_ms(torch, lambda: irls.fit_beta_plain(*i_args), 1)
+        failed.append("irls" + sfx)
+    ms1 = time_ms(torch, lambda: fit_beta(*i_args, weights=w_n), 3)
+    pms1 = time_ms(torch, lambda: irls.fit_beta_plain(*i_args, weights=w_n),
+                   1)
     sweeps = float(k1["iter"].double().sum())
     o = ops_irls(P)
-    b1, by1 = bound(it * (3 * G * S + S + S * P + G * (1 + 3 * P) + 2 * G),
-                    S * (G * (o["init"] + o["post"]) + sweeps * o["sweep"]),
-                    dname)
-    rows.append(dict(name="irls", route="cuda",
+    b1, by1 = bound(it * ((3 + nw) * G * S + S + S * P + G * (1 + 3 * P)
+                          + 2 * G),
+                    S * (G * (o["init"] + o["post"] + 2 * nw)
+                         + sweeps * (o["sweep"] + 2 * nw)), dname)
+    rows.append(dict(name="irls" + sfx, route="cuda",
                      source="deseq2_tpu_torch/csrc/irls.cu",
                      replaces="deseq2_tpu/ops/pallas_irls.py:360",
-                     launches=launches["irls"],
-                     max_abs_err=max(worst["irls"], r1["max_abs_err"]),
+                     launches=launches["irls" + sfx],
+                     max_abs_err=max(worst["irls" + sfx], r1["max_abs_err"]),
                      ms=ms1, plain_ms=pms1, bound_ms=b1, bound_by=by1,
                      library_ms=None))
-    log(f"  irls: {sweeps / G:.1f} sweeps/gene")
+    log(f"  irls{sfx}: {sweeps / G:.1f} sweeps/gene")
     for r in rows:
         log(f"  {r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.1f} ms, "
             f"bound {r['bound_ms']:.3f} ms by {r['bound_by']}), "
@@ -513,29 +730,50 @@ def main():
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s), "
         f"Python {sys.version.split()[0]}")
     dev = torch.device("cuda", 0)
+    seconds = {}
+
+    def phase(key, title):
+        log(title)
+        seconds[key] = time.perf_counter()
+
+    def done(key):
+        seconds[key] = time.perf_counter() - seconds[key]
+        log(f"  phase {key}: {seconds[key]:.1f} s")
 
     from deseq2_tpu_torch.ops import build
-    t0 = time.perf_counter()
+    phase("2", "[2] build the kernels")
     logs = build.build_all()
-    log(f"[2] built {list(logs)} in {time.perf_counter() - t0:.1f} s")
+    log(f"  built {list(logs)}")
     for name, text in logs.items():
         log(f"  {name}: {ptxas_summary(text)}")
+    done("2")
 
-    log("[3] kernels vs plain versions on the card")
+    phase("3", "[3] kernels vs plain versions on the card")
     worst = check_kernels(torch, dev)
+    done("3")
 
-    log(f"[4] main path: deseq() + results() at {G_MAIN} x {S_MAIN}")
+    phase("4", f"[4] main path: deseq() + results() at {G_MAIN} x {S_MAIN}")
     main_out = main_path(torch)
     main_out["float32"].update(stage_breakdown(torch))
+    for name in ("weights", "lrt_nf"):
+        main_out[name] = variant_path(torch, name)
+    main_out["local_trend"] = local_trend_dtype(torch, dev)
+    done("4")
 
-    log(f"[5] accuracy gate at {G_GATE} x {S_MAIN}")
+    phase("5", f"[5] accuracy gates at {G_GATE} x {S_MAIN}")
     gate = accuracy_gate(torch)
+    gates = variant_gates(torch)
+    done("5")
 
-    log("[6] kernel timings at the main path's shapes (float32)")
+    phase("6", "[6] kernel timings at the main path's shapes (float32)")
     rows = kernel_timings(torch, dev, main_out["launches"], worst)
+    rows += kernel_timings(torch, dev, main_out["weights"]["launches"],
+                           worst, weighted=True)
+    done("6")
 
     log(json.dumps({"main_path": {k: v for k, v in main_out.items()},
-                    "gate": gate}))
+                    "gate": gate, "variant_gates": gates,
+                    "phase_seconds": seconds}))
     print(json.dumps({"kernels": rows}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,20 @@
 """deseq2_tpu_torch: the PyTorch/CUDA port of deseq2_tpu for NVIDIA Hopper.
 
-The public bulk Wald route, deseq() + results(), runs on the card: the
+The public bulk deseq() + results() runs on the card: the Wald test or the
+LRT (reduced to the intercept, a formula or a matrix), with or without
+observation weights, gene x sample normalization factors and t p-values
+(use_t), under the parametric, local or mean dispersion trend.  The
 per-gene solvers (ridge NB IRLS, the dispersion line search and the grid
-search) are hand-written CUDA kernels built from csrc/ at first use; the
-rest is PyTorch.  Every entry point runs on "cuda" unless the caller passes
-device="cpu", which runs the kernels' plain PyTorch versions.  The dtype is
-DESeqConfig.dtype: "float64" by default, "float32" for the fast path.
+search, each unweighted or weighted) are hand-written CUDA kernels built
+from csrc/ at first use; the rest is PyTorch.  Every entry point runs on
+"cuda" unless the caller passes device="cpu", which runs the kernels'
+plain PyTorch versions.  The dtype is DESeqConfig.dtype: "float64" by
+default, "float32" for the fast path.
 
-Configurations outside this slice raise NotImplementedError naming the
-ROADMAP.md item that ports them.
+betaPrior, contrasts, the host engine, glmGamPoi and a device mesh raise
+NotImplementedError naming the ROADMAP.md item that ports them; weights
+that fail the estimability tests raise ValueError (the host path's
+weightsFail bookkeeping is not ported).
 """
 
 import torch as _torch

@@ -1,7 +1,7 @@
 // Device helpers shared by the three per-gene solver kernels
 // (irls.cu, disp_ls.cu, disp_grid.cu): block reductions, the NB special
-// functions with their float32 large-c series branches, and unrolled
-// p x p Cholesky routines for p = 1..8.
+// functions with their float32 large-c series branches, unrolled p x p
+// Cholesky routines for p = 1..8, and the weighted Cox-Reid masks.
 //
 // Layout rule of all three kernels: one thread block per gene.  The
 // block's threads stride over the samples, accumulate per-gene sums in
@@ -17,15 +17,16 @@ namespace dk {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-// stage the gene's (y, mu) rows in shared memory when they take at most
-// this many bytes; past it the kernels read them from global memory
+// stage the gene's rows (y, mu, and the weights in the weighted mode) in
+// shared memory when they take at most this many bytes; past it the
+// kernels read them from global memory
 constexpr int kRowSmemBytes = 40960;
 
-// dynamic shared memory for a gene's (y, mu) rows: 0 (read them from
-// global memory) unless both fit under kRowSmemBytes
+// dynamic shared memory for `rows` rows of a gene: 0 (read them from
+// global memory) unless all fit under kRowSmemBytes
 template <typename T>
-inline size_t row_smem_bytes(int S) {
-  const size_t bytes = 2 * (size_t)S * sizeof(T);
+inline size_t row_smem_bytes(int S, int rows) {
+  const size_t bytes = (size_t)rows * S * sizeof(T);
   return bytes <= (size_t)kRowSmemBytes ? bytes : 0;
 }
 
@@ -261,6 +262,73 @@ template <typename T, int P>
 __device__ __forceinline__ void load_row(const T* __restrict__ x, int s, T (&xs)[P]) {
 #pragma unroll
   for (int k = 0; k < P; ++k) xs[k] = __ldg(x + (size_t)s * P + k);
+}
+
+// v times sample s's observation weight wr[s] in the weighted mode, v
+// untouched otherwise: the unweighted instantiations keep the statement
+// order (and so the code) of a kernel without weights.
+template <bool UseW, typename T>
+__device__ __forceinline__ T wscale(T v, const T* wr, int s) {
+  if constexpr (UseW) return v * wr[s];
+  return v;
+}
+
+// The weighted Cox-Reid term keeps the rows whose weight exceeds 1e-2
+// (src/DESeq2.cpp:38-44; ops/disp.py's CR_WEIGHT_THRESHOLD).
+template <typename T>
+__device__ __forceinline__ bool cr_keeps(T w) {
+  return w > T(1e-2);
+}
+
+// Weighted Cox-Reid column mask (src/DESeq2.cpp:38-44): column k stays when
+// some kept row has x_k != 0.  Every thread calls it with its own rows
+// (s = threadIdx.x + j kThreads).  Returns the kept columns as bits (bit k
+// set: column k kept), valid on thread 0: a scalar, so the mask lives in a
+// register and never in local memory.  `red` holds at least kWarps * P
+// values.
+template <typename T, int P>
+__device__ __forceinline__ unsigned cr_col_mask(const T* wr,
+                                                const T* __restrict__ x, int S,
+                                                T* red) {
+  T acc[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) acc[k] = T(0);
+  for (int s = threadIdx.x; s < S; s += kThreads) {
+    if (cr_keeps(wr[s])) {
+      T xs[P];
+      load_row<T, P>(x, s, xs);
+#pragma unroll
+      for (int k = 0; k < P; ++k) acc[k] += xs[k] * xs[k];
+    }
+  }
+  block_sum<T, P>(acc, red);
+  unsigned cm = 0u;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < P; ++k) cm |= acc[k] > T(0) ? (1u << k) : 0u;
+  }
+  __syncthreads();
+  return cm;
+}
+
+// Column-mask the Cox-Reid matrix b (and its derivative db, when given) on
+// thread 0 with cr_col_mask's bits: dropped rows and columns are zeroed,
+// and b gets a unit diagonal there so the kept submatrix's log determinant
+// survives.
+template <typename T, int P>
+__device__ __forceinline__ void cr_apply_mask(unsigned cm, T (&b)[P][P],
+                                              T (*db)[P]) {
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    const T ci = (cm >> i) & 1u ? T(1) : T(0);
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const T m = ci * ((cm >> j) & 1u ? T(1) : T(0));
+      b[i][j] *= m;
+      if (db != nullptr) db[i][j] *= m;
+    }
+    b[i][i] += T(1) - ci;
+  }
 }
 
 }  // namespace dk

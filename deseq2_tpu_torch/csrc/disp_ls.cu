@@ -23,7 +23,18 @@
 // per gene into shared memory (when 2 S sizeof(T) <= 40 KB), evaluates lp
 // and dlp in one fused pass at each trial point (both are needed at the
 // same point once the step is accepted), and lets each block stop as soon
-// as its gene converges.
+// as its gene converges.  The weighted mode stages the weight row beside
+// them (when 3 S sizeof(T) <= 40 KB).
+//
+// Weighted mode (UseW, a template parameter, so the unweighted
+// instantiations are unchanged; pallas_ls.py:152-247 use_w): the
+// likelihood terms of lp and of s1 are multiplied by the gene's weights.
+// The Cox-Reid term is not weighted: it keeps the rows with weight >
+// 1e-2 (src/DESeq2.cpp:38-44, cr_keeps) and drops, per gene, the columns left
+// without support on those rows (b_kk <- 1 and its off-diagonals 0, so the
+// kept submatrix's log determinant survives; db's rows and columns 0).
+// The column mask depends on the weights only, so each block computes it
+// once, before the search.
 #include "common.cuh"
 
 namespace {
@@ -33,9 +44,11 @@ using namespace dk;
 constexpr double kArmijo = 1.0e-4;
 
 // lp and dlp at log-alpha `la`; every thread calls it, the results are
-// valid on thread 0.
-template <typename T, int P>
-__device__ __forceinline__ void lp_dlp(const T* yr, const T* mr,
+// valid on thread 0.  wr and cm (the column-mask bits, on thread 0) are
+// read in the weighted mode only.
+template <typename T, int P, bool UseW>
+__device__ __forceinline__ void lp_dlp(const T* yr, const T* mr, const T* wr,
+                                       unsigned cm,
                                        const T* __restrict__ x, int S, T la,
                                        T pm, T prior_var, int use_prior,
                                        T* red, T& lp, T& dlp) {
@@ -51,10 +64,15 @@ __device__ __forceinline__ void lp_dlp(const T* yr, const T* mr,
     const T m = mr[s];
     const T mua = m * alpha;
     const T l1p = d_log1p(mua);
-    acc[0] += lgamma_diff_centered(yv, inv_a) - (yv + inv_a) * l1p;
-    acc[1] += l1p - mua / (T(1) + mua) + yv / (m + inv_a) -
-              digamma_diff(yv, inv_a);
-    const T w = T(1) / (T(1) / m + alpha);
+    acc[0] += wscale<UseW>(lgamma_diff_centered(yv, inv_a) - (yv + inv_a) * l1p,
+                           wr, s);
+    acc[1] += wscale<UseW>(l1p - mua / (T(1) + mua) + yv / (m + inv_a) -
+                               digamma_diff(yv, inv_a),
+                           wr, s);
+    T w = T(1) / (T(1) / m + alpha);
+    if constexpr (UseW) {
+      if (!cr_keeps(wr[s])) w = T(0);
+    }
     T xs[P];
     load_row<T, P>(x, s, xs);
     acc_outer<T, P>(acc + 2, w, xs);
@@ -65,6 +83,7 @@ __device__ __forceinline__ void lp_dlp(const T* yr, const T* mr,
     T b[P][P], db[P][P], L[P][P], binv[P][P];
     unpack_sym<T, P>(acc + 2, b);
     unpack_sym<T, P>(acc + 2 + NT, db);
+    if constexpr (UseW) cr_apply_mask<T, P>(cm, b, db);
     const T logdet = cholesky<T, P>(b, L);
     chol_inverse<T, P>(L, binv);
     T tr = T(0);
@@ -82,16 +101,20 @@ __device__ __forceinline__ void lp_dlp(const T* yr, const T* mr,
   }
 }
 
-template <typename T, int P>
+// The weighted mode's parameter comes last, so the unweighted
+// instantiations keep the parameter layout, and so the code, of a kernel
+// without it.
+template <typename T, int P, bool UseW>
 __global__ void __launch_bounds__(kThreads)
     ls_kernel(const T* __restrict__ y, const T* __restrict__ mu,
-              const T* __restrict__ x, const T* __restrict__ la0,
-              const T* __restrict__ prior_mean, int S, T prior_var,
-              T kappa_0, T tol, T min_la, int maxit, int use_prior,
-              int use_smem, T* __restrict__ out_la, T* __restrict__ out_lp0,
-              T* __restrict__ out_dlp0, T* __restrict__ out_lp,
-              T* __restrict__ out_dlp, T* __restrict__ out_change,
-              int* __restrict__ out_iter, int* __restrict__ out_accept) {
+              const T* __restrict__ x,
+              const T* __restrict__ la0, const T* __restrict__ prior_mean,
+              int S, T prior_var, T kappa_0, T tol, T min_la,
+              int maxit, int use_prior, int use_smem, T* __restrict__ out_la,
+              T* __restrict__ out_lp0, T* __restrict__ out_dlp0,
+              T* __restrict__ out_lp, T* __restrict__ out_dlp,
+              T* __restrict__ out_change, int* __restrict__ out_iter,
+              int* __restrict__ out_accept, const T* __restrict__ wts) {
   constexpr int NT = P * (P + 1) / 2;
   constexpr int NV = 2 + 2 * NT;
   __shared__ T red[kWarps * NV];
@@ -103,20 +126,28 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x;
   const T* yr = y + (size_t)g * S;
   const T* mr = mu + (size_t)g * S;
+  const T* wr = UseW ? wts + (size_t)g * S : nullptr;
   if (use_smem) {
     T* sy = reinterpret_cast<T*>(smem_raw);
     T* sm = sy + S;
+    T* sw = sy + 2 * S;
     for (int s = tid; s < S; s += kThreads) {
       sy[s] = yr[s];
       sm[s] = mr[s];
+      if constexpr (UseW) sw[s] = wr[s];
     }
     yr = sy;
     mr = sm;
+    if constexpr (UseW) wr = sw;
   }
+  // each thread reads back only the samples it staged: no barrier needed
+  unsigned cm = ~0u;
+  if constexpr (UseW) cm = cr_col_mask<T, P>(wr, x, S, red);
   const T pm = prior_mean[g];
   const T a0 = la0[g];
   T lp0 = T(0), dlp0 = T(0);
-  lp_dlp<T, P>(yr, mr, x, S, a0, pm, prior_var, use_prior, red, lp0, dlp0);
+  lp_dlp<T, P, UseW>(yr, mr, wr, cm, x, S, a0, pm, prior_var, use_prior, red,
+                     lp0, dlp0);
 
   // control state, live on thread 0
   const T eps = Eps<T>::value;
@@ -140,8 +171,8 @@ __global__ void __launch_bounds__(kThreads)
     if (sh_done) break;
     const T a_new = sh_a;
     T lp_new = T(0), dlp_next = T(0);
-    lp_dlp<T, P>(yr, mr, x, S, a_new, pm, prior_var, use_prior, red, lp_new,
-                 dlp_next);
+    lp_dlp<T, P, UseW>(yr, mr, wr, cm, x, S, a_new, pm, prior_var, use_prior,
+                       red, lp_new, dlp_next);
     if (tid == 0) {
       const bool accept = -lp_new <= -lp - kappa * T(kArmijo) * dlp * dlp;
       if (accept) ++iter_accept;
@@ -182,18 +213,29 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// w == nullptr selects the unweighted instantiations
 template <typename T>
-int launch(const T* y, const T* mu, const T* x, const T* la0, const T* pm,
-           int G, int S, int p, T prior_var, T kappa_0, T tol, T min_la,
-           int maxit, int use_prior, T* out_la, T* out_lp0, T* out_dlp0,
-           T* out_lp, T* out_dlp, T* out_change, int* out_iter,
-           int* out_accept, void* stream) {
-  const size_t smem = row_smem_bytes<T>(S);
+int launch(const T* y, const T* mu, const T* w, const T* x, const T* la0,
+           const T* pm, int G, int S, int p, T prior_var, T kappa_0, T tol,
+           T min_la, int maxit, int use_prior, T* out_la,
+           T* out_lp0, T* out_dlp0, T* out_lp, T* out_dlp, T* out_change,
+           int* out_iter, int* out_accept, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  DK_DISPATCH_P(p, ls_kernel<T, P><<<G, kThreads, smem, st>>>(
-                        y, mu, x, la0, pm, S, prior_var, kappa_0, tol, min_la,
-                        maxit, use_prior, smem > 0, out_la, out_lp0, out_dlp0,
-                        out_lp, out_dlp, out_change, out_iter, out_accept))
+  if (w != nullptr) {
+    const size_t smem = row_smem_bytes<T>(S, 3);
+    DK_DISPATCH_P(p, ls_kernel<T, P, true><<<G, kThreads, smem, st>>>(
+                          y, mu, x, la0, pm, S, prior_var, kappa_0, tol,
+                          min_la, maxit, use_prior, smem > 0, out_la,
+                          out_lp0, out_dlp0, out_lp, out_dlp, out_change,
+                          out_iter, out_accept, w))
+  } else {
+    const size_t smem = row_smem_bytes<T>(S, 2);
+    DK_DISPATCH_P(p, ls_kernel<T, P, false><<<G, kThreads, smem, st>>>(
+                          y, mu, x, la0, pm, S, prior_var, kappa_0, tol,
+                          min_la, maxit, use_prior, smem > 0, out_la,
+                          out_lp0, out_dlp0, out_lp, out_dlp, out_change,
+                          out_iter, out_accept, w))
+  }
   return (int)cudaGetLastError();
 }
 
@@ -201,30 +243,30 @@ int launch(const T* y, const T* mu, const T* x, const T* la0, const T* pm,
 
 extern "C" {
 
-int ls_launch_f32(const float* y, const float* mu, const float* x,
-                  const float* la0, const float* pm, int G, int S, int p,
-                  float prior_var, float kappa_0, float tol, float min_la,
-                  int maxit, int use_prior, float* out_la, float* out_lp0,
-                  float* out_dlp0, float* out_lp, float* out_dlp,
-                  float* out_change, int* out_iter, int* out_accept,
-                  void* stream) {
-  return launch<float>(y, mu, x, la0, pm, G, S, p, prior_var, kappa_0, tol,
-                       min_la, maxit, use_prior, out_la, out_lp0, out_dlp0,
-                       out_lp, out_dlp, out_change, out_iter, out_accept,
-                       stream);
+int ls_launch_f32(const float* y, const float* mu, const float* w,
+                  const float* x, const float* la0, const float* pm, int G,
+                  int S, int p, float prior_var, float kappa_0, float tol,
+                  float min_la, int maxit, int use_prior,
+                  float* out_la, float* out_lp0, float* out_dlp0,
+                  float* out_lp, float* out_dlp, float* out_change,
+                  int* out_iter, int* out_accept, void* stream) {
+  return launch<float>(y, mu, w, x, la0, pm, G, S, p, prior_var, kappa_0, tol,
+                       min_la, maxit, use_prior, out_la, out_lp0,
+                       out_dlp0, out_lp, out_dlp, out_change, out_iter,
+                       out_accept, stream);
 }
 
-int ls_launch_f64(const double* y, const double* mu, const double* x,
-                  const double* la0, const double* pm, int G, int S, int p,
-                  double prior_var, double kappa_0, double tol, double min_la,
-                  int maxit, int use_prior, double* out_la, double* out_lp0,
-                  double* out_dlp0, double* out_lp, double* out_dlp,
-                  double* out_change, int* out_iter, int* out_accept,
-                  void* stream) {
-  return launch<double>(y, mu, x, la0, pm, G, S, p, prior_var, kappa_0, tol,
-                        min_la, maxit, use_prior, out_la, out_lp0, out_dlp0,
-                        out_lp, out_dlp, out_change, out_iter, out_accept,
-                        stream);
+int ls_launch_f64(const double* y, const double* mu, const double* w,
+                  const double* x, const double* la0, const double* pm, int G,
+                  int S, int p, double prior_var, double kappa_0, double tol,
+                  double min_la, int maxit, int use_prior,
+                  double* out_la, double* out_lp0, double* out_dlp0,
+                  double* out_lp, double* out_dlp, double* out_change,
+                  int* out_iter, int* out_accept, void* stream) {
+  return launch<double>(y, mu, w, x, la0, pm, G, S, p, prior_var, kappa_0,
+                        tol, min_la, maxit, use_prior, out_la, out_lp0,
+                        out_dlp0, out_lp, out_dlp, out_change, out_iter,
+                        out_accept, stream);
 }
 
 }  // extern "C"

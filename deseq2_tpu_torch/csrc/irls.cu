@@ -20,13 +20,24 @@
 // shared memory when 2 S sizeof(T) <= 40 KB, so HBM sees y once and mu/hat
 // once; a block exits as soon as its own gene converges, so no gene pays
 // for the slowest one.  The p x p solves are unrolled on thread 0.
+//
+// Weighted mode (UseW, a template parameter, so the unweighted
+// instantiations are unchanged; pallas_irls.py:106-124, 156-169, 221-258
+// use_w): the gene's observation weights multiply W in the normal
+// equations, every deviance term (the mu-independent part included, which
+// is summed per sample in both modes, so nothing gene-constant is hoisted
+// that a weight would have to scale), the sandwich's X'WX and the hat
+// diagonal.  The weight row is staged beside y and mu when 3 S sizeof(T)
+// <= 40 KB.
 #include "common.cuh"
 
 namespace {
 
 using namespace dk;
 
-template <typename T, int P>
+// The weight row comes last, so the unweighted instantiations keep the
+// parameter layout, and so the code, of a kernel without it.
+template <typename T, int P, bool UseW>
 __global__ void __launch_bounds__(kThreads)
     irls_kernel(const T* __restrict__ y, const T* __restrict__ nf,
                 long long nf_gstride, const T* __restrict__ alpha_in,
@@ -35,7 +46,7 @@ __global__ void __launch_bounds__(kThreads)
                 int use_smem, T* __restrict__ beta_out,
                 T* __restrict__ bvar_out, T* __restrict__ dev_out,
                 int* __restrict__ iter_out, T* __restrict__ mu_out,
-                T* __restrict__ hat_out) {
+                T* __restrict__ hat_out, const T* __restrict__ wts) {
   constexpr int NT = P * (P + 1) / 2;
   constexpr int NA = NT + P;
   __shared__ T red[kWarps * NA];
@@ -51,11 +62,17 @@ __global__ void __launch_bounds__(kThreads)
   T* mu_g = mu_out + (size_t)g * S;
   T* hat_g = hat_out + (size_t)g * S;
   T* mur = mu_g;
+  const T* wr = UseW ? wts + (size_t)g * S : nullptr;
   if (use_smem) {
     T* sy = reinterpret_cast<T*>(smem_raw);
-    for (int s = tid; s < S; s += kThreads) sy[s] = yr[s];
+    T* sw = sy + 2 * S;
+    for (int s = tid; s < S; s += kThreads) {
+      sy[s] = yr[s];
+      if constexpr (UseW) sw[s] = wr[s];
+    }
     yr = sy;
     mur = sy + S;
+    if constexpr (UseW) wr = sw;
   }
   const T alpha = alpha_in[g];
   const T size = T(1) / alpha;
@@ -75,8 +92,9 @@ __global__ void __launch_bounds__(kThreads)
     const T m = nfr[s] * d_exp(xb);
     mur[s] = m > min_mu ? m : min_mu;
     const T yv = yr[s];
-    acc1[0] += d_lgamma(yv + size) - d_lgamma(size) - d_lgamma(yv + T(1)) +
-               size * d_log(size);
+    acc1[0] += wscale<UseW>(d_lgamma(yv + size) - d_lgamma(size) -
+                                d_lgamma(yv + T(1)) + size * d_log(size),
+                            wr, s);
   }
   block_sum<T, 1>(acc1, red);
   const T dev_const = T(-2) * acc1[0];  // valid on thread 0
@@ -97,7 +115,7 @@ __global__ void __launch_bounds__(kThreads)
       T xs[P];
       load_row<T, P>(x, s, xs);
       const T m = mur[s];
-      const T w = m / (T(1) + alpha * m);
+      const T w = wscale<UseW>(m / (T(1) + alpha * m), wr, s);
       const T z = d_log(m) - d_log(nfr[s]) + (yr[s] - m) / m;
       acc_outer<T, P>(acc, w, xs);
       const T wz = w * z;
@@ -143,7 +161,7 @@ __global__ void __launch_bounds__(kThreads)
       const T yv = yr[s];
       const T lsm = d_log(size + m);
       const T tt = yv > T(0) ? yv * (d_log(m) - lsm) : T(0);
-      accd[0] += -size * lsm + tt;
+      accd[0] += wscale<UseW>(-size * lsm + tt, wr, s);
       if (cont) mur[s] = m;
     }
     block_sum<T, 1>(accd, red);
@@ -181,7 +199,7 @@ __global__ void __launch_bounds__(kThreads)
     T xs[P];
     load_row<T, P>(x, s, xs);
     const T m = mur[s];
-    acc_outer<T, P>(accx, m / (T(1) + alpha * m), xs);
+    acc_outer<T, P>(accx, wscale<UseW>(m / (T(1) + alpha * m), wr, s), xs);
   }
   block_sum<T, NT>(accx, red);
   if (tid == 0) {
@@ -227,22 +245,31 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < P; ++j) q += sh_ainv[i * P + j] * (xs[i] * xs[j]);
     }
-    hat_g[s] = m / (T(1) + alpha * m) * q;
+    hat_g[s] = wscale<UseW>(m / (T(1) + alpha * m), wr, s) * q;
     if (use_smem) mu_g[s] = m;
   }
 }
 
+// w == nullptr selects the unweighted instantiations
 template <typename T>
-int launch(const T* y, const T* nf, long long nf_gstride, const T* alpha,
-           const T* beta0, const T* ridge, const T* x, int G, int S, int p,
-           T tol, int maxit, T min_mu, T* beta, T* bvar, T* dev, int* iters,
-           T* mu, T* hat, void* stream) {
-  const size_t smem = row_smem_bytes<T>(S);
+int launch(const T* y, const T* nf, long long nf_gstride, const T* w,
+           const T* alpha, const T* beta0, const T* ridge, const T* x, int G,
+           int S, int p, T tol, int maxit, T min_mu, T* beta, T* bvar, T* dev,
+           int* iters, T* mu, T* hat, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  DK_DISPATCH_P(p, irls_kernel<T, P><<<G, kThreads, smem, st>>>(
-                        y, nf, nf_gstride, alpha, beta0, ridge, x, S, tol,
-                        maxit, min_mu, smem > 0, beta, bvar, dev, iters, mu,
-                        hat))
+  if (w != nullptr) {
+    const size_t smem = row_smem_bytes<T>(S, 3);
+    DK_DISPATCH_P(p, irls_kernel<T, P, true><<<G, kThreads, smem, st>>>(
+                          y, nf, nf_gstride, alpha, beta0, ridge, x, S, tol,
+                          maxit, min_mu, smem > 0, beta, bvar, dev, iters,
+                          mu, hat, w))
+  } else {
+    const size_t smem = row_smem_bytes<T>(S, 2);
+    DK_DISPATCH_P(p, irls_kernel<T, P, false><<<G, kThreads, smem, st>>>(
+                          y, nf, nf_gstride, alpha, beta0, ridge, x, S, tol,
+                          maxit, min_mu, smem > 0, beta, bvar, dev, iters,
+                          mu, hat, w))
+  }
   return (int)cudaGetLastError();
 }
 
@@ -251,23 +278,25 @@ int launch(const T* y, const T* nf, long long nf_gstride, const T* alpha,
 extern "C" {
 
 int irls_launch_f32(const float* y, const float* nf, long long nf_gstride,
-                    const float* alpha, const float* beta0, const float* ridge,
-                    const float* x, int G, int S, int p, float tol, int maxit,
-                    float min_mu, float* beta, float* bvar, float* dev,
-                    int* iters, float* mu, float* hat, void* stream) {
-  return launch<float>(y, nf, nf_gstride, alpha, beta0, ridge, x, G, S, p, tol,
-                       maxit, min_mu, beta, bvar, dev, iters, mu, hat, stream);
+                    const float* w, const float* alpha, const float* beta0,
+                    const float* ridge, const float* x, int G, int S, int p,
+                    float tol, int maxit, float min_mu, float* beta,
+                    float* bvar, float* dev, int* iters, float* mu,
+                    float* hat, void* stream) {
+  return launch<float>(y, nf, nf_gstride, w, alpha, beta0, ridge, x, G, S, p,
+                       tol, maxit, min_mu, beta, bvar, dev, iters, mu, hat,
+                       stream);
 }
 
 int irls_launch_f64(const double* y, const double* nf, long long nf_gstride,
-                    const double* alpha, const double* beta0,
+                    const double* w, const double* alpha, const double* beta0,
                     const double* ridge, const double* x, int G, int S, int p,
                     double tol, int maxit, double min_mu, double* beta,
                     double* bvar, double* dev, int* iters, double* mu,
                     double* hat, void* stream) {
-  return launch<double>(y, nf, nf_gstride, alpha, beta0, ridge, x, G, S, p,
-                        tol, maxit, min_mu, beta, bvar, dev, iters, mu, hat,
-                        stream);
+  return launch<double>(y, nf, nf_gstride, w, alpha, beta0, ridge, x, G, S,
+                        p, tol, maxit, min_mu, beta, bvar, dev, iters, mu,
+                        hat, stream);
 }
 
 }  // extern "C"

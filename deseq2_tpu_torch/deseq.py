@@ -1,9 +1,12 @@
 """The DESeq() entry point (reference R/core.R:280-432).
 
-Argument checks mirror the reference; the default bulk Wald configuration
-runs the fused pipeline (engine.deseq_fused) on the card, or on the CPU
-with device="cpu".  Configurations outside this slice raise
-NotImplementedError naming the ROADMAP.md item that will port them.
+Argument checks mirror the reference; the Wald test or the LRT, with or
+without observation weights, normalization factors and use_t, with the
+parametric, local or mean trend, runs the fused pipeline
+(engine.deseq_fused) on the card, or on the CPU with device="cpu".
+betaPrior, glmGamPoi, a mesh, the host engine and the configurations the
+fused engine does not take raise NotImplementedError naming the ROADMAP.md
+item that will port them.
 """
 
 from __future__ import annotations
@@ -16,7 +19,16 @@ from .dataset import check_full_rank
 from .formula import parse_formula
 from . import profiling
 
-ROADMAP_HOST = "ROADMAP.md queue 1, item 7 (host-exact orchestration)"
+
+def check_lrt(full, reduced):
+    """(reference checkLRT, R/core.R:2475-2481)"""
+    full_vars = set(parse_formula(full).variables)
+    missing = [v for v in parse_formula(reduced).variables
+               if v not in full_vars]
+    if missing:
+        raise ValueError(
+            "the following variables in the reduced formula not in the full "
+            "formula: " + ", ".join(missing))
 
 
 def deseq(dds, test="Wald", fit_type="parametric", sf_type="ratio",
@@ -24,7 +36,8 @@ def deseq(dds, test="Wald", fit_type="parametric", sf_type="ratio",
           min_replicates_for_replace=None, model_matrix_type=None,
           use_t=False, minmu=None, config=None, mesh=None, engine=None,
           device=None):
-    """size factors -> dispersions -> Wald -> outlier refit, on the card.
+    """size factors -> dispersions -> Wald or LRT -> outlier refit, on the
+    card.
 
     `device`: "cuda" (the default) runs the hand-written kernels; "cpu"
     runs their plain PyTorch versions.  Without a card and without
@@ -34,7 +47,7 @@ def deseq(dds, test="Wald", fit_type="parametric", sf_type="ratio",
     from .config import cfg
     from .engine import (deseq_fused, fused_ineligibility, resolve_device,
                          resolve_dtype)
-    from .parallel.fused import not_ported
+    from .parallel.fused import ROADMAP_HOST, not_ported
 
     if config is None:
         config = dds.config
@@ -64,6 +77,19 @@ def deseq(dds, test="Wald", fit_type="parametric", sf_type="ratio",
         if model_matrix_type == "expanded":
             raise ValueError("test='LRT' does not support use of expanded "
                              "model matrix")
+        if isinstance(full, np.ndarray) != isinstance(reduced, np.ndarray) \
+                and full is not None:
+            raise ValueError("if one of 'full' and 'reduced' is a matrix, "
+                             "the other must be also a matrix")
+        if model_as_formula:
+            check_lrt(full if full is not None else dds.design, reduced)
+        else:
+            check_full_rank(full)
+            check_full_rank(reduced)
+            if full.shape[1] <= reduced.shape[1]:
+                raise ValueError("the number of columns of 'full' should be "
+                                 "more than the number of columns of "
+                                 "'reduced'")
     if test == "Wald" and reduced is not None:
         raise ValueError("'reduced' ignored when test='Wald'")
 
@@ -102,19 +128,10 @@ def deseq(dds, test="Wald", fit_type="parametric", sf_type="ratio",
     if mesh is not None:
         raise not_ported("a device mesh",
                          "ROADMAP.md queue 1, item 11 (multi-GPU)")
-    if test == "LRT":
-        raise not_ported("test='LRT'")
     if beta_prior:
         raise not_ported("betaPrior")
-    if use_t:
-        raise not_ported("use_t")
-    if fit_type != "parametric":
-        raise not_ported(f"fit_type={fit_type!r}")
-    if "weights" in dds.assays:
-        raise not_ported("observation weights")
-    if dds.normalization_factors is not None:
-        raise not_ported("gene x sample normalization factors")
-    if dds.size_factors is None and sf_type != "ratio":
+    if dds.size_factors is None and dds.normalization_factors is None \
+            and sf_type != "ratio":
         raise not_ported(f"sf_type={sf_type!r}", ROADMAP_HOST)
     reason = fused_ineligibility(dds, sf_type, model_matrix, minmu, config)
     if reason is not None:
@@ -128,6 +145,7 @@ def deseq(dds, test="Wald", fit_type="parametric", sf_type="ratio",
         dds = dds.copy(share_counts=True)
     with profiling.stage("deseqFused", genes=dds.n_genes):
         return deseq_fused(
-            dds, dev, dtype,
+            dds, dev, dtype, test=test, fit_type=fit_type, full=full,
+            reduced=reduced, quiet=quiet, use_t=use_t,
             min_replicates_for_replace=min_replicates_for_replace,
             model_matrix=model_matrix, model_matrix_type=model_matrix_type)

@@ -4,8 +4,10 @@ card.
 Eligible configurations run parallel/fused.py and populate the same
 dataset row_data columns, assays and attrs as the host-exact stages would
 (names, types and descriptions included), so results() works unchanged.
-This slice ports the default bulk Wald route; every other configuration
-raises NotImplementedError naming its ROADMAP.md item.
+The fused route covers the Wald test and the LRT, observation weights,
+gene x sample normalization factors, use_t and the parametric, local and
+mean trends; betaPrior, contrasts and the host path raise
+NotImplementedError naming their ROADMAP.md item.
 
 Gene x sample assays produced on the device (mu, H, cooks, replaceCounts,
 replaceCooks) stay there as DeviceArray wrappers, fetched by whoever
@@ -14,6 +16,8 @@ LazyRowData and fetched together on first touch.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -192,14 +196,21 @@ def _two_group(dds):
             and dds.col_data[dvars[0]].nlevels == 2)
 
 
-def deseq_fused(dds, device, dtype, min_replicates_for_replace=7,
-                model_matrix=None, model_matrix_type=None, maxit=100):
+def deseq_fused(dds, device, dtype, test="Wald", fit_type="parametric",
+                full=None, reduced=None, quiet=True, use_t=False,
+                min_replicates_for_replace=7, model_matrix=None,
+                model_matrix_type=None, maxit=100):
     """Run the fused pipeline on `device` and populate dds as the host
-    stages (estimateSizeFactors -> estimateDispersions -> nbinomWaldTest
-    -> refitWithoutOutliers) would."""
+    stages (estimateSizeFactors -> estimateDispersions -> nbinomWaldTest or
+    nbinomLRT -> refitWithoutOutliers) would.  A parametric trend that
+    comes back invalid is replaced by the local trend, as the host does
+    (R/core.R:888-893).  Weights that fail the estimability tests raise
+    ValueError (parallel/fused.py:validated_weights)."""
     from .dataset import DispersionFunction
+    from .formula import parse_formula
     from .parallel.fused import (default_grid, design_cells,
-                                 fused_wald_pipeline, not_ported)
+                                 fused_wald_pipeline, reduced_args,
+                                 validated_weights)
 
     if model_matrix is None and not isinstance(dds.design, np.ndarray):
         mm, names = dds.renamed_model_matrix(
@@ -211,6 +222,25 @@ def deseq_fused(dds, device, dtype, min_replicates_for_replace=7,
             (None, [f"x{i+1}" for i in range(mm.shape[1])])
         mm_type = "user-supplied"
     mm = np.asarray(mm, dtype=np.float64)
+
+    reduced_mm = comparison = None
+    if test == "LRT":
+        if isinstance(reduced, np.ndarray):
+            reduced_mm = np.asarray(reduced, np.float64)
+            comparison = "full vs reduced"
+        else:
+            reduced_mm, _ = dds.model_matrix(reduced)
+            full_f = dds.design if full is None else parse_formula(full)
+            comparison = f"'{full_f}' vs '{parse_formula(reduced)}'"
+    x_red, red_int = reduced_args(reduced_mm)
+
+    weights = None
+    if "weights" in dds.assays:
+        with profiling.stage("fused.weightsUploadValidate",
+                             genes=dds.n_genes):
+            weights = validated_weights(dds.assays["weights"], mm, device,
+                                        dtype)
+    nf = dds.normalization_factors
     sf = dds.size_factors
     cells = design_cells(mm)
     min_reps = (int(min_replicates_for_replace)
@@ -219,6 +249,9 @@ def deseq_fused(dds, device, dtype, min_replicates_for_replace=7,
 
     with profiling.stage("fused.upload", genes=dds.n_genes):
         counts_dev = torch.as_tensor(np.asarray(dds.counts)).to(device)
+        if nf is not None:
+            nf = torch.as_tensor(np.asarray(nf, np.float64)).to(
+                device=device, dtype=dtype)
     with profiling.stage("fused.pipeline", genes=dds.n_genes):
         out = fused_wald_pipeline(
             counts_dev, torch.as_tensor(mm),
@@ -226,29 +259,63 @@ def deseq_fused(dds, device, dtype, min_replicates_for_replace=7,
             torch.as_tensor(default_grid(dds.n_samples)), maxit=maxit,
             cells=cells, min_replicates=min_reps,
             linear_mu=len(set(cells)) == mm.shape[1],
-            two_group=_two_group(dds), dtype=dtype)
+            two_group=_two_group(dds), dtype=dtype,
+            x_reduced=None if x_red is None else torch.as_tensor(x_red),
+            reduced_intercept=red_int, use_t=use_t, weights=weights,
+            norm_factors=nf, fit_type=fit_type)
     # one small eager fetch of what the host reads; the (G,S) assays stay
     # on the device and the per-gene diagnostics are registered lazily
-    eager = ("allZero", "replace", "trendValid", "trendCoefs",
+    eager = ("allZero", "replace", "trendValid", "trendCoefs", "meanDisp",
              "dispPriorVar", "varLogDispEsts", "sizeFactors", "baseMean",
              "maxCooks", "filterNumRej", "filterTheta", "filterCutoffs")
+    if fit_type == "local":
+        eager = eager + ("dispGeneEst",)
     with profiling.stage("fused.fetch", genes=dds.n_genes):
         fetched = {k: (out[k].cpu().numpy() if torch.is_tensor(out[k])
                        else np.asarray(out[k]))
                    for k in eager if k in out}
-    if not bool(fetched["trendValid"]):
-        # the host/reference substitutes a local regression here
+    if fit_type == "parametric" and not bool(fetched["trendValid"]):
+        # the host/reference substitutes the local regression
         # (R/core.R:888-893)
-        raise not_ported("the local dispersion trend (which replaces a "
-                         "parametric trend fit that does not converge)")
+        if not quiet:
+            warnings.warn(
+                "the dispersion trend was not well captured by the "
+                "parametric function y = a/x + b; a local regression "
+                "fit was substituted")
+        return deseq_fused(dds, device, dtype, test=test, fit_type="local",
+                           full=full, reduced=reduced, quiet=quiet,
+                           use_t=use_t,
+                           min_replicates_for_replace=(
+                               min_replicates_for_replace),
+                           model_matrix=model_matrix,
+                           model_matrix_type=model_matrix_type, maxit=maxit)
     az = np.asarray(fetched["allZero"], bool)
 
-    if sf is None:
+    if sf is None and nf is None:
         dds.size_factors = np.asarray(fetched["sizeFactors"], float)
-    c0, c1 = np.asarray(fetched["trendCoefs"], float)
-    disp_fn = DispersionFunction(
-        lambda means, a=float(c0), b=float(c1): a + b / means,
-        "parametric", coefficients=np.array([c0, c1]))
+    if fit_type == "parametric":
+        c0, c1 = np.asarray(fetched["trendCoefs"], float)
+        disp_fn = DispersionFunction(
+            lambda means, a=float(c0), b=float(c1): a + b / means,
+            "parametric", coefficients=np.array([c0, c1]))
+    elif fit_type == "mean":
+        md = float(np.asarray(fetched["meanDisp"]))
+        disp_fn = DispersionFunction(
+            lambda m, v=md: np.full(np.shape(m), v) if np.ndim(m) else v,
+            "mean", mean=md)
+    else:   # local: the pipeline's estimator on the host, in float64,
+        # over the fetched fit points
+        from .parallel.fused import local_trend_eval, local_trend_state
+        dge = torch.as_tensor(fetched["dispGeneEst"], dtype=torch.float64)
+        ts = local_trend_state(
+            torch.as_tensor(fetched["baseMean"], dtype=torch.float64), dge,
+            (dge > 100 * 1e-8) & ~torch.as_tensor(az))
+
+        def fn_loc(means, ts=ts):
+            m = np.asarray(means, np.float64)
+            x0 = torch.log(torch.as_tensor(m.reshape(-1)))
+            return local_trend_eval(ts, x0).numpy().reshape(m.shape)
+        disp_fn = DispersionFunction(fn_loc, "local")
     disp_fn.disp_prior_var = float(fetched["dispPriorVar"])
     disp_fn.var_log_disp_ests = float(fetched["varLogDispEsts"])
     dds.dispersion_function = disp_fn
@@ -275,8 +342,12 @@ def deseq_fused(dds, device, dtype, min_replicates_for_replace=7,
     rdl("baseVar", "baseVar", "intermediate",
         "variance of normalized counts for all samples", ffloat)
     rd("allZero", az, "intermediate", "all counts for a gene are zero")
-    rdl("dispGeneEst", "dispGeneEst", "intermediate",
-        "gene-wise estimates of dispersion", ffloat)
+    if fit_type == "local":
+        rd("dispGeneEst", np.asarray(fetched["dispGeneEst"], float),
+           "intermediate", "gene-wise estimates of dispersion")
+    else:
+        rdl("dispGeneEst", "dispGeneEst", "intermediate",
+            "gene-wise estimates of dispersion", ffloat)
     rdl("dispGeneIter", "dispGeneIter", "intermediate",
         "number of iterations for gene-wise", napad_t)
     rdl("dispFit", "dispFit", "intermediate",
@@ -289,16 +360,20 @@ def deseq_fused(dds, device, dtype, min_replicates_for_replace=7,
         "dispersion flagged as outlier", lambda v: np.asarray(v, bool))
     rdl("dispMAP", "dispMAP", "intermediate",
         "maximum a posteriori estimate", ffloat)
+    if weights is not None:
+        dds.attrs["weightsOK"] = True
 
-    # ---- attrs (nbinomWaldTest contract) ----
+    # ---- attrs (nbinomWaldTest / nbinomLRT contract) ----
     dds.attrs["betaPrior"] = False
     dds.attrs["betaPriorVar"] = np.full(mm.shape[1], 1e6)
     dds.attrs["modelMatrix"] = mm
     dds.attrs["modelMatrixNames"] = list(names)
     dds.attrs["modelMatrixType"] = mm_type
     dds.attrs["dispModelMatrix"] = mm
-    dds.attrs["test"] = "Wald"
+    dds.attrs["test"] = test
     dds.attrs["engine"] = "fused"
+    if test == "LRT":
+        dds.attrs["reducedModelMatrix"] = reduced_mm
 
     # ---- assays: device-resident gene x sample matrices ----
     azd = torch.as_tensor(az, device=out["mu"].device)[:, None]
@@ -317,19 +392,46 @@ def deseq_fused(dds, device, dtype, min_replicates_for_replace=7,
         rdl(n, "beta", "results", f"log2 fold change (MLE): {ns}", colf(j))
         rdl(f"SE_{n}", "betaSE", "results", f"standard error: {ns}",
             colf(j))
-    for j, (n, ns) in enumerate(zip(names, names_spaces)):
-        rdl(f"WaldStatistic_{n}", "stat", "results",
-            f"Wald statistic: {ns}", colf(j))
-    for j, (n, ns) in enumerate(zip(names, names_spaces)):
-        rdl(f"WaldPvalue_{n}", "pvalue", "results",
-            f"Wald test p-value: {ns}", colf(j))
-    rdl("betaConv", "betaConv", "results", "convergence of betas", napad_t)
-    rdl("betaIter", "betaIter", "results", "iterations for betas", napad_t)
-    rdl("deviance", "deviance", "results", "deviance for the fitted model",
-        ffloat)
+    if test == "Wald":
+        for j, (n, ns) in enumerate(zip(names, names_spaces)):
+            rdl(f"WaldStatistic_{n}", "stat", "results",
+                f"Wald statistic: {ns}", colf(j))
+        for j, (n, ns) in enumerate(zip(names, names_spaces)):
+            rdl(f"WaldPvalue_{n}", "pvalue", "results",
+                f"Wald test p-value: {ns}", colf(j))
+        rdl("betaConv", "betaConv", "results", "convergence of betas",
+            napad_t)
+        rdl("betaIter", "betaIter", "results", "iterations for betas",
+            napad_t)
+        rdl("deviance", "deviance", "results",
+            "deviance for the fitted model", ffloat)
+    else:
+        rdl("LRTStatistic", "LRTStatistic", "results",
+            f"LRT statistic: {comparison}", ffloat)
+        rdl("LRTPvalue", "LRTPvalue", "results",
+            f"LRT p-value: {comparison}", ffloat)
+        rdl("fullBetaConv", "betaConv", "results",
+            "convergence of betas for full model", napad_t)
+        rdl("reducedBetaConv", "betaIterReduced", "results",
+            "convergence of betas for reduced model",
+            lambda v: napad_t(np.asarray(v) < maxit))
+        rdl("betaIter", "betaIter", "results",
+            "iterations for betas for full model", napad_t)
+        rdl("deviance", "deviance", "results",
+            "deviance of the full model", ffloat)
     if "maxCooks" in fetched:
         rd("maxCooks", np.asarray(fetched["maxCooks"], float), "results",
            "maximum Cook's distance for row")
+    if use_t:
+        if weights is not None:
+            # (sum of max-1-normalized weights) - p, reduced on the device
+            df = (weights / weights.max(dim=1, keepdim=True).values).sum(
+                dim=1).double().cpu().numpy() - mm.shape[1]
+        else:
+            df = np.full(dds.n_genes, float(dds.n_samples - mm.shape[1]))
+        df = np.where(df > 0, df, np.nan)
+        rd("tDegreesFreedom", np.where(az, np.nan, df), "results",
+           "t degrees of freedom for Wald test")
 
     # ---- outlier replacement bookkeeping (refitWithoutOutliers) ----
     cells_np = np.asarray(cells)
@@ -351,5 +453,6 @@ def deseq_fused(dds, device, dtype, min_replicates_for_replace=7,
         numRej=np.asarray(fetched["filterNumRej"], float),
         theta=np.asarray(fetched["filterTheta"], float),
         cutoffs=np.asarray(fetched["filterCutoffs"], float),
-        alpha=0.1, test="Wald", name=names[-1] if names else None)
+        alpha=0.1, test=test, useT=use_t,
+        name=names[-1] if names else None)
     return dds

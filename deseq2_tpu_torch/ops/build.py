@@ -128,7 +128,8 @@ def bind(lib, fn_name, argtypes):
 
 
 def ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
+    """A tensor's device pointer; None gives NULL."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def stream_of(t):

@@ -30,6 +30,12 @@ float64 at each solution:
   the genes converged in both (the IRLS fixpoint does not depend on the
   path).
 
+The weighted modes are held by the same readings and limits, on inputs
+with observation weights (`solver_inputs(..., weighted=True)`): max-1 rows
+in [0.2, 1], and for p >= 2 the treated samples of the first ten genes
+below the Cox-Reid threshold, so that their treatment column drops out of
+the Cox-Reid term.  Every reading below takes d["w"] when it is there.
+
 chip_smoke.py prints the kernel's and the plain version's readings side by
 side; the limits leave a margin over both.
 """
@@ -40,11 +46,13 @@ import numpy as np
 import torch
 
 from .disp import fit_disp_grid_plain, fit_disp_line_search_plain
-from .disp import log_posterior
+from .disp import log_posterior, make_cr_masks
 
 MIN_LA = float(np.log(1e-9))
 PRIOR_VAR = 1.3
 SEPARATED = 16.0
+# (S, G) of the kernel checks: few and many samples, ragged gene counts
+SHAPES = ((24, 333), (3000, 77))
 
 TOL = {
     "float32": dict(beta=5e-3, same_conv=0.95, ls_agree=0.9, ls_max_x=4.0,
@@ -54,10 +62,10 @@ TOL = {
 }
 
 
-def solver_inputs(G, S, p, seed):
+def solver_inputs(G, S, p, seed, weighted=False):
     """NB counts, a design with p columns, a positive mean and start values
     for a kernel check (the fixtures of the JAX package's kernel tests), as
-    numpy arrays."""
+    numpy arrays; with `weighted`, observation weights "w" too."""
     rng = np.random.default_rng(seed)
     x = np.column_stack([np.ones(S)]
                         + [rng.permutation(np.arange(S) % 2).astype(float)
@@ -71,9 +79,16 @@ def solver_inputs(G, S, p, seed):
     la0 = np.log(np.clip(alpha * np.exp(rng.normal(0, 0.5, G)), 1e-8, 10.0))
     b0 = np.zeros((G, p))
     b0[:, 0] = np.log(np.maximum(y.mean(axis=1), 0.5))
-    return dict(y=y, x=x, mu=np.maximum(mu, 0.5), alpha=alpha, la0=la0,
-                b0=b0, pm=np.log(np.full(G, 0.5)),
-                grid=np.linspace(np.log(1e-8), np.log(max(10.0, S)), 20))
+    out = dict(y=y, x=x, mu=np.maximum(mu, 0.5), alpha=alpha, la0=la0,
+               b0=b0, pm=np.log(np.full(G, 0.5)),
+               grid=np.linspace(np.log(1e-8), np.log(max(10.0, S)), 20))
+    if weighted:
+        w = np.clip(rng.random((G, S)) + 0.2, 0.0, 1.0)
+        w /= w.max(axis=1, keepdims=True)
+        if p >= 2:
+            w[:10][:, x[:, 1] > 0] = 1e-3      # below the 1e-2 threshold
+        out["w"] = w
+    return out
 
 
 def as_tensors(raw, dtype, device):
@@ -93,10 +108,37 @@ def _f64(d):
 
 def lp_at(la, d, use_prior, prior_var=PRIOR_VAR):
     """float64 log posterior at log alpha `la` (the quantity K2 and K3
-    maximize), evaluated by the plain code.  d holds y, mu, x, pm."""
+    maximize), evaluated by the plain code.  d holds y, mu, x, pm and
+    optionally w."""
     f = torch.float64
-    return log_posterior(la.to(f), d["y"].to(f), d["mu"].to(f), d["x"].to(f),
-                         d["pm"].to(f), prior_var, use_prior)
+    x = d["x"].to(f)
+    w = d.get("w")
+    w = None if w is None else w.to(f)
+    rm, cm = make_cr_masks(x, w)
+    return log_posterior(la.to(f), d["y"].to(f), d["mu"].to(f), x,
+                         d["pm"].to(f), prior_var, use_prior, w, rm, cm)
+
+
+def run_irls(fn, d, maxit=100):
+    """fn (the kernel wrapper or the plain version) on d's K1 inputs, with
+    unit normalization factors and d's weights, if any."""
+    dt, dev = d["y"].dtype, d["y"].device
+    S, p = d["x"].shape
+    return fn(d["y"], d["x"], torch.ones(S, dtype=dt, device=dev),
+              d["alpha"], d["b0"], ridge_for(p, dt, dev), maxit=maxit,
+              weights=d.get("w"))
+
+
+def run_ls(fn, d, use_prior, prior_var=PRIOR_VAR, min_log_alpha=MIN_LA):
+    """fn (the K2 wrapper or its plain version) on d's inputs."""
+    return fn(d["y"], d["x"], d["mu"], d["la0"], d["pm"], prior_var,
+              min_log_alpha, use_prior=use_prior, weights=d.get("w"))
+
+
+def run_grid(fn, d, use_prior, prior_var=PRIOR_VAR):
+    """fn (the K3 wrapper or its plain version) on d's inputs."""
+    return fn(d["y"], d["x"], d["mu"], d["grid"], d["pm"], prior_var,
+              use_prior=use_prior, weights=d.get("w"))
 
 
 def _is_f32(t):
@@ -121,10 +163,8 @@ def check_irls(k, pl, maxit=100):
 def line_search_reference(d, use_prior, prior_var=PRIOR_VAR,
                           min_log_alpha=MIN_LA):
     """The plain line search in float64 on d's inputs (d may be float32)."""
-    e = _f64(d)
-    return fit_disp_line_search_plain(e["y"], e["x"], e["mu"], e["la0"],
-                                      e["pm"], prior_var, min_log_alpha,
-                                      use_prior=use_prior)
+    return run_ls(fit_disp_line_search_plain, _f64(d), use_prior, prior_var,
+                  min_log_alpha)
 
 
 def check_ls(k, pl, d, use_prior, prior_var=PRIOR_VAR, ref=None, maxit=100):
@@ -170,9 +210,7 @@ def check_ls(k, pl, d, use_prior, prior_var=PRIOR_VAR, ref=None, maxit=100):
 
 def grid_reference(d, use_prior, prior_var=PRIOR_VAR):
     """The plain grid search in float64 on d's inputs (d may be float32)."""
-    e = _f64(d)
-    return fit_disp_grid_plain(e["y"], e["x"], e["mu"], e["grid"], e["pm"],
-                               prior_var, use_prior=use_prior)
+    return run_grid(fit_disp_grid_plain, _f64(d), use_prior, prior_var)
 
 
 def check_grid(k, pl, d, use_prior, prior_var=PRIOR_VAR, ref=None):

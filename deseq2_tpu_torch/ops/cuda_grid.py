@@ -1,10 +1,12 @@
 """K3 wrapper: two-stage dispersion grid search on the card through
 csrc/disp_grid.cu.
 
-Replaces deseq2_tpu/ops/pallas_disp.py:fit_disp_grid_pallas.  A CUDA
-tensor launches the hand-written kernel (or raises); a CPU tensor runs the
-plain version, ops/disp.py:fit_disp_grid_plain.
-``fit_disp_grid.launches`` counts kernel launches.
+Replaces deseq2_tpu/ops/pallas_disp.py:fit_disp_grid_pallas, and extends
+it with a weighted mode (`weights`; the JAX pipeline runs its weighted grid
+on the XLA core).  A CUDA tensor launches the hand-written kernel (or
+raises); a CPU tensor runs the plain version, ops/disp.py:
+fit_disp_grid_plain.  ``fit_disp_grid.launches`` counts the unweighted
+kernel's launches, ``fit_disp_grid.launches_weighted`` the weighted one's.
 """
 
 from __future__ import annotations
@@ -20,12 +22,14 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def fit_disp_grid(y, x, mu, disp_grid, prior_mean, prior_var,
-                  use_prior=False):
+                  use_prior=False, weights=None):
     """Batched fitDispGrid: y, mu (G,S); x (S,p); disp_grid (n,) shared
-    coarse log-alpha grid; prior_mean (G,).  Returns (G,) log alpha."""
+    coarse log-alpha grid; prior_mean (G,); weights (G,S) or None.
+    Returns (G,) log alpha."""
     if not mu.is_cuda:
         return fit_disp_grid_plain(y, x, mu, disp_grid, prior_mean,
-                                   prior_var, use_prior=use_prior)
+                                   prior_var, use_prior=use_prior,
+                                   weights=weights)
     dtype = mu.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"grid kernel takes float32/float64, not {dtype}")
@@ -35,6 +39,8 @@ def fit_disp_grid(y, x, mu, disp_grid, prior_mean, prior_var,
     if not 1 <= p <= 8 or n < 2:
         raise ValueError(f"grid kernel takes 1 <= p <= 8 and >= 2 grid "
                          f"points, got p={p}, n={n}")
+    if weights is not None and weights.shape != (G, S):
+        raise ValueError("weights must be (G,S)")
     dev = mu.device
 
     def prep(t):
@@ -42,6 +48,7 @@ def fit_disp_grid(y, x, mu, disp_grid, prior_mean, prior_var,
 
     y_, mu_, x_, grid_, pm_ = (prep(t) for t in (y, mu, x, disp_grid,
                                                 prior_mean))
+    w_ = None if weights is None else prep(weights)
     frac = grid_fractions(n, dtype, dev).contiguous()
     out = torch.empty(G, dtype=dtype, device=dev)
     if G == 0:
@@ -50,15 +57,20 @@ def fit_disp_grid(y, x, mu, disp_grid, prior_mean, prior_var,
     scal = ctypes.c_double if f64 else ctypes.c_float
     lib = build.load("disp_grid")
     fn = build.bind(lib, "grid_launch_f64" if f64 else "grid_launch_f32",
-                    [_P] * 6 + [_I] * 4 + [scal, _I, _P, _P])
+                    [_P] * 7 + [_I] * 4 + [scal, _I, _P, _P])
     with torch.cuda.device(dev):
-        err = fn(build.ptr(y_), build.ptr(mu_), build.ptr(x_),
-                 build.ptr(grid_), build.ptr(frac), build.ptr(pm_), G, S, p,
-                 n, float(prior_var), int(bool(use_prior)),
+        err = fn(build.ptr(y_), build.ptr(mu_), build.ptr(w_),
+                 build.ptr(x_), build.ptr(grid_), build.ptr(frac),
+                 build.ptr(pm_), G, S, p, n, float(prior_var),
+                 int(bool(use_prior)),
                  build.ptr(out), build.stream_of(mu_))
     build.check(err, "disp_grid")
-    fit_disp_grid.launches += 1
+    if w_ is None:
+        fit_disp_grid.launches += 1
+    else:
+        fit_disp_grid.launches_weighted += 1
     return out
 
 
 fit_disp_grid.launches = 0
+fit_disp_grid.launches_weighted = 0

@@ -8,6 +8,13 @@ search (cpp:468-513), all batched over genes.  The log-likelihood keeps the
 reference's form without the lgamma(y+1) constant: the gene-wise
 "noIncrease" rule compares raw lp values (R/core.R:827-830).
 
+With observation weights (`weights`, (G,S)) the likelihood terms are
+weighted, and the Cox-Reid term is not: it keeps the design rows whose
+weight exceeds CR_WEIGHT_THRESHOLD and drops, per gene, the columns left
+without support, with a unit diagonal so the kept submatrix's log
+determinant survives (cpp:38-44; the JAX package's make_cr_masks and
+_cr_b_matrices).
+
 Every gene is independent, so each line-search trip runs only on the genes
 still iterating, gathered with torch.nonzero: the result equals a lockstep
 loop over all genes.
@@ -22,31 +29,63 @@ from .linalg import spd_inverse, spd_logdet
 from .nb import digamma_diff, lgamma_diff_centered
 
 EPSILON_ARMIJO = 1.0e-4  # cpp:175
+# the weighted Cox-Reid term's row threshold (cpp:38-44; cr_keeps in
+# csrc/common.cuh)
+CR_WEIGHT_THRESHOLD = 1e-2
 
 
-def _cr_b(x, w):
-    """b = X' diag(w_g) X for every gene: (G,S),(S,p) -> (G,p,p)."""
+def make_cr_masks(x, weights):
+    """Row mask (G,S) and column mask (G,p) of the weighted Cox-Reid term:
+    the rows with weight > CR_WEIGHT_THRESHOLD, and the columns with nonzero
+    x on some kept row.  (None, None) without weights."""
+    if weights is None:
+        return None, None
+    row_mask = weights > CR_WEIGHT_THRESHOLD
+    col_mask = (row_mask.to(x.dtype) @ x.abs()) > 0.0
+    return row_mask, col_mask
+
+
+def _cr_b(x, w, row_mask=None, col_mask=None, embed=False):
+    """b = X' diag(w_g) X for every gene: (G,S),(S,p) -> (G,p,p), over the
+    masked rows and columns; `embed` puts a unit diagonal on the dropped
+    columns (for b itself, not its derivative)."""
     p = x.shape[1]
-    return (w @ xx_flat(x)).reshape(-1, p, p)
+    if row_mask is not None:
+        w = torch.where(row_mask, w, torch.zeros_like(w))
+    b = (w @ xx_flat(x)).reshape(-1, p, p)
+    if col_mask is not None:
+        cm = col_mask.to(b.dtype)
+        b = b * (cm[:, :, None] * cm[:, None, :])
+        if embed:
+            b = b + torch.diag_embed(1.0 - cm)
+    return b
 
 
-def log_posterior(log_alpha, y, mu, x, prior_mean, prior_var, use_prior):
+def _wsum(terms, weights):
+    return (terms if weights is None else weights * terms).sum(-1)
+
+
+def log_posterior(log_alpha, y, mu, x, prior_mean, prior_var, use_prior,
+                  weights=None, row_mask=None, col_mask=None):
     """Batched NB log posterior of dispersion (cpp:31-64).
 
-    log_alpha, prior_mean: (G,); y, mu: (G,S); x: (S,p); prior_var scalar.
+    log_alpha, prior_mean: (G,); y, mu: (G,S); x: (S,p); prior_var scalar;
+    weights (G,S) with the masks of make_cr_masks, or None.
     """
     alpha = torch.exp(log_alpha)[:, None]
     inv_alpha = 1.0 / alpha
     w = 1.0 / (1.0 / mu + alpha)
-    cr = -0.5 * spd_logdet(_cr_b(x, w))
+    cr = -0.5 * spd_logdet(_cr_b(x, w, row_mask, col_mask, embed=True))
     l1p = torch.log1p(mu * alpha)
-    ll = (lgamma_diff_centered(y, inv_alpha) - (y + inv_alpha) * l1p).sum(-1)
+    ll = _wsum(lgamma_diff_centered(y, inv_alpha) - (y + inv_alpha) * l1p,
+               weights)
     if use_prior:
         return ll + (-0.5 * (log_alpha - prior_mean) ** 2 / prior_var) + cr
     return ll + 0.0 + cr
 
 
-def dlog_posterior(log_alpha, y, mu, x, prior_mean, prior_var, use_prior):
+def dlog_posterior(log_alpha, y, mu, x, prior_mean, prior_var, use_prior,
+                   weights=None, row_mask=None, col_mask=None):
     """d/d(log alpha) of the log posterior (cpp:68-107)."""
     alpha_v = torch.exp(log_alpha)
     alpha = alpha_v[:, None]
@@ -54,21 +93,36 @@ def dlog_posterior(log_alpha, y, mu, x, prior_mean, prior_var, use_prior):
     denom = 1.0 / mu + alpha
     w = 1.0 / denom
     dw = -1.0 / denom ** 2
-    b_inv = spd_inverse(_cr_b(x, w))
-    dcr = -0.5 * torch.einsum("gpq,gqp->g", b_inv, _cr_b(x, dw))
+    b_inv = spd_inverse(_cr_b(x, w, row_mask, col_mask, embed=True))
+    dcr = -0.5 * torch.einsum("gpq,gqp->g", b_inv,
+                              _cr_b(x, dw, row_mask, col_mask))
     terms = (torch.log1p(mu * alpha)
              - mu * alpha / (1.0 + mu * alpha)
              - digamma_diff(y, inv_alpha) + y / (mu + inv_alpha))
-    ll_part = terms.sum(-1) / alpha_v ** 2
+    ll_part = _wsum(terms, weights) / alpha_v ** 2
     out = (ll_part + dcr) * alpha_v
     if use_prior:
         return out + (-(log_alpha - prior_mean) / prior_var)
     return out + 0.0
 
 
+def _gene_rows(weights, x, dtype):
+    """The per-gene (weights, row mask, column mask) triple, or Nones."""
+    if weights is None:
+        return None, None, None
+    weights = weights.to(dtype)
+    rm, cm = make_cr_masks(x, weights)
+    return weights, rm, cm
+
+
+def _take(t, idx):
+    return None if t is None else t[idx]
+
+
 def fit_disp_line_search_plain(y, x, mu, log_alpha_init, prior_mean,
                                prior_var, min_log_alpha, kappa_0=1.0,
-                               tol=1e-6, maxit=100, use_prior=False):
+                               tol=1e-6, maxit=100, use_prior=False,
+                               weights=None):
     """Batched Armijo backtracking ascent on log(alpha) (cpp:163-277).
 
     Returns dict(log_alpha, iter, iter_accept, last_change, initial_lp,
@@ -80,14 +134,17 @@ def fit_disp_line_search_plain(y, x, mu, log_alpha_init, prior_mean,
     x = x.to(dtype)
     prior_mean = prior_mean.to(dtype)
     a = log_alpha_init.to(dtype).clone()
+    wts, rm, cm = _gene_rows(weights, x, dtype)
 
     def lp_fn(la, idx):
         return log_posterior(la, y[idx], mu[idx], x, prior_mean[idx],
-                             prior_var, use_prior)
+                             prior_var, use_prior, _take(wts, idx),
+                             _take(rm, idx), _take(cm, idx))
 
     def dlp_fn(la, idx):
         return dlog_posterior(la, y[idx], mu[idx], x, prior_mean[idx],
-                              prior_var, use_prior)
+                              prior_var, use_prior, _take(wts, idx),
+                              _take(rm, idx), _take(cm, idx))
 
     every = torch.arange(G, device=dev)
     lp0 = lp_fn(a, every)
@@ -153,7 +210,7 @@ def grid_fractions(n, dtype, device):
 
 
 def fit_disp_grid_plain(y, x, mu, disp_grid, prior_mean, prior_var,
-                        use_prior=False):
+                        use_prior=False, weights=None):
     """Two-stage grid search over log alpha (cpp:468-513): the shared
     coarse grid, then n points spanning the gene's argmax +- one coarse
     step; the first maximum wins.  Returns (G,) log alpha."""
@@ -165,6 +222,7 @@ def fit_disp_grid_plain(y, x, mu, disp_grid, prior_mean, prior_var,
     prior_mean = prior_mean.to(dtype)
     n = disp_grid.shape[0]
     delta = disp_grid[1] - disp_grid[0]
+    wts, rm, cm = _gene_rows(weights, x, dtype)
 
     def argmax_over(points):
         best_lp = torch.full((G,), float("-inf"), dtype=dtype,
@@ -172,7 +230,7 @@ def fit_disp_grid_plain(y, x, mu, disp_grid, prior_mean, prior_var,
         best_a = torch.zeros(G, dtype=dtype, device=mu.device)
         for a_row in points:
             lp = log_posterior(a_row, y, mu, x, prior_mean, prior_var,
-                               use_prior)
+                               use_prior, wts, rm, cm)
             better = lp > best_lp
             best_lp = torch.where(better, lp, best_lp)
             best_a = torch.where(better, a_row, best_a)

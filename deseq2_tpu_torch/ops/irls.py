@@ -11,6 +11,10 @@ Same contract as the reference's fitBeta (src/DESeq2.cpp:282-465):
     stop when |dev - dev_old| / (|dev| + 0.1) < max(tol, 30 eps)
     |beta| > 30 (or a NaN deviance test) -> iter := maxit
 
+Observation weights (`weights`, (G,S), max-1 normalized by the caller)
+multiply W, the deviance terms, the sandwich's X'WX and the hat diagonal
+(cpp:337-341, 365-373).
+
 plus, in float32 only, an exit once beta stops moving at f32 resolution
 (the deviance is a sum of S large terms whose rounding noise can exceed
 the relative tolerance).  After the fit: the sandwich variance
@@ -38,10 +42,11 @@ def xx_flat(x):
 
 
 def fit_beta_plain(y, x, nf, alpha, beta_init, ridge, tol=1e-8, maxit=100,
-                   min_mu=0.5):
+                   min_mu=0.5, weights=None):
     """y: (G,S); x: (S,p); nf: (S,) shared row or (G,S); alpha: (G,);
-    beta_init: (G,p); ridge: (p,).  Returns dict(beta, beta_var, iter,
-    hat_diag, deviance, mu); the dtype is beta_init's."""
+    beta_init: (G,p); ridge: (p,); weights: (G,S) or None.  Returns
+    dict(beta, beta_var, iter, hat_diag, deviance, mu); the dtype is
+    beta_init's."""
     G, S = y.shape
     p = x.shape[1]
     dtype = beta_init.dtype
@@ -51,7 +56,17 @@ def fit_beta_plain(y, x, nf, alpha, beta_init, ridge, tol=1e-8, maxit=100,
     alpha = alpha.to(dtype)
     nf_row = nf.dim() == 1
     size = 1.0 / alpha
-    dev_const = -2.0 * nb_lgamma_const(y, alpha[:, None]).sum(-1)
+    wts = None if weights is None else weights.to(dtype)
+
+    def wsum(terms, idx=None):
+        if wts is None:
+            return terms.sum(-1)
+        return ((wts if idx is None else wts[idx]) * terms).sum(-1)
+
+    def wmul(w, idx=None):
+        return w if wts is None else (wts if idx is None else wts[idx]) * w
+
+    dev_const = -2.0 * wsum(nb_lgamma_const(y, alpha[:, None]))
     log_nf = torch.log(nf)
     ridge_mat = torch.diag(ridge.to(dtype))
     xx = xx_flat(x)
@@ -77,7 +92,7 @@ def fit_beta_plain(y, x, nf, alpha, beta_init, ridge, tol=1e-8, maxit=100,
             break
         yb, mub, ab = y[idx], mu[idx], alpha[idx]
         iters[idx] += 1
-        w = mub / (1.0 + ab[:, None] * mub)
+        w = wmul(mub / (1.0 + ab[:, None] * mub), idx)
         z = torch.log(mub) - rows(log_nf, idx) + (yb - mub) / mub
         A = (w @ xx).reshape(-1, p, p) + ridge_mat
         rhs = (w * z) @ x
@@ -91,8 +106,8 @@ def fit_beta_plain(y, x, nf, alpha, beta_init, ridge, tol=1e-8, maxit=100,
         tt = torch.where(yb > 0, yb * (torch.log(mu_new)
                                        - torch.log(sz + mu_new)),
                          torch.zeros_like(yb))
-        dev_new = dev_const[idx] + (-2.0) * (-sz * torch.log(sz + mu_new)
-                                             + tt).sum(-1)
+        dev_new = dev_const[idx] + (-2.0) * wsum(
+            -sz * torch.log(sz + mu_new) + tt, idx)
         mu[idx] = torch.where(cont[:, None], mu_new, mub)
         dev[idx] = torch.where(cont, dev_new, dev[idx])
         do = dev_old[idx]
@@ -110,7 +125,7 @@ def fit_beta_plain(y, x, nf, alpha, beta_init, ridge, tol=1e-8, maxit=100,
         dev_old[idx] = torch.where(cont, dev_new, do)
 
     # post-fit quantities from the final (beta, mu) (cpp:429-455)
-    w = mu / (1.0 + alpha[:, None] * mu)
+    w = wmul(mu / (1.0 + alpha[:, None] * mu))
     xtwx = (w @ xx).reshape(G, p, p)
     ainv = spd_inverse(xtwx + ridge_mat)
     hat_diag = w * (ainv.reshape(G, p * p) @ xx.T)

@@ -1,18 +1,23 @@
-"""The fused bulk Wald pipeline on one device: gene-wise dispersion MLE ->
-parametric trend -> MAP shrinkage -> ridge IRLS -> Wald statistics, plus
-the results tail (Cook's distances, count-outlier replacement and refit,
-Cook's p-value masking, filtered BH).
+"""The fused bulk pipeline on one device: gene-wise dispersion MLE ->
+dispersion trend -> MAP shrinkage -> ridge IRLS -> Wald statistics or the
+LRT, plus the results tail (Cook's distances, count-outlier replacement and
+refit, Cook's p-value masking, filtered BH).
 
 The per-gene solvers go through the kernel wrappers (ops/cuda_*.py): on a
 CUDA device the hand-written kernels K1-K3, on the CPU their plain
-versions.  The cross-gene reductions (trend fit sums, MAD, prior variance,
-BH and the filtering quantiles) are ordinary tensor reductions.  Every gene
+versions.  The cross-gene reductions (trend fits, MAD, prior variance, BH
+and the filtering quantiles) are ordinary tensor reductions.  Every gene
 is independent, so the grid fallback and the outlier refit run on the
 selected rows only (gathered with torch.nonzero), which equals running
 them on every row and keeping the selected ones.
 
-Configurations outside the default bulk Wald route raise
-NotImplementedError naming the ROADMAP.md item that will port them.
+Variants: observation weights (raw for the base statistics, max-1
+normalized for the mu fit, MAP, IRLS and log-likelihood, additionally
+floored at 1e-6 for the gene-wise search), gene x sample normalization
+factors, the LRT against an intercept or a reduced model matrix, t
+p-values (`use_t`) and the parametric, local and mean trends.  betaPrior,
+numeric contrasts and a device mesh raise NotImplementedError naming the
+ROADMAP.md item that will port them.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from .. import profiling
 from ..ops.cuda_grid import fit_disp_grid
 from ..ops.cuda_irls import fit_beta
 from ..ops.cuda_ls import fit_disp_line_search
+from ..ops.disp import CR_WEIGHT_THRESHOLD
 from ..ops.linalg import chol_solve
 from ..ops.nb import lgamma_diff_centered, trigamma
 from .cooksdev import cooks_distance_dev, max_cooks_dev, trimmed_mean_dev
@@ -34,7 +40,9 @@ from .filterdev import bh_adjust, filtered_bh_dev, theta_grid_dev
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 
-ROADMAP_VARIANTS = "ROADMAP.md queue 1, item 6 (fused variants)"
+ROADMAP_VARIANTS = ("ROADMAP.md queue 1, item 6 (fused variants: betaPrior "
+                    "and contrasts)")
+ROADMAP_HOST = "ROADMAP.md queue 1, item 7 (host-exact orchestration)"
 
 
 def not_ported(what, item=ROADMAP_VARIANTS):
@@ -42,25 +50,12 @@ def not_ported(what, item=ROADMAP_VARIANTS):
         f"{what} is not ported to deseq2_tpu_torch yet: see {item}")
 
 
-def refuse_unported(x_reduced=None, reduced_intercept=False,
-                    beta_prior=False, contrast=None, use_t=False,
-                    weights=None, norm_factors=None, fit_type="parametric",
-                    mesh=None):
-    """Raise for every option of the JAX pipeline this slice leaves out."""
-    if x_reduced is not None or reduced_intercept:
-        raise not_ported("the LRT")
+def refuse_unported(beta_prior=False, contrast=None, mesh=None):
+    """Raise for every option of the JAX pipeline the port leaves out."""
     if beta_prior:
         raise not_ported("betaPrior")
     if contrast is not None:
         raise not_ported("a numeric contrast")
-    if use_t:
-        raise not_ported("use_t")
-    if weights is not None:
-        raise not_ported("observation weights")
-    if norm_factors is not None:
-        raise not_ported("gene x sample normalization factors")
-    if fit_type != "parametric":
-        raise not_ported(f"fit_type={fit_type!r}")
     if mesh is not None:
         raise not_ported("a device mesh",
                          "ROADMAP.md queue 1, item 11 (multi-GPU)")
@@ -163,24 +158,146 @@ def gamma_trend_fit(means, disps, use_mask):
             return torch.stack([a, b]).to(dtype), valid
 
 
-def nb_loglik(y, mu, alpha):
+def trimmed_mean_masked(v, mask, trim):
+    """R mean(x, trim=) over the masked entries (the fitType='mean'
+    trend, R/core.R:900-905)."""
+    vals = torch.sort(torch.where(mask, v, torch.full_like(v, math.inf)))
+    vals = vals.values
+    n = int(mask.sum())
+    kcut = math.floor(n * trim)
+    r = torch.arange(v.shape[0], device=v.device)
+    take = (r >= kcut) & (r < n - kcut)
+    return torch.where(take, vals, torch.zeros_like(vals)).sum() \
+        / max(n - 2 * kcut, 1)
+
+
+def local_trend_state(base_mean, disps, use_mask):
+    """State of the tricube local-quadratic trend (fitType='local', the
+    JAX package's locfit stand-in): fit points sorted by log mean, unused
+    rows at the end with prior weight 0 and a finite sentinel x."""
+    dtype = base_mean.dtype
+    one = torch.ones_like(base_mean)
+    lx = torch.where(use_mask, torch.log(torch.where(use_mask, base_mean,
+                                                     one)),
+                     torch.full_like(base_mean, math.inf))
+    order = torch.argsort(lx, stable=True)
+    lxs = lx[order]
+    lys = torch.where(use_mask, torch.log(torch.where(use_mask, disps, one)),
+                      torch.zeros_like(disps))[order]
+    pws = torch.where(use_mask, base_mean, torch.zeros_like(base_mean))[order]
+    lxs = torch.where(torch.isfinite(lxs), lxs,
+                      torch.full_like(lxs, 1e30, dtype=dtype))
+    return dict(lxs=lxs, lys=lys, pws=pws, nfit=int(use_mask.sum()))
+
+
+def local_trend_eval(ts, x0, tile_bytes=2 ** 27):
+    """The tricube local-quadratic regression at log-mean points x0.
+    Window: the k = max(ceil(0.7 n), 3) nearest fit points, h = the k-th
+    smallest distance in closed form from the sorted points (the k nearest
+    points of a point on a line are a contiguous run).  Every fit point
+    enters a weighted quadratic with weight tricube(d/h) * prior weight,
+    zero at and beyond h.  The (E,K) products run in row tiles of at most
+    `tile_bytes` per temporary (about a dozen are live at once)."""
+    lxs, lys, pws, n = ts["lxs"], ts["lys"], ts["pws"], ts["nfit"]
+    dtype = lxs.dtype
+    K = lxs.shape[0]
+    k = min(max(math.ceil(0.7 * n), 3), n)
+    idx = torch.arange(K, device=lxs.device)
+    xk = lxs[torch.clamp(idx + k - 1, 0, K - 1)]
+    lo_max = max(n - k, 0)
+    mid = torch.where(idx <= lo_max, (lxs + xk) / 2.0,
+                      torch.full_like(lxs, math.inf))
+    lo = torch.searchsorted(mid, x0.contiguous())
+    cand = torch.stack([torch.clamp(lo - 1, 0, lo_max),
+                        torch.clamp(lo, 0, lo_max)], dim=-1)      # (E,2)
+    lo_x = lxs[cand]
+    hi_x = lxs[torch.clamp(cand + k - 1, 0, K - 1)]
+    h = torch.maximum(x0[:, None] - lo_x, hi_x - x0[:, None]).min(dim=1)
+    h = torch.where(h.values > 0, h.values, torch.ones_like(x0))
+
+    def tile_fit(x0c, hc):
+        dx = lxs[None, :] - x0c[:, None]                          # (e,K)
+        w = (1.0 - torch.clamp(dx.abs() / hc[:, None], max=1.0) ** 3) ** 3 \
+            * pws[None, :]
+        dxm = torch.where(w > 0, dx, torch.zeros_like(dx))
+        wd = w * dxm
+        wd2 = wd * dxm
+        s0, s1, s2 = w.sum(1), wd.sum(1), wd2.sum(1)
+        s3, s4 = (wd2 * dxm).sum(1), (wd2 * dxm * dxm).sum(1)
+        t0, t1, t2 = w @ lys, wd @ lys, wd2 @ lys
+        A = torch.stack([torch.stack([s0, s1, s2], -1),
+                         torch.stack([s1, s2, s3], -1),
+                         torch.stack([s2, s3, s4], -1)], -2)       # (e,3,3)
+        b = torch.stack([t0, t1, t2], -1)[..., None]
+        sol, info = torch.linalg.solve_ex(A, b)
+        beta0 = sol[..., 0, 0]
+        # singular fallback: the weighted mean (the host's LinAlgError arm)
+        return torch.where(torch.isfinite(beta0) & (info == 0), beta0,
+                           t0 / torch.where(s0 > 0, s0, torch.ones_like(s0)))
+
+    E = x0.shape[0]
+    ch = max(1, min(E, tile_bytes // max(1, K * lxs.element_size())))
+    fitted = torch.cat([tile_fit(x0[i:i + ch], h[i:i + ch])
+                        for i in range(0, E, ch)]) if E else x0
+    return torch.exp(fitted.to(dtype))
+
+
+def trend_eval(fit_type, ts, bm_safe):
+    """The trend at (safe) base means: parametric a + b/mean (ts the
+    (2,) coefficients), the trimmed-mean constant (ts a scalar tensor) or
+    the local regression (ts local_trend_state's dict) (R/core.R:884-905).
+    Trend state is float64; the values come back in bm_safe's dtype."""
+    if fit_type == "parametric":
+        return ts[0] + ts[1] / bm_safe
+    if fit_type == "mean":
+        return ts.to(bm_safe.dtype).expand(bm_safe.shape)
+    return local_trend_eval(ts, torch.log(bm_safe.double())).to(
+        bm_safe.dtype)
+
+
+def nb_loglik(y, mu, alpha, w=None):
     """Row NB log-likelihood at (unclamped) mu (nbinomLogLike,
-    R/core.R:2208-2230) in the stable difference form."""
+    R/core.R:2208-2230) in the stable difference form; observation
+    weights multiply the per-sample terms."""
     size = 1.0 / alpha[:, None]
     t = torch.where(y > 0.0, y * torch.log(mu), torch.zeros_like(y))
     terms = (lgamma_diff_centered(y, size) - torch.lgamma(y + 1.0) + t
              - (y + size) * torch.log1p(mu * alpha[:, None]))
+    if w is not None:
+        terms = w * terms
     return terms.sum(dim=1)
+
+
+def t_two_sided_p(stat, df):
+    """Two-sided t p-values I_{d/(d+t^2)}(d/2, 1/2) (R/core.R:1478-1508).
+    PyTorch has no regularized incomplete beta, so the (G,) or (G,p)
+    statistics go to the host for scipy's and the p-values come back.
+    `df`: a float, or a (G,) tensor of per-gene degrees of freedom."""
+    from scipy.special import betainc
+    s = stat.detach().double().cpu().numpy()
+    d = df if isinstance(df, float) else df.double().cpu().numpy()
+    if not isinstance(d, float) and s.ndim == 2:
+        d = d[:, None]
+    with np.errstate(invalid="ignore"):
+        p = betainc(d / 2.0, 0.5, d / (d + s * s))
+    return torch.as_tensor(p, dtype=stat.dtype, device=stat.device)
+
+
+def _max1(w):
+    return w / w.max(dim=1, keepdim=True).values
 
 
 class Stages:
     """The per-gene chains of the pipeline for one design, size-factor row
     and dtype: the gene-wise estimate (R/core.R:657-860) and, given a
     frozen trend and prior, MAP shrinkage + ridge IRLS (R/core.R:1016-1115,
-    1400-1463).  Both act on any subset of genes."""
+    1400-1463), with the reduced fit of the LRT (R/core.R:1787-1897).
+    Both act on any subset of genes; a block's raw observation weights and
+    (G,S) normalization factors travel with it."""
 
     def __init__(self, x, sf, grid, maxit=100, min_disp=1e-8,
-                 linear_mu=True, min_mu=0.5):
+                 linear_mu=True, min_mu=0.5, fit_type="parametric",
+                 xim=None, x_reduced=None, reduced_intercept=False):
         self.x = x
         self.sf = sf
         self.grid = grid
@@ -188,6 +305,10 @@ class Stages:
         self.min_disp = min_disp
         self.linear_mu = linear_mu
         self.min_mu = min_mu
+        self.fit_type = fit_type
+        self.x_reduced = x_reduced
+        self.reduced_intercept = reduced_intercept
+        self.lrt = reduced_intercept or x_reduced is not None
         S, p = x.shape
         self.S, self.p = S, p
         self.max_disp = max(10.0, float(S))
@@ -195,10 +316,10 @@ class Stages:
         self.lam_nat = torch.full((p,), 1e-6 / LN2 ** 2, dtype=x.dtype,
                                   device=x.device)
         # momentsDispEstimate's xim (R/core.R:2440-2444)
-        self.xim = (1.0 / sf).mean()
+        self.xim = (1.0 / sf).mean() if xim is None else xim
 
     def grid_fallback(self, disp_cur, need, prior_mean, prior_var,
-                      use_prior, y_safe, mu_safe):
+                      use_prior, y_safe, mu_safe, w=None):
         """fitDispGrid on the `need` genes only (exact: genes are
         independent)."""
         idx = torch.nonzero(need).squeeze(1)
@@ -206,20 +327,24 @@ class Stages:
             return disp_cur
         la = fit_disp_grid(y_safe[idx], self.x, mu_safe[idx], self.grid,
                            prior_mean[idx], float(prior_var),
-                           use_prior=use_prior)
+                           use_prior=use_prior,
+                           weights=None if w is None else w[idx])
         out = disp_cur.clone()
         out[idx] = torch.exp(la)
         return out
 
-    def dispersion_init(self, y):
+    def dispersion_init(self, y, w=None, nf=None):
         """Base stats, the rough/moments initial dispersion and the mu the
-        gene-wise line search runs at (R/core.R:657-764)."""
+        gene-wise line search runs at (R/core.R:657-764).  `w`: the block's
+        raw weights; `nf`: its (G,S) normalization factors."""
         x, S, p = self.x, self.S, self.p
-        nf_b = self.sf[None, :]
+        nf_b = self.sf[None, :] if nf is None else nf
         min_disp, max_disp = self.min_disp, self.max_disp
         norm_c = y / nf_b
-        base_mean = norm_c.mean(dim=1)
-        base_var = norm_c.var(dim=1, correction=1)
+        # base stats of weights * normalized counts (getBaseMeansAndVariances)
+        wted = norm_c if w is None else w * norm_c
+        base_mean = wted.mean(dim=1)
+        base_var = wted.var(dim=1, correction=1)
         all_zero = y.sum(dim=1) == 0
 
         # dispersion init (R/core.R:709-728)
@@ -235,8 +360,9 @@ class Stages:
         alpha_init = torch.clamp(alpha_init, min_disp, max_disp)
 
         # mu for dispersion fitting (R/core.R:753-764): the linearMu LS
-        # projection when #design-cells == #coefficients, else a GLM fit at
-        # the initial dispersions, clamped at min_mu
+        # projection when #design-cells == #coefficients (never with
+        # weights), else a GLM fit at the initial dispersions, clamped at
+        # min_mu
         y_safe = torch.where(all_zero[:, None], torch.ones_like(y), y)
         if self.linear_mu:
             mu_disp = torch.clamp(_ls_fitted(norm_c, x) * nf_b,
@@ -247,27 +373,31 @@ class Stages:
             # differences in mu into ~1e-3 differences in log alpha
             q_m, r_m = torch.linalg.qr(x)
             b0 = torch.linalg.solve(r_m, (torch.log(norm_c + 0.1) @ q_m).T).T
-            f0 = fit_beta(y_safe, x, self.sf, alpha_init, b0, self.lam_nat,
-                          maxit=self.maxit, min_mu=self.min_mu)
+            f0 = fit_beta(y_safe, x, self.sf if nf is None else nf,
+                          alpha_init, b0, self.lam_nat, maxit=self.maxit,
+                          min_mu=self.min_mu,
+                          weights=None if w is None else _max1(w))
             mu_disp = torch.clamp(nf_b * torch.exp(f0["beta"] @ x.T),
                                   min=self.min_mu)
         mu_safe = torch.where(all_zero[:, None], torch.ones_like(mu_disp),
                               mu_disp)
         return dict(base_mean=base_mean, base_var=base_var,
                     all_zero=all_zero, alpha_init=alpha_init, y_safe=y_safe,
-                    mu_safe=mu_safe, norm_c=norm_c)
+                    mu_safe=mu_safe, norm_c=norm_c, w=w, nf=nf)
 
-    def gene_est(self, y):
+    def gene_est(self, y, w=None, nf=None):
         """Base stats + gene-wise dispersion MLE for a block of genes
-        (R/core.R:657-860)."""
-        est = self.dispersion_init(y)
+        (R/core.R:657-860).  The search and its grid fallback run at the
+        max-1 weights floored at 1e-6 (the gene-wise stage's floor)."""
+        est = self.dispersion_init(y, w, nf)
         x, min_disp, max_disp = self.x, self.min_disp, self.max_disp
         y_safe, mu_safe = est["y_safe"], est["mu_safe"]
         alpha_init = est.pop("alpha_init")
+        w_ge = None if w is None else torch.clamp(_max1(w), min=1e-6)
         la0 = torch.log(alpha_init)
         mle = fit_disp_line_search(y_safe, x, mu_safe, la0, la0, 1.0,
                                    self.min_la, maxit=self.maxit,
-                                   use_prior=False)
+                                   use_prior=False, weights=w_ge)
         alpha_mle = torch.clamp(torch.exp(mle["log_alpha"]), max=max_disp)
         no_increase = mle["last_lp"] < (mle["initial_lp"]
                                         + mle["initial_lp"].abs() / 1e6)
@@ -275,61 +405,102 @@ class Stages:
         conv = (mle["iter"] < self.maxit) & (mle["iter"] != 1)
         need_grid = ~conv & (dge > min_disp * 10)
         dge = self.grid_fallback(dge, need_grid, torch.zeros_like(dge), 1.0,
-                                 False, y_safe, mu_safe)
+                                 False, y_safe, mu_safe, w_ge)
         est.update(disp_gene_est=torch.clamp(dge, min_disp, max_disp),
                    disp_gene_iter=mle["iter"])
         return est
 
-    def post_trend(self, est, trend_coefs, disp_prior_var, var_log_disp):
-        """MAP shrinkage + ridge IRLS given the frozen parametric trend
-        (a, b), the prior variance and varLogDispEsts."""
+    def _fit(self, y_safe, x, nf, alpha, beta_init, ridge, w):
+        return fit_beta(y_safe, x, self.sf if nf is None else nf, alpha,
+                        beta_init, ridge, maxit=self.maxit,
+                        min_mu=self.min_mu, weights=w)
+
+    def post_trend(self, est, ts, disp_prior_var, var_log_disp,
+                   disp_fit=None):
+        """MAP shrinkage + ridge IRLS given the frozen trend state `ts`
+        (see trend_eval), the prior variance and varLogDispEsts; the
+        reduced fit and both log-likelihoods under the LRT.  `disp_fit`:
+        the trend at the block's base means when the caller has it."""
         x = self.x
         y_safe, mu_safe = est["y_safe"], est["mu_safe"]
         all_zero, dge = est["all_zero"], est["disp_gene_est"]
-        bm_safe = torch.where(all_zero, torch.ones_like(est["base_mean"]),
-                              est["base_mean"])
-        disp_fit = trend_coefs[0] + trend_coefs[1] / bm_safe
+        nf = est.get("nf")
+        nf_b = self.sf[None, :] if nf is None else nf
+        w = None if est.get("w") is None else _max1(est["w"])
+        if disp_fit is None:
+            bm_safe = torch.where(all_zero,
+                                  torch.ones_like(est["base_mean"]),
+                                  est["base_mean"])
+            disp_fit = trend_eval(self.fit_type, ts, bm_safe)
 
         disp_init = torch.where(dge > 0.1 * disp_fit, dge, disp_fit)
         map_res = fit_disp_line_search(
             y_safe, x, mu_safe, torch.log(disp_init), torch.log(disp_fit),
             float(disp_prior_var), self.min_la, maxit=self.maxit,
-            use_prior=True)
+            use_prior=True, weights=w)
         disp_map = torch.exp(map_res["log_alpha"])
         need_grid = map_res["iter"] >= self.maxit
         disp_map = self.grid_fallback(disp_map, need_grid,
                                       torch.log(disp_fit), disp_prior_var,
-                                      True, y_safe, mu_safe)
+                                      True, y_safe, mu_safe, w)
         disp_map = torch.clamp(disp_map, self.min_disp, self.max_disp)
         disp_outlier = torch.log(dge) > (torch.log(disp_fit)
                                          + 2.0 * torch.sqrt(var_log_disp))
         dispersion = torch.where(disp_outlier, dge, disp_map)
 
-        beta_init = chol_solve(x.T @ x,
-                               (torch.log(est["norm_c"] + 0.1) @ x).T).T
-        fit = fit_beta(y_safe, x, self.sf, dispersion, beta_init,
-                       self.lam_nat, maxit=self.maxit, min_mu=self.min_mu)
+        log_nc = torch.log(est["norm_c"] + 0.1)
+        beta_init = chol_solve(x.T @ x, (log_nc @ x).T).T
+        fit = self._fit(y_safe, x, nf, dispersion, beta_init, self.lam_nat,
+                        w)
         # mu and the deviance are recomputed UNclamped from the final betas
         # (R/fitNbinomGLMs.R:180, nbinomLogLike R/core.R:2208-2230); the
         # kernel's clamped mu is internal to the fit and the hat diagonal
-        mu_out = self.sf[None, :] * torch.exp(fit["beta"] @ x.T)
-        ll_out = nb_loglik(y_safe, mu_out, dispersion)
-        return dict(disp_fit=disp_fit, disp_map=disp_map,
-                    disp_iter=map_res["iter"], disp_outlier=disp_outlier,
-                    dispersion=dispersion, beta=fit["beta"],
-                    beta_var=fit["beta_var"], beta_iter=fit["iter"],
-                    mu=mu_out, hat=fit["hat_diag"], deviance=-2.0 * ll_out)
+        mu_out = nf_b * torch.exp(fit["beta"] @ x.T)
+        ll_out = nb_loglik(y_safe, mu_out, dispersion, w)
+        out = dict(disp_fit=disp_fit, disp_map=disp_map,
+                   disp_iter=map_res["iter"], disp_outlier=disp_outlier,
+                   dispersion=dispersion, beta=fit["beta"],
+                   beta_var=fit["beta_var"], beta_iter=fit["iter"],
+                   mu=mu_out, hat=fit["hat_diag"], deviance=-2.0 * ll_out)
+        if self.lrt:
+            if self.reduced_intercept:
+                # intercept-only closed form (R/fitNbinomGLMs.R:99-137; the
+                # weighted mean with observation weights)
+                if w is None:
+                    q_int = est["norm_c"].mean(dim=1)
+                else:
+                    q_int = (w * est["norm_c"]).sum(dim=1) / w.sum(dim=1)
+                mu_red = torch.where(all_zero[:, None],
+                                     torch.ones_like(mu_out),
+                                     q_int[:, None] * nf_b)
+                out["beta_iter_reduced"] = torch.zeros_like(fit["iter"])
+            else:
+                xr = self.x_reduced
+                b0_red = chol_solve(xr.T @ xr, (log_nc @ xr).T).T
+                lam_red = torch.full((xr.shape[1],), 1e-6 / LN2 ** 2,
+                                     dtype=xr.dtype, device=xr.device)
+                fit_red = self._fit(y_safe, xr, nf, dispersion, b0_red,
+                                    lam_red, w)
+                mu_red = nf_b * torch.exp(fit_red["beta"] @ xr.T)
+                out["beta_iter_reduced"] = fit_red["iter"]
+            out["ll_full"] = ll_out
+            out["ll_reduced"] = nb_loglik(y_safe, mu_red, dispersion, w)
+        return out
 
 
-def _refit_rows(st, y_new, idx, cols, coefs, disp_prior_var, var_log_disp,
-                cells):
+def _refit_rows(st, y_new, idx, cols, ts, disp_prior_var, var_log_disp,
+                cells, w=None, nf=None):
     """Refit dispersions and the GLM on the replaced rows `idx` with the
     frozen trend and prior (refitWithoutOutliers, R/core.R:2497-2560) and
-    splice the new values into copies of the per-gene columns."""
+    splice the new values into copies of the per-gene columns.  The LRT's
+    Cook's distances use the gene-wise mu (nbinomLRT does not refresh
+    it, R/core.R:1888)."""
     y_blk = y_new[idx]
-    est2 = st.gene_est(y_blk)
-    post2 = st.post_trend(est2, coefs, disp_prior_var, var_log_disp)
-    cooks2 = cooks_distance_dev(y_blk, est2["norm_c"], post2["mu"],
+    est2 = st.gene_est(y_blk, None if w is None else w[idx],
+                       None if nf is None else nf[idx])
+    post2 = st.post_trend(est2, ts, disp_prior_var, var_log_disp)
+    cooks2 = cooks_distance_dev(y_blk, est2["norm_c"],
+                                est2["mu_safe"] if st.lrt else post2["mu"],
                                 post2["hat"], cells, st.p)
     cooks2 = torch.where(est2["all_zero"][:, None],
                          torch.full_like(cooks2, float("nan")), cooks2)
@@ -341,16 +512,45 @@ def _refit_rows(st, y_new, idx, cols, coefs, disp_prior_var, var_log_disp,
     return cols
 
 
+def _fit_trend(fit_type, base_mean, disp_gene_est, all_zero, min_disp):
+    """The dispersion trend's state (R/core.R:884-905) in float64, and the
+    outputs it adds: parametric gamma GLM (trendCoefs, trendValid),
+    trimmed mean (meanDisp) or the local regression (nothing)."""
+    use_for_fit = (disp_gene_est > 100 * min_disp) & ~all_zero
+    use_mean = (disp_gene_est > 10 * min_disp) & ~all_zero
+    bm, dge = base_mean.double(), disp_gene_est.double()
+    if fit_type == "parametric":
+        coefs, valid = gamma_trend_fit(base_mean, disp_gene_est, use_for_fit)
+        return coefs, dict(trendCoefs=coefs, trendValid=valid)
+    if fit_type == "mean":
+        md = trimmed_mean_masked(dge, use_mean, 0.001)
+        return md, dict(meanDisp=md.to(base_mean.dtype))
+    if fit_type == "local":
+        return local_trend_state(bm, dge, use_for_fit), {}
+    raise ValueError("fused fit_type must be parametric/local/mean")
+
+
 def fused_wald_pipeline(counts, x, size_factors, grid, maxit=100,
                         min_disp=1e-8, cells=None, two_group=False,
                         min_replicates=7, alpha=0.1, linear_mu=True,
-                        dtype=torch.float64, **unported):
+                        dtype=torch.float64, x_reduced=None,
+                        reduced_intercept=False, use_t=False, weights=None,
+                        norm_factors=None, fit_type="parametric",
+                        **unported):
     """counts: (G,S) integer tensor; x: (S,p); size_factors: (S,) or None to
-    estimate median-of-ratios factors on the device; grid: (20,) log-alpha
-    grid.  Everything runs on counts' device in `dtype`.  Returns the
-    per-gene results dict of the JAX pipeline's default Wald chain (log2
-    scale LFC/SE/stat/p, dispersions, diagnostics and the filtering
-    tail).
+    estimate median-of-ratios factors on the device (ignored with
+    `norm_factors`); grid: (20,) log-alpha grid.  Everything runs on
+    counts' device in `dtype`.  Returns the per-gene results dict of the
+    JAX pipeline (log2 scale LFC/SE/stat/p, dispersions, diagnostics and
+    the filtering tail).
+
+    `weights`: raw (G,S) observation weights, validated by the caller
+    (validated_weights); `norm_factors`: (G,S) gene x sample normalization
+    factors, which replace the size factors everywhere
+    (src/DESeq2.cpp:324-327); `x_reduced` / `reduced_intercept`: the LRT
+    against a reduced model matrix or the intercept (R/core.R:1787-1897);
+    `use_t`: t p-values with df = S - p, or sum(max-1 weights) - p per
+    gene; `fit_type`: parametric, local or mean trend.
 
     With `cells` (per-sample design-cell codes) the pipeline also computes
     Cook's distances, maxCooks, the count-outlier replacement + refit
@@ -365,30 +565,58 @@ def fused_wald_pipeline(counts, x, size_factors, grid, maxit=100,
     p = x.shape[1]
     y = counts.to(dtype)
     out = {}
-    if size_factors is None:
+    nfm = None
+    if norm_factors is not None:
+        nfm = torch.as_tensor(norm_factors).to(device=dev, dtype=dtype)
+        sf = torch.ones(S, dtype=dtype, device=dev)
+        xim = (1.0 / nfm.mean(dim=0)).mean()
+    elif size_factors is None:
         with profiling.stage("fused.sizeFactors", genes=G):
             sf = size_factors_dev(y)
         out["sizeFactors"] = sf
+        xim = None
     else:
         sf = torch.as_tensor(size_factors).to(device=dev, dtype=dtype)
+        xim = None
+    w_raw = None
+    if weights is not None:
+        w_raw = torch.as_tensor(weights).to(device=dev, dtype=dtype)
+        linear_mu = False          # weights disable linearMu (host rule)
+    lrt = reduced_intercept or x_reduced is not None
+    if x_reduced is not None:
+        x_reduced = torch.as_tensor(x_reduced).to(device=dev, dtype=dtype)
     grid = torch.as_tensor(grid).to(device=dev, dtype=dtype)
     st = Stages(x, sf, grid, maxit=maxit, min_disp=min_disp,
-                linear_mu=linear_mu)
+                linear_mu=linear_mu, fit_type=fit_type, xim=xim,
+                x_reduced=x_reduced, reduced_intercept=reduced_intercept)
+
+    # Wald p-values: normal, or t with df = S - p; with weights the
+    # per-gene df = sum(max-1 weights) - p (R/core.R:1478-1508)
+    if use_t and w_raw is not None:
+        dfw = _max1(w_raw).sum(dim=1) - p
+        t_df = torch.where(dfw > 0, dfw, torch.full_like(dfw, math.nan))
+    else:
+        t_df = float(S - p)
+
+    def two_sided_p(stat):
+        if use_t:
+            return t_two_sided_p(stat, t_df)
+        sqrt2 = torch.sqrt(torch.tensor(2.0, dtype=dtype, device=dev))
+        return torch.special.erfc(stat.abs() / sqrt2)
 
     with profiling.stage("fused.geneEst", genes=G):
-        est = st.gene_est(y)
+        est = st.gene_est(y, w_raw, nfm)
     base_mean, base_var = est["base_mean"], est["base_var"]
     all_zero, disp_gene_est = est["all_zero"], est["disp_gene_est"]
 
-    # parametric trend, MAD and prior variance (cross-gene reductions)
-    use_for_fit = (disp_gene_est > 100 * min_disp) & ~all_zero
+    # dispersion trend, MAD and prior variance (cross-gene reductions)
     with profiling.stage("fused.trend", genes=G):
-        coefs, trend_valid = gamma_trend_fit(base_mean, disp_gene_est,
-                                             use_for_fit)
-    out["trendCoefs"] = coefs
-    out["trendValid"] = trend_valid
-    bm_safe = torch.where(all_zero, torch.ones_like(base_mean), base_mean)
-    disp_fit_full = coefs[0] + coefs[1] / bm_safe
+        ts, trend_out = _fit_trend(fit_type, base_mean, disp_gene_est,
+                                   all_zero, min_disp)
+        out.update(trend_out)
+        bm_safe = torch.where(all_zero, torch.ones_like(base_mean),
+                              base_mean)
+        disp_fit_full = trend_eval(fit_type, ts, bm_safe)
     # varLogDispEsts: MAD^2 over non-zero genes (R/methods.R:172-184)
     resid = torch.log(disp_gene_est) - torch.log(disp_fit_full)
     med = _masked_median(resid, ~all_zero)
@@ -400,7 +628,8 @@ def fused_wald_pipeline(counts, x, size_factors, grid, maxit=100,
     out.update(dispPriorVar=disp_prior_var, varLogDispEsts=var_log_disp)
 
     with profiling.stage("fused.mapIrls", genes=G):
-        post = st.post_trend(est, coefs, disp_prior_var, var_log_disp)
+        post = st.post_trend(est, ts, disp_prior_var, var_log_disp,
+                             disp_fit_full)
     cols = dict(disp_gene_est=disp_gene_est,
                 disp_gene_iter=est["disp_gene_iter"],
                 disp_fit=post["disp_fit"], disp_map=post["disp_map"],
@@ -409,6 +638,9 @@ def fused_wald_pipeline(counts, x, size_factors, grid, maxit=100,
                 dispersion=post["dispersion"], beta=post["beta"],
                 beta_var=post["beta_var"], beta_iter=post["beta_iter"],
                 mu=post["mu"], hat=post["hat"], deviance=post["deviance"])
+    if lrt:
+        for k in ("ll_full", "ll_reduced", "beta_iter_reduced"):
+            cols[k] = post[k]
 
     # ---- Cook's distances + outlier replacement / refit ----
     replace = torch.zeros(G, dtype=torch.bool, device=dev)
@@ -417,9 +649,13 @@ def fused_wald_pipeline(counts, x, size_factors, grid, maxit=100,
     if cells is not None and S > p:
         from scipy.stats import f as f_dist
         cutoff99 = float(f_dist.ppf(0.99, p, S - p))
-        norm_counts = y / sf[None, :]
-        cooks = cooks_distance_dev(y, norm_counts, cols["mu"], cols["hat"],
-                                   cells, p)
+        nf_full_b = sf[None, :] if nfm is None else nfm
+        norm_counts = y / nf_full_b
+        # nbinomWaldTest refreshes mu before Cook's; nbinomLRT does not, so
+        # LRT Cook's sees the gene-wise mu (R/core.R:1436 vs 1888/1959)
+        cooks = cooks_distance_dev(y, norm_counts,
+                                   est["mu_safe"] if lrt else cols["mu"],
+                                   cols["hat"], cells, p)
         cooks = torch.where(all_zero[:, None],
                             torch.full_like(cooks, float("nan")), cooks)
         max_cooks = max_cooks_dev(cooks, cells, p)
@@ -432,15 +668,17 @@ def fused_wald_pipeline(counts, x, size_factors, grid, maxit=100,
             with_outlier = cooks > cutoff99             # NaN -> False
             replace = with_outlier.any(dim=1) & ~all_zero
             trim_base = trimmed_mean_dev(norm_counts, 0.2)
-            replacement = torch.trunc(trim_base[:, None] * sf[None, :])
+            replacement = torch.trunc(trim_base[:, None] * nf_full_b)
             repl_cols = torch.as_tensor(replaceable_np, device=dev)[None, :]
             y_new = torch.where(with_outlier & repl_cols, replacement, y)
             new_all_zero = y_new.sum(dim=1) == 0
             need = replace & ~new_all_zero
 
             # base stats of the replaced rows on the replaced counts
-            # (R/core.R:2508)
-            norm_new = y_new / sf[None, :]
+            # (R/core.R:2508), weighted with observation weights
+            norm_new = y_new / nf_full_b
+            if w_raw is not None:
+                norm_new = w_raw * norm_new
             base_mean = torch.where(replace, norm_new.mean(dim=1), base_mean)
             base_var = torch.where(replace,
                                    norm_new.var(dim=1, correction=1),
@@ -450,8 +688,8 @@ def fused_wald_pipeline(counts, x, size_factors, grid, maxit=100,
             cols["cooks"] = cooks
             idx = torch.nonzero(need).squeeze(1)
             if idx.numel():
-                cols = _refit_rows(st, y_new, idx, cols, coefs,
-                                   disp_prior_var, var_log_disp, cells)
+                cols = _refit_rows(st, y_new, idx, cols, ts, disp_prior_var,
+                                   var_log_disp, cells, w_raw, nfm)
             out["replaceCounts"] = y_new
             out["replaceCooks"] = cols.pop("cooks")
 
@@ -469,18 +707,31 @@ def fused_wald_pipeline(counts, x, size_factors, grid, maxit=100,
     beta_log2 = LOG2E * cols["beta"]
     se_log2 = LOG2E * torch.sqrt(torch.clamp(cols["beta_var"], min=0.0))
     wald_stat = beta_log2 / se_log2
-    sqrt2 = torch.sqrt(torch.tensor(2.0, dtype=dtype, device=dev))
-    wald_p = torch.special.erfc(wald_stat.abs() / sqrt2)
+    wald_p = two_sided_p(wald_stat)
 
     nan = float("nan")
 
     def nanmask(v):
         return torch.where(all_zero, torch.full_like(v, nan), v)
 
-    p_last = nanmask(wald_p[:, -1])
-    stat_last = nanmask(wald_stat[:, -1])
     lfc_last = nanmask(beta_log2[:, -1])
     se_last = nanmask(se_log2[:, -1])
+    if lrt:
+        # the LRT tail (R/core.R:1787-1897); R's pchisq gives p = 1 for a
+        # statistic <= 0, which a ridge-penalized full fit can reach
+        df = p - (1 if reduced_intercept else x_reduced.shape[1])
+        lrt_stat = 2.0 * (cols["ll_full"] - cols["ll_reduced"])
+        lrt_p = torch.special.gammaincc(
+            torch.full_like(lrt_stat, df / 2.0),
+            torch.clamp(lrt_stat, min=0.0) / 2.0)
+        stat_last = nanmask(lrt_stat)
+        p_last = nanmask(lrt_p)
+        out["LRTStatistic"] = stat_last
+        out["LRTPvalue"] = p_last
+        out["betaIterReduced"] = cols["beta_iter_reduced"]
+    else:
+        p_last = nanmask(wald_p[:, -1])
+        stat_last = nanmask(wald_stat[:, -1])
 
     if max_cooks is not None:
         cooks_outlier = torch.where(torch.isnan(max_cooks),
@@ -551,15 +802,102 @@ def default_grid(n_samples, min_disp=1e-8, n=20):
     return np.linspace(np.log(min_disp), np.log(max(10.0, n_samples)), n)
 
 
+def reduced_args(reduced):
+    """A `reduced` spec as (x_reduced array or None, intercept flag): '~ 1'
+    or a 1-column all-ones matrix takes the intercept closed form
+    (R/fitNbinomGLMs.R:99-104)."""
+    if reduced is None:
+        return None, False
+    if isinstance(reduced, str):
+        if reduced.replace(" ", "") not in ("~1", "1", "intercept"):
+            raise ValueError("fused LRT accepts reduced='~ 1' or a model "
+                             "matrix")
+        return None, True
+    reduced = np.asarray(reduced, dtype=np.float64)
+    if reduced.shape[1] == 1 and np.all(reduced == 1.0):
+        return None, True
+    return reduced, False
+
+
+# torch.linalg.eigvalsh on the card (cusolverDnXsyevBatched) refuses a
+# batch of more than about 30,000 matrices, whatever their values
+# (CUSOLVER_STATUS_INVALID_VALUE from its workspace query above 32,016
+# matrices at p = 2 and 29,915 at p = 8), and its workspace takes about
+# 0.5 MiB per matrix whatever p (1 GiB at 2,048, 8.2 GiB at 16,384);
+# torch 2.11.0+cu128, `python -m deseq2_tpu_torch.ops.studies eigvalsh`.
+# The rank tests take their eigenvalues in chunks of this many: 3.7-4.0 ms
+# for 60,000 grams at p = 2-3 on an H100
+EIGH_CHUNK = 2048
+
+
+def weights_ok_dev(w, x):
+    """Per-gene estimability tests of getAndCheckWeights
+    (R/core.R:2697-2752) on w's device: full rank of X'W^2X and of the
+    gram of the rows with weight above the Cox-Reid threshold (dropped
+    columns embedded as identity), by the smallest eigenvalue against the
+    largest times p eps; plus the negative / no-positive checks.  In
+    float64 whatever the pipeline's dtype, so a row float64 accepts is
+    never refused for float32 rounding of the eigenvalues."""
+    w = w.double()
+    x = x.double()
+    m = x.shape[1]
+    mx = w.max(dim=1, keepdim=True).values
+    wn = w / mx
+    eps = torch.finfo(torch.float64).eps
+
+    def full_rank(gram):
+        ev = torch.cat([torch.linalg.eigvalsh(g)
+                        for g in gram.split(EIGH_CHUNK)])
+        return ev[:, 0] > ev[:, -1] * m * eps
+
+    xx = (x[:, :, None] * x[:, None, :]).reshape(x.shape[0], m * m)
+    gram1 = ((wn * wn) @ xx).reshape(-1, m, m)
+    sub = (wn > CR_WEIGHT_THRESHOLD).double()
+    cm = ((sub @ x.abs()) > 0.0).double()
+    gram2 = (sub @ xx).reshape(-1, m, m)
+    gram2 = gram2 * (cm[:, :, None] * cm[:, None, :]) \
+        + torch.diag_embed(1.0 - cm)
+    neg = (w < 0).any(dim=1)
+    nopos = mx[:, 0] <= 0
+    return full_rank(gram1) & full_rank(gram2) & ~neg & ~nopos, \
+        bool(neg.any()), bool(nopos.any())
+
+
+def validated_weights(weights, x_np, device, dtype):
+    """Upload the raw observation weights to `device` in `dtype` and
+    validate them there (getAndCheckWeights' rank tests).  Rows that fail
+    raise ValueError: the host path's weightsFail/allZero bookkeeping is
+    not ported."""
+    w = torch.as_tensor(np.asarray(weights)).to(device=device, dtype=dtype)
+    x = torch.as_tensor(np.asarray(x_np, np.float64), device=device)
+    ok, neg, nopos = weights_ok_dev(w, x)
+    if neg:
+        raise ValueError("weights must be non-negative")
+    if nopos:
+        raise ValueError("each gene needs at least one positive weight")
+    bad = ~ok.cpu().numpy()
+    if bad.any():
+        raise ValueError(
+            f"{int(bad.sum())} row(s) have weights that do not allow "
+            "parameter estimation (rank-deficient weighted design); the "
+            "fused path refuses them, and the host path that flags such "
+            "rows weightsFail/allZero is not ported yet: see "
+            f"{ROADMAP_HOST} (first rows: {np.where(bad)[0][:5].tolist()})")
+    return w
+
+
 def fused_results(counts, x, size_factors=None, maxit=100, min_disp=1e-8,
                   alpha=0.1, independent_filtering=True, two_group=False,
                   min_replicates=7, device=None, dtype=torch.float64,
-                  **unported):
-    """deseq() + results() for the default bulk configuration through the
-    fused pipeline: runs it on `device` (default "cuda"), then picks the
-    independent-filtering cutoff on the host (R/results.R:661-698) and
-    returns the results-table columns as numpy arrays.
-    `size_factors=None` estimates median-of-ratios factors on the device."""
+                  reduced=None, use_t=False, weights=None,
+                  norm_factors=None, fit_type="parametric", **unported):
+    """deseq() + results() through the fused pipeline: runs it on `device`
+    (default "cuda"), then picks the independent-filtering cutoff on the
+    host (R/results.R:661-698) and returns the results-table columns as
+    numpy arrays.  `size_factors=None` estimates median-of-ratios factors
+    on the device; `reduced` ('~ 1' or a matrix) runs the LRT; `weights`
+    (raw, validated here), `norm_factors`, `use_t` and `fit_type` as in
+    fused_wald_pipeline."""
     from ..results import choose_filter_theta
     from ..engine import resolve_device
 
@@ -567,6 +905,14 @@ def fused_results(counts, x, size_factors=None, maxit=100, min_disp=1e-8,
     dev = resolve_device(device)
     x_np = np.asarray(x, dtype=np.float64)
     cells = design_cells(x_np)
+    if weights is not None:
+        weights = validated_weights(weights, x_np, dev, dtype)
+    if norm_factors is not None:
+        if np.shape(norm_factors) != np.shape(counts):
+            raise ValueError("norm_factors must match the counts shape "
+                             "(genes x samples)")
+        norm_factors = torch.as_tensor(np.asarray(norm_factors, np.float64))
+    x_red, red_int = reduced_args(reduced)
     counts_t = torch.as_tensor(np.asarray(counts)).to(dev)
     out = fused_wald_pipeline(
         counts_t, torch.as_tensor(x_np), None if size_factors is None
@@ -574,7 +920,10 @@ def fused_results(counts, x, size_factors=None, maxit=100, min_disp=1e-8,
         torch.as_tensor(default_grid(x_np.shape[0], min_disp)), maxit=maxit,
         min_disp=min_disp, cells=cells, two_group=two_group,
         min_replicates=min_replicates, alpha=alpha,
-        linear_mu=len(set(cells)) == x_np.shape[1], dtype=dtype)
+        linear_mu=len(set(cells)) == x_np.shape[1], dtype=dtype,
+        x_reduced=None if x_red is None else torch.as_tensor(x_red),
+        reduced_intercept=red_int, use_t=use_t, weights=weights,
+        norm_factors=norm_factors, fit_type=fit_type)
 
     def host(v):
         return v.cpu().numpy() if torch.is_tensor(v) else v

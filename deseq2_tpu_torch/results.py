@@ -2,8 +2,9 @@
 BH adjustment.
 
 Reference: results() (R/results.R:298-615), pvalueAdjustment/filtered_p
-(R/results.R:638-740).  Contrasts (getContrast/cleanContrast,
-R/results.R:760-1040) are not ported yet and raise NotImplementedError.
+(R/results.R:638-740), makeWaldTest (R/results.R:1101-1118), with the LRT
+and useT arms.  Contrasts (getContrast/cleanContrast, R/results.R:760-1040)
+are not ported yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from dataclasses import dataclass, field
 import numpy as np
 from scipy.stats import f as f_dist
 from scipy.stats import norm
+from scipy.stats import t as t_dist
 
 from . import profiling
 from .formula import Factor
@@ -135,6 +137,8 @@ def results(dds, contrast=None, name=None, lfc_threshold=0.0,
         raise ValueError("couldn't find results. you should first run deseq()")
     if test is None:
         test = dds.attrs["test"]
+    elif test == "Wald" and dds.attrs["test"] == "LRT":
+        dds = make_wald_test(dds)
     elif test == "LRT" and dds.attrs["test"] == "Wald":
         raise ValueError("the LRT requires the user to run nbinom_lrt or "
                          "deseq(dds, test='LRT')")
@@ -161,6 +165,8 @@ def results(dds, contrast=None, name=None, lfc_threshold=0.0,
                 contrast = (last_var, lv.levels[-1], lv.levels[0])
     if name is None:
         name = res_names[-1]
+
+    use_t = "tDegreesFreedom" in dds.row_data
 
     if (contrast is not None
             and dds.attrs.get("modelMatrixType") == "user-supplied"
@@ -209,7 +215,7 @@ def results(dds, contrast=None, name=None, lfc_threshold=0.0,
         from .parallel.fused import not_ported
         raise not_ported("results() with a contrast")
     with profiling.stage("results.pullColumns"):
-        res = _pull_columns(dds, name)
+        res = _pull_columns(dds, name, test)
 
     # alternative hypotheses / lfcThreshold (R/results.R:464-518)
     if not (lfc_threshold == 0 and alt_hypothesis == "greaterAbs"):
@@ -222,12 +228,22 @@ def results(dds, contrast=None, name=None, lfc_threshold=0.0,
         LFC = res.log2_fold_change
         SE = res.lfc_se
         T = lfc_threshold
-        pfunc = norm.sf
+        if use_t:
+            df = dds.row_data["tDegreesFreedom"]
+
+            def pfunc(q):
+                return t_dist.sf(q, df)
+        else:
+            pfunc = norm.sf
         with np.errstate(divide="ignore", invalid="ignore"):
             if alt_hypothesis == "greaterAbs":
                 # two-tailed sum version (2023, Nikos Ignatiadis)
-                new_p = (norm.cdf(-np.abs(LFC) + T, scale=SE)
-                         + norm.cdf(-np.abs(LFC) - T, scale=SE))
+                if use_t:
+                    new_p = (t_dist.sf((np.abs(LFC) - T) / SE, df)
+                             + t_dist.sf((np.abs(LFC) + T) / SE, df))
+                else:
+                    new_p = (norm.cdf(-np.abs(LFC) + T, scale=SE)
+                             + norm.cdf(-np.abs(LFC) - T, scale=SE))
                 new_stat = LFC / SE
             elif alt_hypothesis == "greaterAbs2014":
                 new_stat = np.sign(LFC) * np.maximum((np.abs(LFC) - T) / SE, 0)
@@ -365,11 +381,15 @@ def _fused_tail_results(dds, contrast, name, lfc_threshold,
     return res
 
 
-def _pull_columns(dds, name):
+def _pull_columns(dds, name, test):
     lfc = dds.row_data[name].astype(float)
     lfc_se = dds.row_data["SE_" + name].astype(float)
-    stat = dds.row_data["WaldStatistic_" + name].astype(float)
-    pval = dds.row_data["WaldPvalue_" + name].astype(float)
+    if test == "Wald":
+        stat = dds.row_data["WaldStatistic_" + name].astype(float)
+        pval = dds.row_data["WaldPvalue_" + name].astype(float)
+    else:
+        stat = dds.row_data["LRTStatistic"].astype(float)
+        pval = dds.row_data["LRTPvalue"].astype(float)
     return DESeqResults(base_mean=dds.row_data["baseMean"].copy(),
                         log2_fold_change=lfc.copy(), lfc_se=lfc_se.copy(),
                         stat=stat.copy(), pvalue=pval.copy(),
@@ -449,3 +469,21 @@ def pvalue_adjustment(res, independent_filtering, filter, theta, alpha,
         padj = p_adjust(res.pvalue, p_adjust_method)
     res.padj = padj
     return res
+
+
+def make_wald_test(dds):
+    """Add Wald statistics to an LRT-fitted object (reference
+    makeWaldTest, R/results.R:1101-1118)."""
+    dds = dds.copy()
+    for n in dds.results_names():
+        beta = dds.row_data[n].astype(float)
+        se = dds.row_data["SE_" + n].astype(float)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            stat = beta / se
+        pval = 2.0 * norm.sf(np.abs(stat))
+        ns = n.replace("_", " ")
+        dds.set_row_data(f"WaldStatistic_{n}", stat, "results",
+                         f"Wald statistic: {ns}")
+        dds.set_row_data(f"WaldPvalue_{n}", pval, "results",
+                         f"Wald test p-value: {ns}")
+    return dds

@@ -141,3 +141,96 @@ def test_plain_grid_matches_xla_and_pallas(p, use_prior):
         lp_got = _lp(got, y, x, mu, pm, pv, use_prior)
         lp_pal = _lp(pal, y, x, mu, pm, pv, use_prior)
         assert np.all(lp_got >= lp_pal - 1e-6 * np.abs(lp_pal) - 1e-6)
+
+
+def _weights(y, x, seed=9):
+    """tests/test_pallas_ls.py:test_ls_kernel_weighted_matches_xla's
+    weights: max-1 rows, with every treated sample of the first 10 genes
+    below the Cox-Reid threshold so their treatment column drops out."""
+    rng = np.random.default_rng(seed)
+    w = np.clip(rng.random(y.shape) + 0.2, 0.0, 1.0)
+    treated = x[:, 1] > 0
+    w[:10][:, treated] = 1e-3
+    w = w / w.max(axis=1, keepdims=True)
+    w[:10][:, treated] = 1e-3
+    return w
+
+
+def test_weighted_cr_masks_drop_columns():
+    y, x, _, _, _ = _sim(G=40, seed=4)
+    w = _weights(y, x)
+    rm, cm = tdisp.make_cr_masks(*_t(x, w))
+    jrm, jcm = jdisp.make_cr_masks(jnp.asarray(x), jnp.asarray(w), 1e-2, True)
+    np.testing.assert_array_equal(rm.numpy(), np.asarray(jrm))
+    np.testing.assert_array_equal(cm.numpy(), np.asarray(jcm))
+    assert not cm[:10, 1].any() and cm[10:].all()
+
+
+@pytest.mark.parametrize("fn", ["log_posterior", "dlog_posterior"])
+def test_weighted_posterior_matches(fn):
+    y, x, mu, la0, _ = _sim(G=200, seed=3)
+    w = _weights(y, x)
+    pm = np.log(np.full(len(y), 0.5))
+    rm, cm = tdisp.make_cr_masks(*_t(x, w))
+    t = getattr(tdisp, fn)(*_t(la0, y, mu, x, pm), 1.3, True,
+                           torch.as_tensor(w), rm, cm).numpy()
+    jrm, jcm = jdisp.make_cr_masks(jnp.asarray(x), jnp.asarray(w), 1e-2, True)
+    j = np.asarray(getattr(jdisp, fn)(*_j(la0, y, mu, x, pm), 1.3, True,
+                                      weights=jnp.asarray(w),
+                                      use_weights=True, row_mask=jrm,
+                                      col_mask=jcm))
+    np.testing.assert_allclose(t, j, rtol=1e-10, atol=1e-10)
+
+
+def _wlp(la, y, x, mu, pm, pv, use_prior, w):
+    rm, cm = tdisp.make_cr_masks(*_t(x, w))
+    return tdisp.log_posterior(*_t(la, y, mu, x, pm), pv, use_prior,
+                               torch.as_tensor(w), rm, cm).numpy()
+
+
+@pytest.mark.parametrize("p,use_prior", [(2, True), (2, False), (3, True),
+                                         (1, False)])
+def test_weighted_line_search_matches_xla_and_pallas(p, use_prior):
+    """tests/test_pallas_ls.py:test_ls_kernel_weighted_matches_xla's recipe
+    (forced CR column drops on the first 10 genes) and tolerances: log
+    alpha equal to 1e-8 for over 99% of genes, the rest at a posterior at
+    least as good."""
+    y, x, mu, la0, _ = _sim(G=200, p=p, seed=4)
+    w = _weights(y, x) if p > 1 else np.clip(
+        np.random.default_rng(9).random(y.shape) + 0.2, 0.0, 1.0)
+    pm = np.log(np.full(len(y), 0.5))
+    got = {k: v.numpy() for k, v in fit_disp_line_search(
+        *_t(y, x, mu, la0, pm), 1.3, MIN_LA, maxit=100,
+        use_prior=use_prior, weights=torch.as_tensor(w)).items()}
+    refs = [jdisp._fit_disp_line_search_core(
+        *_j(y, x, mu, la0, pm), 1.3, MIN_LA, maxit=100, use_prior=use_prior,
+        weights=jnp.asarray(w), use_weights=True)]
+    if p >= 2:
+        refs.append(fit_disp_line_search_pallas(
+            *_j(y, x, mu, la0, pm), 1.3, MIN_LA, maxit=100,
+            use_prior=use_prior, interpret=True, weights=jnp.asarray(w)))
+    for ref in refs:
+        la_r = np.asarray(ref["log_alpha"])
+        same = np.isclose(la_r, got["log_alpha"], rtol=1e-8, atol=1e-9)
+        assert same.mean() > 0.99, (~same).sum()
+        lp_r = _wlp(la_r, y, x, mu, pm, 1.3, use_prior, w)
+        lp_g = _wlp(got["log_alpha"], y, x, mu, pm, 1.3, use_prior, w)
+        assert np.all(lp_g >= lp_r - 1e-6)
+        np.testing.assert_allclose(got["initial_lp"],
+                                   np.asarray(ref["initial_lp"]),
+                                   rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("use_prior", [False, True])
+def test_weighted_grid_matches_xla(use_prior):
+    """The weighted grid (the JAX package runs it on its XLA core only):
+    the same pick for every gene."""
+    y, x, mu, _, grid = _sim(G=200, seed=8)
+    w = _weights(y, x)
+    pm = np.log(np.full(len(y), 0.5))
+    got = fit_disp_grid(*_t(y, x, mu, grid, pm), 1.3, use_prior=use_prior,
+                        weights=torch.as_tensor(w)).numpy()
+    xla = np.asarray(jdisp._fit_disp_grid_core(
+        *_j(y, x, mu, grid, pm), 1.3, use_prior=use_prior,
+        weights=jnp.asarray(w), use_weights=True))
+    np.testing.assert_array_equal(got, xla)

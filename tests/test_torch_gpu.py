@@ -7,7 +7,9 @@ a fixture, not at import).  Run them on a machine with one:
 The inputs, readings and limits are those of chip_smoke.py's kernel phase,
 from deseq2_tpu_torch/ops/checks.py: float64 holds the kernels to the plain
 versions' trajectories; float32 holds kernel and plain version alike
-against the plain version run in float64.
+against the plain version run in float64.  Every kernel runs unweighted
+and weighted (observation weights, with forced Cox-Reid column drops for
+p >= 2).
 """
 
 import numpy as np
@@ -31,29 +33,34 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _inputs(G, S, p, seed, dtype, dev):
-    return checks.as_tensors(checks.solver_inputs(G, S, p, seed), dtype, dev)
+def _inputs(G, S, p, seed, dtype, dev, weighted=False):
+    return checks.as_tensors(checks.solver_inputs(G, S, p, seed,
+                                                  weighted=weighted),
+                             dtype, dev)
 
 
-CASES = [(dt, p, S, G) for dt in (torch.float32, torch.float64)
-         for p in (1, 2, 3) for S, G in ((24, 333), (3000, 37))]
+CASES = [(dt, p, S, G, wt) for wt in (False, True)
+         for dt in (torch.float32, torch.float64)
+         for p in (1, 2, 3) for S, G in checks.SHAPES]
 
 
 def _id(c):
-    return f"{str(c[0])[6:]}-p{c[1]}-S{c[2]}"
+    return f"{str(c[0])[6:]}-p{c[1]}-S{c[2]}" + ("-w" if c[4] else "")
+
+
+def _counter(fn, weighted):
+    return fn.launches_weighted if weighted else fn.launches
 
 
 @pytest.mark.parametrize("case", CASES, ids=_id)
 def test_irls_kernel_matches_plain(cuda, case):
-    dt, p, S, G = case
-    d = _inputs(G, S, p, 10 * p + S, dt, cuda)
-    args = (d["y"], d["x"], torch.ones(S, dtype=dt, device=cuda), d["alpha"],
-            d["b0"], checks.ridge_for(p, dt, cuda))
-    n0 = fit_beta.launches
-    k = fit_beta(*args)
+    dt, p, S, G, wt = case
+    d = _inputs(G, S, p, 10 * p + S, dt, cuda, wt)
+    n0 = _counter(fit_beta, wt)
+    k = checks.run_irls(fit_beta, d)
     torch.cuda.synchronize()
-    assert fit_beta.launches == n0 + 1
-    pl = irls.fit_beta_plain(*args)
+    assert _counter(fit_beta, wt) == n0 + 1
+    pl = checks.run_irls(irls.fit_beta_plain, d)
     r = checks.check_irls(k, pl)
     assert r["ok"], r
     if dt == torch.float64:
@@ -67,13 +74,13 @@ def test_irls_kernel_matches_plain(cuda, case):
 @pytest.mark.parametrize("use_prior", [False, True])
 @pytest.mark.parametrize("case", CASES, ids=_id)
 def test_line_search_kernel_matches_plain(cuda, case, use_prior):
-    dt, p, S, G = case
-    d = _inputs(G, S, p, 10 * p + S, dt, cuda)
-    args = (d["y"], d["x"], d["mu"], d["la0"], d["pm"], checks.PRIOR_VAR,
-            MIN_LA)
-    k = fit_disp_line_search(*args, use_prior=use_prior)
+    dt, p, S, G, wt = case
+    d = _inputs(G, S, p, 10 * p + S, dt, cuda, wt)
+    n0 = _counter(fit_disp_line_search, wt)
+    k = checks.run_ls(fit_disp_line_search, d, use_prior)
     torch.cuda.synchronize()
-    pl = disp.fit_disp_line_search_plain(*args, use_prior=use_prior)
+    assert _counter(fit_disp_line_search, wt) == n0 + 1
+    pl = checks.run_ls(disp.fit_disp_line_search_plain, d, use_prior)
     ref = (checks.line_search_reference(d, use_prior)
            if dt == torch.float32 else None)
     r = checks.check_ls(k, pl, d, use_prior, ref=ref)
@@ -83,12 +90,13 @@ def test_line_search_kernel_matches_plain(cuda, case, use_prior):
 @pytest.mark.parametrize("use_prior", [False, True])
 @pytest.mark.parametrize("case", CASES, ids=_id)
 def test_grid_kernel_matches_plain(cuda, case, use_prior):
-    dt, p, S, G = case
-    d = _inputs(G, S, p, 10 * p + S, dt, cuda)
-    args = (d["y"], d["x"], d["mu"], d["grid"], d["pm"], checks.PRIOR_VAR)
-    k = fit_disp_grid(*args, use_prior=use_prior)
+    dt, p, S, G, wt = case
+    d = _inputs(G, S, p, 10 * p + S, dt, cuda, wt)
+    n0 = _counter(fit_disp_grid, wt)
+    k = checks.run_grid(fit_disp_grid, d, use_prior)
     torch.cuda.synchronize()
-    pl = disp.fit_disp_grid_plain(*args, use_prior=use_prior)
+    assert _counter(fit_disp_grid, wt) == n0 + 1
+    pl = checks.run_grid(disp.fit_disp_grid_plain, d, use_prior)
     ref = (checks.grid_reference(d, use_prior)
            if dt == torch.float32 else None)
     r = checks.check_grid(k, pl, d, use_prior, ref=ref)
@@ -106,6 +114,23 @@ def test_wrapper_refuses_unsupported(cuda):
                              MIN_LA)
 
 
+def test_weights_ok_dev_on_card_matches_cpu(cuda):
+    """The weights' rank tests on the card at the main path's 60,000
+    genes (more than one batch of the card's eigvalsh) give the CPU's
+    mask, rank-deficient rows included."""
+    from deseq2_tpu_torch.parallel.fused import weights_ok_dev
+    rng = np.random.default_rng(3)
+    w = rng.uniform(0.3, 1.0, (60000, 24))
+    w[[7, 31000, 59999], 12:] = 0.0
+    x = np.column_stack([np.ones(24), np.repeat([0.0, 1.0], 12)])
+    ok, _, _ = weights_ok_dev(torch.as_tensor(w, device=cuda),
+                              torch.as_tensor(x, device=cuda))
+    ref, _, _ = weights_ok_dev(torch.as_tensor(w), torch.as_tensor(x))
+    assert ok.is_cuda
+    assert torch.equal(ok.cpu(), ref)
+    assert torch.nonzero(~ref).squeeze(1).tolist() == [7, 31000, 59999]
+
+
 def test_public_path_on_card_matches_cpu(cuda):
     """deseq() + results() on the card in float64 against device="cpu"."""
     import deseq2_tpu_torch as dt
@@ -115,6 +140,42 @@ def test_public_path_on_card_matches_cpu(cuda):
     on_cpu = dt.results(dt.deseq(dds, device="cpu"))
     assert fit_disp_line_search.launches >= n0 + 2
     for col in ("log2FoldChange", "lfcSE", "pvalue", "padj"):
+        a, b = np.asarray(on_card[col]), np.asarray(on_cpu[col])
+        assert np.array_equal(np.isnan(a), np.isnan(b)), col
+        m = ~np.isnan(a)
+        np.testing.assert_allclose(a[m], b[m], rtol=1e-6, atol=1e-8,
+                                   err_msg=col)
+
+
+@pytest.mark.parametrize("variant", ["weights", "lrt_norm_factors"])
+def test_public_variant_on_card_matches_cpu(cuda, variant):
+    """deseq() + results() on the card in float64 against device="cpu" for
+    a weighted Wald run (weighted K1 and K2) and an LRT with gene x sample
+    normalization factors on a ~ batch + condition design."""
+    import deseq2_tpu_torch as dt
+    dds = dt.make_example_dataset(n=400, m=12, beta_sd=1.0, seed=2)
+    rng = np.random.default_rng(2)
+    kw = {}
+    if variant == "weights":
+        dds.assays["weights"] = rng.uniform(0.3, 1.0, dds.counts.shape)
+        fns = (fit_beta, fit_disp_line_search)
+        before = [f.launches_weighted for f in fns]
+    else:
+        dds.col_data["batch"] = dt.Factor(np.tile(["1", "2"], 6),
+                                          levels=["1", "2"])
+        dds.design = dt.parse_formula("~ batch + condition")
+        nf = np.exp(rng.normal(0.0, 0.2, dds.counts.shape))
+        dds.normalization_factors = nf / np.exp(
+            np.log(nf).mean(axis=1))[:, None]
+        kw = dict(test="LRT", reduced="~ batch")
+        fns = (fit_beta,)
+        before = [fit_beta.launches]
+    on_card = dt.results(dt.deseq(dds, **kw))
+    after = [f.launches_weighted if variant == "weights" else f.launches
+             for f in fns]
+    assert all(a > b for a, b in zip(after, before))
+    on_cpu = dt.results(dt.deseq(dds, device="cpu", **kw))
+    for col in ("log2FoldChange", "lfcSE", "stat", "pvalue", "padj"):
         a, b = np.asarray(on_card[col]), np.asarray(on_cpu[col])
         assert np.array_equal(np.isnan(a), np.isnan(b)), col
         m = ~np.isnan(a)

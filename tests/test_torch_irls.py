@@ -114,3 +114,65 @@ def test_plain_irls_f32_against_f64():
     assert conv.mean() > 0.95
     np.testing.assert_allclose(got["beta"][conv], ref["beta"][conv],
                                rtol=1e-3, atol=1e-3)
+
+
+def _weights(y, seed=7):
+    """tests/test_pallas_irls.py:test_irls_kernel_weighted_matches_xla's
+    weights, max-1 normalized."""
+    rng = np.random.default_rng(seed)
+    w = np.clip(rng.random(y.shape) + 0.25, 0.0, 1.0)
+    return w / w.max(axis=1, keepdims=True)
+
+
+@pytest.mark.parametrize("p", [1, 2, 3])
+def test_weighted_irls_matches_xla_and_pallas(p):
+    """Weighted plain K1 against the weighted XLA core, and (p >= 2, the
+    Pallas kernel's gate) against the weighted Pallas kernel in interpret
+    mode, with tests/test_pallas_irls.py's tolerances."""
+    y, x, nf, alpha, beta_init, ridge = _sim(p=p, seed=5)
+    w = _weights(y)
+    got = {k: v.numpy() for k, v in fit_beta(
+        *(torch.as_tensor(a) for a in (y, x, nf, alpha, beta_init, ridge)),
+        maxit=100, min_mu=0.5, weights=torch.as_tensor(w)).items()}
+    jargs = [jnp.asarray(a) for a in (y, x, nf, alpha, beta_init, ridge)]
+    refs = [_fit_beta_core(*jargs, maxit=100, min_mu=0.5,
+                           weights=jnp.asarray(w), use_weights=True)]
+    if p >= 2:
+        refs.append(fit_beta_pallas(*jargs, maxit=100, min_mu=0.5,
+                                    interpret=True, weights=jnp.asarray(w)))
+    conv = np.asarray(refs[0]["iter"]) < 100
+    assert conv.mean() > 0.95
+    for ref in refs:
+        ref = {k: np.asarray(v) for k, v in ref.items()}
+        for k, rtol in (("beta", 1e-6), ("beta_var", 1e-5),
+                        ("deviance", 1e-8), ("hat_diag", 1e-5)):
+            np.testing.assert_allclose(got[k][conv], ref[k][conv],
+                                       rtol=rtol, atol=1e-7, err_msg=k)
+        assert np.array_equal(got["iter"][conv], ref["iter"][conv])
+
+
+@pytest.mark.parametrize("nf_kind", ["row", "matrix"])
+def test_weighted_irls_norm_factors(nf_kind):
+    """Weights with an (S,) row and with gene x sample (G,S) normalization
+    factors against the weighted XLA core (which takes the (G,S) matrix)."""
+    y, x, _, alpha, beta_init, ridge = _sim(p=2, seed=9)
+    rng = np.random.default_rng(2)
+    nf_m = np.exp(rng.normal(0.0, 0.2, y.shape))
+    nf_m /= np.exp(np.log(nf_m).mean(axis=1))[:, None]
+    if nf_kind == "row":
+        nf_in = np.exp(rng.normal(0.0, 0.3, y.shape[1]))
+        nf_m = np.broadcast_to(nf_in, y.shape).copy()
+    else:
+        nf_in = nf_m
+    w = _weights(y, seed=3)
+    got = {k: v.numpy() for k, v in fit_beta(
+        *(torch.as_tensor(a) for a in (y, x, nf_in, alpha, beta_init,
+                                       ridge)),
+        weights=torch.as_tensor(w)).items()}
+    ref = {k: np.asarray(v) for k, v in _fit_beta_core(
+        *(jnp.asarray(a) for a in (y, x, nf_m, alpha, beta_init, ridge)),
+        maxit=100, min_mu=0.5, weights=jnp.asarray(w),
+        use_weights=True).items()}
+    conv = ref["iter"] < 100
+    assert conv.mean() > 0.95
+    _assert_matches(got, ref, conv)

@@ -1,6 +1,9 @@
 """The port's public entry points: deseq(dds, device="cpu") + results()
-against the JAX package's fused_results on the same arrays, and the
-refusals of what this slice does not port.
+against the JAX package's fused_results on the same arrays, for the
+default Wald route and each variant (LRT, local and mean trends, use_t,
+observation weights, normalization factors, the parametric trend's
+fallback to the local one), and the refusals of what the port does not
+cover yet.
 
 float64 on the CPU on both sides; tolerance rtol 1e-6, atol 1e-9 with
 equal NaN patterns, as in tests/test_fused_exact.py.
@@ -113,23 +116,147 @@ def test_deseq_without_card_raises(monkeypatch):
         tdt.deseq(_port_dataset(counts, labels))
 
 
-@pytest.mark.parametrize("kwargs", [dict(test="LRT", reduced="~ 1"),
-                                    dict(beta_prior=True),
-                                    dict(fit_type="local"),
-                                    dict(use_t=True),
-                                    dict(engine="host")])
+@pytest.mark.parametrize("kwargs", [dict(beta_prior=True),
+                                    dict(engine="host"),
+                                    dict(fit_type="glmGamPoi"),
+                                    dict(sf_type="poscounts"),
+                                    dict(mesh=object())])
 def test_unported_options_raise(kwargs):
+    """What the port still refuses (the LRT, local trend and use_t cases
+    that stood here run now: test_lrt_public, test_trend_fit_types_public,
+    test_use_t_public)."""
     counts, labels, _ = _arrays(n=50)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tdt.deseq(_port_dataset(counts, labels), device="cpu", **kwargs)
 
 
+def _public_vs_jax(counts, labels, x, deseq_kw, ref_kw, prep=None):
+    """Port deseq(device="cpu") + results() against JAX fused_results on
+    the same arrays: the five results columns and padj."""
+    dds = _port_dataset(counts, labels)
+    if prep is not None:
+        prep(dds)
+    fit = tdt.deseq(dds, device="cpu", **deseq_kw)
+    res = tdt.results(fit)
+    ref = jfused.fused_results(counts, x, None, two_group=True, **ref_kw)
+    for col in ("baseMean", "log2FoldChange", "lfcSE", "stat", "pvalue",
+                "padj"):
+        _cmp(res[col], ref[col], col)
+    return fit, res
+
+
+def test_lrt_public():
+    """deseq(test="LRT", reduced="~ 1") + results(): the LRT statistic and
+    p-value, the JAX package's LRT columns and descriptions."""
+    counts, labels, x = _arrays(n=200, seed=11)
+    fit, res = _public_vs_jax(counts, labels, x,
+                              dict(test="LRT", reduced="~ 1"),
+                              dict(reduced="~ 1"))
+    assert fit.attrs["test"] == "LRT"
+    assert fit.row_meta["LRTPvalue"][1] == \
+        "LRT p-value: '~ condition' vs '~ 1'"
+    for col in ("LRTStatistic", "fullBetaConv", "reducedBetaConv",
+                "deviance"):
+        assert col in fit.row_data
+    _cmp(fit.row_data["LRTStatistic"], res["stat"], "LRTStatistic")
+    wald = tdt.results(fit, test="Wald")
+    _cmp(wald["log2FoldChange"], res["log2FoldChange"], "Wald LFC")
+    p = np.asarray(wald["pvalue"])
+    assert np.isfinite(p).mean() > 0.9
+
+
+def test_lrt_reduced_matrix_public():
+    """A reduced model matrix with a full model matrix (both user-supplied)
+    takes the reduced IRLS fit."""
+    counts, labels, x = _arrays(n=150, seed=12)
+    dds = _port_dataset(counts, labels)
+    fit = tdt.deseq(dds, device="cpu", test="LRT", full=x,
+                    reduced=np.ones((x.shape[0], 1)))
+    res = tdt.results(fit)
+    ref = jfused.fused_results(counts, x, None, two_group=True,
+                               reduced=np.ones((x.shape[0], 1)))
+    _cmp(res["stat"], ref["stat"], "LRT stat")
+    _cmp(res["pvalue"], ref["pvalue"], "LRT pvalue")
+    assert fit.row_meta["LRTStatistic"][1] == \
+        "LRT statistic: full vs reduced"
+    with pytest.raises(ValueError, match="more than the number of columns"):
+        tdt.deseq(dds, device="cpu", test="LRT", full=x[:, :1],
+                  reduced=np.ones((x.shape[0], 1)))
+
+
+@pytest.mark.parametrize("fit_type", ["local", "mean"])
+def test_trend_fit_types_public(fit_type):
+    """tests/test_fused_exact.py:test_fused_local_and_mean_trend_match_host's
+    fixture."""
+    counts, labels, x = _arrays(n=300, seed=11)
+    fit, _ = _public_vs_jax(counts, labels, x, dict(fit_type=fit_type),
+                            dict(fit_type=fit_type))
+    fn = fit.dispersion_function
+    assert fn.fit_type == fit_type
+    bm = np.asarray(fit.row_data["baseMean"])
+    live = bm > 0
+    # the host-side trend function (for local, the pipeline's
+    # local_trend_eval over the fetched fit points) reproduces the
+    # pipeline's dispFit; equal to the last bit for local on the CPU
+    _cmp(fn(bm[live]), np.asarray(fit.row_data["dispFit"])[live],
+         "dispersion_function", rtol=1e-12)
+
+
+def test_use_t_public():
+    counts, labels, x = _arrays(n=200, m=8, seed=23)
+    fit, res = _public_vs_jax(counts, labels, x, dict(use_t=True),
+                              dict(use_t=True))
+    df = np.asarray(fit.row_data["tDegreesFreedom"])
+    assert np.all(df[np.isfinite(df)] == 8 - 2)
+    # a non-default call runs the host flow with t tails
+    thr = tdt.results(fit, lfc_threshold=0.5)
+    ok = np.isfinite(thr["pvalue"]) & np.isfinite(res["pvalue"])
+    assert np.all(np.asarray(thr["pvalue"])[ok] >= res["pvalue"][ok] - 1e-12)
+
+
+def test_weights_public():
+    """A weights assay runs the weighted path (weighted K1/K2 on the card)
+    and matches the JAX package, use_t with per-gene df included."""
+    counts, labels, x = _arrays(n=150, seed=33)
+    w = np.random.default_rng(33).uniform(0.3, 1.0, counts.shape)
+
+    def prep(dds):
+        dds.assays["weights"] = w
+    fit, _ = _public_vs_jax(counts, labels, x, dict(use_t=True),
+                            dict(weights=w, use_t=True), prep)
+    assert fit.attrs["weightsOK"] is True
+    wn = w / w.max(axis=1, keepdims=True)
+    df = np.asarray(fit.row_data["tDegreesFreedom"])
+    live = np.isfinite(df)
+    _cmp(df[live], (wn.sum(axis=1) - 2)[live], "tDegreesFreedom",
+         rtol=1e-12)
+
+
 def test_weights_raise():
+    """Weights that leave a gene's weighted design rank-deficient raise the
+    JAX package's ValueError, naming the host path's weightsFail
+    bookkeeping (not ported) and its ROADMAP.md item."""
     counts, labels, _ = _arrays(n=50)
     dds = _port_dataset(counts, labels)
-    dds.assays["weights"] = np.ones(counts.shape)
-    with pytest.raises(NotImplementedError, match="observation weights"):
+    w = np.ones(counts.shape)
+    w[3, 6:] = 0.0
+    dds.assays["weights"] = w
+    with pytest.raises(ValueError, match="weightsFail.*ROADMAP.md"):
         tdt.deseq(dds, device="cpu")
+
+
+def test_norm_factors_public():
+    counts, labels, x = _arrays(n=200, seed=11)
+    rng = np.random.default_rng(5)
+    nf = np.exp(rng.normal(0.0, 0.2, counts.shape))
+    nf = nf / np.exp(np.mean(np.log(nf), axis=1))[:, None]
+
+    def prep(dds):
+        dds.normalization_factors = nf
+    fit, _ = _public_vs_jax(counts, labels, x, dict(test="LRT",
+                                                    reduced="~ 1"),
+                            dict(norm_factors=nf, reduced="~ 1"), prep)
+    assert fit.size_factors is None
 
 
 def test_contrast_raises(public_run):
@@ -140,8 +267,9 @@ def test_contrast_raises(public_run):
 
 def test_parametric_trend_failure_raises():
     """Poisson counts make the parametric gamma fit leave its valid range;
-    the JAX package then substitutes the local trend, which this slice
-    does not port, so the port raises and names it."""
+    the port then substitutes the local trend as the JAX package's engine
+    does (engine.py:495-509), warning when quiet=False, and matches JAX's
+    local run column for column."""
     rng = np.random.default_rng(0)
     counts = rng.poisson(np.exp(rng.normal(5, 1, (200, 1)))
                          * np.ones((1, 12)))
@@ -152,6 +280,15 @@ def test_parametric_trend_failure_raises():
         jnp.asarray(np.linspace(np.log(1e-8), np.log(12.0), 20)),
         cells=jfused.design_cells(x))
     assert not bool(ref["trendValid"])
-    with pytest.raises(NotImplementedError, match="local dispersion trend"):
-        tdt.deseq(_port_dataset(counts, labels, size_factors=np.ones(12)),
-                  device="cpu")
+    with pytest.warns(UserWarning, match="local regression fit was "
+                                         "substituted"):
+        fit = tdt.deseq(_port_dataset(counts, labels,
+                                      size_factors=np.ones(12)),
+                        device="cpu", quiet=False)
+    assert fit.dispersion_function.fit_type == "local"
+    res = tdt.results(fit)
+    jres = jfused.fused_results(counts, x, np.ones(12), two_group=True,
+                                fit_type="local")
+    for col in ("log2FoldChange", "lfcSE", "stat", "pvalue", "padj"):
+        _cmp(res[col], jres[col], col)
+    _cmp(fit.row_data["dispFit"], jres["dispFit"], "dispFit")
