@@ -8,12 +8,17 @@ Phases; any failure exits non-zero and no phase's failure is caught:
    count.  No card: exit 2 before anything else.
 2. build the three CUDA kernels from deseq2_tpu_torch/csrc (one nvcc per
    source, started together) and print ptxas' registers / shared memory /
-   spills per instantiation.
+   spills per library, and for the p = 2 instantiations of the
+   warp-per-gene kernels (K1, K2) their registers, spills and resident
+   warps per SM.
 3. hold each kernel, unweighted and weighted, against its plain PyTorch
    version on the card, in float32 and float64, for p = 1, 2, 3, at S = 24
    and S = 3000 with a ragged gene count (weighted: forced Cox-Reid column
    drops); in float32 both are also held against the plain version run in
-   float64 (readings and limits: deseq2_tpu_torch/ops/checks.py).
+   float64 (readings and limits: deseq2_tpu_torch/ops/checks.py).  K1 and
+   K2 also at checks.EDGES (S = 31, 33, 65; p = 5, 8; the float32 readings
+   that rounding alone fails, checks.ROUNDING_BOUND, held to the float64
+   fit or printed), and every K1 and K2 launch twice, bit-identical.
 4. the main path at full width: 60,000 genes x 1,024 samples, ~ condition,
    public deseq() + results() in float32 (a cold and a warm call; the
    launch counters are zeroed just before the warm call and read just
@@ -77,6 +82,47 @@ def ptxas_summary(text):
             f", static smem <= {max(smem or [0])} B, spill bytes {spill}")
 
 
+def ptxas_functions(text):
+    """{kernel symbol: (registers, spill bytes)} from nvcc -Xptxas -v."""
+    import re
+    out = {}
+    for part in text.split("Compiling entry function '")[1:]:
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.findall(r"(\d+) bytes spill (?:stores|loads)", part)
+        out[part.split("'", 1)[0]] = (int(regs.group(1)) if regs else -1,
+                                      sum(int(v) for v in spill))
+    return out
+
+
+def warp_kernel_resources():
+    """Registers, spill bytes and resident warps per SM (the occupancy
+    calculator at the main path's S) of the p = 2 instantiations of K1 and
+    K2, the warp-per-gene kernels."""
+    import ctypes
+    import re
+
+    from deseq2_tpu_torch.ops import build
+    out = {}
+    for name, sym, query, extra in (
+            ("disp_ls", "ls_kernel", "ls_blocks_per_sm", ()),
+            ("irls", "irls_kernel", "irls_blocks_per_sm", (1,))):
+        funcs = ptxas_functions(build.log_path(name).read_text())
+        fn = build.bind(build.load(name), query,
+                        [ctypes.c_int] * (4 + len(extra)))
+        for t, dname in (("f", "float32"), ("d", "float64")):
+            for w in (0, 1):
+                hit = [v for k, v in funcs.items()
+                       if re.search(rf"{sym}I{t}Li2ELb{w}E", k)]
+                regs, spill = hit[0] if len(hit) == 1 else (-1, -1)
+                blocks = fn(int(t == "d"), w, 2, S_MAIN, *extra)
+                key = f"{name}{'_w' if w else ''} {dname}"
+                out[key] = dict(registers=regs, spill_bytes=spill,
+                                warps_per_sm=4 * blocks)
+                log(f"  {key} p=2: {regs} registers, {spill} spill bytes, "
+                    f"{4 * blocks} resident warps per SM at S={S_MAIN}")
+    return out
+
+
 def smi_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -90,18 +136,11 @@ def smi_line():
 
 @functools.lru_cache(maxsize=2)
 def make_inputs(G, S, seed=0):
-    """bench.py's make_inputs; cached, since every full-width phase uses the
-    same seed-0 matrix (callers only read it)."""
-    rng = np.random.default_rng(seed)
-    S2 = S // 2
-    x = np.column_stack([np.ones(S), np.repeat([0.0, 1.0], [S2, S - S2])])
-    intercept = rng.normal(4.0, 2.0, G)
-    mu0 = 2.0 ** intercept
-    disp = 4.0 / mu0 + 0.1
-    mu = mu0[:, None] * np.ones((1, S))
-    size = 1.0 / disp[:, None]
-    counts = rng.negative_binomial(size, size / (size + mu)).astype(np.int32)
-    return counts, x
+    """bench.py's make_inputs (deseq2_tpu_torch/ops/checks.py:bench_counts);
+    cached, since every full-width phase uses the same seed-0 matrix
+    (callers only read it)."""
+    from deseq2_tpu_torch.ops import checks
+    return checks.bench_counts(G, S, seed)
 
 
 def gate_inputs(g, s, seed=0):
@@ -128,7 +167,13 @@ def fmt(r):
 
 
 def check_kernels(torch, dev, modes=(False, True)):
-    """Each kernel, unweighted and weighted, against its plain version."""
+    """Each kernel, unweighted and weighted, against its plain version at
+    checks.SHAPES for p = 1, 2, 3; K1 and K2 also at checks.EDGES (sample
+    counts where a warp's lanes wrap, p = 5 and 8).  Every reading is gated
+    under checks.TOL but the float32 ones in checks.ROUNDING_BOUND, which
+    rounding alone fails: there K1 is held to the float64 fit
+    (checks.check_irls_f64) and K2's readings are printed.  K1 and K2 run
+    twice on every input and must give the same outputs bit for bit."""
     from deseq2_tpu_torch.ops import checks, disp, irls
     from deseq2_tpu_torch.ops.cuda_grid import fit_disp_grid
     from deseq2_tpu_torch.ops.cuda_irls import fit_beta
@@ -137,49 +182,77 @@ def check_kernels(torch, dev, modes=(False, True)):
     worst = {k + sfx: 0.0 for k in ("irls", "disp_ls", "disp_grid")
              for sfx in ("", "_w")}
     failed = []
-    log(f"  limits: {checks.TOL}")
+    log(f"  limits: {checks.TOL}; float32 rounding-bound readings: "
+        f"{sorted(checks.ROUNDING_BOUND, key=str)}")
+    cases = [(S, G, p) for S, G in checks.SHAPES for p in (1, 2, 3)]
     for weighted in modes:
         sfx = "_w" if weighted else ""
         for dname in ("float32", "float64"):
             dt = getattr(torch, dname)
             f32 = dname == "float32"
-            for S, G in checks.SHAPES:
-                for p in (1, 2, 3):
-                    raw = checks.solver_inputs(G, S, p, 10 * p + S,
-                                               weighted=weighted)
-                    d = checks.as_tensors(raw, dt, dev)
-                    k1 = checks.run_irls(fit_beta, d)
-                    r1 = checks.check_irls(
-                        k1, checks.run_irls(irls.fit_beta_plain, d))
+            for S, G, p in cases + list(checks.EDGES):
+                edge = (S, G, p) in checks.EDGES
+
+                def bound(kernel, prior=None):
+                    return f32 and (kernel, S, p, weighted,
+                                    prior) in checks.ROUNDING_BOUND
+
+                raw = checks.solver_inputs(G, S, p, 10 * p + S,
+                                           weighted=weighted)
+                d = checks.as_tensors(raw, dt, dev)
+                k1 = checks.run_irls(fit_beta, d)
+                rep = checks.differing_outputs(k1, checks.run_irls(fit_beta,
+                                                                   d))
+                pl1 = checks.run_irls(irls.fit_beta_plain, d)
+                if bound("irls"):
+                    r1 = checks.check_irls_f64(
+                        k1, pl1, checks.run_irls(irls.fit_beta_plain,
+                                                 checks.as_tensors(
+                                                     raw, torch.float64,
+                                                     dev)))
+                else:
+                    r1 = checks.check_irls(k1, pl1)
+                torch.cuda.synchronize()
+                case = f"{dname} p={p} S={S} G={G} weighted={weighted}"
+                log(f"  {case} irls: {fmt(r1)} repeat_differs={rep}"
+                    + (" (rounding-bound: held to the float64 fit)"
+                       if bound("irls") else ""))
+                if not r1["ok"] or rep:
+                    failed.append(f"{case} irls")
+                worst["irls" + sfx] = max(worst["irls" + sfx],
+                                          r1["max_abs_err"])
+                for use_prior in (False, True):
+                    k2 = checks.run_ls(fit_disp_line_search, d, use_prior)
+                    rep = checks.differing_outputs(
+                        k2, checks.run_ls(fit_disp_line_search, d, use_prior))
+                    p2 = checks.run_ls(disp.fit_disp_line_search_plain,
+                                       d, use_prior)
                     torch.cuda.synchronize()
-                    case = f"{dname} p={p} S={S} G={G} weighted={weighted}"
-                    log(f"  {case} irls: {fmt(r1)}")
-                    if not r1["ok"]:
-                        failed.append(f"{case} irls")
-                    worst["irls" + sfx] = max(worst["irls" + sfx],
-                                              r1["max_abs_err"])
-                    for use_prior in (False, True):
-                        k2 = checks.run_ls(fit_disp_line_search, d, use_prior)
-                        p2 = checks.run_ls(disp.fit_disp_line_search_plain,
-                                           d, use_prior)
+                    r2 = checks.check_ls(
+                        k2, p2, d, use_prior,
+                        ref=checks.line_search_reference(d, use_prior)
+                        if f32 else None)
+                    gated = not bound("disp_ls", use_prior)
+                    log(f"  {case} prior={use_prior} ls: {fmt(r2)} "
+                        f"repeat_differs={rep}"
+                        + ("" if gated else " (rounding-bound: not gated)"))
+                    if not gated:
+                        r2 = dict(r2, ok=True)
+                    results = [("disp_ls", r2, rep)]
+                    if not edge:
                         k3 = checks.run_grid(fit_disp_grid, d, use_prior)
                         p3 = checks.run_grid(disp.fit_disp_grid_plain, d,
                                              use_prior)
-                        torch.cuda.synchronize()
-                        r2 = checks.check_ls(
-                            k2, p2, d, use_prior,
-                            ref=checks.line_search_reference(d, use_prior)
-                            if f32 else None)
                         r3 = checks.check_grid(
                             k3, p3, d, use_prior,
                             ref=checks.grid_reference(d, use_prior)
                             if f32 else None)
-                        log(f"  {case} prior={use_prior} ls: {fmt(r2)}")
                         log(f"  {case} prior={use_prior} grid: {fmt(r3)}")
-                        for name, r in (("disp_ls", r2), ("disp_grid", r3)):
-                            if not r["ok"]:
-                                failed.append(f"{case} prior={use_prior} "
-                                              f"{name}")
+                        results.append(("disp_grid", r3, []))
+                    for name, r, rp in results:
+                        if not r["ok"] or rp:
+                            failed.append(f"{case} prior={use_prior} {name}")
+                        if gated:
                             worst[name + sfx] = max(worst[name + sfx],
                                                     r["max_abs_err"])
     if failed:
@@ -255,16 +328,10 @@ def _main_variant_inputs():
 
 
 def variant_inputs(counts, seed=0):
-    """The weights assay and the (G,S) normalization factors of the
-    variant paths, from `seed`: weights uniform(0.3, 1) with 5% of the
-    zero-count entries at 1e-3 (below the Cox-Reid threshold, as zinbwave
-    down-weights zeros); factors exp(N(0, 0.2)), row-centred."""
-    rng = np.random.default_rng(seed)
-    w = rng.uniform(0.3, 1.0, counts.shape)
-    w[(counts == 0) & (rng.random(counts.shape) < 0.05)] = 1e-3
-    nf = np.exp(rng.normal(0.0, 0.2, counts.shape))
-    nf /= np.exp(np.log(nf).mean(axis=1))[:, None]
-    return w, nf
+    """The variant paths' weights assay and (G,S) normalization factors
+    (deseq2_tpu_torch/ops/checks.py:variant_inputs)."""
+    from deseq2_tpu_torch.ops import checks
+    return checks.variant_inputs(counts, seed)
 
 
 def main_path(torch):
@@ -551,10 +618,22 @@ def ops_irls(P):
                 post=(3 + 3 * nt) + (3 + 3 * P * P))
 
 
-def ops_ls(P):
-    # lgamma difference 7, digamma difference 2 x (8 shifts x 3 + 12),
-    # log1p/ratio/remaining terms 12, w 3, two packed outer products
-    return 7 + 72 + 12 + 3 + 6 * (P * (P + 1) // 2)
+def ops_ls(P, shared_constants=True):
+    """Per sample and trial point: the lgamma difference 5 (lgamma(y+c),
+    y+c, y log c, two subtractions), digamma(y+c) 8 shifts x 3 + series 12
+    and the subtraction of digamma(c), log1p/reciprocal/remaining terms 12,
+    w 1, two packed outer products.  shared_constants=False gives the
+    earlier count, which charged lgamma(c), log(c) and digamma(c) to every
+    sample (7 + 72 + 12 + 3 + outer products)."""
+    outer = 6 * (P * (P + 1) // 2)
+    return (5 + 37 + 12 + 1 if shared_constants else 7 + 72 + 12 + 3) + outer
+
+
+def ops_ls_point(P):
+    # per trial point and gene: exp, 1/alpha, 1/c, lgamma(c), log(c),
+    # digamma(c) (8 shifts x 3 + series 12), the Cholesky, inverse and
+    # trace (~P^3) and the step control (~20)
+    return 5 + 36 + P ** 3 + 20
 
 
 def ops_grid(P):
@@ -579,25 +658,14 @@ def kernel_timings(torch, dev, launches, worst, weighted=False):
     from deseq2_tpu_torch.ops.cuda_grid import fit_disp_grid
     from deseq2_tpu_torch.ops.cuda_irls import fit_beta
     from deseq2_tpu_torch.ops.cuda_ls import fit_disp_line_search
-    from deseq2_tpu_torch.parallel.fused import Stages, default_grid
 
     dname, dt = "float32", torch.float32
     counts, x_np = make_inputs(G_MAIN, S_MAIN)
-    y = torch.as_tensor(counts, device=dev).to(dt)
-    x = torch.as_tensor(x_np, dtype=dt, device=dev)
-    sf = torch.ones(S_MAIN, dtype=dt, device=dev)
-    grid = torch.as_tensor(default_grid(S_MAIN), dtype=dt, device=dev)
-    st = Stages(x, sf, grid, linear_mu=not weighted)
-    w_n = w_ge = None
-    if weighted:
-        w = torch.as_tensor(_main_variant_inputs()[0], device=dev).to(dt)
-        w_n = w / w.max(dim=1, keepdim=True).values
-        w_ge = torch.clamp(w_n, min=1e-6)
-        init = st.dispersion_init(y, w)
-    else:
-        init = st.dispersion_init(y)
-    y_s, mu_s = init["y_safe"], init["mu_safe"]
-    la0 = torch.log(init["alpha_init"])
+    pin = checks.pipeline_inputs(
+        counts, x_np, dt, dev,
+        weights=_main_variant_inputs()[0] if weighted else None)
+    y_s, mu_s, x, la0 = pin["y"], pin["mu"], pin["x"], pin["la0"]
+    w_ge, w_n, grid = pin["w_ge"], pin["w_n"], pin["grid"]
     G, S, P = G_MAIN, S_MAIN, 2
     it = 4   # itemsize
     nw = int(weighted)   # weight rows read
@@ -605,14 +673,14 @@ def kernel_timings(torch, dev, launches, worst, weighted=False):
     rows, failed = [], []
 
     # K2: the gene-wise line search
-    ls_args = (y_s, x, mu_s, la0, la0, 1.0, st.min_la)
+    ls_args = (y_s, x, mu_s, la0, la0, 1.0, pin["min_la"])
     k2 = fit_disp_line_search(*ls_args, weights=w_ge)
     p2 = disp.fit_disp_line_search_plain(*ls_args, weights=w_ge)
     d2 = dict(y=y_s, mu=mu_s, x=x, la0=la0, pm=la0)
     if weighted:
         d2["w"] = w_ge
     ref2 = checks.line_search_reference(d2, False, prior_var=1.0,
-                                        min_log_alpha=st.min_la)
+                                        min_log_alpha=pin["min_la"])
     r2 = checks.check_ls(k2, p2, d2, False, prior_var=1.0, ref=ref2)
     log(f"  disp_ls{sfx}: {fmt(r2)}")
     lk = checks.lp_at(k2["log_alpha"], d2, False, 1.0)
@@ -633,8 +701,11 @@ def kernel_timings(torch, dev, launches, worst, weighted=False):
     pms2 = time_ms(torch, lambda: disp.fit_disp_line_search_plain(
         *ls_args, weights=w_ge), 1)
     evals = float((k2["iter"].double() + 1).sum())
-    b2, by2 = bound(it * ((2 + nw) * G * S + S * P + 2 * G + 8 * G),
-                    evals * S * (ops_ls(P) + 2 * nw), dname)
+    ls_bytes = it * ((2 + nw) * G * S + S * P + 2 * G + 8 * G)
+    b2, by2 = bound(ls_bytes, evals * (S * (ops_ls(P) + 2 * nw)
+                                       + ops_ls_point(P)), dname)
+    b2_old, _ = bound(ls_bytes, evals * S * (ops_ls(P, False) + 2 * nw),
+                      dname)
     rows.append(dict(name="disp_ls" + sfx, route="cuda",
                      source="deseq2_tpu_torch/csrc/disp_ls.cu",
                      replaces="deseq2_tpu/ops/pallas_ls.py:409",
@@ -643,7 +714,9 @@ def kernel_timings(torch, dev, launches, worst, weighted=False):
                                      r2["max_abs_err"]),
                      ms=ms2, plain_ms=pms2, bound_ms=b2, bound_by=by2,
                      library_ms=None))
-    log(f"  disp_ls{sfx}: {evals / G:.1f} evaluations/gene")
+    log(f"  disp_ls{sfx}: {evals / G:.1f} evaluations/gene; bound "
+        f"{b2:.3f} ms ({b2_old:.3f} ms by the earlier count, which "
+        f"charged the trial point's constants to every sample)")
 
     # K3: the grid fallback on the genes whose line search did not converge
     conv = (k2["iter"] < 100) & (k2["iter"] != 1)
@@ -683,11 +756,7 @@ def kernel_timings(torch, dev, launches, worst, weighted=False):
         f"(timed on {Gn})")
 
     # K1: the final ridge IRLS at the gene-wise dispersions
-    alpha = torch.exp(k2["log_alpha"]).clamp(1e-8, S)
-    beta0 = torch.linalg.solve(x.T @ x, (torch.log(init["norm_c"] + 0.1)
-                                         @ x).T).T
-    ridge = st.lam_nat
-    i_args = (y_s, x, sf, alpha, beta0, ridge)
+    i_args = checks.irls_start(pin, k2["log_alpha"])
     k1 = fit_beta(*i_args, weights=w_n)
     r1 = checks.check_irls(k1, irls.fit_beta_plain(*i_args, weights=w_n))
     log(f"  irls{sfx}: {fmt(r1)}")
@@ -746,6 +815,7 @@ def main():
     log(f"  built {list(logs)}")
     for name, text in logs.items():
         log(f"  {name}: {ptxas_summary(text)}")
+    resources = warp_kernel_resources()
     done("2")
 
     phase("3", "[3] kernels vs plain versions on the card")
@@ -773,7 +843,7 @@ def main():
 
     log(json.dumps({"main_path": {k: v for k, v in main_out.items()},
                     "gate": gate, "variant_gates": gates,
-                    "phase_seconds": seconds}))
+                    "warp_kernels": resources, "phase_seconds": seconds}))
     print(json.dumps({"kernels": rows}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,17 @@
 // Device helpers shared by the three per-gene solver kernels
-// (irls.cu, disp_ls.cu, disp_grid.cu): block reductions, the NB special
-// functions with their float32 large-c series branches, unrolled p x p
-// Cholesky routines for p = 1..8, and the weighted Cox-Reid masks.
+// (irls.cu, disp_ls.cu, disp_grid.cu): block and warp reductions, the NB
+// special functions with their float32 large-c series branches, unrolled
+// p x p Cholesky routines for p = 1..8, and the weighted Cox-Reid masks.
 //
-// Layout rule of all three kernels: one thread block per gene.  The
-// block's threads stride over the samples, accumulate per-gene sums in
-// registers, and reduce them to thread 0, which runs the p x p algebra and
-// the solver's control state and broadcasts through shared memory.
+// Two layouts.  K3 (disp_grid.cu) runs one thread block per gene: the
+// block's threads stride over the samples, reduce their sums to thread 0
+// (block_sum), which runs the p x p algebra and broadcasts through shared
+// memory.  K1 and K2 (irls.cu, disp_ls.cu) run one warp per gene: each
+// persistent warp takes its next gene from a per-launch counter
+// (next_gene), its lanes stride over the samples, warp_allsum leaves the
+// gene's totals on every lane, and every lane runs the same p x p algebra
+// and solver control on the same values, so the solver loops need no
+// barrier and no broadcast.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -133,18 +138,37 @@ __device__ __forceinline__ T lgamma_diff_centered(T y, T c) {
   return d_lgamma(y + c) - d_lgamma(c) - y * d_log(c);
 }
 
-// digamma(y + c) - digamma(c)
+// The constants of one trial point c = 1/alpha, shared by every sample of
+// the gene: computed once per point instead of once per sample.
 template <typename T>
-__device__ __forceinline__ T digamma_diff(T y, T c) {
-  if (large_c(y, c)) {
+struct NbConst {
+  T c, ci, lgc, logc, dgc;
+};
+
+template <typename T>
+__device__ __forceinline__ NbConst<T> nb_const(T c) {
+  return {c, T(1) / c, d_lgamma(c), d_log(c), digamma_pos(c)};
+}
+
+// lgamma(y + c) - lgamma(c) - y log(c) and digamma(y + c) - digamma(c)
+// with the point's constants k: the per-sample difference form and the
+// float32 large-c series of lgamma_diff_centered, with lgamma(c), log(c),
+// digamma(c) and 1/c taken from k (the same values, so the same bits).
+template <typename T>
+__device__ __forceinline__ void nb_diffs(T y, const NbConst<T>& k, T& lgd,
+                                         T& dgd) {
+  if (large_c(y, k.c)) {
     const T s1 = y * (y - T(1)) / T(2);
     const T s2 = (y - T(1)) * y * (T(2) * y - T(1)) / T(6);
     const T s3 = s1 * s1;
     const T s4 = s2 * (T(3) * y * y - T(3) * y - T(1)) / T(5);
-    const T ci = T(1) / c;
-    return ci * (y - ci * (s1 - ci * (s2 - ci * (s3 - ci * s4))));
+    const T ci = k.ci;
+    lgd = ci * (s1 - ci * (s2 / T(2) - ci * (s3 / T(3) - ci * s4 / T(4))));
+    dgd = ci * (y - ci * (s1 - ci * (s2 - ci * (s3 - ci * s4))));
+  } else {
+    lgd = d_lgamma(y + k.c) - k.lgc - y * k.logc;
+    dgd = digamma_pos(y + k.c) - k.dgc;
   }
-  return digamma_pos(y + c) - digamma_pos(c);
 }
 
 // Fill the full symmetric matrix from its packed upper triangle (row-major
@@ -311,10 +335,10 @@ __device__ __forceinline__ unsigned cr_col_mask(const T* wr,
   return cm;
 }
 
-// Column-mask the Cox-Reid matrix b (and its derivative db, when given) on
-// thread 0 with cr_col_mask's bits: dropped rows and columns are zeroed,
-// and b gets a unit diagonal there so the kept submatrix's log determinant
-// survives.
+// Column-mask the Cox-Reid matrix b (and its derivative db, when given)
+// with cr_col_mask's or warp_cr_col_mask's bits: dropped rows and columns
+// are zeroed, and b gets a unit diagonal there so the kept submatrix's log
+// determinant survives.
 template <typename T, int P>
 __device__ __forceinline__ void cr_apply_mask(unsigned cm, T (&b)[P][P],
                                               T (*db)[P]) {
@@ -329,6 +353,121 @@ __device__ __forceinline__ void cr_apply_mask(unsigned cm, T (&b)[P][P],
     }
     b[i][i] += T(1) - ci;
   }
+}
+
+// ---------------------------------------------------------------------------
+// One warp per gene (irls.cu, disp_ls.cu)
+// ---------------------------------------------------------------------------
+
+// threads of a persistent block: kWarpBlock / 32 independent warps, which
+// share only the block's staged copy of the design
+constexpr int kWarpBlock = 128;
+constexpr int kBlockWarps = kWarpBlock / 32;
+constexpr unsigned kFullMask = 0xffffffffu;
+// stage the design x (S x p values, and irls.cu's shared size-factor row
+// and its logs) in the block's shared memory when it takes at most this many bytes; the
+// gene rows are read through L1/L2 (PERF.md section 6: staging them per
+// warp measured slower, its shared memory cutting the resident warps)
+constexpr size_t kBlockStageBytes = 16384;
+
+__device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
+
+// The warp's next gene from the launch's work counter (one atomic per
+// gene; the lanes get it by shuffle).  Which warp takes which gene does
+// not change any gene's result.
+__device__ __forceinline__ int next_gene(int* counter) {
+  int g = 0;
+  if (lane_id() == 0) g = atomicAdd(counter, 1);
+  return __shfl_sync(kFullMask, g, 0);
+}
+
+// Sum N per-lane values over the warp by an xor butterfly.  Every lane
+// ends with the totals, bit for bit the same on every lane: at each step
+// lanes i and i^o add the same two values (addition commutes).
+template <typename T, int N>
+__device__ __forceinline__ void warp_allsum(T (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v[i] += __shfl_xor_sync(kFullMask, v[i], o);
+  }
+}
+
+// Copy n values into the block's shared memory (every thread of the block
+// calls it, once, before the gene loop); a __syncthreads must follow.
+template <typename T>
+__device__ __forceinline__ void block_stage(T* dst, const T* __restrict__ src,
+                                            int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = __ldg(src + i);
+}
+
+template <typename T, int P>
+__device__ __forceinline__ void x_row(const T* xr, int s, T (&xs)[P]) {
+#pragma unroll
+  for (int k = 0; k < P; ++k) xs[k] = xr[s * P + k];
+}
+
+// Weighted Cox-Reid column mask (src/DESeq2.cpp:38-44) of one gene, on
+// every lane of its warp: column k stays when some kept row has x_k != 0.
+template <typename T, int P>
+__device__ __forceinline__ unsigned warp_cr_col_mask(const T* wr, const T* xr,
+                                                     int S) {
+  T acc[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) acc[k] = T(0);
+  for (int s = lane_id(); s < S; s += 32) {
+    if (cr_keeps(wr[s])) {
+      T xs[P];
+      x_row<T, P>(xr, s, xs);
+#pragma unroll
+      for (int k = 0; k < P; ++k) acc[k] += xs[k] * xs[k];
+    }
+  }
+  warp_allsum<T, P>(acc);
+  unsigned cm = 0u;
+#pragma unroll
+  for (int k = 0; k < P; ++k) cm |= acc[k] > T(0) ? (1u << k) : 0u;
+  return cm;
+}
+
+// Dynamic shared memory of a warp-per-gene launch: the block's staged
+// values (stage_vals per sample), or 0 bytes (read from global memory)
+// when they take more than kBlockStageBytes.
+template <typename T>
+inline size_t block_stage_bytes(int S, int stage_vals) {
+  const size_t b = (size_t)S * stage_vals * sizeof(T);
+  return b <= kBlockStageBytes ? b : 0;
+}
+
+// Resident blocks per SM of a warp-per-gene kernel with `smem` bytes of
+// dynamic shared memory (the occupancy calculator).  Returns 0 and sets
+// *err on a refusal.
+template <typename K>
+inline int blocks_per_sm(K kernel, size_t smem, int* err) {
+  int per_sm = 0;
+  *err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, kWarpBlock, smem);
+  return *err ? 0 : per_sm;
+}
+
+// Persistent blocks for a warp-per-gene kernel: as many as fit on the
+// card at once, but no more than the genes need.  Returns 0 and sets *err
+// on a refusal.
+template <typename K>
+inline int persistent_blocks(K kernel, size_t smem, int G, int* err) {
+  const int per_sm = blocks_per_sm(kernel, smem, err);
+  if (*err) return 0;
+  int dev = 0, sms = 0;
+  if ((*err = (int)cudaGetDevice(&dev))) return 0;
+  if ((*err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                          dev)))
+    return 0;
+  if (per_sm < 1) {
+    *err = (int)cudaErrorInvalidConfiguration;
+    return 0;
+  }
+  const int need = (G + kBlockWarps - 1) / kBlockWarps;
+  return per_sm * sms < need ? per_sm * sms : need;
 }
 
 }  // namespace dk

@@ -1,4 +1,4 @@
-// K1: ridge NB IRLS, one gene per thread block (fitBeta contract).
+// K1: ridge NB IRLS, one warp per gene (fitBeta contract).
 //
 // Replaces the TPU kernel deseq2_tpu/ops/pallas_irls.py:fit_beta_pallas
 // (_irls_kernel).  Per gene, until convergence:
@@ -13,161 +13,197 @@
 // then the sandwich variance diag((X'WX+R)^-1 X'WX (X'WX+R)^-1), the hat
 // diagonal w x' (X'WX+R)^-1 x and the final clamped mu.
 //
-// What bounds it on the H100: memory traffic if the (y, mu) rows were
-// re-read from HBM on every sweep (2 passes x S values per iteration, 10+
-// iterations), otherwise the special functions (exp, two logs per sample
-// per sweep).  The design keeps the gene's y row and its mu scratch in
-// shared memory when 2 S sizeof(T) <= 40 KB, so HBM sees y once and mu/hat
-// once; a block exits as soon as its own gene converges, so no gene pays
-// for the slowest one.  The p x p solves are unrolled on thread 0.
+// What bounds it on the H100: the bytes it must move (y in, mu and the hat
+// diagonal out, 12 bytes per sample in float32) against ~3.4 sweeps of an
+// exp, two logs and two divisions per sample.  The design:
+// - one warp per gene, persistent warps taking the next gene from a
+//   per-launch counter; the sums reduced by a warp butterfly that leaves
+//   them on every lane, and every lane runs the same ridge solve and
+//   control, so the sweep loop has no barrier and no broadcast;
+// - one pass over the row per sweep: the pass that computes mu and the
+//   deviance at the new beta also sums X'WX and X'Wz at that mu, which are
+//   the next sweep's normal equations and, after the last sweep, the
+//   post-fit X'WX.  A sweep whose beta diverges keeps the old mu, whose
+//   sums the warp still holds.  Passes per gene: sweeps + 2 (the first
+//   adds the deviance constant, the last writes mu and the hat diagonal),
+//   where the block layout made 2 sweeps + 3;
+// - mu is recomputed from beta in each pass, so no mu scratch: only y
+//   (and the weights, or a (G,S) factor row) is read, through L1/L2 (staged
+//   per warp in shared memory they measured slower, PERF.md section 6);
+// - what does not change is hoisted: lgamma(size) and size log(size) once
+//   per gene; the design x, an (S,) factor row and its logs staged once
+//   per block in shared memory (when they fit in kBlockStageBytes); a
+//   (G,S) factor row's log is taken per sample, as the plain version does.
+//   The working response keeps the plain version's log(mu) - log(nf): the
+//   x'beta it equals off the min_mu clamp saves a log per sample, but its
+//   other rounding moved float32 fits of ill-conditioned p = 5 and 8 genes
+//   to other points of their flat valleys (PERF.md section 6).
 //
-// Weighted mode (UseW, a template parameter, so the unweighted
-// instantiations are unchanged; pallas_irls.py:106-124, 156-169, 221-258
-// use_w): the gene's observation weights multiply W in the normal
-// equations, every deviance term (the mu-independent part included, which
-// is summed per sample in both modes, so nothing gene-constant is hoisted
-// that a weight would have to scale), the sandwich's X'WX and the hat
-// diagonal.  The weight row is staged beside y and mu when 3 S sizeof(T)
-// <= 40 KB.
+// Weighted mode (UseW; pallas_irls.py:106-124, 156-169, 221-258 use_w): the
+// gene's observation weights multiply W in the normal equations, every
+// deviance term (the mu-independent part included, which is summed per
+// sample in both modes, so nothing a weight would have to scale is
+// hoisted out of the sum), the sandwich's X'WX and the hat diagonal.
 #include "common.cuh"
 
 namespace {
 
 using namespace dk;
 
-// The weight row comes last, so the unweighted instantiations keep the
-// parameter layout, and so the code, of a kernel without it.
+// mu = max(nf exp(x'beta), min_mu)
+template <typename T, int P>
+__device__ __forceinline__ T mu_at(const T (&beta)[P], const T (&xs)[P],
+                                   T nfs, T min_mu) {
+  T xb = T(0);
+#pragma unroll
+  for (int k = 0; k < P; ++k) xb += beta[k] * xs[k];
+  const T m = nfs * d_exp(xb);
+  return m > min_mu ? m : min_mu;
+}
+
+// Add sample s's terms of X'WX (packed) and X'Wz at mu m to acc[0..NT+P);
+// lm = log(mu), lnf = log(nf).
 template <typename T, int P, bool UseW>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void acc_normal(T* acc, T m, T lm, T lnf, T yv,
+                                           T alpha, const T (&xs)[P],
+                                           const T* wr, int s) {
+  constexpr int NT = P * (P + 1) / 2;
+  const T w = wscale<UseW>(m / (T(1) + alpha * m), wr, s);
+  const T z = lm - lnf + (yv - m) / m;
+  acc_outer<T, P>(acc, w, xs);
+  const T wz = w * z;
+#pragma unroll
+  for (int i = 0; i < P; ++i) acc[NT + i] += wz * xs[i];
+}
+
+template <typename T, int P, bool UseW>
+__global__ void __launch_bounds__(kWarpBlock)
     irls_kernel(const T* __restrict__ y, const T* __restrict__ nf,
-                long long nf_gstride, const T* __restrict__ alpha_in,
-                const T* __restrict__ beta0, const T* __restrict__ ridge,
-                const T* __restrict__ x, int S, T tol, int maxit, T min_mu,
-                int use_smem, T* __restrict__ beta_out,
+                long long nf_gstride, const T* __restrict__ wts,
+                const T* __restrict__ alpha_in, const T* __restrict__ beta0,
+                const T* __restrict__ ridge, const T* __restrict__ x, int G,
+                int S, T tol, int maxit, T min_mu, int stage_block,
+                T* __restrict__ beta_out,
                 T* __restrict__ bvar_out, T* __restrict__ dev_out,
                 int* __restrict__ iter_out, T* __restrict__ mu_out,
-                T* __restrict__ hat_out, const T* __restrict__ wts) {
+                T* __restrict__ hat_out, int* __restrict__ counter) {
   constexpr int NT = P * (P + 1) / 2;
   constexpr int NA = NT + P;
-  __shared__ T red[kWarps * NA];
-  __shared__ T sh_beta[P];
-  __shared__ T sh_ainv[P * P];
-  __shared__ int sh_flag[2];
   extern __shared__ __align__(16) unsigned char smem_raw[];
-
-  const int g = blockIdx.x;
-  const int tid = threadIdx.x;
-  const T* yr = y + (size_t)g * S;
-  const T* nfr = nf + (size_t)g * nf_gstride;
-  T* mu_g = mu_out + (size_t)g * S;
-  T* hat_g = hat_out + (size_t)g * S;
-  T* mur = mu_g;
-  const T* wr = UseW ? wts + (size_t)g * S : nullptr;
-  if (use_smem) {
-    T* sy = reinterpret_cast<T*>(smem_raw);
-    T* sw = sy + 2 * S;
-    for (int s = tid; s < S; s += kThreads) {
-      sy[s] = yr[s];
-      if constexpr (UseW) sw[s] = wr[s];
+  // the block's staged design and, for an (S,) factor row, the factors
+  // and their logs
+  const bool shared_nf = nf_gstride == 0;
+  const T* xr = x;
+  const T* nf_shared = nf;
+  const T* lnf_shared = nullptr;
+  if (stage_block) {
+    T* sx = reinterpret_cast<T*>(smem_raw);
+    block_stage(sx, x, S * P);
+    xr = sx;
+    if (shared_nf) {
+      T* snf = sx + (size_t)S * P;
+      for (int i = threadIdx.x; i < S; i += blockDim.x) {
+        const T v = __ldg(nf + i);
+        snf[i] = v;
+        snf[S + i] = d_log(v);
+      }
+      nf_shared = snf;
+      lnf_shared = snf + S;
     }
-    yr = sy;
-    mur = sy + S;
-    if constexpr (UseW) wr = sw;
+    __syncthreads();
   }
-  const T alpha = alpha_in[g];
-  const T size = T(1) / alpha;
-
-  T beta[P];
+  T rdg[P];
 #pragma unroll
-  for (int k = 0; k < P; ++k) beta[k] = beta0[(size_t)g * P + k];
-
-  // initial mu and the mu-independent deviance constant
-  T acc1[1] = {T(0)};
-  for (int s = tid; s < S; s += kThreads) {
-    T xs[P];
-    load_row<T, P>(x, s, xs);
-    T xb = T(0);
-#pragma unroll
-    for (int k = 0; k < P; ++k) xb += beta[k] * xs[k];
-    const T m = nfr[s] * d_exp(xb);
-    mur[s] = m > min_mu ? m : min_mu;
-    const T yv = yr[s];
-    acc1[0] += wscale<UseW>(d_lgamma(yv + size) - d_lgamma(size) -
-                                d_lgamma(yv + T(1)) + size * d_log(size),
-                            wr, s);
-  }
-  block_sum<T, 1>(acc1, red);
-  const T dev_const = T(-2) * acc1[0];  // valid on thread 0
+  for (int k = 0; k < P; ++k) rdg[k] = __ldg(ridge + k);
   const T eps = Eps<T>::value;
   const T tol_eff = tol > T(30) * eps ? tol : T(30) * eps;
 
-  // control state, live on thread 0
-  T dev_old = T(0), dev = T(0);
-  int iters = 0;
-  __syncthreads();
+  for (;;) {
+    const int g = next_gene(counter);
+    if (g >= G) break;
+    const T* yr = y + (size_t)g * S;
+    const T* nfr = shared_nf ? nf_shared : nf + (size_t)g * nf_gstride;
+    const T* wr = UseW ? wts + (size_t)g * S : nullptr;
+    const T alpha = alpha_in[g];
+    const T size = T(1) / alpha;
+    const T lgs = d_lgamma(size);
+    const T sls = size * d_log(size);
 
-  for (int t = 0; t < maxit; ++t) {
-    // normal equations X'WX (packed) and X'Wz at the current mu
-    T acc[NA];
+    // beta: mu's coefficients; bret: the returned ones (they differ only
+    // after a diverged sweep, which keeps the old mu)
+    T beta[P], bret[P];
 #pragma unroll
-    for (int i = 0; i < NA; ++i) acc[i] = T(0);
-    for (int s = tid; s < S; s += kThreads) {
-      T xs[P];
-      load_row<T, P>(x, s, xs);
-      const T m = mur[s];
-      const T w = wscale<UseW>(m / (T(1) + alpha * m), wr, s);
-      const T z = d_log(m) - d_log(nfr[s]) + (yr[s] - m) / m;
-      acc_outer<T, P>(acc, w, xs);
-      const T wz = w * z;
-#pragma unroll
-      for (int i = 0; i < P; ++i) acc[NT + i] += wz * xs[i];
+    for (int k = 0; k < P; ++k) {
+      beta[k] = beta0[(size_t)g * P + k];
+      bret[k] = beta[k];
     }
-    block_sum<T, NA>(acc, red);
-    if (tid == 0) {
+
+    // first pass: the mu-independent deviance constant (acc[NA]) and the
+    // normal equations at the initial mu
+    T acc[NA + 1];
+#pragma unroll
+    for (int i = 0; i <= NA; ++i) acc[i] = T(0);
+    for (int s = lane_id(); s < S; s += 32) {
+      T xs[P];
+      x_row<T, P>(xr, s, xs);
+      const T nfs = nfr[s];
+      const T m = mu_at<T, P>(beta, xs, nfs, min_mu);
+      const T yv = yr[s];
+      acc[NA] += wscale<UseW>(
+          d_lgamma(yv + size) - lgs - d_lgamma(yv + T(1)) + sls, wr, s);
+      acc_normal<T, P, UseW>(acc, m, d_log(m),
+                             lnf_shared ? lnf_shared[s] : d_log(nfs), yv,
+                             alpha, xs, wr, s);
+    }
+    warp_allsum<T, NA + 1>(acc);
+    const T dev_const = T(-2) * acc[NA];
+
+    // control state: the same values on every lane
+    T dev_old = T(0), dev = T(0);
+    int iters = 0;
+    for (int t = 0; t < maxit; ++t) {
       ++iters;
       T a[P][P], L[P][P], rhs[P], bn[P];
       unpack_sym<T, P>(acc, a);
 #pragma unroll
       for (int k = 0; k < P; ++k) {
-        a[k][k] += ridge[k];
+        a[k][k] += rdg[k];
         rhs[k] = acc[NT + k];
       }
       cholesky<T, P>(a, L);
       chol_solve<T, P>(L, rhs, bn);
       bool diverged = false;
 #pragma unroll
-      for (int k = 0; k < P; ++k) {
-        diverged |= d_abs(bn[k]) > T(30);
-        sh_beta[k] = bn[k];
+      for (int k = 0; k < P; ++k) diverged |= d_abs(bn[k]) > T(30);
+      if (diverged) {
+        // mu (and so acc) stays at the old beta
+#pragma unroll
+        for (int k = 0; k < P; ++k) bret[k] = bn[k];
+        iters = maxit;
+        break;
       }
-      sh_flag[0] = diverged ? 0 : 1;
-    }
-    __syncthreads();
 
-    // mu and deviance at the new beta; mu kept only when not diverged
-    const bool cont = sh_flag[0] != 0;
-    T bn[P];
+      // one pass at the new beta: mu, the deviance (acc[NA]) and the
+      // normal equations at that mu
 #pragma unroll
-    for (int k = 0; k < P; ++k) bn[k] = sh_beta[k];
-    T accd[1] = {T(0)};
-    for (int s = tid; s < S; s += kThreads) {
-      T xs[P];
-      load_row<T, P>(x, s, xs);
-      T xb = T(0);
-#pragma unroll
-      for (int k = 0; k < P; ++k) xb += bn[k] * xs[k];
-      T m = nfr[s] * d_exp(xb);
-      m = m > min_mu ? m : min_mu;
-      const T yv = yr[s];
-      const T lsm = d_log(size + m);
-      const T tt = yv > T(0) ? yv * (d_log(m) - lsm) : T(0);
-      accd[0] += wscale<UseW>(-size * lsm + tt, wr, s);
-      if (cont) mur[s] = m;
-    }
-    block_sum<T, 1>(accd, red);
-    if (tid == 0) {
-      const T dev_new = dev_const + T(-2) * accd[0];
-      if (cont) dev = dev_new;
+      for (int i = 0; i <= NA; ++i) acc[i] = T(0);
+      for (int s = lane_id(); s < S; s += 32) {
+        T xs[P];
+        x_row<T, P>(xr, s, xs);
+        const T nfs = nfr[s];
+        const T m = mu_at<T, P>(bn, xs, nfs, min_mu);
+        const T yv = yr[s];
+        const T lm = d_log(m);
+        const T lsm = d_log(size + m);
+        const T tt = yv > T(0) ? yv * (lm - lsm) : T(0);
+        acc[NA] += wscale<UseW>(-size * lsm + tt, wr, s);
+        acc_normal<T, P, UseW>(acc, m, lm,
+                               lnf_shared ? lnf_shared[s] : d_log(nfs), yv,
+                               alpha, xs, wr, s);
+      }
+      warp_allsum<T, NA + 1>(acc);
+      const T dev_new = dev_const + T(-2) * acc[NA];
+      dev = dev_new;
       const T conv_test = d_abs(dev_new - dev_old) / (d_abs(dev_new) + T(0.1));
       const bool bad = isnan(conv_test);
       bool converged = t > 0 && conv_test < tol_eff;
@@ -181,111 +217,137 @@ __global__ void __launch_bounds__(kThreads)
         }
         converged |= t > 0 && dbeta < T(32) * eps * (T(1) + bmax);
       }
-      if (!cont || bad) iters = maxit;
-      if (cont) dev_old = dev_new;
+      if (bad) iters = maxit;
+      dev_old = dev_new;
 #pragma unroll
-      for (int k = 0; k < P; ++k) beta[k] = bn[k];
-      sh_flag[1] = (cont && !bad && !converged) ? 1 : 0;
+      for (int k = 0; k < P; ++k) {
+        beta[k] = bn[k];
+        bret[k] = bn[k];
+      }
+      if (bad || converged) break;
     }
-    __syncthreads();
-    if (!sh_flag[1]) break;
-  }
 
-  // post-fit: X'WX at the final (clamped) mu
-  T accx[NT];
-#pragma unroll
-  for (int i = 0; i < NT; ++i) accx[i] = T(0);
-  for (int s = tid; s < S; s += kThreads) {
-    T xs[P];
-    load_row<T, P>(x, s, xs);
-    const T m = mur[s];
-    acc_outer<T, P>(accx, wscale<UseW>(m / (T(1) + alpha * m), wr, s), xs);
-  }
-  block_sum<T, NT>(accx, red);
-  if (tid == 0) {
+    // post-fit: the sandwich from X'WX at the final mu (acc[0..NT))
     T xtwx[P][P], a[P][P], L[P][P], ainv[P][P];
-    unpack_sym<T, P>(accx, xtwx);
+    unpack_sym<T, P>(acc, xtwx);
 #pragma unroll
     for (int i = 0; i < P; ++i) {
 #pragma unroll
       for (int j = 0; j < P; ++j) a[i][j] = xtwx[i][j];
-      a[i][i] += ridge[i];
+      a[i][i] += rdg[i];
     }
     cholesky<T, P>(a, L);
     chol_inverse<T, P>(L, ainv);
+    if (lane_id() == 0) {
 #pragma unroll
-    for (int k = 0; k < P; ++k) {
-      T s = T(0);
+      for (int k = 0; k < P; ++k) {
+        T sv = T(0);
 #pragma unroll
-      for (int m = 0; m < P; ++m) {
-        T r = T(0);
+        for (int m = 0; m < P; ++m) {
+          T r = T(0);
 #pragma unroll
-        for (int n = 0; n < P; ++n) r += xtwx[m][n] * ainv[n][k];
-        s += ainv[k][m] * r;
+          for (int n = 0; n < P; ++n) r += xtwx[m][n] * ainv[n][k];
+          sv += ainv[k][m] * r;
+        }
+        bvar_out[(size_t)g * P + k] = sv;
+        beta_out[(size_t)g * P + k] = bret[k];
       }
-      bvar_out[(size_t)g * P + k] = s;
-      beta_out[(size_t)g * P + k] = beta[k];
+      dev_out[g] = dev;
+      iter_out[g] = iters;
     }
+    // last pass: the final mu and the hat diagonal
+    T* mu_g = mu_out + (size_t)g * S;
+    T* hat_g = hat_out + (size_t)g * S;
+    for (int s = lane_id(); s < S; s += 32) {
+      T xs[P];
+      x_row<T, P>(xr, s, xs);
+      const T m = mu_at<T, P>(beta, xs, nfr[s], min_mu);
+      T q = T(0);
 #pragma unroll
-    for (int i = 0; i < P; ++i) {
+      for (int i = 0; i < P; ++i) {
 #pragma unroll
-      for (int j = 0; j < P; ++j) sh_ainv[i * P + j] = ainv[i][j];
+        for (int j = 0; j < P; ++j) q += ainv[i][j] * (xs[i] * xs[j]);
+      }
+      hat_g[s] = wscale<UseW>(m / (T(1) + alpha * m), wr, s) * q;
+      mu_g[s] = m;
     }
-    dev_out[g] = dev;
-    iter_out[g] = iters;
-  }
-  __syncthreads();
-  for (int s = tid; s < S; s += kThreads) {
-    T xs[P];
-    load_row<T, P>(x, s, xs);
-    const T m = mur[s];
-    T q = T(0);
-#pragma unroll
-    for (int i = 0; i < P; ++i) {
-#pragma unroll
-      for (int j = 0; j < P; ++j) q += sh_ainv[i * P + j] * (xs[i] * xs[j]);
-    }
-    hat_g[s] = wscale<UseW>(m / (T(1) + alpha * m), wr, s) * q;
-    if (use_smem) mu_g[s] = m;
   }
 }
 
-// w == nullptr selects the unweighted instantiations
+template <typename T, int P, bool UseW>
+int launch_p(const T* y, const T* nf, long long nf_gstride, const T* w,
+             const T* alpha, const T* beta0, const T* ridge, const T* x, int G,
+             int S, T tol, int maxit, T min_mu, T* beta, T* bvar, T* dev,
+             int* iters, T* mu, T* hat, int* counter, cudaStream_t st) {
+  const size_t smem = block_stage_bytes<T>(S, P + (nf_gstride == 0 ? 2 : 0));
+  auto kernel = irls_kernel<T, P, UseW>;
+  int err = 0;
+  const int blocks = persistent_blocks(kernel, smem, G, &err);
+  if (err) return err;
+  kernel<<<blocks, kWarpBlock, smem, st>>>(
+      y, nf, nf_gstride, w, alpha, beta0, ridge, x, G, S, tol, maxit, min_mu,
+      smem > 0, beta, bvar, dev, iters, mu, hat, counter);
+  return (int)cudaGetLastError();
+}
+
+// w == nullptr selects the unweighted instantiations; `counter` is one
+// zeroed int of device memory (the warps' gene counter)
 template <typename T>
 int launch(const T* y, const T* nf, long long nf_gstride, const T* w,
            const T* alpha, const T* beta0, const T* ridge, const T* x, int G,
            int S, int p, T tol, int maxit, T min_mu, T* beta, T* bvar, T* dev,
-           int* iters, T* mu, T* hat, void* stream) {
+           int* iters, T* mu, T* hat, int* counter, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (w != nullptr) {
-    const size_t smem = row_smem_bytes<T>(S, 3);
-    DK_DISPATCH_P(p, irls_kernel<T, P, true><<<G, kThreads, smem, st>>>(
-                          y, nf, nf_gstride, alpha, beta0, ridge, x, S, tol,
-                          maxit, min_mu, smem > 0, beta, bvar, dev, iters,
-                          mu, hat, w))
+    DK_DISPATCH_P(p, return launch_p<T, P, true>(
+                         y, nf, nf_gstride, w, alpha, beta0, ridge, x, G, S,
+                         tol, maxit, min_mu, beta, bvar, dev, iters, mu, hat,
+                         counter, st))
   } else {
-    const size_t smem = row_smem_bytes<T>(S, 2);
-    DK_DISPATCH_P(p, irls_kernel<T, P, false><<<G, kThreads, smem, st>>>(
-                          y, nf, nf_gstride, alpha, beta0, ridge, x, S, tol,
-                          maxit, min_mu, smem > 0, beta, bvar, dev, iters,
-                          mu, hat, w))
+    DK_DISPATCH_P(p, return launch_p<T, P, false>(
+                         y, nf, nf_gstride, w, alpha, beta0, ridge, x, G, S,
+                         tol, maxit, min_mu, beta, bvar, dev, iters, mu, hat,
+                         counter, st))
   }
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
+}
+
+// resident blocks per SM of the instantiation a launch would take (-1 on
+// a refusal or an unsupported p)
+template <typename T, bool UseW>
+int occupancy(int p, int S, int shared_nf) {
+  int err = 0;
+  DK_DISPATCH_P(p, {
+    const int n = blocks_per_sm(
+        irls_kernel<T, P, UseW>,
+        block_stage_bytes<T>(S, P + (shared_nf ? 2 : 0)), &err);
+    return err ? -1 : n;
+  })
+  return -1;
 }
 
 }  // namespace
 
 extern "C" {
 
+int irls_blocks_per_sm(int f64, int weighted, int p, int S, int shared_nf) {
+  if (f64) {
+    return weighted ? occupancy<double, true>(p, S, shared_nf)
+                    : occupancy<double, false>(p, S, shared_nf);
+  }
+  return weighted ? occupancy<float, true>(p, S, shared_nf)
+                  : occupancy<float, false>(p, S, shared_nf);
+}
+
 int irls_launch_f32(const float* y, const float* nf, long long nf_gstride,
                     const float* w, const float* alpha, const float* beta0,
                     const float* ridge, const float* x, int G, int S, int p,
                     float tol, int maxit, float min_mu, float* beta,
                     float* bvar, float* dev, int* iters, float* mu,
-                    float* hat, void* stream) {
+                    float* hat, int* counter, void* stream) {
   return launch<float>(y, nf, nf_gstride, w, alpha, beta0, ridge, x, G, S, p,
                        tol, maxit, min_mu, beta, bvar, dev, iters, mu, hat,
-                       stream);
+                       counter, stream);
 }
 
 int irls_launch_f64(const double* y, const double* nf, long long nf_gstride,
@@ -293,10 +355,10 @@ int irls_launch_f64(const double* y, const double* nf, long long nf_gstride,
                     const double* ridge, const double* x, int G, int S, int p,
                     double tol, int maxit, double min_mu, double* beta,
                     double* bvar, double* dev, int* iters, double* mu,
-                    double* hat, void* stream) {
+                    double* hat, int* counter, void* stream) {
   return launch<double>(y, nf, nf_gstride, w, alpha, beta0, ridge, x, G, S,
-                        p, tol, maxit, min_mu, beta, bvar, dev, iters, mu,
-                        hat, stream);
+                        p, tol, maxit, min_mu, beta, bvar, dev, iters, mu, hat,
+                        counter, stream);
 }
 
 }  // extern "C"

@@ -63,7 +63,8 @@ def fit_beta(y, x, nf, alpha, beta_init, ridge, tol=1e-8, maxit=100,
     lib = build.load("irls")
     fn = build.bind(lib, "irls_launch_f64" if f64 else "irls_launch_f32",
                     [_P, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, scal, _I,
-                     scal, _P, _P, _P, _P, _P, _P, _P])
+                     scal] + [_P] * 8)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = fn(build.ptr(y_), build.ptr(nf_), 0 if nf_.dim() == 1 else S,
                  build.ptr(w_), build.ptr(a_), build.ptr(b0_), build.ptr(r_),
@@ -72,7 +73,7 @@ def fit_beta(y, x, nf, alpha, beta_init, ridge, tol=1e-8, maxit=100,
                  build.ptr(out["beta"]), build.ptr(out["beta_var"]),
                  build.ptr(out["deviance"]), build.ptr(out["iter"]),
                  build.ptr(out["mu"]), build.ptr(out["hat_diag"]),
-                 build.stream_of(y_))
+                 build.ptr(counter), build.stream_of(y_))
     build.check(err, "irls")
     if w_ is None:
         fit_beta.launches += 1

@@ -62,7 +62,8 @@ def fit_disp_line_search(y, x, mu, log_alpha_init, prior_mean, prior_var,
     lib = build.load("disp_ls")
     fn = build.bind(lib, "ls_launch_f64" if f64 else "ls_launch_f32",
                     [_P] * 6 + [_I, _I, _I] + [scal] * 4 + [_I, _I]
-                    + [_P] * 9)
+                    + [_P] * 10)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = fn(build.ptr(y_), build.ptr(mu_), build.ptr(w_),
                  build.ptr(x_), build.ptr(la0_), build.ptr(pm_), G, S, p,
@@ -71,7 +72,7 @@ def fit_disp_line_search(y, x, mu, log_alpha_init, prior_mean, prior_var,
                  int(bool(use_prior)),
                  *(build.ptr(out[k]) for k in names),
                  build.ptr(out["iter"]), build.ptr(out["iter_accept"]),
-                 build.stream_of(mu_))
+                 build.ptr(counter), build.stream_of(mu_))
     build.check(err, "disp_ls")
     if w_ is None:
         fit_disp_line_search.launches += 1

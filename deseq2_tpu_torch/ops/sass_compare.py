@@ -1,9 +1,10 @@
 """Compare the machine code (SASS) of the kernels' unweighted
 instantiations between two checkouts of the repository:
 
-    python -m deseq2_tpu_torch.ops.sass_compare OLD_ROOT NEW_ROOT
+    python -m deseq2_tpu_torch.ops.sass_compare OLD_ROOT NEW_ROOT [KERNEL ...]
 
-Each checkout's csrc/{irls,disp_ls,disp_grid}.cu is compiled to a cubin
+KERNEL is irls, disp_ls or disp_grid (default: all three).  Each
+checkout's csrc/<kernel>.cu is compiled to a cubin
 with ops/build.py's nvcc flags (one nvcc per source, all started together)
 into NEW_ROOT/build/sass/, and disassembled with cuobjdump.  For every
 kernel, dtype and design width p it prints both instruction counts and
@@ -32,11 +33,11 @@ def _cuobjdump():
     return shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
 
 
-def build_cubins(root, out, tag):
+def build_cubins(root, out, tag, kernels=KERNELS):
     """Compile root's kernel sources to out/<tag>_<kernel>.cubin."""
     flags = [f for f in NVCC_FLAGS if f != "-shared"]
     procs = {}
-    for k in KERNELS:
+    for k in kernels:
         src = Path(root) / "deseq2_tpu_torch" / "csrc" / f"{k}.cu"
         procs[k] = subprocess.Popen(
             [_nvcc(), *flags, "-cubin", "-o", str(out / f"{tag}_{k}.cubin"),
@@ -68,15 +69,15 @@ def _pick(funcs, sym, t, p):
     return funcs[hits[0]] if len(hits) == 1 else None
 
 
-def compare(old_root, new_root):
+def compare(old_root, new_root, kernels=KERNELS):
     """Print one line per kernel, dtype and p; returns the number of
     instantiations whose instructions differ."""
     out = Path(new_root) / "build" / "sass"
     out.mkdir(parents=True, exist_ok=True)
-    build_cubins(old_root, out, "old")
-    build_cubins(new_root, out, "new")
+    build_cubins(old_root, out, "old", kernels)
+    build_cubins(new_root, out, "new", kernels)
     differ = 0
-    for k in KERNELS:
+    for k in kernels:
         old, new = (functions(out / f"{tag}_{k}.cubin")
                     for tag in ("old", "new"))
         for t, dname in (("f", "float"), ("d", "double")):
@@ -96,5 +97,5 @@ def compare(old_root, new_root):
 
 
 if __name__ == "__main__":
-    n = compare(sys.argv[1], sys.argv[2])
+    n = compare(sys.argv[1], sys.argv[2], tuple(sys.argv[3:]) or KERNELS)
     print(f"{n} unweighted instantiation(s) differ")

@@ -1,8 +1,11 @@
-"""Two measurements on the card behind choices recorded in PERF.md and
+"""Measurements on the card behind choices recorded in PERF.md and
 ROADMAP.md:
 
     python -m deseq2_tpu_torch.ops.studies eigvalsh
     python -m deseq2_tpu_torch.ops.studies ls [N_SEEDS]
+    python -m deseq2_tpu_torch.ops.studies kernels PARENT_ROOT [REPS]
+    python -m deseq2_tpu_torch.ops.studies edges [N_PERM]
+    python -m deseq2_tpu_torch.ops.studies mainpath PARENT_ROOT [CALLS]
 
 `eigvalsh`: the largest batch of symmetric n x n matrices that
 torch.linalg.eigvalsh takes on the card, per dtype and n, found by
@@ -20,12 +23,44 @@ how many genes end more than one lp unit below the other version (kernel
 below plain, plain below kernel, and of the first within the first ten
 genes, whose treated samples carry weights below the Cox-Reid threshold),
 and the gene where the kernel ends furthest below the plain version.
+
+`kernels`: K1 (csrc/irls.cu) and K2 (csrc/disp_ls.cu), both modes, against
+another checkout's kernels (PARENT_ROOT, e.g. a `git archive` of the parent
+unpacked into the gitignored .scratch/), on the same inputs: the main
+path's shapes (60,000 x 1,024, ~ condition, float32 and float64) and
+60,000 x 24 (float32), the inputs the pipeline's own stages hand the
+kernels, saved once to build/.  Each
+turn is a fresh process in one checkout that builds that checkout's
+kernels and times each one: the median of REPS launches (default 7), each
+between its own CUDA events, after at least 0.5 s of warm-up launches;
+the turns run parent, change, change, parent.  Per kernel it prints every
+turn's time, the parent's mean over the change's, and whether the two
+turns of each checkout gave the same outputs bit for bit.
+
+`edges` (the card if there is one, else the CPU): the float32 readings of
+ops/checks.py at checks.EDGES and SHAPES' S = 24 row, taken between the
+plain version and the plain version on the same inputs with the samples
+permuted (so only the summation order differs), N_PERM permutations
+(default 5), K1 and K2 both modes: how far the readings move when nothing
+but rounding does.  A reading that fails in any permutation is
+rounding-bound (checks.ROUNDING_BOUND).
+
+`mainpath`: the public deseq() + results() at 60,000 x 1,024 float32 on
+the card (chip_smoke.py's main path, counts from bench.py's generator
+saved once to build/), in fresh processes alternating between PARENT_ROOT
+and this checkout (parent, change, change, parent): each turn makes a
+cold call, then CALLS warm calls (default 5), and the study prints every
+warm call's genes/s and each checkout's median.
 """
 
 from __future__ import annotations
 
+import inspect
+import json
+import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -162,12 +197,224 @@ def ls_study(dev, n_seeds):
               f"kernel {ks}, plain {ps}")
 
 
+def edges_study(dev, n_perm):
+    from .disp import fit_disp_line_search_plain
+    from .irls import fit_beta_plain
+    perm_rng = torch.Generator().manual_seed(1)
+    cases = [(S, G, p) for S, G in checks.SHAPES if S < 1000
+             for p in (2, 3)] + list(checks.EDGES)
+    for S, G, p in cases:
+        for weighted in (False, True):
+            raw = checks.solver_inputs(G, S, p, 10 * p + S, weighted=weighted)
+            d = checks.as_tensors(raw, torch.float32, dev)
+            base1 = checks.run_irls(fit_beta_plain, d)
+            base2 = {u: checks.run_ls(fit_disp_line_search_plain, d, u)
+                     for u in (False, True)}
+            ref2 = {u: checks.line_search_reference(d, u)
+                    for u in (False, True)}
+            fails = {"irls": 0, False: 0, True: 0}
+            line = f"S={S} G={G} p={p} weighted={weighted}:"
+            for i in range(n_perm):
+                perm = torch.randperm(S, generator=perm_rng).to(dev)
+                dp = {k: v[:, perm] if k in ("y", "mu", "w") else v
+                      for k, v in d.items()}
+                dp["x"] = d["x"][perm]
+                r1 = checks.check_irls(checks.run_irls(fit_beta_plain, dp),
+                                       base1)
+                fails["irls"] += not r1["ok"]
+                line += f" [{i}] irls beta_rel {r1['beta_rel']:.3g}"
+                for u in (False, True):
+                    r2 = checks.check_ls(
+                        checks.run_ls(fit_disp_line_search_plain, dp, u),
+                        base2[u], d, u, ref=ref2[u])
+                    fails[u] += not r2["ok"]
+                    line += (f"; ls prior={u} agree {r2['agree']:.3f} max "
+                             f"{r2['short_kernel_max']:.3g}/"
+                             f"{r2['short_plain_max']:.3g} mean "
+                             f"{r2['short_kernel_mean']:.3g}/"
+                             f"{r2['short_plain_mean']:.3g}")
+            print(f"{line}\n  failed in {n_perm} permutations: irls "
+                  f"{fails['irls']}, ls prior=False {fails[False]}, "
+                  f"ls prior=True {fails[True]}", flush=True)
+
+
+def _run_turn(fn, args, root):
+    """fn(*args) in a fresh `python -c` process in checkout `root` (so that
+    checkout's package is imported); returns the JSON its last line
+    prints."""
+    code = f"{inspect.getsource(fn)}\n{fn.__name__}(*{args!r})\n"
+    run = subprocess.run([sys.executable, "-c", code], cwd=str(root),
+                         capture_output=True, text=True)
+    if run.returncode != 0:
+        raise SystemExit(f"turn in {root} failed:\n{run.stderr[-4000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def _time_main_path(counts_path, calls):
+    """One turn of the main-path study: a cold call, then `calls` warm
+    calls of deseq() + results() on the saved counts; prints their wall
+    seconds as one JSON line."""
+    import json
+    import time
+    import numpy as np
+    import torch
+    import deseq2_tpu_torch as dt
+    counts = np.load(counts_path)
+    s = counts.shape[1]
+    col_data = {"condition": np.repeat(["A", "B"], [s // 2, s - s // 2])}
+
+    def call():
+        dds = dt.dataset_from_matrix(counts, col_data, "~ condition",
+                                     config=dt.DESeqConfig(dtype="float32"))
+        dt.results(dt.deseq(dds))
+        torch.cuda.synchronize()
+
+    call()
+    out = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        call()
+        out.append(time.perf_counter() - t0)
+    print(json.dumps(out))
+
+
+def mainpath_study(parent_root, calls):
+    import statistics
+
+    import numpy as np
+    change_root = Path(__file__).resolve().parents[2]
+    counts, _ = checks.bench_counts(60000, 1024)
+    path = change_root / "build" / "study_main_counts.npy"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.save(path, counts)
+    got = {}
+    for tag, root in (("parent", parent_root), ("change", change_root),
+                      ("change", change_root), ("parent", parent_root)):
+        secs = _run_turn(_time_main_path, (str(path), calls), root)
+        rates = [counts.shape[0] / t for t in secs]
+        got.setdefault(tag, []).extend(rates)
+        print(f"turn {tag}: warm genes/s "
+              + ", ".join(f"{r:,.0f}" for r in rates), flush=True)
+    for tag, rates in got.items():
+        print(f"{tag}: median {statistics.median(rates):,.0f} genes/s over "
+              f"{len(rates)} warm calls, range {min(rates):,.0f}-"
+              f"{max(rates):,.0f}")
+
+
+def _time_kernels(path, reps):
+    """One turn of the kernels study, run as `python -c` in the checkout
+    being timed (so its own package is imported): time K1 and K2 on the
+    saved inputs; print one JSON line {case: [median ms of `reps` launches
+    each between its own CUDA events, after a warm-up of at least 0.5 s;
+    digest of the outputs]}."""
+    import hashlib
+    import json
+    import statistics
+    import time
+    import torch
+    from deseq2_tpu_torch.ops import cuda_irls, cuda_ls
+    dev = torch.device("cuda", 0)
+    out = {}
+    for case, d in torch.load(path).items():
+        t = {k: v.to(dev) if torch.is_tensor(v) else v for k, v in d.items()}
+        ls_args = (t["y"], t["x"], t["mu"], t["la0"], t["la0"], 1.0,
+                   t["min_la"])
+        irls_args = (t["y"], t["x"], t["sf"], t["alpha"], t["beta0"],
+                     t["ridge"])
+        calls = {
+            "disp_ls": lambda: cuda_ls.fit_disp_line_search(
+                *ls_args, weights=t.get("w_ge")),
+            "irls": lambda: cuda_irls.fit_beta(*irls_args,
+                                               weights=t.get("w_n"))}
+        for name, fn in calls.items():
+            res = fn()
+            h = hashlib.sha256()
+            for k in sorted(res):
+                h.update(res[k].cpu().numpy().tobytes())
+            del res
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < 0.5:   # clocks up, blocks cached
+                fn()
+                torch.cuda.synchronize()
+            ev = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+            for start, end in ev:
+                start.record()
+                fn()
+                end.record()
+            torch.cuda.synchronize()
+            out[f"{name} {case}"] = [
+                statistics.median(a.elapsed_time(b) for a, b in ev),
+                h.hexdigest()[:16]]
+    print(json.dumps(out))
+
+
+def kernels_study(dev, parent_root, reps):
+    from .cuda_ls import fit_disp_line_search
+    change_root = Path(__file__).resolve().parents[2]
+    data = {}
+    for S, dnames in ((1024, ("float32", "float64")), (24, ("float32",))):
+        counts, x_np = checks.bench_counts(60000, S)
+        weights = checks.variant_inputs(counts)[0]
+        for dname, w in ((d, w) for d in dnames for w in (None, weights)):
+            dt = getattr(torch, dname)
+            d = checks.pipeline_inputs(counts, x_np, dt, dev, weights=w)
+            k2 = fit_disp_line_search(d["y"], d["x"], d["mu"], d["la0"],
+                                      d["la0"], 1.0, d["min_la"],
+                                      weights=d["w_ge"])
+            _, _, _, d["alpha"], d["beta0"], _ = checks.irls_start(
+                d, k2["log_alpha"])
+            keep = ("y", "x", "mu", "la0", "min_la", "sf", "ridge", "alpha",
+                    "beta0") + (() if w is None else ("w_ge", "w_n"))
+            case = (dname + ("" if w is None else " weighted")
+                    + ("" if S == 1024 else f" S={S}"))
+            data[case] = {k: d[k].cpu() if torch.is_tensor(d[k]) else d[k]
+                          for k in keep}
+    path = change_root / "build" / "study_kernels_inputs.pt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(data, path)
+    del data
+    torch.cuda.empty_cache()
+    turns = (("parent", parent_root), ("change", change_root),
+             ("change", change_root), ("parent", parent_root))
+    got = []
+    for tag, root in turns:
+        t0 = time.perf_counter()
+        got.append((tag, _run_turn(_time_kernels, (str(path), reps), root)))
+        print(f"turn {tag} ({root}): {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    print(f"ms per launch, median of {reps} launches; turns "
+          f"{', '.join(t for t, _ in got)}")
+    for case in got[0][1]:
+        by = {}
+        for tag, res in got:
+            by.setdefault(tag, []).append(res[case])
+        mean = {t: sum(v[0] for v in r) / len(r) for t, r in by.items()}
+        same = {t: len({v[1] for v in r}) == 1 for t, r in by.items()}
+        times = "; ".join(f"{t} " + "/".join(f"{v[0]:.3f}" for v in r)
+                          for t, r in by.items())
+        print(f"{case}: {times}; parent/change "
+              f"{mean['parent'] / mean['change']:.2f}x; repeat-identical "
+              f"{same}")
+
+
 if __name__ == "__main__":
+    if sys.argv[1] == "edges":
+        edges_study(torch.device("cuda", 0) if torch.cuda.is_available()
+                    else torch.device("cpu"),
+                    int(sys.argv[2]) if len(sys.argv) > 2 else 5)
+        raise SystemExit(0)
     if not torch.cuda.is_available():
         raise SystemExit("the studies need a CUDA device")
     dev = torch.device("cuda", 0)
     print(torch.__version__, torch.version.cuda, torch.cuda.get_device_name(0))
     if sys.argv[1] == "eigvalsh":
         eigvalsh_study(dev)
+    elif sys.argv[1] == "mainpath":
+        mainpath_study(Path(sys.argv[2]).resolve(),
+                       int(sys.argv[3]) if len(sys.argv) > 3 else 5)
+    elif sys.argv[1] == "kernels":
+        kernels_study(dev, Path(sys.argv[2]).resolve(),
+                      int(sys.argv[3]) if len(sys.argv) > 3 else 7)
     else:
         ls_study(dev, int(sys.argv[2]) if len(sys.argv) > 2 else 20)

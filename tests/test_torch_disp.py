@@ -234,3 +234,85 @@ def test_weighted_grid_matches_xla(use_prior):
         *_j(y, x, mu, grid, pm), 1.3, use_prior=use_prior,
         weights=jnp.asarray(w), use_weights=True))
     np.testing.assert_array_equal(got, xla)
+
+
+def _lp_dlp_restated(la, y, mu, x, pm, pv, w=None):
+    """K2's lp and dlp as csrc/disp_ls.cu evaluates them, in float64: the
+    trial point's constants lgamma(c), log(c) and digamma(c) once per gene
+    ((G,1) columns), the per-sample difference form, and one reciprocal
+    r = 1/(1 + mu alpha) per sample for w = mu r, mu alpha/(1 + mu alpha)
+    = mu alpha r and y/(mu + 1/alpha) = y alpha r.  Returns lp, dlp and the
+    magnitude of every piece each one sums, special-function values before
+    their difference included (the scale of its rounding)."""
+    la = torch.as_tensor(la)
+    y, mu, x = (torch.as_tensor(a) for a in (y, mu, x))
+    alpha = torch.exp(la)[:, None]
+    c = 1.0 / alpha
+    lgc, logc, dgc = torch.lgamma(c), torch.log(c), torch.digamma(c)
+    mua = mu * alpha
+    l1p = torch.log1p(mua)
+    r = 1.0 / (1.0 + mua)
+    lgy, dgy = torch.lgamma(y + c), torch.digamma(y + c)
+    ll = lgy - lgc - y * logc - (y + c) * l1p
+    s1 = l1p - mua * r + y * alpha * r - (dgy - dgc)
+    ll_mag = lgy.abs() + lgc.abs() + (y * logc).abs() + ((y + c) * l1p).abs()
+    s1_mag = l1p + mua * r + y * alpha * r + dgy.abs() + dgc.abs()
+    wcr = mu * r
+    if w is not None:
+        w = torch.as_tensor(w)
+        ll, s1, ll_mag, s1_mag = w * ll, w * s1, w * ll_mag, w * s1_mag
+        wcr = torch.where(w > tdisp.CR_WEIGHT_THRESHOLD, wcr,
+                          torch.zeros_like(wcr))
+    b = torch.einsum("gs,si,sj->gij", wcr, x, x)
+    db = torch.einsum("gs,si,sj->gij", -wcr * wcr, x, x)
+    if w is not None:
+        cm = (torch.einsum("gs,si->gi", (wcr > 0).double(), x * x)
+              > 0).double()
+        keep = cm[:, :, None] * cm[:, None, :]
+        b = b * keep + torch.diag_embed(1.0 - cm)
+        db = db * keep
+    L = torch.linalg.cholesky(b)
+    logdet = 2.0 * torch.log(torch.diagonal(L, dim1=1, dim2=2)).sum(-1)
+    binv = torch.cholesky_inverse(L)
+    tr_terms = binv * db.transpose(1, 2)
+    a = alpha[:, 0]
+    prior = -0.5 * (la - torch.as_tensor(pm)) ** 2 / pv
+    dprior = -(la - torch.as_tensor(pm)) / pv
+    lp = ll.sum(-1) - 0.5 * logdet + prior
+    dlp = (s1.sum(-1) / a ** 2 - 0.5 * tr_terms.sum((1, 2))) * a + dprior
+    lp_scale = ll_mag.sum(-1) + 0.5 * logdet.abs() + prior.abs()
+    dlp_scale = (s1_mag.sum(-1) / a ** 2
+                 + 0.5 * tr_terms.abs().sum((1, 2))) * a + dprior.abs()
+    return lp.numpy(), dlp.numpy(), lp_scale.numpy(), dlp_scale.numpy()
+
+
+@pytest.mark.parametrize("p,weighted", [(2, False), (2, True), (3, False)])
+def test_restated_line_search_terms(p, weighted):
+    """The per-sample terms in the form the K2 kernel evaluates them give
+    the plain log_posterior/dlog_posterior and the JAX package's (the line
+    search's core) to 1e-12 of the magnitude of the pieces summed (float64
+    lgamma(c) reaches 1.3e7 here, so a difference of two libraries'
+    lgamma values is not exact to 1e-12 of the result), over a grid of alphas
+    from 1e-6 to 10 that crosses the float32 large-c threshold
+    c > 16 max(y, 1) both ways."""
+    y, x, mu, _, _ = _sim(G=240, p=p, seed=12)
+    la = np.linspace(np.log(1e-6), np.log(10.0), len(y))
+    large = 1.0 / np.exp(la)[:, None] > 16.0 * np.maximum(y, 1.0)
+    assert 0.2 < large.mean() < 0.8
+    pm = np.log(np.full(len(y), 0.5))
+    w = _weights(y, x) if weighted else None
+    lp, dlp, lp_s, dlp_s = _lp_dlp_restated(la, y, mu, x, pm, 1.3, w)
+    tw = None if w is None else torch.as_tensor(w)
+    rm, cm = tdisp.make_cr_masks(torch.as_tensor(x), tw)
+    jw = {} if w is None else dict(
+        weights=jnp.asarray(w), use_weights=True,
+        **dict(zip(("row_mask", "col_mask"), jdisp.make_cr_masks(
+            jnp.asarray(x), jnp.asarray(w), 1e-2, True))))
+    for name, got, scale in (("log_posterior", lp, lp_s),
+                             ("dlog_posterior", dlp, dlp_s)):
+        plain = getattr(tdisp, name)(*_t(la, y, mu, x, pm), 1.3, True, tw,
+                                     rm, cm).numpy()
+        jax_v = np.asarray(getattr(jdisp, name)(*_j(la, y, mu, x, pm), 1.3,
+                                                True, **jw))
+        for ref in (plain, jax_v):
+            assert np.all(np.abs(got - ref) <= 1e-12 * scale), name

@@ -9,7 +9,11 @@ from deseq2_tpu_torch/ops/checks.py: float64 holds the kernels to the plain
 versions' trajectories; float32 holds kernel and plain version alike
 against the plain version run in float64.  Every kernel runs unweighted
 and weighted (observation weights, with forced Cox-Reid column drops for
-p >= 2).
+p >= 2).  K1 and K2 also run at checks.EDGES (sample counts where a warp's
+lanes wrap, p = 5 and 8), where the float32 readings that rounding alone
+fails (checks.ROUNDING_BOUND) hold K1 to the float64 fit and leave K2's
+out, and twice on the same inputs, where their outputs must be the same bit
+for bit.
 """
 
 import numpy as np
@@ -42,6 +46,19 @@ def _inputs(G, S, p, seed, dtype, dev, weighted=False):
 CASES = [(dt, p, S, G, wt) for wt in (False, True)
          for dt in (torch.float32, torch.float64)
          for p in (1, 2, 3) for S, G in checks.SHAPES]
+EDGE_CASES = [(dt, p, S, G, wt) for wt in (False, True)
+              for dt in (torch.float32, torch.float64)
+              for S, G, p in checks.EDGES]
+
+
+def _rounding_bound(kernel, case, use_prior=None):
+    dt, p, S, _, wt = case
+    return dt == torch.float32 and (kernel, S, p, wt,
+                                    use_prior) in checks.ROUNDING_BOUND
+
+
+LS_CASES = [(c, u) for c in CASES + EDGE_CASES for u in (False, True)
+            if not _rounding_bound("disp_ls", c, u)]
 
 
 def _id(c):
@@ -52,7 +69,7 @@ def _counter(fn, weighted):
     return fn.launches_weighted if weighted else fn.launches
 
 
-@pytest.mark.parametrize("case", CASES, ids=_id)
+@pytest.mark.parametrize("case", CASES + EDGE_CASES, ids=_id)
 def test_irls_kernel_matches_plain(cuda, case):
     dt, p, S, G, wt = case
     d = _inputs(G, S, p, 10 * p + S, dt, cuda, wt)
@@ -61,7 +78,13 @@ def test_irls_kernel_matches_plain(cuda, case):
     torch.cuda.synchronize()
     assert _counter(fit_beta, wt) == n0 + 1
     pl = checks.run_irls(irls.fit_beta_plain, d)
-    r = checks.check_irls(k, pl)
+    if _rounding_bound("irls", case):
+        ref = checks.run_irls(irls.fit_beta_plain,
+                              _inputs(G, S, p, 10 * p + S, torch.float64,
+                                      cuda, wt))
+        r = checks.check_irls_f64(k, pl, ref)
+    else:
+        r = checks.check_irls(k, pl)
     assert r["ok"], r
     if dt == torch.float64:
         conv = (k["iter"] < 100) & (pl["iter"] < 100)
@@ -71,8 +94,8 @@ def test_irls_kernel_matches_plain(cuda, case):
                                    rtol=1e-7, atol=1e-12)
 
 
-@pytest.mark.parametrize("use_prior", [False, True])
-@pytest.mark.parametrize("case", CASES, ids=_id)
+@pytest.mark.parametrize("case,use_prior", LS_CASES,
+                         ids=[f"{u}-{_id(c)}" for c, u in LS_CASES])
 def test_line_search_kernel_matches_plain(cuda, case, use_prior):
     dt, p, S, G, wt = case
     d = _inputs(G, S, p, 10 * p + S, dt, cuda, wt)
@@ -101,6 +124,22 @@ def test_grid_kernel_matches_plain(cuda, case, use_prior):
            if dt == torch.float32 else None)
     r = checks.check_grid(k, pl, d, use_prior, ref=ref)
     assert r["ok"], r
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+def test_kernels_repeatable(cuda, dt, weighted):
+    """Two launches of K1 and of K2 on the same inputs give the same
+    outputs bit for bit (no atomics in any sum; which warp takes which
+    gene changes no result), at few, wrapping and many samples."""
+    for S, G, p in ((24, 333, 2),) + checks.EDGES[1::3] + ((3000, 301, 3),):
+        d = _inputs(G, S, p, 10 * p + S, dt, cuda, weighted)
+        pairs = [(checks.run_irls(fit_beta, d), checks.run_irls(fit_beta, d)),
+                 (checks.run_ls(fit_disp_line_search, d, True),
+                  checks.run_ls(fit_disp_line_search, d, True))]
+        for a, b in pairs:
+            assert checks.differing_outputs(a, b) == [], (S, p)
 
 
 def test_wrapper_refuses_unsupported(cuda):
