@@ -8,17 +8,16 @@ Phases; any failure exits non-zero and no phase's failure is caught:
    count.  No card: exit 2 before anything else.
 2. build the three CUDA kernels from deseq2_tpu_torch/csrc (one nvcc per
    source, started together) and print ptxas' registers / shared memory /
-   spills per library, and for the p = 2 instantiations of the
-   warp-per-gene kernels (K1, K2) their registers, spills and resident
-   warps per SM.
+   spills per library, and for the p = 2 instantiations of K1, K2 and K3
+   their registers, spills and resident warps per SM.
 3. hold each kernel, unweighted and weighted, against its plain PyTorch
    version on the card, in float32 and float64, for p = 1, 2, 3, at S = 24
    and S = 3000 with a ragged gene count (weighted: forced Cox-Reid column
    drops); in float32 both are also held against the plain version run in
-   float64 (readings and limits: deseq2_tpu_torch/ops/checks.py).  K1 and
-   K2 also at checks.EDGES (S = 31, 33, 65; p = 5, 8; the float32 readings
-   that rounding alone fails, checks.ROUNDING_BOUND, held to the float64
-   fit or printed), and every K1 and K2 launch twice, bit-identical.
+   float64 (readings and limits: deseq2_tpu_torch/ops/checks.py).  Also
+   at checks.EDGES (S = 31, 33, 65; p = 5, 8; the float32 readings that
+   rounding alone fails, checks.ROUNDING_BOUND, held to the float64 fit
+   (K1) or printed (K2, K3)), and every launch twice, bit-identical.
 4. the main path at full width: 60,000 genes x 1,024 samples, ~ condition,
    public deseq() + results() in float32 (a cold and a warm call; the
    launch counters are zeroed just before the warm call and read just
@@ -82,31 +81,21 @@ def ptxas_summary(text):
             f", static smem <= {max(smem or [0])} B, spill bytes {spill}")
 
 
-def ptxas_functions(text):
-    """{kernel symbol: (registers, spill bytes)} from nvcc -Xptxas -v."""
-    import re
-    out = {}
-    for part in text.split("Compiling entry function '")[1:]:
-        regs = re.search(r"Used (\d+) registers", part)
-        spill = re.findall(r"(\d+) bytes spill (?:stores|loads)", part)
-        out[part.split("'", 1)[0]] = (int(regs.group(1)) if regs else -1,
-                                      sum(int(v) for v in spill))
-    return out
-
-
-def warp_kernel_resources():
+def kernel_resources():
     """Registers, spill bytes and resident warps per SM (the occupancy
-    calculator at the main path's S) of the p = 2 instantiations of K1 and
-    K2, the warp-per-gene kernels."""
+    calculator at the main path's S) of the p = 2 instantiations of K1, K2
+    and K3."""
     import ctypes
     import re
 
     from deseq2_tpu_torch.ops import build
     out = {}
-    for name, sym, query, extra in (
-            ("disp_ls", "ls_kernel", "ls_blocks_per_sm", ()),
-            ("irls", "irls_kernel", "irls_blocks_per_sm", (1,))):
-        funcs = ptxas_functions(build.log_path(name).read_text())
+    # warps per block: kWarpBlock / 32 (common.cuh), kGridWarps (disp_grid.cu)
+    for name, sym, query, extra, warps in (
+            ("disp_ls", "ls_kernel", "ls_blocks_per_sm", (), 4),
+            ("irls", "irls_kernel", "irls_blocks_per_sm", (1,), 4),
+            ("disp_grid", "grid_kernel", "grid_blocks_per_sm", (), 10)):
+        funcs = build.ptxas_resources(name)
         fn = build.bind(build.load(name), query,
                         [ctypes.c_int] * (4 + len(extra)))
         for t, dname in (("f", "float32"), ("d", "float64")):
@@ -117,9 +106,9 @@ def warp_kernel_resources():
                 blocks = fn(int(t == "d"), w, 2, S_MAIN, *extra)
                 key = f"{name}{'_w' if w else ''} {dname}"
                 out[key] = dict(registers=regs, spill_bytes=spill,
-                                warps_per_sm=4 * blocks)
+                                warps_per_sm=warps * blocks)
                 log(f"  {key} p=2: {regs} registers, {spill} spill bytes, "
-                    f"{4 * blocks} resident warps per SM at S={S_MAIN}")
+                    f"{warps * blocks} resident warps per SM at S={S_MAIN}")
     return out
 
 
@@ -168,12 +157,13 @@ def fmt(r):
 
 def check_kernels(torch, dev, modes=(False, True)):
     """Each kernel, unweighted and weighted, against its plain version at
-    checks.SHAPES for p = 1, 2, 3; K1 and K2 also at checks.EDGES (sample
-    counts where a warp's lanes wrap, p = 5 and 8).  Every reading is gated
-    under checks.TOL but the float32 ones in checks.ROUNDING_BOUND, which
+    checks.SHAPES for p = 1, 2, 3 and at checks.EDGES (sample counts where
+    a warp's lanes wrap, p = 5 and 8).  Every reading is gated under
+    checks.TOL but the float32 ones in checks.ROUNDING_BOUND, which
     rounding alone fails: there K1 is held to the float64 fit
-    (checks.check_irls_f64) and K2's readings are printed.  K1 and K2 run
-    twice on every input and must give the same outputs bit for bit."""
+    (checks.check_irls_f64) and K2's and K3's readings are printed.  Every
+    kernel runs twice on every input and must give the same outputs bit
+    for bit."""
     from deseq2_tpu_torch.ops import checks, disp, irls
     from deseq2_tpu_torch.ops.cuda_grid import fit_disp_grid
     from deseq2_tpu_torch.ops.cuda_irls import fit_beta
@@ -191,8 +181,6 @@ def check_kernels(torch, dev, modes=(False, True)):
             dt = getattr(torch, dname)
             f32 = dname == "float32"
             for S, G, p in cases + list(checks.EDGES):
-                edge = (S, G, p) in checks.EDGES
-
                 def bound(kernel, prior=None):
                     return f32 and (kernel, S, p, weighted,
                                     prior) in checks.ROUNDING_BOUND
@@ -232,25 +220,24 @@ def check_kernels(torch, dev, modes=(False, True)):
                         k2, p2, d, use_prior,
                         ref=checks.line_search_reference(d, use_prior)
                         if f32 else None)
-                    gated = not bound("disp_ls", use_prior)
-                    log(f"  {case} prior={use_prior} ls: {fmt(r2)} "
-                        f"repeat_differs={rep}"
-                        + ("" if gated else " (rounding-bound: not gated)"))
-                    if not gated:
-                        r2 = dict(r2, ok=True)
-                    results = [("disp_ls", r2, rep)]
-                    if not edge:
-                        k3 = checks.run_grid(fit_disp_grid, d, use_prior)
-                        p3 = checks.run_grid(disp.fit_disp_grid_plain, d,
-                                             use_prior)
-                        r3 = checks.check_grid(
-                            k3, p3, d, use_prior,
-                            ref=checks.grid_reference(d, use_prior)
-                            if f32 else None)
-                        log(f"  {case} prior={use_prior} grid: {fmt(r3)}")
-                        results.append(("disp_grid", r3, []))
-                    for name, r, rp in results:
-                        if not r["ok"] or rp:
+                    k3 = checks.run_grid(fit_disp_grid, d, use_prior)
+                    rep3 = checks.differing_outputs(
+                        {"log_alpha": k3},
+                        {"log_alpha": checks.run_grid(fit_disp_grid, d,
+                                                      use_prior)})
+                    p3 = checks.run_grid(disp.fit_disp_grid_plain, d,
+                                         use_prior)
+                    r3 = checks.check_grid(
+                        k3, p3, d, use_prior,
+                        ref=checks.grid_reference(d, use_prior)
+                        if f32 else None)
+                    for name, r, rp, tag in (("disp_ls", r2, rep, "ls"),
+                                             ("disp_grid", r3, rep3, "grid")):
+                        gated = not bound(name, use_prior)
+                        log(f"  {case} prior={use_prior} {tag}: {fmt(r)} "
+                            f"repeat_differs={rp}"
+                            + ("" if gated else " (rounding-bound: not gated)"))
+                        if (gated and not r["ok"]) or rp:
                             failed.append(f"{case} prior={use_prior} {name}")
                         if gated:
                             worst[name + sfx] = max(worst[name + sfx],
@@ -636,8 +623,19 @@ def ops_ls_point(P):
     return 5 + 36 + P ** 3 + 20
 
 
-def ops_grid(P):
-    return 7 + 4 + 3 + 3 * (P * (P + 1) // 2)
+def ops_grid(P, shared_constants=True):
+    """Per sample and grid point: the lgamma difference 5 (lgamma(y+c),
+    y+c, y log c, two subtractions), the log1p term 4, the Cox-Reid weight
+    3 (1 + mu alpha, its reciprocal, mu r), a packed outer product.
+    shared_constants=False gives the earlier count, which charged lgamma(c)
+    and log(c) to every sample (7 + 4 + 3 + outer product)."""
+    return (5 if shared_constants else 7) + 4 + 3 + 3 * (P * (P + 1) // 2)
+
+
+def ops_grid_point(P):
+    # per grid point and gene: exp, 1/alpha, 1/c, lgamma(c), log(c), the
+    # Cholesky and log determinant (~P^2) and the prior (4)
+    return 5 + P * P + 4
 
 
 def bound(bytes_, ops, dname):
@@ -741,9 +739,11 @@ def kernel_timings(torch, dev, launches, worst, weighted=False):
     ms3 = time_ms(torch, lambda: fit_disp_grid(*g_args, weights=gw), 3)
     pms3 = time_ms(torch, lambda: disp.fit_disp_grid_plain(
         *g_args, weights=gw), 1)
-    Gn = len(need)
-    b3, by3 = bound(it * ((2 + nw) * Gn * S + S * P + 2 * Gn + 40),
-                    40.0 * Gn * S * (ops_grid(P) + nw), dname)
+    Gn, evals = len(need), 2.0 * len(need) * len(grid)
+    g_bytes = it * ((2 + nw) * Gn * S + S * P + 2 * Gn + len(grid))
+    b3, by3 = bound(g_bytes, evals * (S * (ops_grid(P) + nw)
+                                      + ops_grid_point(P)), dname)
+    b3_old, _ = bound(g_bytes, evals * S * (ops_grid(P, False) + nw), dname)
     rows.append(dict(name="disp_grid" + sfx, route="cuda",
                      source="deseq2_tpu_torch/csrc/disp_grid.cu",
                      replaces="deseq2_tpu/ops/pallas_disp.py:244",
@@ -753,7 +753,8 @@ def kernel_timings(torch, dev, launches, worst, weighted=False):
                      ms=ms3, plain_ms=pms3, bound_ms=b3, bound_by=by3,
                      library_ms=None))
     log(f"  disp_grid{sfx}: {n_need} genes need the grid at this shape "
-        f"(timed on {Gn})")
+        f"(timed on {Gn}); bound {b3:.4f} ms ({b3_old:.4f} ms by the earlier "
+        f"count, which charged the point's constants to every sample)")
 
     # K1: the final ridge IRLS at the gene-wise dispersions
     i_args = checks.irls_start(pin, k2["log_alpha"])
@@ -815,7 +816,7 @@ def main():
     log(f"  built {list(logs)}")
     for name, text in logs.items():
         log(f"  {name}: {ptxas_summary(text)}")
-    resources = warp_kernel_resources()
+    resources = kernel_resources()
     done("2")
 
     phase("3", "[3] kernels vs plain versions on the card")
@@ -843,7 +844,7 @@ def main():
 
     log(json.dumps({"main_path": {k: v for k, v in main_out.items()},
                     "gate": gate, "variant_gates": gates,
-                    "warp_kernels": resources, "phase_seconds": seconds}))
+                    "kernel_resources": resources, "phase_seconds": seconds}))
     print(json.dumps({"kernels": rows}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,17 +1,14 @@
 // Device helpers shared by the three per-gene solver kernels
-// (irls.cu, disp_ls.cu, disp_grid.cu): block and warp reductions, the NB
-// special functions with their float32 large-c series branches, unrolled
-// p x p Cholesky routines for p = 1..8, and the weighted Cox-Reid masks.
+// (irls.cu, disp_ls.cu, disp_grid.cu): warp reductions, the NB special
+// functions with their float32 large-c series branches, unrolled p x p
+// Cholesky routines for p = 1..8, and the weighted Cox-Reid masks.
 //
-// Two layouts.  K3 (disp_grid.cu) runs one thread block per gene: the
-// block's threads stride over the samples, reduce their sums to thread 0
-// (block_sum), which runs the p x p algebra and broadcasts through shared
-// memory.  K1 and K2 (irls.cu, disp_ls.cu) run one warp per gene: each
-// persistent warp takes its next gene from a per-launch counter
-// (next_gene), its lanes stride over the samples, warp_allsum leaves the
-// gene's totals on every lane, and every lane runs the same p x p algebra
-// and solver control on the same values, so the solver loops need no
-// barrier and no broadcast.
+// One layout: a warp's lanes stride over a gene's samples, warp_allsum
+// leaves the sums on every lane, and every lane runs the same p x p
+// algebra on the same values, so no barrier or broadcast follows a sum.
+// K1 and K2 (irls.cu, disp_ls.cu) give each persistent warp its next gene
+// from a per-launch counter (next_gene); K3 (disp_grid.cu) gives each
+// block one gene and each of its warps some of the gene's grid points.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -19,21 +16,6 @@
 #include <type_traits>
 
 namespace dk {
-
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-// stage the gene's rows (y, mu, and the weights in the weighted mode) in
-// shared memory when they take at most this many bytes; past it the
-// kernels read them from global memory
-constexpr int kRowSmemBytes = 40960;
-
-// dynamic shared memory for `rows` rows of a gene: 0 (read them from
-// global memory) unless all fit under kRowSmemBytes
-template <typename T>
-inline size_t row_smem_bytes(int S, int rows) {
-  const size_t bytes = (size_t)rows * S * sizeof(T);
-  return bytes <= (size_t)kRowSmemBytes ? bytes : 0;
-}
 
 template <typename T>
 struct Eps;
@@ -64,37 +46,6 @@ __device__ __forceinline__ double d_lgamma(double v) { return lgamma(v); }
 __device__ __forceinline__ float d_abs(float v) { return fabsf(v); }
 __device__ __forceinline__ double d_abs(double v) { return fabs(v); }
 
-// Sum N per-thread values over the block.  The totals are valid on thread
-// 0 only.  `red` holds kWarps * N values of shared memory.  The caller
-// must __syncthreads() after thread 0 has read the totals and before the
-// next block_sum on the same buffer.
-template <typename T, int N>
-__device__ __forceinline__ void block_sum(T (&v)[N], T* red) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    T s = v[i];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
-    v[i] = s;
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) red[warp * N + i] = v[i];
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      T s = red[i];
-#pragma unroll
-      for (int w = 1; w < kWarps; ++w) s += red[w * N + i];
-      v[i] = s;
-    }
-  }
-}
-
 // digamma(z) for z > 0: 8 recurrence shifts psi(z) = psi(z+1) - 1/z onto
 // z >= 8, then the Stirling series through z^-8 (|err| < 8e-12 at z = 8).
 template <typename T>
@@ -124,47 +75,74 @@ __device__ __forceinline__ bool large_c(T y, T c) {
   return is_f32<T>() && c > T(16) * (y > T(1) ? y : T(1));
 }
 
-// lgamma(y + c) - lgamma(c) - y log(c)
+// sum_{j<y} j^k for k = 1..4 (closed forms): the coefficients of the
+// float32 large-c series
 template <typename T>
-__device__ __forceinline__ T lgamma_diff_centered(T y, T c) {
-  if (large_c(y, c)) {
-    const T s1 = y * (y - T(1)) / T(2);
-    const T s2 = (y - T(1)) * y * (T(2) * y - T(1)) / T(6);
-    const T s3 = s1 * s1;
-    const T s4 = s2 * (T(3) * y * y - T(3) * y - T(1)) / T(5);
-    const T ci = T(1) / c;
-    return ci * (s1 - ci * (s2 / T(2) - ci * (s3 / T(3) - ci * s4 / T(4))));
-  }
-  return d_lgamma(y + c) - d_lgamma(c) - y * d_log(c);
+struct PowerSums {
+  T s1, s2, s3, s4;
+};
+
+template <typename T>
+__device__ __forceinline__ PowerSums<T> power_sums(T y) {
+  const T s1 = y * (y - T(1)) / T(2);
+  const T s2 = (y - T(1)) * y * (T(2) * y - T(1)) / T(6);
+  return {s1, s2, s1 * s1, s2 * (T(3) * y * y - T(3) * y - T(1)) / T(5)};
 }
 
-// The constants of one trial point c = 1/alpha, shared by every sample of
-// the gene: computed once per point instead of once per sample.
+// the series of sum_{j<y} log(1 + j/c) in ci = 1/c
 template <typename T>
-struct NbConst {
-  T c, ci, lgc, logc, dgc;
+__device__ __forceinline__ T lgamma_series(const PowerSums<T>& s, T ci) {
+  return ci *
+         (s.s1 - ci * (s.s2 / T(2) - ci * (s.s3 / T(3) - ci * s.s4 / T(4))));
+}
+
+// The constants of one point c = 1/alpha that lgamma(y + c) - lgamma(c)
+// - y log(c) needs, shared by every sample of the gene: computed once per
+// point instead of once per sample.
+template <typename T>
+struct LgConst {
+  T c, ci, lgc, logc;
+};
+
+template <typename T>
+__device__ __forceinline__ LgConst<T> lg_const(T c) {
+  return {c, T(1) / c, d_lgamma(c), d_log(c)};
+}
+
+// lgamma(y + c) - lgamma(c) - y log(c) with the point's constants k: the
+// per-sample difference form, or in float32 past large_c the power-sum
+// series in 1/c (the same values as computing lgamma(c), log(c) and 1/c
+// per sample, so the same bits)
+template <typename T>
+__device__ __forceinline__ T lg_diff(T y, const LgConst<T>& k) {
+  if (large_c(y, k.c)) return lgamma_series(power_sums(y), k.ci);
+  return d_lgamma(y + k.c) - k.lgc - y * k.logc;
+}
+
+// LgConst and digamma(c), for the line search's derivative
+template <typename T>
+struct NbConst : LgConst<T> {
+  T dgc;
 };
 
 template <typename T>
 __device__ __forceinline__ NbConst<T> nb_const(T c) {
-  return {c, T(1) / c, d_lgamma(c), d_log(c), digamma_pos(c)};
+  NbConst<T> k;
+  static_cast<LgConst<T>&>(k) = lg_const(c);
+  k.dgc = digamma_pos(c);
+  return k;
 }
 
-// lgamma(y + c) - lgamma(c) - y log(c) and digamma(y + c) - digamma(c)
-// with the point's constants k: the per-sample difference form and the
-// float32 large-c series of lgamma_diff_centered, with lgamma(c), log(c),
-// digamma(c) and 1/c taken from k (the same values, so the same bits).
+// lg_diff and digamma(y + c) - digamma(c) (or its float32 large-c series)
+// with the point's constants k, on one branch.
 template <typename T>
 __device__ __forceinline__ void nb_diffs(T y, const NbConst<T>& k, T& lgd,
                                          T& dgd) {
   if (large_c(y, k.c)) {
-    const T s1 = y * (y - T(1)) / T(2);
-    const T s2 = (y - T(1)) * y * (T(2) * y - T(1)) / T(6);
-    const T s3 = s1 * s1;
-    const T s4 = s2 * (T(3) * y * y - T(3) * y - T(1)) / T(5);
+    const PowerSums<T> s = power_sums(y);
     const T ci = k.ci;
-    lgd = ci * (s1 - ci * (s2 / T(2) - ci * (s3 / T(3) - ci * s4 / T(4))));
-    dgd = ci * (y - ci * (s1 - ci * (s2 - ci * (s3 - ci * s4))));
+    lgd = lgamma_series(s, ci);
+    dgd = ci * (y - ci * (s.s1 - ci * (s.s2 - ci * (s.s3 - ci * s.s4))));
   } else {
     lgd = d_lgamma(y + k.c) - k.lgc - y * k.logc;
     dgd = digamma_pos(y + k.c) - k.dgc;
@@ -282,12 +260,6 @@ __device__ __forceinline__ void acc_outer(T* acc, T w, const T (&xs)[P]) {
   }
 }
 
-template <typename T, int P>
-__device__ __forceinline__ void load_row(const T* __restrict__ x, int s, T (&xs)[P]) {
-#pragma unroll
-  for (int k = 0; k < P; ++k) xs[k] = __ldg(x + (size_t)s * P + k);
-}
-
 // v times sample s's observation weight wr[s] in the weighted mode, v
 // untouched otherwise: the unweighted instantiations keep the statement
 // order (and so the code) of a kernel without weights.
@@ -304,39 +276,8 @@ __device__ __forceinline__ bool cr_keeps(T w) {
   return w > T(1e-2);
 }
 
-// Weighted Cox-Reid column mask (src/DESeq2.cpp:38-44): column k stays when
-// some kept row has x_k != 0.  Every thread calls it with its own rows
-// (s = threadIdx.x + j kThreads).  Returns the kept columns as bits (bit k
-// set: column k kept), valid on thread 0: a scalar, so the mask lives in a
-// register and never in local memory.  `red` holds at least kWarps * P
-// values.
-template <typename T, int P>
-__device__ __forceinline__ unsigned cr_col_mask(const T* wr,
-                                                const T* __restrict__ x, int S,
-                                                T* red) {
-  T acc[P];
-#pragma unroll
-  for (int k = 0; k < P; ++k) acc[k] = T(0);
-  for (int s = threadIdx.x; s < S; s += kThreads) {
-    if (cr_keeps(wr[s])) {
-      T xs[P];
-      load_row<T, P>(x, s, xs);
-#pragma unroll
-      for (int k = 0; k < P; ++k) acc[k] += xs[k] * xs[k];
-    }
-  }
-  block_sum<T, P>(acc, red);
-  unsigned cm = 0u;
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int k = 0; k < P; ++k) cm |= acc[k] > T(0) ? (1u << k) : 0u;
-  }
-  __syncthreads();
-  return cm;
-}
-
 // Column-mask the Cox-Reid matrix b (and its derivative db, when given)
-// with cr_col_mask's or warp_cr_col_mask's bits: dropped rows and columns
+// with warp_cr_col_mask's bits: dropped rows and columns
 // are zeroed, and b gets a unit diagonal there so the kept submatrix's log
 // determinant survives.
 template <typename T, int P>
@@ -356,7 +297,7 @@ __device__ __forceinline__ void cr_apply_mask(unsigned cm, T (&b)[P][P],
 }
 
 // ---------------------------------------------------------------------------
-// One warp per gene (irls.cu, disp_ls.cu)
+// Warps (irls.cu, disp_ls.cu, disp_grid.cu)
 // ---------------------------------------------------------------------------
 
 // threads of a persistent block: kWarpBlock / 32 independent warps, which
@@ -394,7 +335,7 @@ __device__ __forceinline__ void warp_allsum(T (&v)[N]) {
 }
 
 // Copy n values into the block's shared memory (every thread of the block
-// calls it, once, before the gene loop); a __syncthreads must follow.
+// calls it); a __syncthreads must follow.
 template <typename T>
 __device__ __forceinline__ void block_stage(T* dst, const T* __restrict__ src,
                                             int n) {
@@ -430,7 +371,7 @@ __device__ __forceinline__ unsigned warp_cr_col_mask(const T* wr, const T* xr,
   return cm;
 }
 
-// Dynamic shared memory of a warp-per-gene launch: the block's staged
+// Dynamic shared memory of a launch of K1, K2 or K3: the block's staged
 // values (stage_vals per sample), or 0 bytes (read from global memory)
 // when they take more than kBlockStageBytes.
 template <typename T>
@@ -439,14 +380,15 @@ inline size_t block_stage_bytes(int S, int stage_vals) {
   return b <= kBlockStageBytes ? b : 0;
 }
 
-// Resident blocks per SM of a warp-per-gene kernel with `smem` bytes of
-// dynamic shared memory (the occupancy calculator).  Returns 0 and sets
-// *err on a refusal.
+// Resident blocks per SM of a kernel launched with `threads` threads a
+// block and `smem` bytes of dynamic shared memory (the occupancy
+// calculator).  Returns 0 and sets *err on a refusal.
 template <typename K>
-inline int blocks_per_sm(K kernel, size_t smem, int* err) {
+inline int blocks_per_sm(K kernel, size_t smem, int* err,
+                         int threads = kWarpBlock) {
   int per_sm = 0;
   *err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, kWarpBlock, smem);
+      &per_sm, kernel, threads, smem);
   return *err ? 0 : per_sm;
 }
 

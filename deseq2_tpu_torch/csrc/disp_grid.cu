@@ -1,5 +1,6 @@
-// K3: two-stage dispersion grid search, one gene per thread block
-// (fitDispGrid contract).
+// K3: two-stage dispersion grid search, one gene per thread block, the
+// grid points of a stage spread over the block's warps (fitDispGrid
+// contract).
 //
 // Replaces the TPU kernel deseq2_tpu/ops/pallas_disp.py:fit_disp_grid_pallas
 // (_grid_kernel).  Evaluates the Cox-Reid adjusted NB log posterior (plus
@@ -8,17 +9,35 @@
 // points spanning a_hat +- delta and takes the argmax again.
 //
 // What bounds it on the H100: the special functions.  2n = 40 posterior
-// evaluations per gene, each two lgammas, a log and a log1p per sample,
-// against 2 values read per sample.  The design reads the (y, mu) rows from
-// HBM once into shared memory (when 2 S sizeof(T) <= 40 KB) and keeps them
-// there for all 40 evaluations; the pipeline launches it only on the genes
-// whose line search did not converge.
+// evaluations per gene, each an lgamma, a log1p and a reciprocal per
+// sample, against 2 values read per sample.  The design:
+// - the n points of a stage are independent (only the fine grid depends on
+//   the coarse argmax; the Pallas kernel scans them in order only to bound
+//   its VMEM): warp w of the block's W = kGridWarps evaluates points w,
+//   w + W, ..., its lanes striding over the samples; warp_allsum
+//   leaves the sums on every lane and every lane runs the p x p log
+//   determinant and the prior, so an evaluation has no barrier.  Each warp
+//   keeps the first maximum of its own points, and the stage's pick is the
+//   largest of the W candidates, the smallest index on a tie: the plain
+//   version's strict `>` scan in index order, whatever W.  Barriers per
+//   gene: one after staging the design, one after each stage, whatever n
+//   is;
+// - each point's lgamma(c), log(c) and 1/c computed once per point, not
+//   per sample (lg_const; the per-sample difference form and the float32
+//   large-c series unchanged), and one reciprocal r = 1/(1 + mu alpha) per
+//   sample for the Cox-Reid weight w = mu r;
+// - the design x staged in the block's shared memory (when it fits in
+//   kBlockStageBytes), the gene's rows (y, mu, the weights) read 2n times
+//   through L1/L2 (staging them too measured no faster at S = 1,024,
+//   PERF.md section 6);
+// - the fine grid's offsets j/(n-1) computed in the kernel, as the plain
+//   version's grid_fractions computes them (a float64 product, rounded to
+//   T), and the fine points without a fused multiply-add, so they are the
+//   plain version's points bit for bit.
 //
-// Weighted mode (UseW, a template parameter, so the unweighted
-// instantiations are unchanged): the posterior of the line search's
-// weighted mode (disp_ls.cu), weighted likelihood terms and the masked
-// Cox-Reid term, with the weight row staged beside (y, mu) when 3 S
-// sizeof(T) <= 40 KB.  This is an extension of the TPU kernel, whose JAX
+// Weighted mode (UseW, a template parameter): the posterior of the line
+// search's weighted mode (disp_ls.cu), weighted likelihood terms and the
+// masked Cox-Reid term.  This is an extension of the TPU kernel, whose JAX
 // pipeline runs the weighted grid on its XLA core (fused.py:583); the port
 // runs no plain version on the card, so the weighted grid is a kernel too.
 #include "common.cuh"
@@ -27,157 +46,210 @@ namespace {
 
 using namespace dk;
 
+// warps per block: 10 measured fastest of 4, 5, 7, 8 and 10 at S = 1,024
+// and 3,000 (PERF.md section 6)
+constexpr int kGridWarps = 10;
+
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+
+// log posterior at log-alpha `la`, on every lane of the calling warp.  wr
+// and cm (the column-mask bits) are read in the weighted mode only.
 template <typename T, int P, bool UseW>
 __device__ __forceinline__ T log_post(const T* yr, const T* mr, const T* wr,
-                                      unsigned cm,
-                                      const T* __restrict__ x, int S, T la,
-                                      T pm, T prior_var, int use_prior,
-                                      T* red) {
-  constexpr int NT = P * (P + 1) / 2;
-  constexpr int NV = 1 + NT;
+                                      unsigned cm, const T* xr, int S, T la,
+                                      T pm, T prior_var, int use_prior) {
+  constexpr int NV = 1 + P * (P + 1) / 2;
   const T alpha = d_exp(la);
-  const T inv_a = T(1) / alpha;
+  const LgConst<T> k = lg_const(T(1) / alpha);
   T acc[NV];
 #pragma unroll
   for (int i = 0; i < NV; ++i) acc[i] = T(0);
-  for (int s = threadIdx.x; s < S; s += kThreads) {
+  for (int s = lane_id(); s < S; s += 32) {
     const T yv = yr[s];
     const T m = mr[s];
-    acc[0] += wscale<UseW>(
-        lgamma_diff_centered(yv, inv_a) - (yv + inv_a) * d_log1p(m * alpha),
-        wr, s);
-    T xs[P];
-    load_row<T, P>(x, s, xs);
-    T w = T(1) / (T(1) / m + alpha);
+    const T mua = m * alpha;
+    const T r = T(1) / (T(1) + mua);
+    acc[0] += wscale<UseW>(lg_diff(yv, k) - (yv + k.c) * d_log1p(mua), wr, s);
+    T w = m * r;
     if constexpr (UseW) {
       if (!cr_keeps(wr[s])) w = T(0);
     }
+    T xs[P];
+    x_row<T, P>(xr, s, xs);
     acc_outer<T, P>(acc + 1, w, xs);
   }
-  block_sum<T, NV>(acc, red);
-  T lp = T(0);
-  if (threadIdx.x == 0) {
-    T b[P][P], L[P][P];
-    unpack_sym<T, P>(acc + 1, b);
-    if constexpr (UseW) cr_apply_mask<T, P>(cm, b, nullptr);
-    lp = acc[0] - T(0.5) * cholesky<T, P>(b, L);
-    if (use_prior) lp -= T(0.5) * (la - pm) * (la - pm) / prior_var;
-  }
+  warp_allsum<T, NV>(acc);
+  T b[P][P], L[P][P];
+  unpack_sym<T, P>(acc + 1, b);
+  if constexpr (UseW) cr_apply_mask<T, P>(cm, b, nullptr);
+  T lp = acc[0] - T(0.5) * cholesky<T, P>(b, L);
+  if (use_prior) lp -= T(0.5) * (la - pm) * (la - pm) / prior_var;
   return lp;
 }
 
-// The weighted mode's parameter comes last, so the unweighted
-// instantiations keep the parameter layout, and so the code, of a kernel
-// without it.
+// The stage's first maximum over the warps' candidates (lp, j): the
+// largest lp, the smallest j on a tie; -1 when no point won (every point
+// -inf or NaN).
+template <typename T>
+__device__ __forceinline__ int first_max(const T* cand_lp,
+                                         const int* cand_j) {
+  T best_lp = T(0);
+  int best_j = -1;
+  for (int w = 0; w < kGridWarps; ++w) {
+    const int j = cand_j[w];
+    const T lp = cand_lp[w];
+    if (j >= 0 &&
+        (best_j < 0 || lp > best_lp || (lp == best_lp && j < best_j))) {
+      best_lp = lp;
+      best_j = j;
+    }
+  }
+  return best_j;
+}
+
+// The weighted mode's parameter comes last, as in the other kernels.
 template <typename T, int P, bool UseW>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(32 * kGridWarps)
     grid_kernel(const T* __restrict__ y, const T* __restrict__ mu,
-                const T* __restrict__ x,
-                const T* __restrict__ grid, const T* __restrict__ frac,
+                const T* __restrict__ x, const T* __restrict__ grid,
                 const T* __restrict__ prior_mean, int S, int n, T prior_var,
-                int use_prior, int use_smem, T* __restrict__ out,
+                int use_prior, int stage_x, T* __restrict__ out,
                 const T* __restrict__ wts) {
-  constexpr int NT = P * (P + 1) / 2;
-  __shared__ T red[kWarps * (1 + NT)];
-  __shared__ T sh_ahat;
+  // each warp's candidate (lp, j) per stage: 0 coarse, 1 fine
+  __shared__ T cand_lp[2][kGridWarps];
+  __shared__ int cand_j[2][kGridWarps];
   extern __shared__ __align__(16) unsigned char smem_raw[];
 
   const int g = blockIdx.x;
-  const int tid = threadIdx.x;
+  const int warp = threadIdx.x >> 5;
   const T* yr = y + (size_t)g * S;
   const T* mr = mu + (size_t)g * S;
   const T* wr = UseW ? wts + (size_t)g * S : nullptr;
-  if (use_smem) {
-    T* sy = reinterpret_cast<T*>(smem_raw);
-    T* sm = sy + S;
-    T* sw = sy + 2 * S;
-    for (int s = tid; s < S; s += kThreads) {
-      sy[s] = yr[s];
-      sm[s] = mr[s];
-      if constexpr (UseW) sw[s] = wr[s];
-    }
-    yr = sy;
-    mr = sm;
-    if constexpr (UseW) wr = sw;
-  }
-  // each thread reads back only the samples it staged: no barrier needed
-  unsigned cm = ~0u;
-  if constexpr (UseW) cm = cr_col_mask<T, P>(wr, x, S, red);
-  const T pm = prior_mean[g];
-  const T delta = grid[1] - grid[0];
-
-  // coarse stage over the shared grid; best_* live on thread 0
-  T best_lp = -INFINITY, best_a = T(0);
-  for (int j = 0; j < n; ++j) {
-    const T a = grid[j];
-    const T lp = log_post<T, P, UseW>(yr, mr, wr, cm, x, S, a, pm, prior_var,
-                                      use_prior, red);
-    if (tid == 0 && lp > best_lp) {
-      best_lp = lp;
-      best_a = a;
-    }
+  const T* xr = x;
+  if (stage_x) {
+    T* sx = reinterpret_cast<T*>(smem_raw);
+    block_stage(sx, x, S * P);
+    xr = sx;
     __syncthreads();
   }
-  if (tid == 0) sh_ahat = best_a;
+  unsigned cm = ~0u;
+  if constexpr (UseW) cm = warp_cr_col_mask<T, P>(wr, xr, S);
+  const T pm = prior_mean[g];
+
+  // this warp's points j = warp, warp + kGridWarps, ... of a stage, in
+  // increasing j; strict >: the first maximum wins, a NaN or -inf never
+  // does
+  auto stage_max = [&](auto point, int st) {
+    T best_lp = -INFINITY;
+    int best_j = -1;
+    for (int j = warp; j < n; j += kGridWarps) {
+      const T lp = log_post<T, P, UseW>(yr, mr, wr, cm, xr, S, point(j), pm,
+                                        prior_var, use_prior);
+      if (lp > best_lp) {
+        best_lp = lp;
+        best_j = j;
+      }
+    }
+    if (lane_id() == 0) {
+      cand_lp[st][warp] = best_lp;
+      cand_j[st][warp] = best_j;
+    }
+  };
+
+  // coarse stage over the shared grid; every thread reads the pick
+  stage_max([&](int j) { return grid[j]; }, 0);
   __syncthreads();
-  const T lo = sh_ahat - delta;
+  const int jc = first_max(cand_lp[0], cand_j[0]);
+  const T a_hat = jc < 0 ? T(0) : grid[jc];
+  const T delta = grid[1] - grid[0];
+  const T lo = a_hat - delta;
   const T span = T(2) * delta;
+  const double step = 1.0 / (double)(n - 1);
+  auto fine = [&](int j) { return lo + mul_rn(span, (T)((double)j * step)); };
 
   // fine stage over a_hat +- delta
-  best_lp = -INFINITY;
-  best_a = T(0);
-  for (int j = 0; j < n; ++j) {
-    const T a = lo + span * frac[j];
-    const T lp = log_post<T, P, UseW>(yr, mr, wr, cm, x, S, a, pm, prior_var,
-                                      use_prior, red);
-    if (tid == 0 && lp > best_lp) {
-      best_lp = lp;
-      best_a = a;
-    }
-    __syncthreads();
+  stage_max(fine, 1);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int jf = first_max(cand_lp[1], cand_j[1]);
+    out[g] = jf < 0 ? T(0) : fine(jf);
   }
-  if (tid == 0) out[g] = best_a;
+}
+
+template <typename T, int P, bool UseW>
+int launch_p(const T* y, const T* mu, const T* w, const T* x, const T* grid,
+             const T* pm, int G, int S, int n, T prior_var, int use_prior,
+             T* out, cudaStream_t st) {
+  const size_t smem = block_stage_bytes<T>(S, P);
+  grid_kernel<T, P, UseW><<<G, 32 * kGridWarps, smem, st>>>(
+      y, mu, x, grid, pm, S, n, prior_var, use_prior, smem > 0, out, w);
+  return (int)cudaGetLastError();
 }
 
 // w == nullptr selects the unweighted instantiations
 template <typename T>
 int launch(const T* y, const T* mu, const T* w, const T* x, const T* grid,
-           const T* frac, const T* pm, int G, int S, int p, int n,
-           T prior_var, int use_prior, T* out, void* stream) {
+           const T* pm, int G, int S, int p, int n, T prior_var,
+           int use_prior, T* out, void* stream) {
+  if (n < 2) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (w != nullptr) {
-    const size_t smem = row_smem_bytes<T>(S, 3);
-    DK_DISPATCH_P(p, grid_kernel<T, P, true><<<G, kThreads, smem, st>>>(
-                          y, mu, x, grid, frac, pm, S, n, prior_var,
-                          use_prior, smem > 0, out, w))
+    DK_DISPATCH_P(p, return launch_p<T, P, true>(y, mu, w, x, grid, pm, G, S,
+                                                 n, prior_var, use_prior, out,
+                                                 st))
   } else {
-    const size_t smem = row_smem_bytes<T>(S, 2);
-    DK_DISPATCH_P(p, grid_kernel<T, P, false><<<G, kThreads, smem, st>>>(
-                          y, mu, x, grid, frac, pm, S, n, prior_var,
-                          use_prior, smem > 0, out, w))
+    DK_DISPATCH_P(p, return launch_p<T, P, false>(y, mu, w, x, grid, pm, G, S,
+                                                  n, prior_var, use_prior,
+                                                  out, st))
   }
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
+}
+
+// resident blocks per SM of the instantiation a launch would take (-1 on
+// a refusal or an unsupported p)
+template <typename T, bool UseW>
+int occupancy(int p, int S) {
+  int err = 0;
+  DK_DISPATCH_P(p, {
+    const int n = blocks_per_sm(grid_kernel<T, P, UseW>,
+                                block_stage_bytes<T>(S, P), &err,
+                                32 * kGridWarps);
+    return err ? -1 : n;
+  })
+  return -1;
 }
 
 }  // namespace
 
 extern "C" {
 
+int grid_blocks_per_sm(int f64, int weighted, int p, int S) {
+  if (f64) {
+    return weighted ? occupancy<double, true>(p, S)
+                    : occupancy<double, false>(p, S);
+  }
+  return weighted ? occupancy<float, true>(p, S)
+                  : occupancy<float, false>(p, S);
+}
+
 int grid_launch_f32(const float* y, const float* mu, const float* w,
-                    const float* x, const float* grid, const float* frac,
-                    const float* pm, int G, int S, int p, int n,
-                    float prior_var, int use_prior, float* out,
-                    void* stream) {
-  return launch<float>(y, mu, w, x, grid, frac, pm, G, S, p, n, prior_var,
+                    const float* x, const float* grid, const float* pm, int G,
+                    int S, int p, int n, float prior_var, int use_prior,
+                    float* out, void* stream) {
+  return launch<float>(y, mu, w, x, grid, pm, G, S, p, n, prior_var,
                        use_prior, out, stream);
 }
 
 int grid_launch_f64(const double* y, const double* mu, const double* w,
-                    const double* x, const double* grid, const double* frac,
-                    const double* pm, int G, int S, int p, int n,
-                    double prior_var, int use_prior, double* out,
-                    void* stream) {
-  return launch<double>(y, mu, w, x, grid, frac, pm, G, S, p, n, prior_var,
+                    const double* x, const double* grid, const double* pm,
+                    int G, int S, int p, int n, double prior_var,
+                    int use_prior, double* out, void* stream) {
+  return launch<double>(y, mu, w, x, grid, pm, G, S, p, n, prior_var,
                         use_prior, out, stream);
 }
 

@@ -58,6 +58,21 @@ def log_path(name):
     return so_path(name).with_suffix(".log")
 
 
+def ptxas_resources(name):
+    """{kernel symbol: (registers, spill bytes)} of a kernel library, from
+    nvcc's -Xptxas -v report (built first if needed)."""
+    import re
+    load(name)
+    out = {}
+    for part in log_path(name).read_text().split(
+            "Compiling entry function '")[1:]:
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.findall(r"(\d+) bytes spill (?:stores|loads)", part)
+        out[part.split("'", 1)[0]] = (int(regs.group(1)) if regs else -1,
+                                      sum(int(v) for v in spill))
+    return out
+
+
 def _start(name):
     """Start nvcc for one source unless its library is already built.
     Returns (process, temporary output path) or None."""

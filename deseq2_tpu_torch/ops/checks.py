@@ -53,9 +53,9 @@ PRIOR_VAR = 1.3
 SEPARATED = 16.0
 # (S, G) of the kernel checks: few and many samples, ragged gene counts
 SHAPES = ((24, 333), (3000, 301))
-# (S, G, p) of the K1 and K2 checks at the edges of their warp-per-gene
-# layout: sample counts at which a warp's lanes wrap, and the widest
-# designs, where every lane runs the largest p x p algebra.
+# (S, G, p) of the kernel checks at the edges of the kernels' warp layout:
+# sample counts at which a warp's lanes wrap, and the widest designs, where
+# every lane runs the largest p x p algebra.
 EDGES = ((31, 97, 2), (33, 97, 2), (65, 97, 3), (24, 120, 5), (65, 120, 8))
 # The float32 readings at EDGES that the plain float32 version fails
 # against itself when only its summation order changes (the samples
@@ -63,7 +63,8 @@ EDGES = ((31, 97, 2), (33, 97, 2), (65, 97, 3), (24, 120, 5), (65, 120, 8))
 # deseq2_tpu_torch.ops.studies edges`, which gives the same answer on any
 # machine), as (kernel, S, p, weighted, prior; None for K1).  There
 # rounding alone fails TOL: K1 is held instead to the float64 fit
-# (check_irls_f64), K2's readings are printed, not gated.
+# (check_irls_f64), K2's readings are printed, not gated.  No K3 reading
+# is rounding-bound there.
 ROUNDING_BOUND = {("irls", 24, 5, False, None), ("irls", 24, 5, True, None),
                   ("irls", 65, 8, False, None), ("disp_ls", 33, 2, True, True),
                   ("disp_ls", 65, 3, False, True),

@@ -16,7 +16,7 @@ import ctypes
 import torch
 
 from . import build
-from .disp import fit_disp_grid_plain, grid_fractions
+from .disp import fit_disp_grid_plain
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -49,7 +49,6 @@ def fit_disp_grid(y, x, mu, disp_grid, prior_mean, prior_var,
     y_, mu_, x_, grid_, pm_ = (prep(t) for t in (y, mu, x, disp_grid,
                                                 prior_mean))
     w_ = None if weights is None else prep(weights)
-    frac = grid_fractions(n, dtype, dev).contiguous()
     out = torch.empty(G, dtype=dtype, device=dev)
     if G == 0:
         return out
@@ -57,12 +56,11 @@ def fit_disp_grid(y, x, mu, disp_grid, prior_mean, prior_var,
     scal = ctypes.c_double if f64 else ctypes.c_float
     lib = build.load("disp_grid")
     fn = build.bind(lib, "grid_launch_f64" if f64 else "grid_launch_f32",
-                    [_P] * 7 + [_I] * 4 + [scal, _I, _P, _P])
+                    [_P] * 6 + [_I] * 4 + [scal, _I, _P, _P])
     with torch.cuda.device(dev):
         err = fn(build.ptr(y_), build.ptr(mu_), build.ptr(w_),
-                 build.ptr(x_), build.ptr(grid_), build.ptr(frac),
-                 build.ptr(pm_), G, S, p, n, float(prior_var),
-                 int(bool(use_prior)),
+                 build.ptr(x_), build.ptr(grid_), build.ptr(pm_), G, S, p, n,
+                 float(prior_var), int(bool(use_prior)),
                  build.ptr(out), build.stream_of(mu_))
     build.check(err, "disp_grid")
     if w_ is None:

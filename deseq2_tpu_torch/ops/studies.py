@@ -24,25 +24,27 @@ below plain, plain below kernel, and of the first within the first ten
 genes, whose treated samples carry weights below the Cox-Reid threshold),
 and the gene where the kernel ends furthest below the plain version.
 
-`kernels`: K1 (csrc/irls.cu) and K2 (csrc/disp_ls.cu), both modes, against
-another checkout's kernels (PARENT_ROOT, e.g. a `git archive` of the parent
-unpacked into the gitignored .scratch/), on the same inputs: the main
-path's shapes (60,000 x 1,024, ~ condition, float32 and float64) and
-60,000 x 24 (float32), the inputs the pipeline's own stages hand the
-kernels, saved once to build/.  Each
-turn is a fresh process in one checkout that builds that checkout's
-kernels and times each one: the median of REPS launches (default 7), each
-between its own CUDA events, after at least 0.5 s of warm-up launches;
-the turns run parent, change, change, parent.  Per kernel it prints every
-turn's time, the parent's mean over the change's, and whether the two
-turns of each checkout gave the same outputs bit for bit.
+`kernels`: K1 (csrc/irls.cu), K2 (csrc/disp_ls.cu) and K3
+(csrc/disp_grid.cu, on the genes whose float32 line search did not
+converge, in both dtypes: in float64 it converges on every gene), both
+modes, against another checkout's kernels (PARENT_ROOT, e.g. a `git
+archive` of the parent unpacked into the gitignored .scratch/), on the
+same inputs: the main path's shapes (60,000 x 1,024, ~ condition, float32
+and float64) and 60,000 x 24 (float32), the inputs the pipeline's own
+stages hand the kernels, saved once to build/. Each turn is a fresh
+process in one checkout that builds that checkout's kernels and times each
+one: the median of REPS launches (default 7), each between its own CUDA
+events, after at least 0.5 s of warm-up launches; the turns run parent,
+change, change, parent. Per kernel it prints every turn's time, the
+parent's mean over the change's, and whether the two turns of each
+checkout gave the same outputs bit for bit.
 
 `edges` (the card if there is one, else the CPU): the float32 readings of
 ops/checks.py at checks.EDGES and SHAPES' S = 24 row, taken between the
 plain version and the plain version on the same inputs with the samples
 permuted (so only the summation order differs), N_PERM permutations
-(default 5), K1 and K2 both modes: how far the readings move when nothing
-but rounding does.  A reading that fails in any permutation is
+(default 5), K1, K2 and K3 both modes: how far the readings move when
+nothing but rounding does.  A reading that fails in any permutation is
 rounding-bound (checks.ROUNDING_BOUND).
 
 `mainpath`: the public deseq() + results() at 60,000 x 1,024 float32 on
@@ -198,7 +200,7 @@ def ls_study(dev, n_seeds):
 
 
 def edges_study(dev, n_perm):
-    from .disp import fit_disp_line_search_plain
+    from .disp import fit_disp_grid_plain, fit_disp_line_search_plain
     from .irls import fit_beta_plain
     perm_rng = torch.Generator().manual_seed(1)
     cases = [(S, G, p) for S, G in checks.SHAPES if S < 1000
@@ -212,7 +214,10 @@ def edges_study(dev, n_perm):
                      for u in (False, True)}
             ref2 = {u: checks.line_search_reference(d, u)
                     for u in (False, True)}
-            fails = {"irls": 0, False: 0, True: 0}
+            base3 = {u: checks.run_grid(fit_disp_grid_plain, d, u)
+                     for u in (False, True)}
+            ref3 = {u: checks.grid_reference(d, u) for u in (False, True)}
+            fails = {"irls": 0, False: 0, True: 0, "grid": [0, 0]}
             line = f"S={S} G={G} p={p} weighted={weighted}:"
             for i in range(n_perm):
                 perm = torch.randperm(S, generator=perm_rng).to(dev)
@@ -233,9 +238,19 @@ def edges_study(dev, n_perm):
                              f"{r2['short_plain_max']:.3g} mean "
                              f"{r2['short_kernel_mean']:.3g}/"
                              f"{r2['short_plain_mean']:.3g}")
+                    r3 = checks.check_grid(
+                        checks.run_grid(fit_disp_grid_plain, dp, u),
+                        base3[u], d, u, ref=ref3[u])
+                    fails["grid"][u] += not r3["ok"]
+                    line += (f"; grid prior={u} short "
+                             f"{r3['short_kernel']:.3g}/"
+                             f"{r3['short_plain']:.3g} sep_same "
+                             f"{r3['sep_same_kernel']:.3f} of {r3['n_sep']}")
             print(f"{line}\n  failed in {n_perm} permutations: irls "
                   f"{fails['irls']}, ls prior=False {fails[False]}, "
-                  f"ls prior=True {fails[True]}", flush=True)
+                  f"ls prior=True {fails[True]}, grid prior=False "
+                  f"{fails['grid'][0]}, grid prior=True {fails['grid'][1]}",
+                  flush=True)
 
 
 def _run_turn(fn, args, root):
@@ -303,7 +318,7 @@ def mainpath_study(parent_root, calls):
 
 def _time_kernels(path, reps):
     """One turn of the kernels study, run as `python -c` in the checkout
-    being timed (so its own package is imported): time K1 and K2 on the
+    being timed (so its own package is imported): time K1, K2 and K3 on the
     saved inputs; print one JSON line {case: [median ms of `reps` launches
     each between its own CUDA events, after a warm-up of at least 0.5 s;
     digest of the outputs]}."""
@@ -312,7 +327,7 @@ def _time_kernels(path, reps):
     import statistics
     import time
     import torch
-    from deseq2_tpu_torch.ops import cuda_irls, cuda_ls
+    from deseq2_tpu_torch.ops import cuda_grid, cuda_irls, cuda_ls
     dev = torch.device("cuda", 0)
     out = {}
     for case, d in torch.load(path).items():
@@ -325,7 +340,10 @@ def _time_kernels(path, reps):
             "disp_ls": lambda: cuda_ls.fit_disp_line_search(
                 *ls_args, weights=t.get("w_ge")),
             "irls": lambda: cuda_irls.fit_beta(*irls_args,
-                                               weights=t.get("w_n"))}
+                                               weights=t.get("w_n")),
+            "disp_grid": lambda: {"log_alpha": cuda_grid.fit_disp_grid(
+                t["gy"], t["x"], t["gmu"], t["grid"], t["gpm"], 1.0,
+                weights=t.get("gw"))}}
         for name, fn in calls.items():
             res = fn()
             h = hashlib.sha256()
@@ -349,10 +367,12 @@ def _time_kernels(path, reps):
     print(json.dumps(out))
 
 
-def kernels_study(dev, parent_root, reps):
+def _kernel_inputs(dev):
+    """The inputs the pipeline's own stages hand K1, K2 and K3 at 60,000 x
+    1,024 (float32 and float64) and 60,000 x 24 (float32), both modes, as
+    CPU tensors by case name."""
     from .cuda_ls import fit_disp_line_search
-    change_root = Path(__file__).resolve().parents[2]
-    data = {}
+    data, need_f32 = {}, {}
     for S, dnames in ((1024, ("float32", "float64")), (24, ("float32",))):
         counts, x_np = checks.bench_counts(60000, S)
         weights = checks.variant_inputs(counts)[0]
@@ -364,12 +384,34 @@ def kernels_study(dev, parent_root, reps):
                                       weights=d["w_ge"])
             _, _, _, d["alpha"], d["beta0"], _ = checks.irls_start(
                 d, k2["log_alpha"])
+            # K3's genes: those whose float32 line search did not converge,
+            # as the pipeline (and chip_smoke.py's kernel timings) picks
+            # them (in float64 the line search converges on every gene)
+            if dname == "float32":
+                need_f32[w is None] = torch.nonzero(
+                    (k2["iter"] >= 100) | (k2["iter"] == 1)).squeeze(1)
+            need = need_f32[w is None]
+            d.update(gy=d["y"][need], gmu=d["mu"][need],
+                     gpm=torch.zeros(len(need), dtype=dt, device=dev))
+            own = int(((k2["iter"] >= 100) | (k2["iter"] == 1)).sum())
+            print(f"{dname}{'' if w is None else ' weighted'} S={S}: "
+                  f"{len(need)} genes need the grid in float32, {own} in "
+                  f"{dname}", flush=True)
             keep = ("y", "x", "mu", "la0", "min_la", "sf", "ridge", "alpha",
-                    "beta0") + (() if w is None else ("w_ge", "w_n"))
+                    "beta0", "grid", "gy", "gmu", "gpm")
+            if w is not None:
+                d["gw"] = d["w_ge"][need]
+                keep += ("w_ge", "w_n", "gw")
             case = (dname + ("" if w is None else " weighted")
                     + ("" if S == 1024 else f" S={S}"))
             data[case] = {k: d[k].cpu() if torch.is_tensor(d[k]) else d[k]
                           for k in keep}
+    return data
+
+
+def kernels_study(dev, parent_root, reps):
+    change_root = Path(__file__).resolve().parents[2]
+    data = _kernel_inputs(dev)
     path = change_root / "build" / "study_kernels_inputs.pt"
     path.parent.mkdir(parents=True, exist_ok=True)
     torch.save(data, path)

@@ -236,14 +236,15 @@ def test_weighted_grid_matches_xla(use_prior):
     np.testing.assert_array_equal(got, xla)
 
 
-def _lp_dlp_restated(la, y, mu, x, pm, pv, w=None):
+def _lp_dlp_restated(la, y, mu, x, pm, pv, w=None, use_prior=True):
     """K2's lp and dlp as csrc/disp_ls.cu evaluates them, in float64: the
     trial point's constants lgamma(c), log(c) and digamma(c) once per gene
     ((G,1) columns), the per-sample difference form, and one reciprocal
     r = 1/(1 + mu alpha) per sample for w = mu r, mu alpha/(1 + mu alpha)
     = mu alpha r and y/(mu + 1/alpha) = y alpha r.  Returns lp, dlp and the
     magnitude of every piece each one sums, special-function values before
-    their difference included (the scale of its rounding)."""
+    their difference included (the scale of its rounding).  lp is also
+    K3's, as csrc/disp_grid.cu evaluates it."""
     la = torch.as_tensor(la)
     y, mu, x = (torch.as_tensor(a) for a in (y, mu, x))
     alpha = torch.exp(la)[:, None]
@@ -276,8 +277,8 @@ def _lp_dlp_restated(la, y, mu, x, pm, pv, w=None):
     binv = torch.cholesky_inverse(L)
     tr_terms = binv * db.transpose(1, 2)
     a = alpha[:, 0]
-    prior = -0.5 * (la - torch.as_tensor(pm)) ** 2 / pv
-    dprior = -(la - torch.as_tensor(pm)) / pv
+    prior = -0.5 * (la - torch.as_tensor(pm)) ** 2 / pv * use_prior
+    dprior = -(la - torch.as_tensor(pm)) / pv * use_prior
     lp = ll.sum(-1) - 0.5 * logdet + prior
     dlp = (s1.sum(-1) / a ** 2 - 0.5 * tr_terms.sum((1, 2))) * a + dprior
     lp_scale = ll_mag.sum(-1) + 0.5 * logdet.abs() + prior.abs()
@@ -316,3 +317,136 @@ def test_restated_line_search_terms(p, weighted):
                                                 True, **jw))
         for ref in (plain, jax_v):
             assert np.all(np.abs(got - ref) <= 1e-12 * scale), name
+
+
+
+def _grid_search_restated(lp_fn, grid, G, warps):
+    """csrc/disp_grid.cu's two-stage search, in float64: in each stage warp
+    w evaluates the points j = w, w + warps, ... in increasing j and keeps
+    its first maximum (strict >), and the stage's pick is the largest of
+    the warps' candidates, the smallest j on a tie (0 when no point won);
+    the fine points lo + span j * (1/(n-1)).  lp_fn: (G,) log alpha -> (G,)
+    log posterior."""
+    grid = torch.as_tensor(grid)
+    n = len(grid)
+    delta = grid[1] - grid[0]
+
+    def stage(points):                      # (n, G)
+        lps = [lp_fn(points[j]) for j in range(n)]
+        pick_lp = torch.zeros(G, dtype=torch.float64)
+        pick_j = torch.full((G,), -1)
+        for w in range(warps):
+            best_lp = torch.full((G,), float("-inf"), dtype=torch.float64)
+            best_j = torch.full((G,), -1)
+            for j in range(w, n, warps):
+                better = lps[j] > best_lp
+                best_lp = torch.where(better, lps[j], best_lp)
+                best_j = torch.where(better, torch.full_like(best_j, j),
+                                     best_j)
+            take = (best_j >= 0) & ((pick_j < 0) | (best_lp > pick_lp)
+                                    | ((best_lp == pick_lp)
+                                       & (best_j < pick_j)))
+            pick_lp = torch.where(take, best_lp, pick_lp)
+            pick_j = torch.where(take, best_j, pick_j)
+        chosen = points.gather(0, pick_j.clamp(min=0)[None])[0]
+        return torch.where(pick_j >= 0, chosen, torch.zeros_like(chosen))
+
+    a_hat = stage(grid[:, None].expand(n, G))
+    frac = torch.arange(n, dtype=torch.float64) * (1.0 / (n - 1))
+    return stage((a_hat[None, :] - delta) + (2.0 * delta) * frac[:, None])
+
+
+@pytest.mark.parametrize("use_prior", [False, True])
+@pytest.mark.parametrize("p,weighted", [(2, False), (2, True), (3, False),
+                                        (3, True)])
+def test_restated_grid_terms(p, weighted, use_prior):
+    """The log posterior in the form the K3 kernel evaluates it (each
+    point's lgamma(c), log(c) and 1/c once per gene, w = mu r) equals the
+    plain log_posterior and the JAX package's to 1e-12 of the magnitude of
+    the pieces summed, at every point of the coarse grid; and the kernel's
+    two-stage search on that form, its points spread over 4 warps, picks
+    the points of fit_disp_grid_plain and of the JAX package's XLA core,
+    and (p >= 2, unweighted) those of its Pallas kernel in interpret mode
+    but for the near-ties its Lanczos lgamma flips."""
+    y, x, mu, _, grid = _sim(G=200, p=p, seed=20 + p)
+    G = len(y)
+    pm = np.log(np.full(G, 0.5))
+    w = _weights(y, x) if weighted else None
+    tw = None if w is None else torch.as_tensor(w)
+    rm, cm = tdisp.make_cr_masks(torch.as_tensor(x), tw)
+    jw = {} if w is None else dict(
+        weights=jnp.asarray(w), use_weights=True,
+        **dict(zip(("row_mask", "col_mask"), jdisp.make_cr_masks(
+            jnp.asarray(x), jnp.asarray(w), 1e-2, True))))
+    for a in grid:
+        la = np.full(G, a)
+        got, _, scale, _ = _lp_dlp_restated(la, y, mu, x, pm, 1.3, w,
+                                            use_prior)
+        plain = tdisp.log_posterior(*_t(la, y, mu, x, pm), 1.3, use_prior,
+                                    tw, rm, cm).numpy()
+        jax_v = np.asarray(jdisp.log_posterior(*_j(la, y, mu, x, pm), 1.3,
+                                               use_prior, **jw))
+        for ref in (plain, jax_v):
+            assert np.all(np.abs(got - ref) <= 1e-12 * scale), a
+
+    def lp_fn(la):
+        return torch.as_tensor(_lp_dlp_restated(la.numpy(), y, mu, x, pm,
+                                                1.3, w, use_prior)[0])
+
+    got = _grid_search_restated(lp_fn, grid, G, 4).numpy()
+    plain = tdisp.fit_disp_grid_plain(*_t(y, x, mu, grid, pm), 1.3,
+                                      use_prior=use_prior, weights=tw)
+    np.testing.assert_array_equal(got, plain.numpy())
+    xla = np.asarray(jdisp._fit_disp_grid_core(
+        *_j(y, x, mu, grid, pm), 1.3, use_prior=use_prior,
+        **({} if w is None else dict(weights=jnp.asarray(w),
+                                     use_weights=True))))
+    np.testing.assert_array_equal(got, xla)
+    if not weighted:
+        pal = np.asarray(fit_disp_grid_pallas(*_j(y, x, mu, grid, pm), 1.3,
+                                              use_prior=use_prior,
+                                              interpret=True))
+        assert np.isclose(got, pal, atol=1e-9).mean() > 0.98
+        lp_got = _lp(got, y, x, mu, pm, 1.3, use_prior)
+        lp_pal = _lp(pal, y, x, mu, pm, 1.3, use_prior)
+        assert np.all(lp_got >= lp_pal - 1e-6 * np.abs(lp_pal) - 1e-6)
+
+
+def _stepped_posterior(G, seed=0):
+    """A log posterior of log alpha made of steps, so that neighbouring
+    grid points tie, with NaN on part of the axis for some genes and -inf
+    or NaN on all of it for others."""
+    rng = np.random.default_rng(seed)
+    centre = torch.as_tensor(rng.uniform(-18.0, 3.0, G))
+    width = torch.as_tensor(rng.choice([0.07, 0.2, 0.5, 1.5, 3.0], G))
+    kind = torch.as_tensor(np.arange(G) % 6)
+
+    def lp(la, *args, **kwargs):
+        v = -torch.floor((la - centre).abs() / width)
+        v = torch.where((kind == 1) & (la > centre), float("nan"), v)
+        v = torch.where((kind == 2) & (la < centre - 2.0), float("-inf"), v)
+        v = torch.where(kind == 3, torch.full_like(v, float("-inf")), v)
+        v = torch.where(kind == 4, torch.full_like(v, float("nan")), v)
+        return torch.where((kind == 5) & (la > centre), float("-inf"), v)
+
+    return lp
+
+
+@pytest.mark.parametrize("warps", [1, 3, 4, 7, 25])
+def test_grid_first_max_any_warps(monkeypatch, warps):
+    """The kernel's first-maximum rule with the points spread over `warps`
+    warps (each warp's own first maximum, then the largest candidate, the
+    smallest index on a tie) picks what fit_disp_grid_plain's strict `>`
+    scan in index order picks, on posteriors with ties between
+    neighbouring points in both stages, NaN points (which never win) and
+    genes whose points are all -inf or NaN (which end at 0)."""
+    y, x, mu, _, grid = _sim(G=120, seed=2)
+    G = len(y)
+    lp = _stepped_posterior(G)
+    monkeypatch.setattr(tdisp, "log_posterior", lp)
+    plain = tdisp.fit_disp_grid_plain(*_t(y, x, mu, grid,
+                                          np.zeros(G)), 1.0).numpy()
+    got = _grid_search_restated(lp, grid, G, warps).numpy()
+    np.testing.assert_array_equal(got, plain)
+    kind = np.arange(G) % 6
+    assert np.all(plain[(kind == 3) | (kind == 4)] == 0.0)

@@ -9,11 +9,11 @@ from deseq2_tpu_torch/ops/checks.py: float64 holds the kernels to the plain
 versions' trajectories; float32 holds kernel and plain version alike
 against the plain version run in float64.  Every kernel runs unweighted
 and weighted (observation weights, with forced Cox-Reid column drops for
-p >= 2).  K1 and K2 also run at checks.EDGES (sample counts where a warp's
-lanes wrap, p = 5 and 8), where the float32 readings that rounding alone
-fails (checks.ROUNDING_BOUND) hold K1 to the float64 fit and leave K2's
-out, and twice on the same inputs, where their outputs must be the same bit
-for bit.
+p >= 2).  Every kernel also runs at checks.EDGES (sample counts where a
+warp's lanes wrap, p = 5 and 8), where the float32 readings that rounding
+alone fails (checks.ROUNDING_BOUND) hold K1 to the float64 fit and leave
+K2's and K3's out, and twice on the same inputs, where its outputs must be
+the same bit for bit.
 """
 
 import numpy as np
@@ -59,6 +59,16 @@ def _rounding_bound(kernel, case, use_prior=None):
 
 LS_CASES = [(c, u) for c in CASES + EDGE_CASES for u in (False, True)
             if not _rounding_bound("disp_ls", c, u)]
+# K3 also at sample counts where a gene's x, y and mu (and weights) take
+# just under 48 KB, the shared memory a block gets without opting in
+WIDE_GRID_CASES = [(dt, p, S, 64, wt) for wt in (False, True)
+                   for dt, p, S in ((torch.float32, 2, 3072),
+                                    (torch.float64, 2, 1536),
+                                    (torch.float32, 1, 4096),
+                                    (torch.float64, 1, 2048))]
+GRID_CASES = [(c, u) for c in CASES + EDGE_CASES for u in (False, True)
+              if not _rounding_bound("disp_grid", c, u)] + [
+                  (c, False) for c in WIDE_GRID_CASES]
 
 
 def _id(c):
@@ -110,8 +120,8 @@ def test_line_search_kernel_matches_plain(cuda, case, use_prior):
     assert r["ok"], r
 
 
-@pytest.mark.parametrize("use_prior", [False, True])
-@pytest.mark.parametrize("case", CASES, ids=_id)
+@pytest.mark.parametrize("case,use_prior", GRID_CASES,
+                         ids=[f"{_id(c)}-{u}" for c, u in GRID_CASES])
 def test_grid_kernel_matches_plain(cuda, case, use_prior):
     dt, p, S, G, wt = case
     d = _inputs(G, S, p, 10 * p + S, dt, cuda, wt)
@@ -127,17 +137,39 @@ def test_grid_kernel_matches_plain(cuda, case, use_prior):
 
 
 @pytest.mark.parametrize("weighted", [False, True])
+def test_empty_call_not_counted(cuda, weighted):
+    """A call with no genes launches no kernel, and no counter moves."""
+    d = _inputs(8, 24, 2, 0, torch.float64, cuda, weighted)
+    e = {k: v if k in ("x", "grid") else v[:0] for k, v in d.items()}
+    calls = ((fit_beta, lambda: checks.run_irls(fit_beta, e)),
+             (fit_disp_line_search,
+              lambda: checks.run_ls(fit_disp_line_search, e, True)),
+             (fit_disp_grid,
+              lambda: {"log_alpha": checks.run_grid(fit_disp_grid, e, True)}))
+    for fn, call in calls:
+        n0 = _counter(fn, weighted)
+        out = call()
+        assert all(len(v) == 0 for v in out.values()), fn.__name__
+        assert _counter(fn, weighted) == n0, fn.__name__
+
+
+@pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("dt", [torch.float32, torch.float64],
                          ids=["float32", "float64"])
 def test_kernels_repeatable(cuda, dt, weighted):
-    """Two launches of K1 and of K2 on the same inputs give the same
-    outputs bit for bit (no atomics in any sum; which warp takes which
-    gene changes no result), at few, wrapping and many samples."""
+    """Two launches of K1, of K2 and of K3 on the same inputs give the
+    same outputs bit for bit (no atomics in any sum; which warp takes which
+    gene or grid point changes no result), at few, wrapping and many
+    samples."""
+    def grid(d):
+        return {"log_alpha": checks.run_grid(fit_disp_grid, d, True)}
+
     for S, G, p in ((24, 333, 2),) + checks.EDGES[1::3] + ((3000, 301, 3),):
         d = _inputs(G, S, p, 10 * p + S, dt, cuda, weighted)
         pairs = [(checks.run_irls(fit_beta, d), checks.run_irls(fit_beta, d)),
                  (checks.run_ls(fit_disp_line_search, d, True),
-                  checks.run_ls(fit_disp_line_search, d, True))]
+                  checks.run_ls(fit_disp_line_search, d, True)),
+                 (grid(d), grid(d))]
         for a, b in pairs:
             assert checks.differing_outputs(a, b) == [], (S, p)
 
