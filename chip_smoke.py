@@ -18,6 +18,9 @@ Phases; any failure exits non-zero and no phase's failure is caught:
    at checks.EDGES (S = 31, 33, 65; p = 5, 8; the float32 readings that
    rounding alone fails, checks.ROUNDING_BOUND, held to the float64 fit
    (K1) or printed (K2, K3)), and every launch twice, bit-identical.
+   K1 also at the betaPrior refit's expanded design (checks.EXPANDED: p =
+   3 and 4 at S = 1,024 and p = 4 at S = 24, the prior's ridge), float32
+   held to the float64 fit off the design's null direction.
 4. the main path at full width: 60,000 genes x 1,024 samples, ~ condition,
    public deseq() + results() in float32 (a cold and a warm call; the
    launch counters are zeroed just before the warm call and read just
@@ -42,7 +45,21 @@ Phases; any failure exits non-zero and no phase's failure is caught:
    pipeline's own stages hand it (the weighted modes at the weighted
    path's inputs): held against its plain version and the float64
    reference with phase 3's limits, then timed beside its plain version
-   and its bound; one JSON line {"kernels": [...]}.
+   and its bound.
+7. betaPrior, contrasts and shrinkage at 60,000 x 1,024 in float32 on a
+   three-level condition (A the first half of the samples, B and C the
+   second half split evenly), each call cold then warm with the counters
+   zeroed just before the warm call and read just after it:
+   deseq(beta_prior=True) + results(); results(contrast=C vs B) on that
+   fit; deseq() + results(contrast=C vs B); the list and numeric forms of
+   that contrast; lfc_shrink of types apeglm (coef B_vs_A), normal
+   (contrast C vs A) and ashr.  Fails if the betaPrior deseq() or the
+   normal shrinkage launches no K1 or a table is malformed.  Then the
+   prior variance's weighted quantile in float32 against float64, a stage
+   table, the accuracy gates of these calls on the gate slice (betaPrior
+   default table, C-vs-B contrast table, apeglm and normal LFCs) and K1 at
+   the expanded shape (p = 4) checked and timed in float32 and float64;
+   one JSON line {"kernels": [...]}.
 
 Each phase prints its seconds.  The last two lines are the card's
 nvidia-smi line and the JSON result line.
@@ -169,7 +186,8 @@ def check_kernels(torch, dev, modes=(False, True)):
     from deseq2_tpu_torch.ops.cuda_irls import fit_beta
     from deseq2_tpu_torch.ops.cuda_ls import fit_disp_line_search
 
-    worst = {k + sfx: 0.0 for k in ("irls", "disp_ls", "disp_grid")
+    worst = {k + sfx: 0.0 for k in ("irls", "disp_ls", "disp_grid",
+                                    "irls_expanded")
              for sfx in ("", "_w")}
     failed = []
     log(f"  limits: {checks.TOL}; float32 rounding-bound readings: "
@@ -242,6 +260,31 @@ def check_kernels(torch, dev, modes=(False, True)):
                         if gated:
                             worst[name + sfx] = max(worst[name + sfx],
                                                     r["max_abs_err"])
+    # K1 at the betaPrior refit's expanded design: p = levels + 1, the
+    # intercept the sum of the level columns, held up by the prior's ridge
+    for weighted in modes:
+        sfx = "_w" if weighted else ""
+        for dname in ("float32", "float64"):
+            dt = getattr(torch, dname)
+            for S, G, lv in checks.EXPANDED:
+                raw = checks.expanded_inputs(G, S, lv, 7 + S + lv,
+                                             weighted=weighted)
+                d = checks.as_tensors(raw, dt, dev)
+                k1 = checks.run_irls(fit_beta, d)
+                rep = checks.differing_outputs(k1, checks.run_irls(fit_beta,
+                                                                   d))
+                pl1 = checks.run_irls(irls.fit_beta_plain, d)
+                ref = checks.run_irls(irls.fit_beta_plain, checks.as_tensors(
+                    raw, torch.float64, dev))
+                r1 = checks.check_irls_expanded(k1, pl1, ref)
+                torch.cuda.synchronize()
+                case = (f"{dname} expanded p={lv + 1} S={S} G={G} "
+                        f"weighted={weighted}")
+                log(f"  {case} irls: {fmt(r1)} repeat_differs={rep}")
+                if not r1["ok"] or rep:
+                    failed.append(f"{case} irls")
+                worst["irls_expanded" + sfx] = max(
+                    worst["irls_expanded" + sfx], r1["max_abs_err"])
     if failed:
         raise SystemExit(f"kernel checks failed: {failed}")
     return worst
@@ -278,17 +321,29 @@ def read_counts():
     return {k: getattr(fns[fn], attr) for k, (fn, attr) in COUNTERS.items()}
 
 
+def three_level_labels(s):
+    """The betaPrior phase's condition: A on the first half of the
+    samples, B and C splitting the second half evenly."""
+    h = s // 2
+    q = (s - h) // 2
+    return np.array(["A"] * h + ["B"] * q + ["C"] * (s - h - q))
+
+
 def public_run(torch, counts, dtype_name, sf=None, device="cuda",
-               design="~ condition", weights=None, nf=None, **deseq_kw):
+               design="~ condition", weights=None, nf=None, labels=None,
+               results_kw=None, **deseq_kw):
     """bench.py's _public_run through the port: build the dataset from
     the matrix, deseq(), results().  `design` "~ batch + condition" adds a
     two-level batch alternating over the samples; `weights` and `nf` are
-    set as the weights assay and the normalization factors.  The outer
-    steps are profiling stages (no-ops unless profiling is on)."""
+    set as the weights assay and the normalization factors; `labels` the
+    condition (default A on the first half, B on the second);
+    `results_kw` goes to results().  The outer steps are profiling stages
+    (no-ops unless profiling is on)."""
     import deseq2_tpu_torch as dt
     from deseq2_tpu_torch import profiling
     g, s = counts.shape
-    col_data = {"condition": np.repeat(["A", "B"], [s // 2, s - s // 2])}
+    col_data = {"condition": np.repeat(["A", "B"], [s // 2, s - s // 2])
+                if labels is None else labels}
     if "batch" in design:
         col_data["batch"] = np.tile(["1", "2"], s // 2 + 1)[:s]
     with profiling.stage("smoke.datasetFromMatrix", genes=g):
@@ -303,7 +358,7 @@ def public_run(torch, counts, dtype_name, sf=None, device="cuda",
         dds.normalization_factors = nf
     fit = dt.deseq(dds, device=device, **deseq_kw)
     with profiling.stage("smoke.results", genes=g):
-        res = dt.results(fit)
+        res = dt.results(fit, **(results_kw or {}))
     if device != "cpu":
         torch.cuda.synchronize()
     return res, fit
@@ -581,6 +636,204 @@ def variant_gates(torch):
 
 
 # ---------------------------------------------------------------------------
+# betaPrior, contrasts and shrinkage
+# ---------------------------------------------------------------------------
+
+CB = ("condition", "C", "B")
+
+
+def _table_ok(tab):
+    """A results table has G_MAIN rows, finite LFC, SE and stat on > 95% of
+    them and finite padj on > 50% (variant_path's shares)."""
+    shares = {}
+    for c in ("log2FoldChange", "lfcSE", "stat", "padj"):
+        v = np.asarray(tab[c], float)
+        if v.shape != (G_MAIN,):
+            return False, {c: f"shape {v.shape}"}
+        shares[c] = float(np.isfinite(v).mean())
+    ok = all(shares[c] > (0.5 if c == "padj" else 0.95) for c in shares)
+    return ok, shares
+
+
+def prior_quantile_dtype(torch, fit):
+    """The beta prior variance's weighted quantile from the fit's stored MLE
+    columns, its cumsum in float32 against float64 on the fit's device: the
+    prior variances and their relative difference (the pipeline takes it
+    in float64)."""
+    from deseq2_tpu_torch.engine import fit_device
+    from deseq2_tpu_torch.parallel.priordev import wtd_quantile_dev
+    from scipy.stats import norm
+    dev = fit_device(fit)
+    az = np.asarray(fit.row_data["allZero"], bool)
+    bm = np.asarray(fit.row_data["baseMean"], float)
+    wq = np.where(az, 0.0, 1.0 / (1.0 / np.where(az, 1.0, bm)
+                                  + np.asarray(fit.row_data["dispFit"],
+                                               float)))
+    cols = [np.asarray(fit.row_data[c], float) for c in
+            ("MLE_condition_B_vs_A", "MLE_condition_C_vs_A")]
+    cols.append(cols[1] - cols[0])
+    z = float(norm.ppf(0.975))
+    out = {}
+    for dname in ("float32", "float64"):
+        dt = getattr(torch, dname)
+        vs = []
+        for c in cols:
+            fin = np.isfinite(c) & (np.abs(c) < 10.0)
+            b = torch.as_tensor(np.where(fin, np.abs(c), 0.0), dtype=dt,
+                                device=dev)
+            w = torch.as_tensor(np.where(fin, wq, 0.0), dtype=dt,
+                                device=dev)
+            vs.append((wtd_quantile_dev(b, w, 0.95).double().item() / z) ** 2)
+        out[dname] = float(np.mean(vs))
+    rel = abs(out["float32"] - out["float64"]) / out["float64"]
+    log(f"  prior variance's weighted quantile, float32 cumsum "
+        f"{out['float32']:.9g} against float64 {out['float64']:.9g} "
+        f"(relative {rel:.3g}; stored betaPriorVar "
+        f"{fit.attrs['betaPriorVar'][1]:.9g})")
+    return dict(prior_var_f32=out["float32"], prior_var_f64=out["float64"],
+                prior_var_rel=rel)
+
+
+def prior_phase(torch):
+    """betaPrior, contrasts and shrinkage at 60,000 x 1,024 in float32 on
+    the three-level design (three_level_labels): each call cold, then warm
+    with the launch counters zeroed just before it and read just after it.
+    Fails if the betaPrior deseq() or the normal shrinkage launches no K1,
+    or a table is malformed.  Then one call each of the betaPrior deseq() +
+    results() and the C-vs-B contrast with the stage timers on."""
+    import deseq2_tpu_torch as dt
+    from deseq2_tpu_torch import profiling
+
+    counts, _ = make_inputs(G_MAIN, S_MAIN)
+    labels = three_level_labels(S_MAIN)
+    fits = {}
+
+    def run(key, **kw):
+        res, fits[key] = public_run(torch, counts, "float32", labels=labels,
+                                    **kw)
+        return res
+
+    def sync(v):
+        torch.cuda.synchronize()
+        return v
+
+    calls = [
+        ("deseq(beta_prior=True) + results()",
+         lambda: run("bp", beta_prior=True), True),
+        ("results(contrast=C vs B), betaPrior fit",
+         lambda: sync(dt.results(fits["bp"], contrast=CB)), False),
+        ("deseq() + results(contrast=C vs B)",
+         lambda: run("plain", results_kw=dict(contrast=CB)), False),
+        ("results(contrast=[[C_vs_A], [B_vs_A]])",
+         lambda: sync(dt.results(fits["plain"], contrast=[
+             ["condition_C_vs_A"], ["condition_B_vs_A"]])), False),
+        ("results(contrast=[0, -1, 1])",
+         lambda: sync(dt.results(fits["plain"],
+                                 contrast=np.array([0.0, -1.0, 1.0]))),
+         False),
+        ("lfc_shrink(coef=B_vs_A, apeglm)",
+         lambda: sync(dt.lfc_shrink(fits["plain"], coef="condition_B_vs_A",
+                                    type="apeglm")), False),
+        ("lfc_shrink(contrast=C vs A, normal)",
+         lambda: sync(dt.lfc_shrink(fits["plain"],
+                                    contrast=("condition", "C", "A"),
+                                    type="normal")), True),
+        ("lfc_shrink(coef=B_vs_A, ashr)",
+         lambda: sync(dt.lfc_shrink(fits["plain"], coef="condition_B_vs_A",
+                                    type="ashr")), False),
+    ]
+    out, failed = {}, []
+    for name, fn, needs_k1 in calls:
+        t0 = time.perf_counter()
+        fn()
+        cold = time.perf_counter() - t0
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tab = fn()
+        warm = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        k1 = launches["irls"] + launches["irls_w"]
+        ok, shares = _table_ok(tab)
+        log(f"  {name}: cold {cold:.3f} s, warm {warm:.3f} s = "
+            f"{G_MAIN / warm:,.0f} genes/s, peak device memory {peak:.2f} "
+            f"GiB, K1 launches {k1}, finite shares {shares}")
+        if not ok:
+            failed.append(f"{name}: table malformed")
+        if needs_k1 and k1 == 0:
+            failed.append(f"{name}: no K1 launch")
+        out[name] = dict(cold_s=cold, warm_s=warm,
+                         genes_per_s=G_MAIN / warm, peak_gib=peak,
+                         k1_launches=k1, launches=launches)
+    if failed:
+        raise SystemExit(f"betaPrior/contrast/shrinkage phase failed: "
+                         f"{failed}")
+    out["prior_quantile"] = prior_quantile_dtype(torch, fits["bp"])
+    profiling.reset()
+    profiling.enable()
+    run("bp", beta_prior=True)
+    with profiling.stage("smoke.resultsContrast", genes=G_MAIN):
+        sync(dt.results(fits["bp"], contrast=CB))
+    profiling.disable()
+    log("  betaPrior deseq() + results() and the C-vs-B contrast, stage "
+        "timings (timers synchronize):")
+    for line in profiling.report().splitlines():
+        log(f"    {line}")
+    return out, fits["bp"]
+
+
+def prior_gates(torch):
+    """Accuracy gates of the betaPrior phase on the gate slice with the
+    second half split into B and C: the betaPrior default table, the
+    C-vs-B contrast table (deseq() without the prior), and the shrunken
+    LFCs of apeglm (coef B_vs_A) and normal (contrast C vs A), each the
+    port in float32 on the card against float64 on the CPU; the tables
+    under gate_compare's thresholds, the shrunken LFCs under its |dLFC|
+    and finite-pattern ones."""
+    import deseq2_tpu_torch as dt
+    sub, _ = gate_inputs(G_GATE, S_MAIN)
+    labels = three_level_labels(S_MAIN)
+    kw = dict(sf=np.ones(S_MAIN), labels=labels)
+    out, failed = {}, []
+    fits = {}
+    for name, extra in (("beta_prior", dict(beta_prior=True)),
+                        ("contrast_CB", dict(results_kw=dict(contrast=CB)))):
+        res32, fit32 = public_run(torch, sub, "float32", **kw, **extra)
+        t0 = time.perf_counter()
+        res64, fit64 = public_run(torch, sub, "float64", device="cpu", **kw,
+                                  **extra)
+        cpu_s = time.perf_counter() - t0
+        gate, checks = gate_compare(res32, res64)
+        log(f"  gate {name} (float64 CPU reference {cpu_s:.1f} s): "
+            f"{json.dumps(gate)}")
+        failed += [f"{name}:{k}" for k, v in checks.items() if not v]
+        out[name] = gate
+        fits[name] = (fit32, fit64)
+    fit32, fit64 = fits["contrast_CB"]
+    for name, skw in (("apeglm", dict(coef="condition_B_vs_A",
+                                      type="apeglm")),
+                      ("normal", dict(contrast=("condition", "C", "A"),
+                                      type="normal"))):
+        l32 = np.asarray(dt.lfc_shrink(fit32, **skw)["log2FoldChange"], float)
+        l64 = np.asarray(dt.lfc_shrink(fit64, **skw)["log2FoldChange"], float)
+        both = np.isfinite(l32) & np.isfinite(l64)
+        finite = float(np.mean(np.isfinite(l32) == np.isfinite(l64)))
+        d_lfc = float(np.max(np.abs(l32[both] - l64[both])))
+        gate = dict(gate_genes=G_GATE, gate_max_dlfc=d_lfc,
+                    gate_finite_match=finite)
+        log(f"  gate shrink_{name}: {json.dumps(gate)}")
+        failed += [f"shrink_{name}:{k}" for k, v in
+                   dict(finite=finite >= 0.999, lfc=d_lfc < 0.01).items()
+                   if not v]
+        out["shrink_" + name] = gate
+    if failed:
+        raise SystemExit(f"betaPrior/contrast/shrinkage gates failed: "
+                         f"{failed}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # kernel timing at the main path's shapes
 # ---------------------------------------------------------------------------
 
@@ -790,6 +1043,81 @@ def kernel_timings(torch, dev, launches, worst, weighted=False):
     return rows
 
 
+def expanded_k1_timing(torch, dev, fit, launches, worst):
+    """K1 at the betaPrior refit's shape: 60,000 x 1,024, the expanded
+    design [intercept, A, B, C] (p = 4) of the betaPrior phase's fit, its
+    ridge from the fit's betaPriorVar, the intercept-only start, the fit's
+    size factors and dispersions (1 on all-zero rows): held against its
+    plain version and the float64 fit (check_irls_expanded, a failure
+    exits), then timed beside the plain version and its bound, in float32
+    (the returned kernels row, with the betaPrior warm call's K1 launches)
+    and float64 (logged)."""
+    from deseq2_tpu_torch.ops import checks, irls
+    from deseq2_tpu_torch.ops.cuda_irls import fit_beta
+
+    counts, _ = make_inputs(G_MAIN, S_MAIN)
+    codes = np.searchsorted(np.array(["A", "B", "C"]),
+                            three_level_labels(S_MAIN))
+    x_e = np.column_stack([np.ones(S_MAIN)] + [(codes == lv).astype(float)
+                                               for lv in range(3)])
+    az = np.asarray(fit.row_data["allZero"], bool)
+    sf = np.asarray(fit.size_factors, float)
+    disp = np.asarray(fit.row_data["dispersion"], float)
+    disp = np.where(np.isfinite(disp), disp, 1.0)
+    pv = float(fit.attrs["betaPriorVar"][1])
+    lam = np.array([1e-6, 1.0 / pv, 1.0 / pv, 1.0 / pv]) / np.log(2.0) ** 2
+    y_safe = np.where(az[:, None], 1, counts)
+    b0 = np.zeros((G_MAIN, 4))
+    b0[:, 0] = np.where(az, 0.0, np.log(np.maximum(
+        (counts / sf).mean(axis=1), 1e-300)))
+    G, S, P = G_MAIN, S_MAIN, 4
+    rows, failed = [], []
+    ref = None
+    for dname in ("float64", "float32"):
+        dt = getattr(torch, dname)
+
+        def t(a):
+            return torch.as_tensor(a, device=dev).to(dt)
+
+        args = (t(y_safe), t(x_e), t(sf), t(disp), t(b0), t(lam))
+        k1 = fit_beta(*args)
+        pl = irls.fit_beta_plain(*args)
+        if ref is None:
+            ref = pl
+        r = checks.check_irls_expanded(k1, pl, ref)
+        log(f"  irls expanded p=4 {dname}: {fmt(r)}")
+        if not r["ok"]:
+            failed.append(f"irls expanded {dname}")
+        ms = time_ms(torch, lambda: fit_beta(*args), 3)
+        pms = time_ms(torch, lambda: irls.fit_beta_plain(*args), 1)
+        sweeps = float(k1["iter"].double().sum())
+        o = ops_irls(P)
+        it = 4 if dname == "float32" else 8
+        b1, by1 = bound(it * (3 * G * S + S + S * P + G * (1 + 3 * P)
+                              + 2 * G),
+                        S * (G * (o["init"] + o["post"])
+                             + sweeps * o["sweep"]), dname)
+        log(f"  irls expanded p=4 {dname}: {ms:.3f} ms (plain {pms:.1f} ms, "
+            f"bound {b1:.3f} ms by {by1}, {100 * b1 / ms:.1f}% of it), "
+            f"{sweeps / G:.2f} sweeps/gene, betaPrior warm-call launches "
+            f"{launches}")
+        if dname == "float32":
+            rows.append(dict(
+                name="irls_expanded", route="cuda",
+                source="deseq2_tpu_torch/csrc/irls.cu",
+                replaces="deseq2_tpu/ops/pallas_irls.py:360",
+                launches=launches,
+                max_abs_err=max(worst["irls_expanded"], r["max_abs_err"]),
+                ms=ms, plain_ms=pms, bound_ms=b1, bound_by=by1,
+                library_ms=None))
+        else:
+            f64_row = dict(ms=ms, plain_ms=pms, bound_ms=b1, bound_by=by1,
+                           max_abs_err=r["max_abs_err"])
+    if failed:
+        raise SystemExit(f"expanded K1 checks failed: {failed}")
+    return rows, f64_row
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -842,8 +1170,19 @@ def main():
                            worst, weighted=True)
     done("6")
 
+    phase("7", f"[7] betaPrior, contrasts and shrinkage at {G_MAIN} x "
+          f"{S_MAIN}")
+    prior_out, bp_fit = prior_phase(torch)
+    prior_out["gates"] = prior_gates(torch)
+    exp_rows, prior_out["irls_expanded_f64"] = expanded_k1_timing(
+        torch, dev, bp_fit,
+        prior_out["deseq(beta_prior=True) + results()"]["k1_launches"], worst)
+    rows += exp_rows
+    done("7")
+
     log(json.dumps({"main_path": {k: v for k, v in main_out.items()},
                     "gate": gate, "variant_gates": gates,
+                    "prior_phase": prior_out,
                     "kernel_resources": resources, "phase_seconds": seconds}))
     print(json.dumps({"kernels": rows}))
     print(smi_line())

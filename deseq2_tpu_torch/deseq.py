@@ -2,11 +2,12 @@
 
 Argument checks mirror the reference; the Wald test or the LRT, with or
 without observation weights, normalization factors and use_t, with the
-parametric, local or mean trend, runs the fused pipeline
+parametric, local or mean trend, and the Wald test with betaPrior on a
+single-factor design with an intercept, runs the fused pipeline
 (engine.deseq_fused) on the card, or on the CPU with device="cpu".
-betaPrior, glmGamPoi, a mesh, the host engine and the configurations the
-fused engine does not take raise NotImplementedError naming the ROADMAP.md
-item that will port them.
+glmGamPoi, a mesh, the host engine and the configurations the fused engine
+does not take (betaPrior on other designs among them) raise
+NotImplementedError naming the ROADMAP.md item that will port them.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ def deseq(dds, test="Wald", fit_type="parametric", sf_type="ratio",
     from .config import cfg
     from .engine import (deseq_fused, fused_ineligibility, resolve_device,
                          resolve_dtype)
-    from .parallel.fused import ROADMAP_HOST, not_ported
+    from .parallel.fused import ROADMAP_HOST, ROADMAP_MESH, not_ported
 
     if config is None:
         config = dds.config
@@ -126,14 +127,12 @@ def deseq(dds, test="Wald", fit_type="parametric", sf_type="ratio",
         raise not_ported("fit_type='glmGamPoi'",
                          "ROADMAP.md queue 1, item 8 (single-cell path)")
     if mesh is not None:
-        raise not_ported("a device mesh",
-                         "ROADMAP.md queue 1, item 11 (multi-GPU)")
-    if beta_prior:
-        raise not_ported("betaPrior")
+        raise not_ported("a device mesh", ROADMAP_MESH)
     if dds.size_factors is None and dds.normalization_factors is None \
             and sf_type != "ratio":
         raise not_ported(f"sf_type={sf_type!r}", ROADMAP_HOST)
-    reason = fused_ineligibility(dds, sf_type, model_matrix, minmu, config)
+    reason = fused_ineligibility(dds, sf_type, model_matrix, minmu, config,
+                                 beta_prior, model_matrix_type)
     if reason is not None:
         raise not_ported(f"this configuration ({reason})", ROADMAP_HOST)
 
@@ -148,4 +147,5 @@ def deseq(dds, test="Wald", fit_type="parametric", sf_type="ratio",
             dds, dev, dtype, test=test, fit_type=fit_type, full=full,
             reduced=reduced, quiet=quiet, use_t=use_t,
             min_replicates_for_replace=min_replicates_for_replace,
-            model_matrix=model_matrix, model_matrix_type=model_matrix_type)
+            model_matrix=model_matrix, model_matrix_type=model_matrix_type,
+            beta_prior=beta_prior)

@@ -5,8 +5,10 @@ Eligible configurations run parallel/fused.py and populate the same
 dataset row_data columns, assays and attrs as the host-exact stages would
 (names, types and descriptions included), so results() works unchanged.
 The fused route covers the Wald test and the LRT, observation weights,
-gene x sample normalization factors, use_t and the parametric, local and
-mean trends; betaPrior, contrasts and the host path raise
+gene x sample normalization factors, use_t, the parametric, local and
+mean trends, and betaPrior on a single-factor design with an intercept
+(the expanded model matrix, its MAP and MLE_ columns, the prior variance);
+the other betaPrior configurations and the host path raise
 NotImplementedError naming their ROADMAP.md item.
 
 Gene x sample assays produced on the device (mu, H, cooks, replaceCounts,
@@ -155,10 +157,12 @@ class LazyRowData(dict):
         return super().setdefault(k, default)
 
 
-def fused_ineligibility(dds, sf_type, model_matrix, minmu, config):
+def fused_ineligibility(dds, sf_type, model_matrix, minmu, config,
+                        beta_prior=False, model_matrix_type=None):
     """None when the configuration can run on the fused engine, else a
     one-line reason (the JAX package sends those to its host path)."""
     from .config import DEFAULT, DESeqConfig
+    from .formula import Factor
 
     if sf_type == "iterate":
         return "sfType='iterate' alternates with dispersion fits host-side"
@@ -181,7 +185,38 @@ def fused_ineligibility(dds, sf_type, model_matrix, minmu, config):
         return "no residual degrees of freedom (samples <= coefficients)"
     if minmu is not None and minmu != 0.5:
         return "non-default minmu"
+    if beta_prior:
+        if isinstance(dds.design, np.ndarray) or model_matrix is not None:
+            return "betaPrior with user-supplied model matrix"
+        dvars = dds.design.variables
+        if model_matrix_type == "standard":
+            return "betaPrior with standard model matrix runs host-side"
+        if len(dvars) != 1 or not isinstance(dds.col_data.get(dvars[0]),
+                                             Factor):
+            return ("fused betaPrior supports single-factor designs; "
+                    "multi-factor expanded matrices run host-side")
+        if not dds.design_has_intercept():
+            return "betaPrior requires an intercept design"
     return None
+
+
+def device_counts(dds, device):
+    """The dataset's counts on `device`: the tensor the fused deseq()
+    uploaded, when the dataset still carries it, else a fresh upload."""
+    dev = torch.device(device)
+    cached = getattr(dds, "_counts_dev", None)
+    if cached is not None and cached.device == dev \
+            and tuple(cached.shape) == tuple(np.shape(dds.counts)):
+        return cached
+    return torch.as_tensor(np.asarray(dds.counts)).to(dev)
+
+
+def fit_device(dds):
+    """The device a fused deseq() ran on: where its mu assay lives."""
+    mu = dds.assays.get("mu")
+    if isinstance(mu, DeviceArray):
+        return mu.tensor.device
+    return torch.device("cpu")
 
 
 def _two_group(dds):
@@ -199,15 +234,17 @@ def _two_group(dds):
 def deseq_fused(dds, device, dtype, test="Wald", fit_type="parametric",
                 full=None, reduced=None, quiet=True, use_t=False,
                 min_replicates_for_replace=7, model_matrix=None,
-                model_matrix_type=None, maxit=100):
+                model_matrix_type=None, maxit=100, beta_prior=False):
     """Run the fused pipeline on `device` and populate dds as the host
     stages (estimateSizeFactors -> estimateDispersions -> nbinomWaldTest or
     nbinomLRT -> refitWithoutOutliers) would.  A parametric trend that
     comes back invalid is replaced by the local trend, as the host does
     (R/core.R:888-893).  Weights that fail the estimability tests raise
-    ValueError (parallel/fused.py:validated_weights)."""
+    ValueError (parallel/fused.py:validated_weights).  `beta_prior`: the
+    stored contract of nbinomWaldTest with betaPrior (the expanded model
+    matrix and its MAP columns, MLE_ columns, betaPriorVar)."""
     from .dataset import DispersionFunction
-    from .formula import parse_formula
+    from .formula import parse_formula, rename_model_matrix_columns
     from .parallel.fused import (default_grid, design_cells,
                                  fused_wald_pipeline, reduced_args,
                                  validated_weights)
@@ -215,7 +252,8 @@ def deseq_fused(dds, device, dtype, test="Wald", fit_type="parametric",
     if model_matrix is None and not isinstance(dds.design, np.ndarray):
         mm, names = dds.renamed_model_matrix(
             rename=dds.design_has_intercept())
-        mm_type = model_matrix_type or "standard"
+        mm_type = model_matrix_type or ("expanded" if beta_prior
+                                        else "standard")
     else:
         mm = model_matrix if model_matrix is not None else dds.design
         _, names = dds.model_matrix() if model_matrix is None else \
@@ -242,7 +280,13 @@ def deseq_fused(dds, device, dtype, test="Wald", fit_type="parametric",
                                         dtype)
     nf = dds.normalization_factors
     sf = dds.size_factors
-    cells = design_cells(mm)
+    if beta_prior:
+        # the factor's level codes, so that the expanded columns follow
+        # makeExpandedModelMatrix's level order
+        cells = tuple(int(c) for c in
+                      dds.col_data[dds.design.variables[0]].codes)
+    else:
+        cells = design_cells(mm)
     min_reps = (int(min_replicates_for_replace)
                 if np.isfinite(min_replicates_for_replace)
                 else dds.n_samples + 1)
@@ -262,12 +306,13 @@ def deseq_fused(dds, device, dtype, test="Wald", fit_type="parametric",
             two_group=_two_group(dds), dtype=dtype,
             x_reduced=None if x_red is None else torch.as_tensor(x_red),
             reduced_intercept=red_int, use_t=use_t, weights=weights,
-            norm_factors=nf, fit_type=fit_type)
+            norm_factors=nf, fit_type=fit_type, beta_prior=beta_prior)
     # one small eager fetch of what the host reads; the (G,S) assays stay
     # on the device and the per-gene diagnostics are registered lazily
     eager = ("allZero", "replace", "trendValid", "trendCoefs", "meanDisp",
-             "dispPriorVar", "varLogDispEsts", "sizeFactors", "baseMean",
-             "maxCooks", "filterNumRej", "filterTheta", "filterCutoffs")
+             "dispPriorVar", "varLogDispEsts", "betaPriorVar", "sizeFactors",
+             "baseMean", "maxCooks", "filterNumRej", "filterTheta",
+             "filterCutoffs")
     if fit_type == "local":
         eager = eager + ("dispGeneEst",)
     with profiling.stage("fused.fetch", genes=dds.n_genes):
@@ -288,7 +333,8 @@ def deseq_fused(dds, device, dtype, test="Wald", fit_type="parametric",
                            min_replicates_for_replace=(
                                min_replicates_for_replace),
                            model_matrix=model_matrix,
-                           model_matrix_type=model_matrix_type, maxit=maxit)
+                           model_matrix_type=model_matrix_type, maxit=maxit,
+                           beta_prior=beta_prior)
     az = np.asarray(fetched["allZero"], bool)
 
     if sf is None and nf is None:
@@ -364,10 +410,18 @@ def deseq_fused(dds, device, dtype, test="Wald", fit_type="parametric",
         dds.attrs["weightsOK"] = True
 
     # ---- attrs (nbinomWaldTest / nbinomLRT contract) ----
-    dds.attrs["betaPrior"] = False
-    dds.attrs["betaPriorVar"] = np.full(mm.shape[1], 1e6)
-    dds.attrs["modelMatrix"] = mm
-    dds.attrs["modelMatrixNames"] = list(names)
+    if beta_prior:
+        from .expanded import make_expanded_model_matrix
+        mm_store, names_store = make_expanded_model_matrix(dds)
+        pv = float(fetched["betaPriorVar"])
+        beta_prior_var = np.array([1e6] + [pv] * (len(names_store) - 1))
+    else:
+        mm_store, names_store = mm, names
+        beta_prior_var = np.full(mm.shape[1], 1e6)
+    dds.attrs["betaPrior"] = beta_prior
+    dds.attrs["betaPriorVar"] = beta_prior_var
+    dds.attrs["modelMatrix"] = mm_store
+    dds.attrs["modelMatrixNames"] = list(names_store)
     dds.attrs["modelMatrixType"] = mm_type
     dds.attrs["dispModelMatrix"] = mm
     dds.attrs["test"] = test
@@ -387,16 +441,23 @@ def deseq_fused(dds, device, dtype, test="Wald", fit_type="parametric",
         dds.assays["cooks"] = DeviceArray(out["cooks"])
 
     # ---- results columns ----
-    names_spaces = [n.replace("_", " ") for n in names]
-    for j, (n, ns) in enumerate(zip(names, names_spaces)):
-        rdl(n, "beta", "results", f"log2 fold change (MLE): {ns}", colf(j))
+    lfc_type = "MAP" if beta_prior else "MLE"
+    names_spaces = [n.replace("_", " ") for n in names_store]
+    for j, (n, ns) in enumerate(zip(names_store, names_spaces)):
+        rdl(n, "beta", "results", f"log2 fold change ({lfc_type}): {ns}",
+            colf(j))
         rdl(f"SE_{n}", "betaSE", "results", f"standard error: {ns}",
             colf(j))
+    if beta_prior:
+        conv = rename_model_matrix_columns(dds.col_data, dds.design)
+        for j, n in enumerate([conv.get(n, n) for n in names]):
+            rdl(f"MLE_{n}", "mleBeta", "results",
+                "MLE " + n.replace("_", " "), colf(j))
     if test == "Wald":
-        for j, (n, ns) in enumerate(zip(names, names_spaces)):
+        for j, (n, ns) in enumerate(zip(names_store, names_spaces)):
             rdl(f"WaldStatistic_{n}", "stat", "results",
                 f"Wald statistic: {ns}", colf(j))
-        for j, (n, ns) in enumerate(zip(names, names_spaces)):
+        for j, (n, ns) in enumerate(zip(names_store, names_spaces)):
             rdl(f"WaldPvalue_{n}", "pvalue", "results",
                 f"Wald test p-value: {ns}", colf(j))
         rdl("betaConv", "betaConv", "results", "convergence of betas",
@@ -445,7 +506,8 @@ def deseq_fused(dds, device, dtype, test="Wald", fit_type="parametric",
             dds.assays["replaceCounts"] = DeviceArray(out["replaceCounts"])
 
     # the device-computed results tail, served by results() for a default
-    # call; an object attribute (not attrs), so copy() drops it
+    # call, and the uploaded counts (getContrast and shrinkage read them);
+    # object attributes (not attrs), so copy() drops them
     dds._fused_tail = dict(
         lfc=out["lfcLast"], se=out["seLast"], stat=out["statLast"],
         pvalue=out["pvalueLast"], padjPlain=out["padjLast"],
@@ -453,6 +515,11 @@ def deseq_fused(dds, device, dtype, test="Wald", fit_type="parametric",
         numRej=np.asarray(fetched["filterNumRej"], float),
         theta=np.asarray(fetched["filterTheta"], float),
         cutoffs=np.asarray(fetched["filterCutoffs"], float),
-        alpha=0.1, test=test, useT=use_t,
-        name=names[-1] if names else None)
+        alpha=0.1, test=test, useT=use_t, betaPrior=beta_prior,
+        name=names_store[-1] if len(names_store) else None)
+    if beta_prior:
+        lv = dds.col_data[dds.design.variables[0]]
+        dds._fused_tail["defaultContrast"] = (
+            dds.design.variables[0], lv.levels[-1], lv.levels[0])
+    dds._counts_dev = counts_dev
     return dds

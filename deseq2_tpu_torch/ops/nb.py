@@ -111,6 +111,17 @@ def digamma_pos(z):
     return acc + series
 
 
+def nb_logpmf(y, mu, alpha):
+    """Elementwise NB log-pmf with mean mu, dispersion alpha (size =
+    1/alpha), with the y = 0 convention 0 log 0 = 0."""
+    size = 1.0 / alpha
+    t = torch.where(y > 0, y * (torch.log(mu) - torch.log(size + mu)),
+                    torch.zeros_like(mu))
+    return (torch.lgamma(y + size) - torch.lgamma(size)
+            - torch.lgamma(y + 1.0)
+            + size * (torch.log(size) - torch.log(size + mu)) + t)
+
+
 def nb_lgamma_const(y, alpha):
     """mu-independent part of the NB log-pmf:
     lgamma(y+size) - lgamma(size) - lgamma(y+1) + size*log(size)."""

@@ -5,6 +5,7 @@ ROADMAP.md:
     python -m deseq2_tpu_torch.ops.studies ls [N_SEEDS]
     python -m deseq2_tpu_torch.ops.studies kernels PARENT_ROOT [REPS]
     python -m deseq2_tpu_torch.ops.studies edges [N_PERM]
+    python -m deseq2_tpu_torch.ops.studies expanded
     python -m deseq2_tpu_torch.ops.studies mainpath PARENT_ROOT [CALLS]
 
 `eigvalsh`: the largest batch of symmetric n x n matrices that
@@ -46,6 +47,14 @@ permuted (so only the summation order differs), N_PERM permutations
 (default 5), K1, K2 and K3 both modes: how far the readings move when
 nothing but rounding does.  A reading that fails in any permutation is
 rounding-bound (checks.ROUNDING_BOUND).
+
+`expanded` (the card if there is one, else the CPU): the plain float32
+IRLS at the betaPrior refit's expanded design (checks.EXPANDED, both
+modes), held to the float64 fit by check_irls_expanded: how far the fit
+sits from it along the design's null direction when the p x p system is
+solved in float32 (as K1 and its plain version do) and when it is solved
+in float64 from the same float32 sums, and after the projection onto
+n'R b = 0 that parallel/fused.py:Stages.prior_fit applies.
 
 `mainpath`: the public deseq() + results() at 60,000 x 1,024 float32 on
 the card (chip_smoke.py's main path, counts from bench.py's generator
@@ -253,6 +262,41 @@ def edges_study(dev, n_perm):
                   flush=True)
 
 
+def expanded_study(dev):
+    from unittest import mock
+
+    from . import irls
+    from .linalg import chol_solve
+
+    def solve64(a, b):
+        return chol_solve(a.double(), b.double()).to(a.dtype)
+
+    for S, G, lv in checks.EXPANDED:
+        for weighted in (False, True):
+            raw = checks.expanded_inputs(G, S, lv, 7 + S + lv,
+                                         weighted=weighted)
+            d32 = checks.as_tensors(raw, torch.float32, dev)
+            ref = checks.run_irls(irls.fit_beta_plain,
+                                  checks.as_tensors(raw, torch.float64, dev))
+            f32 = checks.run_irls(irls.fit_beta_plain, d32)
+            with mock.patch.object(irls, "chol_solve", solve64):
+                f64solve = checks.run_irls(irls.fit_beta_plain, d32)
+            lam = d32["ridge"].double()
+            n = torch.full((lv + 1,), -1.0, dtype=torch.float64, device=dev)
+            n[0] = 1.0
+            b = f32["beta"].double()
+            proj = dict(f32, beta=(b - ((b * lam) @ n / (n * lam * n).sum())
+                                   [:, None] * n).float())
+            line = f"S={S} G={G} p={lv + 1} weighted={weighted}:"
+            for name, fit in (("float32 solve", f32),
+                              ("float64 solve", f64solve),
+                              ("projected", proj)):
+                r = checks.check_irls_expanded(fit, fit, ref)
+                line += (f" {name} along n {r['null_f64_kernel']:.3g}, off "
+                         f"n {r['beta_rel_f64_kernel']:.3g};")
+            print(line, flush=True)
+
+
 def _run_turn(fn, args, root):
     """fn(*args) in a fresh `python -c` process in checkout `root` (so that
     checkout's package is imported); returns the JSON its last line
@@ -441,10 +485,14 @@ def kernels_study(dev, parent_root, reps):
 
 
 if __name__ == "__main__":
-    if sys.argv[1] == "edges":
-        edges_study(torch.device("cuda", 0) if torch.cuda.is_available()
-                    else torch.device("cpu"),
-                    int(sys.argv[2]) if len(sys.argv) > 2 else 5)
+    if sys.argv[1] in ("edges", "expanded"):
+        any_dev = (torch.device("cuda", 0) if torch.cuda.is_available()
+                   else torch.device("cpu"))
+        if sys.argv[1] == "edges":
+            edges_study(any_dev, int(sys.argv[2]) if len(sys.argv) > 2
+                        else 5)
+        else:
+            expanded_study(any_dev)
         raise SystemExit(0)
     if not torch.cuda.is_available():
         raise SystemExit("the studies need a CUDA device")

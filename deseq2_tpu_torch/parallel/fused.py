@@ -15,9 +15,13 @@ Variants: observation weights (raw for the base statistics, max-1
 normalized for the mu fit, MAP, IRLS and log-likelihood, additionally
 floored at 1e-6 for the gene-wise search), gene x sample normalization
 factors, the LRT against an intercept or a reduced model matrix, t
-p-values (`use_t`) and the parametric, local and mean trends.  betaPrior,
-numeric contrasts and a device mesh raise NotImplementedError naming the
-ROADMAP.md item that will port them.
+p-values (`use_t`), the parametric, local and mean trends, a numeric
+contrast over the model-matrix columns (getContrast's sandwich at the
+final fit), and betaPrior: the prior variance from the MLE betas on the
+device, then the ridge refit on the expanded model matrix (intercept plus
+one indicator per level) through K1 at p = levels + 1, with its default
+or a user contrast.  A device mesh raises NotImplementedError naming the
+ROADMAP.md item that will port it.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from ..ops.cuda_grid import fit_disp_grid
 from ..ops.cuda_irls import fit_beta
 from ..ops.cuda_ls import fit_disp_line_search
 from ..ops.disp import CR_WEIGHT_THRESHOLD
+from ..ops.irls import xx_flat
 from ..ops.linalg import chol_solve
 from ..ops.nb import lgamma_diff_centered, trigamma
 from .cooksdev import cooks_distance_dev, max_cooks_dev, trimmed_mean_dev
@@ -40,25 +45,46 @@ from .filterdev import bh_adjust, filtered_bh_dev, theta_grid_dev
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 
-ROADMAP_VARIANTS = ("ROADMAP.md queue 1, item 6 (fused variants: betaPrior "
-                    "and contrasts)")
 ROADMAP_HOST = "ROADMAP.md queue 1, item 7 (host-exact orchestration)"
+ROADMAP_MESH = "ROADMAP.md queue 1, item 11 (multi-GPU)"
 
 
-def not_ported(what, item=ROADMAP_VARIANTS):
+def not_ported(what, item):
     return NotImplementedError(
         f"{what} is not ported to deseq2_tpu_torch yet: see {item}")
 
 
-def refuse_unported(beta_prior=False, contrast=None, mesh=None):
-    """Raise for every option of the JAX pipeline the port leaves out."""
-    if beta_prior:
-        raise not_ported("betaPrior")
-    if contrast is not None:
-        raise not_ported("a numeric contrast")
+def refuse_unported(mesh=None):
+    """Raise for the option of the JAX pipeline the port leaves out."""
     if mesh is not None:
-        raise not_ported("a device mesh",
-                         "ROADMAP.md queue 1, item 11 (multi-GPU)")
+        raise not_ported("a device mesh", ROADMAP_MESH)
+
+
+def contrast_sandwich(beta, mu_cl, alpha, x, ridge, c, w=None):
+    """getContrast's post-fit quantities at a fit's final clamped mu
+    (src/DESeq2.cpp:429-455; R/results.R:760-827): num = c'beta and
+    den = sqrt(c' Sigma c) with Sigma = A^-1 X'WX A^-1, A = X'WX +
+    diag(ridge), W = mu / (1 + alpha mu) (times the max-1 observation
+    weights), and Sigma's diagonal.  Batched over genes, in float64
+    whatever the fit's dtype (an expanded design's A is singular but for
+    its ridge, so a float32 inverse would carry that direction's rounding
+    into the sandwich); num, den and the diagonal come back in beta's
+    dtype."""
+    f = torch.float64
+    x64 = x.to(f)
+    p = x64.shape[1]
+    mu = mu_cl.to(f)
+    wc = mu / (1.0 + alpha.to(f)[:, None] * mu)
+    if w is not None:
+        wc = w.to(f) * wc
+    xtwx = (wc @ xx_flat(x64)).reshape(-1, p, p)
+    ainv = torch.linalg.inv(xtwx + torch.diag(ridge.to(f)))
+    sigma = ainv @ xtwx @ ainv
+    cv = torch.as_tensor(c, dtype=f, device=x.device)
+    num = beta.to(f) @ cv
+    den = torch.sqrt(torch.einsum("i,gij,j->g", cv, sigma, cv))
+    var = torch.diagonal(sigma, dim1=-2, dim2=-1)
+    return num.to(beta.dtype), den.to(beta.dtype), var.to(beta.dtype)
 
 
 def _ls_fitted(y, x):
@@ -297,8 +323,14 @@ class Stages:
 
     def __init__(self, x, sf, grid, maxit=100, min_disp=1e-8,
                  linear_mu=True, min_mu=0.5, fit_type="parametric",
-                 xim=None, x_reduced=None, reduced_intercept=False):
+                 xim=None, x_reduced=None, reduced_intercept=False,
+                 contrast=None, x_exp=None, contrast_exp=None):
         self.x = x
+        # a numeric contrast over x's columns (post_trend adds its num/den)
+        # and, under betaPrior, the expanded design with its contrast
+        self.contrast = contrast
+        self.x_exp = x_exp
+        self.contrast_exp = contrast_exp
         self.sf = sf
         self.grid = grid
         self.maxit = maxit
@@ -462,6 +494,13 @@ class Stages:
                    dispersion=dispersion, beta=fit["beta"],
                    beta_var=fit["beta_var"], beta_iter=fit["iter"],
                    mu=mu_out, hat=fit["hat_diag"], deviance=-2.0 * ll_out)
+        if self.contrast is not None:
+            # getContrast's maxit=0 re-entry: mu recomputed from the final
+            # betas and clamped, as the host does (also on diverged rows,
+            # where the kernel's own mu kept the pre-divergence value)
+            out["num"], out["den"], _ = contrast_sandwich(
+                fit["beta"], torch.clamp(mu_out, min=self.min_mu),
+                dispersion, x, self.lam_nat, self.contrast, w)
         if self.lrt:
             if self.reduced_intercept:
                 # intercept-only closed form (R/fitNbinomGLMs.R:99-137; the
@@ -487,9 +526,59 @@ class Stages:
             out["ll_reduced"] = nb_loglik(y_safe, mu_red, dispersion, w)
         return out
 
+    def prior_fit(self, y_safe, norm_c, all_zero, disp, prior_v, w=None,
+                  nf=None):
+        """The ridge refit on the expanded model matrix with the beta prior
+        (fitGLMsWithPrior, R/fitNbinomGLMs.R:292-332): K1 at p = levels + 1
+        with ridge [1e-6, 1/v, ..., 1/v] / ln2^2 from the intercept-only
+        start (the expanded design is rank-deficient), then the contrast's
+        num/den and the betas' variances from the sandwich at the kernel's
+        final clamped mu (float64), and the deviance at the unclamped mu.
+        `w`: the raw weights (max-1 normalized here); `prior_v`: the prior
+        variance (log2 scale).
+
+        The design's null direction n = (1, -1, ..., -1) (X n = 0) is
+        fixed by the ridge alone: every IRLS step solves (X'WX + R) b =
+        X'Wz, so n'R b = 0 exactly, and the fit's b is projected onto that
+        plane.  In float32 this removes the rounding of the ill-conditioned
+        system along n (at S = 1,024 the float32 fits sit up to 0.016 (the
+        H100) to 0.07 (a CPU) natural-log units from the float64 fit along
+        n, the kernel and the plain version differently, while off n they
+        agree to 1e-4); mu, the contrasts (c'n = 0) and a float64 fit do
+        not move."""
+        x_e = self.x_exp
+        pe = x_e.shape[1]
+        dtype = x_e.dtype
+        G = y_safe.shape[0]
+        w_n = None if w is None else _max1(w)
+        lam_e = torch.cat([
+            torch.full((1,), 1e-6, dtype=dtype, device=x_e.device),
+            (1.0 / torch.as_tensor(prior_v)).to(
+                dtype=dtype, device=x_e.device).expand(pe - 1)]) / LN2 ** 2
+        b0c = torch.where(all_zero, torch.zeros_like(norm_c[:, 0]),
+                          torch.log(torch.clamp(norm_c.mean(dim=1),
+                                                min=1e-300)))
+        binit = torch.cat([b0c[:, None],
+                           torch.zeros((G, pe - 1), dtype=dtype,
+                                       device=x_e.device)], dim=1)
+        fit = self._fit(y_safe, x_e, nf, disp, binit, lam_e, w_n)
+        n = torch.full((pe,), -1.0, dtype=torch.float64, device=x_e.device)
+        n[0] = 1.0
+        lam64 = lam_e.double()
+        b64 = fit["beta"].double()
+        beta = (b64 - ((b64 * lam64) @ n / (n * lam64 * n).sum())[:, None]
+                * n).to(dtype)
+        num, den, var = contrast_sandwich(beta, fit["mu"], disp, x_e, lam_e,
+                                          self.contrast_exp, w_n)
+        nf_b = self.sf[None, :] if nf is None else nf
+        mu_e = nf_b * torch.exp(beta @ x_e.T)
+        ll_e = nb_loglik(y_safe, mu_e, disp, w_n)
+        return dict(beta_e=beta, beta_var_e=var, iter_e=fit["iter"],
+                    num=num, den=den, deviance_e=-2.0 * ll_e)
+
 
 def _refit_rows(st, y_new, idx, cols, ts, disp_prior_var, var_log_disp,
-                cells, w=None, nf=None):
+                cells, w=None, nf=None, prior_v=None):
     """Refit dispersions and the GLM on the replaced rows `idx` with the
     frozen trend and prior (refitWithoutOutliers, R/core.R:2497-2560) and
     splice the new values into copies of the per-gene columns.  The LRT's
@@ -506,6 +595,12 @@ def _refit_rows(st, y_new, idx, cols, ts, disp_prior_var, var_log_disp,
                          torch.full_like(cooks2, float("nan")), cooks2)
     new = dict(post2, disp_gene_est=est2["disp_gene_est"],
                disp_gene_iter=est2["disp_gene_iter"], cooks=cooks2)
+    if st.x_exp is not None:
+        # the refit reuses the SAVED prior variance (refitWithoutOutliers
+        # passes betaPriorVar, R/core.R:2523-2531)
+        new.update(st.prior_fit(est2["y_safe"], est2["norm_c"],
+                                est2["all_zero"], post2["dispersion"],
+                                prior_v, est2.get("w"), est2.get("nf")))
     cols = {k: v.clone() for k, v in cols.items()}
     for k in cols:
         cols[k][idx] = new[k].to(cols[k].dtype)
@@ -536,7 +631,7 @@ def fused_wald_pipeline(counts, x, size_factors, grid, maxit=100,
                         dtype=torch.float64, x_reduced=None,
                         reduced_intercept=False, use_t=False, weights=None,
                         norm_factors=None, fit_type="parametric",
-                        **unported):
+                        beta_prior=False, contrast=None, **unported):
     """counts: (G,S) integer tensor; x: (S,p); size_factors: (S,) or None to
     estimate median-of-ratios factors on the device (ignored with
     `norm_factors`); grid: (20,) log-alpha grid.  Everything runs on
@@ -551,6 +646,16 @@ def fused_wald_pipeline(counts, x, size_factors, grid, maxit=100,
     against a reduced model matrix or the intercept (R/core.R:1787-1897);
     `use_t`: t p-values with df = S - p, or sum(max-1 weights) - p per
     gene; `fit_type`: parametric, local or mean trend.
+
+    `contrast`: a numeric contrast over x's columns; the results tail then
+    takes its LFC and SE from the contrast sandwich at the final fit
+    (getContrast, R/results.R:760-827), with the numeric zero-zero rule
+    (under the LRT only the LFC is taken from it).  `beta_prior`: the Wald
+    test with the LFC prior (needs `cells`, the per-sample factor level
+    codes of a single-factor design): the prior variance from the MLE
+    betas, the ridge refit on the expanded design [intercept, one column
+    per level] and its contrast, `contrast` over the expanded columns or by
+    default the last level against the first (R/results.R:389-398).
 
     With `cells` (per-sample design-cell codes) the pipeline also computes
     Cook's distances, maxCooks, the count-outlier replacement + refit
@@ -585,10 +690,35 @@ def fused_wald_pipeline(counts, x, size_factors, grid, maxit=100,
     lrt = reduced_intercept or x_reduced is not None
     if x_reduced is not None:
         x_reduced = torch.as_tensor(x_reduced).to(device=dev, dtype=dtype)
+    if beta_prior and (lrt or cells is None):
+        raise ValueError("fused beta_prior requires cells (a single-factor "
+                         "group design) and test='Wald'")
+    if contrast is not None:
+        contrast = tuple(float(c) for c in contrast)
+    x_exp = cvec_e = None
+    if beta_prior:
+        # expanded model matrix: intercept + one indicator per level
+        # (makeExpandedModelMatrix, R/expanded.R:1-18)
+        cells_arr = np.asarray(cells)
+        n_lvls = int(cells_arr.max()) + 1
+        pe = n_lvls + 1
+        x_exp = torch.as_tensor(np.column_stack(
+            [np.ones(S)] + [(cells_arr == lv).astype(float)
+                            for lv in range(n_lvls)]), dtype=dtype,
+            device=dev)
+        if contrast is not None:
+            if len(contrast) != pe:
+                raise ValueError(f"beta_prior contrast must have {pe} "
+                                 "entries (expanded model matrix columns)")
+            cvec_e = contrast
+        else:
+            cvec_e = tuple([0.0, -1.0] + [0.0] * (pe - 3) + [1.0])
     grid = torch.as_tensor(grid).to(device=dev, dtype=dtype)
     st = Stages(x, sf, grid, maxit=maxit, min_disp=min_disp,
                 linear_mu=linear_mu, fit_type=fit_type, xim=xim,
-                x_reduced=x_reduced, reduced_intercept=reduced_intercept)
+                x_reduced=x_reduced, reduced_intercept=reduced_intercept,
+                contrast=None if beta_prior else contrast, x_exp=x_exp,
+                contrast_exp=cvec_e)
 
     # Wald p-values: normal, or t with df = S - p; with weights the
     # per-gene df = sum(max-1 weights) - p (R/core.R:1478-1508)
@@ -641,6 +771,37 @@ def fused_wald_pipeline(counts, x, size_factors, grid, maxit=100,
     if lrt:
         for k in ("ll_full", "ll_reduced", "beta_iter_reduced"):
             cols[k] = post[k]
+    if st.contrast is not None:
+        cols.update(num=post["num"], den=post["den"])
+
+    # ---- beta prior variance + expanded refit ----
+    prior_v = None
+    if beta_prior:
+        from .priordev import match_weighted_upper_quantile_var_dev
+        with profiling.stage("fused.betaPrior", genes=G):
+            mle_log2 = LOG2E * cols["beta"]
+            # weights 1/(1/baseMean + dispFit), nonzero genes only
+            # (R/core.R:1637-1646)
+            wq = torch.where(all_zero, torch.zeros_like(base_mean),
+                             1.0 / (1.0 / torch.where(
+                                 all_zero, torch.ones_like(base_mean),
+                                 base_mean) + cols["disp_fit"]))
+            qcols = [mle_log2[:, j] for j in range(1, p)]
+            for j in range(1, p):     # addAllContrasts (R/expanded.R:76-98)
+                for i in range(j + 1, p):
+                    qcols.append(mle_log2[:, i] - mle_log2[:, j])
+            vs_ = [match_weighted_upper_quantile_var_dev(c_, wq)
+                   for c_ in qcols]
+            prior_v = sum(vs_) / len(vs_)   # averagePriorsOverLevels' mean
+            out["betaPriorVar"] = prior_v.to(dtype)
+            # MLE betas on the standard matrix (the MLE_ results columns,
+            # R/fitNbinomGLMs.R:272-278)
+            out["mleBeta"] = torch.where(all_zero[:, None],
+                                         torch.full_like(mle_log2, math.nan),
+                                         mle_log2)
+            cols.update(st.prior_fit(est["y_safe"], est["norm_c"], all_zero,
+                                     cols["dispersion"], prior_v, w_raw,
+                                     nfm))
 
     # ---- Cook's distances + outlier replacement / refit ----
     replace = torch.zeros(G, dtype=torch.bool, device=dev)
@@ -689,7 +850,7 @@ def fused_wald_pipeline(counts, x, size_factors, grid, maxit=100,
             idx = torch.nonzero(need).squeeze(1)
             if idx.numel():
                 cols = _refit_rows(st, y_new, idx, cols, ts, disp_prior_var,
-                                   var_log_disp, cells, w_raw, nfm)
+                                   var_log_disp, cells, w_raw, nfm, prior_v)
             out["replaceCounts"] = y_new
             out["replaceCooks"] = cols.pop("cooks")
 
@@ -710,9 +871,22 @@ def fused_wald_pipeline(counts, x, size_factors, grid, maxit=100,
     wald_p = two_sided_p(wald_stat)
 
     nan = float("nan")
+    beta_iter, deviance = cols["beta_iter"], cols["deviance"]
 
     def nanmask(v):
         return torch.where(all_zero, torch.full_like(v, nan), v)
+
+    def numeric_zero_zero(cvals, xmat):
+        """contrastAllZeroNumeric (R/results.R:1245-1270): rows whose counts
+        are all zero over the samples the contrast involves (mixed-sign
+        contrasts only)."""
+        ca = np.asarray(cvals)
+        if (ca >= 0).all() or (ca <= 0).all():
+            return torch.zeros(G, dtype=torch.bool, device=dev)
+        cbin = torch.as_tensor((ca != 0).astype(float), dtype=dtype,
+                               device=dev)
+        which = (xmat @ cbin) != 0
+        return (y * which[None, :].to(dtype)).sum(dim=1) == 0
 
     lfc_last = nanmask(beta_log2[:, -1])
     se_last = nanmask(se_log2[:, -1])
@@ -729,6 +903,48 @@ def fused_wald_pipeline(counts, x, size_factors, grid, maxit=100,
         out["LRTStatistic"] = stat_last
         out["LRTPvalue"] = p_last
         out["betaIterReduced"] = cols["beta_iter_reduced"]
+        if contrast is not None:
+            # LFC and SE from the contrast sandwich; the zero-zero rule
+            # zeroes only the LFC here, the LRT's statistic and p-value
+            # stand (R/results.R:1021-1037)
+            lfc_last = nanmask(LOG2E * cols["num"])
+            se_last = nanmask(LOG2E * cols["den"])
+            zz = numeric_zero_zero(contrast, x) & ~all_zero
+            lfc_last = torch.where(zz, torch.zeros_like(lfc_last), lfc_last)
+    elif beta_prior or contrast is not None:
+        # the contrast (under betaPrior by default the last level against
+        # the first) from the sandwich: stat = c'beta / sqrt(c' Sigma c)
+        # (R/results.R:797-818)
+        lfc_last = nanmask(LOG2E * cols["num"])
+        se_last = nanmask(LOG2E * cols["den"])
+        stat_last = nanmask(cols["num"] / cols["den"])
+        p_last = nanmask(two_sided_p(stat_last))
+        # zero-zero rule, LFC = 0, stat = 0, p = 1: the default betaPrior
+        # contrast takes the character rule (both involved levels all zero,
+        # R/results.R:956-959, 1237-1243), a user contrast the numeric one
+        # (R/results.R:1245-1270)
+        if beta_prior and contrast is None:
+            carr = np.asarray(cells)
+            first = torch.as_tensor(np.where(carr == 0)[0], device=dev)
+            last = torch.as_tensor(np.where(carr == carr.max())[0],
+                                   device=dev)
+            zz = (y[:, first].sum(dim=1) == 0) \
+                & (y[:, last].sum(dim=1) == 0) & ~all_zero
+        else:
+            zz = numeric_zero_zero(contrast, x_exp if beta_prior else x) \
+                & ~all_zero
+        zero = torch.zeros_like(p_last)
+        lfc_last = torch.where(zz, zero, lfc_last)
+        stat_last = torch.where(zz, zero, stat_last)
+        p_last = torch.where(zz, torch.ones_like(p_last), p_last)
+        if beta_prior:
+            # the expanded MAP betas replace the MLE ones in the outputs
+            beta_log2 = LOG2E * cols["beta_e"]
+            se_log2 = LOG2E * torch.sqrt(torch.clamp(cols["beta_var_e"],
+                                                     min=0.0))
+            wald_stat = beta_log2 / se_log2
+            wald_p = two_sided_p(wald_stat)
+            beta_iter, deviance = cols["iter_e"], cols["deviance_e"]
     else:
         p_last = nanmask(wald_p[:, -1])
         stat_last = nanmask(wald_stat[:, -1])
@@ -775,9 +991,8 @@ def fused_wald_pipeline(counts, x, size_factors, grid, maxit=100,
         dispOutlier=cols["disp_outlier"] & ~all_zero,
         beta=rowmask(beta_log2), betaSE=rowmask(se_log2),
         stat=rowmask(wald_stat), pvalue=rowmask(wald_p),
-        betaIter=cols["beta_iter"], betaConv=cols["beta_iter"] < maxit,
-        mu=cols["mu"], hatDiag=cols["hat"],
-        deviance=nanmask(cols["deviance"]),
+        betaIter=beta_iter, betaConv=beta_iter < maxit,
+        mu=cols["mu"], hatDiag=cols["hat"], deviance=nanmask(deviance),
         lfcLast=lfc_last, seLast=se_last, statLast=stat_last,
         pvalueLast=p_last, padjLast=padj_last, replace=replace,
         filterTheta=theta, filterPadj=filter_padj, filterNumRej=num_rej,
@@ -890,14 +1105,16 @@ def fused_results(counts, x, size_factors=None, maxit=100, min_disp=1e-8,
                   alpha=0.1, independent_filtering=True, two_group=False,
                   min_replicates=7, device=None, dtype=torch.float64,
                   reduced=None, use_t=False, weights=None,
-                  norm_factors=None, fit_type="parametric", **unported):
+                  norm_factors=None, fit_type="parametric",
+                  beta_prior=False, contrast=None, **unported):
     """deseq() + results() through the fused pipeline: runs it on `device`
     (default "cuda"), then picks the independent-filtering cutoff on the
     host (R/results.R:661-698) and returns the results-table columns as
     numpy arrays.  `size_factors=None` estimates median-of-ratios factors
     on the device; `reduced` ('~ 1' or a matrix) runs the LRT; `weights`
-    (raw, validated here), `norm_factors`, `use_t` and `fit_type` as in
-    fused_wald_pipeline."""
+    (raw, validated here), `norm_factors`, `use_t`, `fit_type`,
+    `beta_prior` and `contrast` (a numeric vector over x's columns, or
+    the expanded columns under beta_prior) as in fused_wald_pipeline."""
     from ..results import choose_filter_theta
     from ..engine import resolve_device
 
@@ -912,6 +1129,8 @@ def fused_results(counts, x, size_factors=None, maxit=100, min_disp=1e-8,
             raise ValueError("norm_factors must match the counts shape "
                              "(genes x samples)")
         norm_factors = torch.as_tensor(np.asarray(norm_factors, np.float64))
+    if contrast is not None:
+        contrast = tuple(float(c) for c in np.asarray(contrast).ravel())
     x_red, red_int = reduced_args(reduced)
     counts_t = torch.as_tensor(np.asarray(counts)).to(dev)
     out = fused_wald_pipeline(
@@ -923,7 +1142,8 @@ def fused_results(counts, x, size_factors=None, maxit=100, min_disp=1e-8,
         linear_mu=len(set(cells)) == x_np.shape[1], dtype=dtype,
         x_reduced=None if x_red is None else torch.as_tensor(x_red),
         reduced_intercept=red_int, use_t=use_t, weights=weights,
-        norm_factors=norm_factors, fit_type=fit_type)
+        norm_factors=norm_factors, fit_type=fit_type, beta_prior=beta_prior,
+        contrast=contrast)
 
     def host(v):
         return v.cpu().numpy() if torch.is_tensor(v) else v

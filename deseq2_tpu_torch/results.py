@@ -1,10 +1,12 @@
-"""Results tables: alt hypotheses, Cook's masking, independent filtering,
-BH adjustment.
+"""Results tables: contrasts, alt hypotheses, Cook's masking, independent
+filtering, BH adjustment.
 
 Reference: results() (R/results.R:298-615), pvalueAdjustment/filtered_p
-(R/results.R:638-740), makeWaldTest (R/results.R:1101-1118), with the LRT
-and useT arms.  Contrasts (getContrast/cleanContrast, R/results.R:760-1040)
-are not ported yet and raise NotImplementedError.
+(R/results.R:638-740), getContrast/cleanContrast (R/results.R:760-1040),
+the contrast zero-zero rules (R/results.R:1237-1270), makeWaldTest
+(R/results.R:1101-1118), with the LRT, useT and betaPrior arms.
+getContrast runs on the device the fit ran on: the counts (or the
+replaceCounts assay) stay there, and only (G,) vectors come back.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from scipy.stats import norm
 from scipy.stats import t as t_dist
 
 from . import profiling
-from .formula import Factor
+from .formula import Factor, make_names
 from .quantiles import r_quantile_type7
 from .stats_r import p_adjust, r_lowess
 
@@ -109,6 +111,25 @@ def remove_results(dds):
     dds = dds.copy()
     dds.remove_results()
     return dds
+
+
+def mle_contrast(dds, contrast):
+    """lfcMLE column for a character contrast from the stored MLE_
+    columns (reference mleContrast, R/results.R:1120-1143)."""
+    fac, num, den = contrast
+    ref = dds.col_data[fac].levels[0]
+
+    def nm(a, b):
+        return make_names([f"MLE_{fac}_{a}_vs_{b}"])[0]
+
+    if den == ref:
+        v = np.asarray(dds.row_data[nm(num, den)], dtype=float).copy()
+    elif num == ref:
+        v = -np.asarray(dds.row_data[nm(den, num)], dtype=float)
+    else:
+        v = (np.asarray(dds.row_data[nm(num, ref)], dtype=float)
+             - np.asarray(dds.row_data[nm(den, ref)], dtype=float))
+    return v
 
 
 # ---------------------------------------------------------------------------
@@ -212,10 +233,20 @@ def results(dds, contrast=None, name=None, lfc_threshold=0.0,
         return fast
 
     if contrast is not None:
-        from .parallel.fused import not_ported
-        raise not_ported("results() with a contrast")
-    with profiling.stage("results.pullColumns"):
-        res = _pull_columns(dds, name, test)
+        contrast = check_contrast(contrast, res_names)
+        with profiling.stage("results.cleanContrast"):
+            res = clean_contrast(dds, contrast, expanded=is_expanded,
+                                 list_values=list_values, test=test,
+                                 use_t=use_t, minmu=minmu)
+    else:
+        with profiling.stage("results.pullColumns"):
+            res = _pull_columns(dds, name, test)
+
+    if add_mle:
+        lfc_mle = mle_contrast(dds, contrast)
+        # an all-zero contrast also zeroes the lfcMLE (R/results.R:459-460)
+        lfc_mle[(res.log2_fold_change == 0) & (res.stat == 0)] = 0.0
+        res.extra_columns["lfcMLE"] = lfc_mle
 
     # alternative hypotheses / lfcThreshold (R/results.R:464-518)
     if not (lfc_threshold == 0 and alt_hypothesis == "greaterAbs"):
@@ -304,6 +335,8 @@ def results(dds, contrast=None, name=None, lfc_threshold=0.0,
         res.lfc_se[now_zero] = 0
         res.stat[now_zero] = 0
         res.pvalue[now_zero] = 1
+        if add_mle:
+            res.extra_columns["lfcMLE"][now_zero] = 0
 
     if not dds.attrs.get("betaPrior"):
         res.prior_info = dict(type="none", package="deseq2_tpu")
@@ -312,8 +345,10 @@ def results(dds, contrast=None, name=None, lfc_threshold=0.0,
                               betaPriorVar=dds.attrs.get("betaPriorVar"))
 
     with profiling.stage("results.pvalueAdjustment"):
+        from .engine import fit_device
         res = pvalue_adjustment(res, independent_filtering, filter, theta,
-                                alpha, p_adjust_method)
+                                alpha, p_adjust_method,
+                                device=fit_device(dds))
     res.metadata["lfcThreshold"] = lfc_threshold
     res.row_names = list(dds.row_names)
     if save_cols:
@@ -349,7 +384,13 @@ def _fused_tail_results(dds, contrast, name, lfc_threshold,
         return None
     if independent_filtering and alpha != tail["alpha"]:
         return None
-    if contrast is not None or name != tail["name"]:
+    if tail["betaPrior"]:
+        # the pipeline computed the default expanded-matrix contrast (last
+        # level against the first); any other runs the contrast flow
+        if contrast is None \
+                or tuple(contrast) != tail.get("defaultContrast"):
+            return None
+    elif contrast is not None or name != tail["name"]:
         return None
 
     if independent_filtering:
@@ -369,8 +410,15 @@ def _fused_tail_results(dds, contrast, name, lfc_threshold,
         stat=np.asarray(f["stat"], float),
         pvalue=np.asarray(f["p"], float),
         padj=np.asarray(f["padj"], float))
-    res.descriptions["log2FoldChange"] = dds.row_meta[tail["name"]][1]
-    res.prior_info = dict(type="none", package="deseq2_tpu")
+    if tail["betaPrior"]:
+        fac, num_l, den_l = tail["defaultContrast"]
+        res.descriptions["log2FoldChange"] = \
+            f"log2 fold change (MAP): {fac} {num_l} vs {den_l}"
+        res.prior_info = dict(type="normal", package="deseq2_tpu",
+                              betaPriorVar=dds.attrs.get("betaPriorVar"))
+    else:
+        res.descriptions["log2FoldChange"] = dds.row_meta[tail["name"]][1]
+        res.prior_info = dict(type="none", package="deseq2_tpu")
     if independent_filtering:
         res.metadata["filterThreshold"] = float(tail["cutoffs"][j])
         res.metadata["filterTheta"] = float(tail["theta"][j])
@@ -441,10 +489,44 @@ def choose_filter_theta(theta, num_rej):
     return j, lx, lo_fit_y
 
 
+def _device_filtering(res, alpha, device):
+    """The independent-filtering theta grid on the card
+    (parallel/filterdev.py) for a results() call the fused tail did not
+    compute: the host's 50 per-cutoff BH sorts over G genes are the only
+    O(G log G x 50) piece of results() (0.39 s at 60,000 genes).  Same
+    semantics as filtered_p + choose_filter_theta (the fused pipeline's
+    tail runs the same functions, held to the JAX package in
+    tests/test_torch_fused.py)."""
+    import torch
+
+    from .parallel.filterdev import filtered_bh_dev, theta_grid_dev
+    p_d = torch.as_tensor(np.asarray(res.pvalue, np.float64), device=device)
+    bm_d = torch.as_tensor(np.asarray(res.base_mean, np.float64),
+                           device=device)
+    theta_d = theta_grid_dev(bm_d)
+    filt_padj, num_rej, cutoffs = filtered_bh_dev(p_d, bm_d, theta_d, alpha)
+    theta, num_rej = theta_d.cpu().numpy(), num_rej.cpu().numpy()
+    j, lx, lo_fit_y = choose_filter_theta(theta, num_rej)
+    res.padj = filt_padj[j].cpu().numpy().astype(float)
+    res.metadata["filterThreshold"] = float(cutoffs[j])
+    res.metadata["filterTheta"] = float(theta[j])
+    res.metadata["filterNumRej"] = dict(theta=theta, numRej=num_rej)
+    res.metadata["lo.fit"] = dict(x=lx, y=lo_fit_y)
+    res.metadata["alpha"] = alpha
+    return res
+
+
 def pvalue_adjustment(res, independent_filtering, filter, theta, alpha,
-                      p_adjust_method="BH"):
-    """(reference pvalueAdjustment, R/results.R:638-718)"""
+                      p_adjust_method="BH", device=None):
+    """(reference pvalueAdjustment, R/results.R:638-718).  With the
+    default filter statistic and theta grid at 16,384 genes or more, on a
+    fit that ran on a CUDA device, the grid runs there
+    (_device_filtering)."""
     if independent_filtering:
+        if (filter is None and theta is None and p_adjust_method == "BH"
+                and len(res.pvalue) >= 16384 and device is not None
+                and device.type == "cuda"):
+            return _device_filtering(res, alpha, device)
         if filter is None:
             filter = res.base_mean
         if theta is None:
@@ -469,6 +551,282 @@ def pvalue_adjustment(res, independent_filtering, filter, theta, alpha,
         padj = p_adjust(res.pvalue, p_adjust_method)
     res.padj = padj
     return res
+
+
+# ---------------------------------------------------------------------------
+# contrasts
+# ---------------------------------------------------------------------------
+
+def check_contrast(contrast, res_names):
+    """(reference checkContrast, R/results.R:1146-1201)"""
+    if isinstance(contrast, (list, tuple)) and len(contrast) in (1, 2) \
+            and all(isinstance(c, (list, tuple)) for c in contrast):
+        if len(contrast) == 1:
+            contrast = [list(contrast[0]), []]
+        num, den = contrast
+        if not all(isinstance(s, str) for s in list(num) + list(den)):
+            raise ValueError("list contrast should contain character vectors")
+        if not all(s in res_names for s in list(num) + list(den)):
+            raise ValueError("all elements of the contrast as a list should "
+                             "be elements of results_names()")
+        if set(num) & set(den):
+            raise ValueError("elements in the contrast list should only "
+                             "appear in numerator or denominator, not both")
+        if len(list(num) + list(den)) == 0:
+            raise ValueError("one of the two elements in the list should be "
+                             "a character vector of non-zero length")
+        return [list(num), list(den)]
+    if isinstance(contrast, (tuple, list)) and len(contrast) == 3 \
+            and all(isinstance(s, str) for s in contrast):
+        if contrast[1] == contrast[2]:
+            raise ValueError(f"{contrast[1]} and {contrast[2]} should be "
+                             "different level names")
+        return tuple(contrast)
+    if isinstance(contrast, (tuple, list)) \
+            and any(isinstance(s, str) for s in contrast):
+        # reference checkContrast: a character contrast must be exactly
+        # (factor, numerator level, denominator level)
+        raise ValueError("'contrast', as a character vector of length 3, "
+                         "should have the form: contrast = ('factorName', "
+                         "'numeratorLevel', 'denominatorLevel'), see the "
+                         "results() docstring")
+    contrast = np.asarray(contrast, dtype=np.float64)
+    if contrast.ndim != 1 or len(contrast) != len(res_names):
+        raise ValueError("numeric contrast vector should have one element "
+                         "for every element of results_names()")
+    if np.all(contrast == 0):
+        raise ValueError("numeric contrast vector cannot have all elements "
+                         "equal to 0")
+    return contrast
+
+
+def get_contrast(dds, contrast, use_t=False, minmu=0.5):
+    """Wald statistics of an arbitrary numeric contrast: getContrast's
+    re-entry into the IRLS with maxit=0 (reference getContrast,
+    R/results.R:760-827; src/DESeq2.cpp:429-455).
+
+    On the device the fit ran on, in float64: mu from the stored betas,
+    clamped at minmu; the sandwich (X'WX + ridge)^-1 X'WX (X'WX +
+    ridge)^-1 with the stored betaPriorVar's ridge and the row-max
+    normalized weights; c'beta and sqrt(c' Sigma c).  With maxit=0 the
+    counts do not enter these (the JAX package hands the replaceCounts or
+    the counts to its fit_beta, whose maxit=0 num/den do not read them),
+    so none are gathered.  Only (G,) vectors come back to the host."""
+    import torch
+
+    from .engine import fit_device
+    from .parallel.fused import contrast_sandwich
+
+    dev = fit_device(dds)
+    model_matrix = dds.attrs["modelMatrix"]
+    nz = np.asarray(~dds.row_data["allZero"])
+    nz_idx = torch.as_tensor(np.where(nz)[0], device=dev)
+    if dds.normalization_factors is not None:
+        nf = torch.as_tensor(np.asarray(dds.normalization_factors,
+                                        np.float64)[nz], device=dev)
+    else:
+        nf = torch.as_tensor(np.asarray(dds.size_factors, np.float64),
+                             device=dev)[None, :]
+    alpha = torch.as_tensor(np.asarray(dds.row_data["dispersion"],
+                                       np.float64)[nz], device=dev)
+    coef_columns = dds.results_names()
+    beta_mat = torch.as_tensor(LN2 * np.column_stack(
+        [np.asarray(dds.row_data[c], np.float64)[nz]
+         for c in coef_columns]), device=dev)
+    lam_nat = torch.as_tensor(
+        1.0 / (LN2 ** 2 * np.asarray(dds.attrs["betaPriorVar"], np.float64)),
+        device=dev)
+    x = torch.as_tensor(np.asarray(model_matrix, np.float64), device=dev)
+    weights = None
+    if "weights" in dds.assays:
+        w = torch.as_tensor(np.asarray(dds.assays["weights"], np.float64),
+                            device=dev)[nz_idx]
+        weights = w / w.max(dim=1, keepdim=True).values
+    mu = torch.clamp(nf * torch.exp(beta_mat @ x.T), min=minmu)
+    num, den, _ = contrast_sandwich(beta_mat, mu, alpha, x, lam_nat,
+                                    np.asarray(contrast, np.float64), weights)
+    est = LOG2E * num.cpu().numpy()
+    se = LOG2E * den.cpu().numpy()
+    with np.errstate(divide="ignore", invalid="ignore"):
+        stat = est / se
+    if use_t:
+        df = np.asarray(dds.row_data["tDegreesFreedom"])[nz]
+        pval = 2.0 * t_dist.sf(np.abs(stat), df)
+    else:
+        pval = 2.0 * norm.sf(np.abs(stat))
+    G = dds.n_genes
+    full = {}
+    for nmk, v in (("log2FoldChange", est), ("lfcSE", se), ("stat", stat),
+                   ("pvalue", pval)):
+        arr = np.full(G, np.nan)
+        arr[nz] = v
+        full[nmk] = arr
+    return full
+
+
+def clean_contrast(dds, contrast, expanded=False, list_values=(1, -1),
+                   test="Wald", use_t=False, minmu=0.5):
+    """(reference cleanContrast, R/results.R:832-1040)"""
+    res_names = dds.results_names()
+    res_ready = False
+    contrast_all_zero = None
+    contrast_name = None
+
+    if isinstance(contrast, tuple):  # character contrast (factor, num, den)
+        factor_name, num_level, den_level = contrast
+        if factor_name not in dds.col_data or not isinstance(
+                dds.col_data[factor_name], Factor):
+            raise ValueError(f"{factor_name} should be the name of a factor "
+                             "in the colData of the dataset")
+        fac = dds.col_data[factor_name]
+        base_level = fac.levels[0]
+        has_intercept = dds.design_has_intercept()
+        first_var = not isinstance(dds.design, np.ndarray) \
+            and dds.design.variables \
+            and factor_name == dds.design.variables[0]
+        no_intercept_pull_coef = (not has_intercept) and (not first_var) and \
+            (base_level in (num_level, den_level))
+
+        if not expanded and (has_intercept or no_intercept_pull_coef):
+            num_col = make_names([f"{factor_name}_{num_level}_vs_"
+                                  f"{base_level}"])[0]
+            den_col = make_names([f"{factor_name}_{den_level}_vs_"
+                                  f"{base_level}"])[0]
+            if den_level == base_level:
+                clean_name = f"{factor_name} {num_level} vs {den_level}"
+                nm = num_col if not no_intercept_pull_coef else \
+                    make_names([f"{factor_name}{num_level}"])[0]
+                if nm not in res_names:
+                    raise ValueError(
+                        f"as {den_level} is the reference level, was "
+                        f"expecting {nm} to be present in results_names()")
+                res = _pull_columns(dds, nm, test)
+                lfc_type = "MAP" if dds.attrs.get("betaPrior") else "MLE"
+                res.descriptions["log2FoldChange"] = \
+                    f"log2 fold change ({lfc_type}): {clean_name}"
+                res_ready = True
+            elif num_level == base_level:
+                clean_name = f"{factor_name} {num_level} vs {den_level}"
+                swap = make_names([f"{factor_name}_{den_level}_vs_"
+                                   f"{num_level}"])[0] \
+                    if not no_intercept_pull_coef else \
+                    make_names([f"{factor_name}{den_level}"])[0]
+                if swap not in res_names:
+                    raise ValueError(
+                        f"as {num_level} is the reference level, was "
+                        f"expecting {swap} to be present in results_names()")
+                res = _pull_columns(dds, swap, test)
+                res.log2_fold_change = -1.0 * res.log2_fold_change
+                if test == "Wald":
+                    res.stat = -1.0 * res.stat
+                lfc_type = "MAP" if dds.attrs.get("betaPrior") else "MLE"
+                res.descriptions["log2FoldChange"] = \
+                    f"log2 fold change ({lfc_type}): {clean_name}"
+                res_ready = True
+            else:
+                if not (num_col in res_names and den_col in res_names):
+                    raise ValueError(
+                        f"{num_level} and {den_level} should be levels of "
+                        f"{factor_name} such that {num_col} and {den_col} "
+                        "are contained in results_names()")
+        else:
+            num_col = make_names([f"{factor_name}{num_level}"])[0]
+            den_col = make_names([f"{factor_name}{den_level}"])[0]
+            if not (num_col in res_names and den_col in res_names):
+                raise ValueError(f"{num_col} and {den_col} are expected to "
+                                 "be in results_names()")
+        # all-zero across samples in either level (R/results.R:1237-1243)
+        sel = np.isin(fac.codes,
+                      [fac.levels.index(num_level),
+                       fac.levels.index(den_level)])
+        contrast_all_zero = _counts_zero_over(dds, sel.astype(float))
+        contrast_name = f"{factor_name} {num_level} vs {den_level}"
+
+    if not res_ready:
+        if isinstance(contrast, np.ndarray):
+            signs = ["" if c <= 0 else "+" for c in np.sign(contrast)]
+            contrast_name = ",".join(
+                s + _fmt_num(c) for s, c in zip(signs, contrast))
+            contrast_numeric = contrast
+        elif isinstance(contrast, list):  # list contrast
+            num, den = contrast
+            contrast_numeric = np.zeros(len(res_names))
+            contrast_numeric[[res_names.index(n) for n in num]] = \
+                list_values[0]
+            contrast_numeric[[res_names.index(n) for n in den]] = \
+                list_values[1]
+            v1 = "" if list_values[0] == 1 else f"{round(list_values[0],3)} "
+            v2abs = abs(round(list_values[1], 3))
+            v2 = "" if v2abs == 1 else f"{v2abs} "
+            if num and den:
+                contrast_name = (f"{v1}{'+'.join(num)} vs {v2}"
+                                 f"{'+'.join(den)}")
+            elif num:
+                contrast_name = f"{v1}{'+'.join(num)} effect"
+            else:
+                contrast_name = f"{round(list_values[1],3)} " \
+                                f"{'+'.join(den)} effect"
+        else:  # character triple needing a numeric contrast
+            factor_name, num_level, den_level = contrast
+            contrast_numeric = np.zeros(len(res_names))
+            contrast_numeric[res_names.index(num_col)] = 1.0
+            contrast_numeric[res_names.index(den_col)] = -1.0
+
+        if contrast_all_zero is None:
+            contrast_all_zero = _contrast_all_zero_numeric(dds,
+                                                           contrast_numeric)
+        cols = get_contrast(dds, contrast_numeric, use_t=use_t, minmu=minmu)
+        lfc_type = "MAP" if dds.attrs.get("betaPrior") else "MLE"
+        res = DESeqResults(
+            base_mean=dds.row_data["baseMean"].copy(),
+            log2_fold_change=cols["log2FoldChange"],
+            lfc_se=cols["lfcSE"], stat=cols["stat"], pvalue=cols["pvalue"],
+            descriptions={"log2FoldChange":
+                          f"log2 fold change ({lfc_type}): {contrast_name}"})
+
+    # zero out contrasts of all-zero groups (R/results.R:1021-1028)
+    if contrast_all_zero is not None:
+        contrast_all_zero = contrast_all_zero & ~dds.row_data["allZero"]
+        if contrast_all_zero.sum() > 0:
+            res.log2_fold_change[contrast_all_zero] = 0
+            res.stat[contrast_all_zero] = 0
+            res.pvalue[contrast_all_zero] = 1
+
+    # LRT: overwrite stat/p with the stored LRT columns (R/results.R:1030-1037)
+    if test == "LRT":
+        res.stat = dds.row_data["LRTStatistic"].astype(float).copy()
+        res.pvalue = dds.row_data["LRTPvalue"].astype(float).copy()
+    return res
+
+
+def _fmt_num(c):
+    if c == int(c):
+        return str(int(c))
+    return str(c)
+
+
+def _contrast_all_zero_numeric(dds, contrast):
+    """(reference contrastAllZeroNumeric, R/results.R:1245-1270)"""
+    model_matrix = dds.attrs["modelMatrix"]
+    if np.all(contrast >= 0) or np.all(contrast <= 0):
+        return np.zeros(dds.n_genes, dtype=bool)
+    contrast_binary = (contrast != 0).astype(float)
+    which_samples = (model_matrix @ contrast_binary != 0).astype(float)
+    return _counts_zero_over(dds, which_samples)
+
+
+def _counts_zero_over(dds, which_samples):
+    """Rows whose counts are all zero over the samples with a nonzero
+    `which_samples` entry, on the device the fit ran on (the counts stay
+    there; a (G,) mask comes back)."""
+    import torch
+
+    from .engine import device_counts, fit_device
+    dev = fit_device(dds)
+    sel = torch.as_tensor(np.where(np.asarray(which_samples) != 0)[0],
+                          device=dev)
+    counts = device_counts(dds, dev)
+    return (counts[:, sel] == 0).all(dim=1).cpu().numpy()
 
 
 def make_wald_test(dds):

@@ -252,3 +252,89 @@ def test_public_variant_on_card_matches_cpu(cuda, variant):
         m = ~np.isnan(a)
         np.testing.assert_allclose(a[m], b[m], rtol=1e-6, atol=1e-8,
                                    err_msg=col)
+
+
+EXPANDED_CASES = [(dt, S, G, lv, wt) for wt in (False, True)
+                  for dt in (torch.float32, torch.float64)
+                  for S, G, lv in checks.EXPANDED]
+
+
+@pytest.mark.parametrize(
+    "case", EXPANDED_CASES,
+    ids=[f"{str(c[0])[6:]}-p{c[3] + 1}-S{c[1]}" + ("-w" if c[4] else "")
+         for c in EXPANDED_CASES])
+def test_irls_kernel_expanded_matches_plain(cuda, case):
+    """K1 at the betaPrior refit's expanded design (p = 3 and 4, the
+    intercept the sum of the level columns, held up by the prior's
+    ridge), against its plain version: float64 to the plain trajectory,
+    float32 against the float64 fit off the design's null direction
+    (checks.check_irls_expanded)."""
+    dt, S, G, lv, wt = case
+    raw = checks.expanded_inputs(G, S, lv, 7 + S + lv, weighted=wt)
+    d = checks.as_tensors(raw, dt, cuda)
+    n0 = _counter(fit_beta, wt)
+    k = checks.run_irls(fit_beta, d)
+    torch.cuda.synchronize()
+    assert _counter(fit_beta, wt) == n0 + 1
+    pl = checks.run_irls(irls.fit_beta_plain, d)
+    ref = checks.run_irls(irls.fit_beta_plain,
+                          checks.as_tensors(raw, torch.float64, cuda))
+    r = checks.check_irls_expanded(k, pl, ref)
+    assert r["ok"], r
+
+
+@pytest.fixture(scope="module")
+def prior_fits(cuda):
+    """deseq() and deseq(beta_prior=True) of a three-level example in
+    float64, on the card and on the CPU, with the K1 launches of the card's
+    betaPrior fit."""
+    import deseq2_tpu_torch as dt
+    dds = dt.make_example_dataset(n=400, m=12, beta_sd=1.0, seed=4)
+    dds.col_data["condition"] = dt.Factor(np.repeat(["A", "B", "C"], 4),
+                                          levels=["A", "B", "C"])
+    n0 = fit_beta.launches
+    card_bp = dt.deseq(dds, beta_prior=True)
+    k1 = fit_beta.launches - n0
+    return dict(card=dt.deseq(dds), cpu=dt.deseq(dds, device="cpu"),
+                card_bp=card_bp, cpu_bp=dt.deseq(dds, beta_prior=True,
+                                                  device="cpu"), k1=k1)
+
+
+PRIOR_CALLS = {
+    "beta_prior": ("bp", lambda dt, f: dt.results(f)),
+    "beta_prior_C_B": ("bp", lambda dt, f: dt.results(
+        f, contrast=("condition", "C", "B"))),
+    "contrast_C_B": ("", lambda dt, f: dt.results(
+        f, contrast=("condition", "C", "B"))),
+    "contrast_list": ("", lambda dt, f: dt.results(
+        f, contrast=[["condition_C_vs_A"], ["condition_B_vs_A"]])),
+    "contrast_numeric": ("", lambda dt, f: dt.results(
+        f, contrast=np.array([0.0, -1.0, 1.0]))),
+    "apeglm": ("", lambda dt, f: dt.lfc_shrink(f, coef="condition_B_vs_A",
+                                                type="apeglm")),
+    "normal": ("", lambda dt, f: dt.lfc_shrink(
+        f, contrast=("condition", "C", "A"), type="normal")),
+    "ashr": ("", lambda dt, f: dt.lfc_shrink(f, coef="condition_B_vs_A",
+                                              type="ashr")),
+}
+
+
+@pytest.mark.parametrize("call", sorted(PRIOR_CALLS))
+def test_prior_contrast_shrink_on_card_matches_cpu(prior_fits, call):
+    """betaPrior, contrasts and lfc_shrink on the card in float64 against
+    the same calls on the port's CPU fit; the betaPrior deseq() and the
+    normal shrinkage launch K1 on the card."""
+    import deseq2_tpu_torch as dt
+    which, fn = PRIOR_CALLS[call]
+    assert prior_fits["k1"] >= 2
+    n0 = fit_beta.launches
+    on_card = fn(dt, prior_fits["card" + ("_bp" if which else "")])
+    if call == "normal":
+        assert fit_beta.launches == n0 + 1
+    on_cpu = fn(dt, prior_fits["cpu" + ("_bp" if which else "")])
+    for col in ("log2FoldChange", "lfcSE", "stat", "pvalue", "padj"):
+        a, b = np.asarray(on_card[col]), np.asarray(on_cpu[col])
+        assert np.array_equal(np.isnan(a), np.isnan(b)), col
+        m = ~np.isnan(a)
+        np.testing.assert_allclose(a[m], b[m], rtol=1e-6, atol=1e-8,
+                                   err_msg=col)

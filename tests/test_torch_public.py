@@ -116,7 +116,8 @@ def test_deseq_without_card_raises(monkeypatch):
         tdt.deseq(_port_dataset(counts, labels))
 
 
-@pytest.mark.parametrize("kwargs", [dict(beta_prior=True),
+@pytest.mark.parametrize("kwargs", [dict(beta_prior=True,
+                                         model_matrix_type="standard"),
                                     dict(engine="host"),
                                     dict(fit_type="glmGamPoi"),
                                     dict(sf_type="poscounts"),
@@ -124,7 +125,9 @@ def test_deseq_without_card_raises(monkeypatch):
 def test_unported_options_raise(kwargs):
     """What the port still refuses (the LRT, local trend and use_t cases
     that stood here run now: test_lrt_public, test_trend_fit_types_public,
-    test_use_t_public)."""
+    test_use_t_public; betaPrior runs on a single-factor design with an
+    intercept, tests/test_torch_prior.py, and its standard-matrix form, which
+    the JAX package runs on its host path, is refused)."""
     counts, labels, _ = _arrays(n=50)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tdt.deseq(_port_dataset(counts, labels), device="cpu", **kwargs)
@@ -260,9 +263,12 @@ def test_norm_factors_public():
 
 
 def test_contrast_raises(public_run):
+    """Contrasts run now (tests/test_torch_contrast.py); one that names the
+    same level twice raises the reference's ValueError."""
     fit, _, _ = public_run
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tdt.results(fit, contrast=("condition", "A", "B"))
+    with pytest.raises(ValueError, match="A and A should be different "
+                                         "level names"):
+        tdt.results(fit, contrast=("condition", "A", "A"))
 
 
 def test_parametric_trend_failure_raises():
