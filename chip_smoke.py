@@ -58,8 +58,29 @@ Phases; any failure exits non-zero and no phase's failure is caught:
    prior variance's weighted quantile in float32 against float64, a stage
    table, the accuracy gates of these calls on the gate slice (betaPrior
    default table, C-vs-B contrast table, apeglm and normal LFCs) and K1 at
-   the expanded shape (p = 4) checked and timed in float32 and float64;
-   one JSON line {"kernels": [...]}.
+   the expanded shape (p = 4) checked and timed in float32 and float64.
+
+8. the host-exact engine at 60,000 x 1,024 in float64 (deseq2_tpu_torch's
+   host orchestration, its batched fits on the card), each call with its
+   counters zeroed just before it and read just after and its stage
+   table: the main path's ~ condition Wald through engine="host" (cold,
+   then warm); ~ batch + condition with betaPrior and poscounts size
+   factors through "auto" (the expanded p = 5, L-BFGS-B rows counted);
+   the weighted path with 1% of the rows' weights rank-deficient through
+   "auto" (weightsFail flagged); useCR = FALSE (K2 and K3 without the
+   Cox-Reid term), unweighted and weighted; the weighted Cox-Reid row cut
+   at 0.5 (K2w and K3w in that mode), these three with maxit_disp = 10,
+   so that the grid fallback
+   (K3) runs: in float64 the full line search converges on every gene;
+   a 10-level factor (p = 10) at 6,000 x 1,024 through "auto"
+   and lfc_shrink(type="normal") on it, which take the wrappers' p > 8
+   route.  Then the gates on the 2,048 x 1,024 gate slice (the host
+   engine on the card against the fused engine on the card and against
+   the host engine on the CPU: Jaccard >= 0.995, zero flips, |dLFC| <
+   0.01), K2 and K3 in the new modes checked and timed at the main path's
+   shapes in float64 (rows of the JSON line), and the p > 8 route's K1
+   timed at 60,000 x 1,024, p = 10.  Phase 3 also checks K2 and K3 in
+   those modes against their plain versions, gated.
 
 Each phase prints its seconds.  The last two lines are the card's
 nvidia-smi line and the JSON result line.
@@ -108,17 +129,19 @@ def kernel_resources():
     from deseq2_tpu_torch.ops import build
     out = {}
     # warps per block: kWarpBlock / 32 (common.cuh), kGridWarps (disp_grid.cu)
+    # (the trailing query argument: K1's p = 2 design flag, K2's and K3's
+    # use_cr = 1, the default instantiations)
     for name, sym, query, extra, warps in (
-            ("disp_ls", "ls_kernel", "ls_blocks_per_sm", (), 4),
+            ("disp_ls", "ls_kernel", "ls_blocks_per_sm", (1,), 4),
             ("irls", "irls_kernel", "irls_blocks_per_sm", (1,), 4),
-            ("disp_grid", "grid_kernel", "grid_blocks_per_sm", (), 10)):
+            ("disp_grid", "grid_kernel", "grid_blocks_per_sm", (1,), 10)):
         funcs = build.ptxas_resources(name)
         fn = build.bind(build.load(name), query,
                         [ctypes.c_int] * (4 + len(extra)))
         for t, dname in (("f", "float32"), ("d", "float64")):
             for w in (0, 1):
                 hit = [v for k, v in funcs.items()
-                       if re.search(rf"{sym}I{t}Li2ELb{w}E", k)]
+                       if re.search(rf"{sym}I{t}Li2ELb{w}E(Lb1E)?E", k)]
                 regs, spill = hit[0] if len(hit) == 1 else (-1, -1)
                 blocks = fn(int(t == "d"), w, 2, S_MAIN, *extra)
                 key = f"{name}{'_w' if w else ''} {dname}"
@@ -285,9 +308,98 @@ def check_kernels(torch, dev, modes=(False, True)):
                     failed.append(f"{case} irls")
                 worst["irls_expanded" + sfx] = max(
                     worst["irls_expanded" + sfx], r1["max_abs_err"])
+    # K1's wide kernel (P = 16, the design padded) at p = 10 and 12
+    for weighted in modes:
+        for dname in ("float32", "float64"):
+            dt = getattr(torch, dname)
+            for (S, G), p in ((sg, pp) for sg in checks.SHAPES
+                              for pp in (10, 12)):
+                raw = checks.solver_inputs(G, S, p, 10 * p + S,
+                                           weighted=weighted)
+                d = checks.as_tensors(raw, dt, dev)
+                k1 = checks.run_irls(fit_beta, d)
+                rep = checks.differing_outputs(k1, checks.run_irls(fit_beta,
+                                                                   d))
+                pl1 = checks.run_irls(irls.fit_beta_plain, d)
+                if dname == "float32":
+                    r1 = checks.check_irls_f64(
+                        k1, pl1, checks.run_irls(irls.fit_beta_plain,
+                                                 checks.as_tensors(
+                                                     raw, torch.float64,
+                                                     dev)))
+                else:
+                    r1 = checks.check_irls(k1, pl1)
+                torch.cuda.synchronize()
+                case = f"{dname} wide p={p} S={S} G={G} weighted={weighted}"
+                log(f"  {case} irls: {fmt(r1)} repeat_differs={rep}")
+                if not r1["ok"] or rep:
+                    failed.append(f"{case} irls")
+    check_kernel_modes(torch, dev, worst, failed)
     if failed:
         raise SystemExit(f"kernel checks failed: {failed}")
     return worst
+
+
+def check_kernel_modes(torch, dev, worst, failed):
+    """K2 and K3 in their other modes (checks.MODES: without the Cox-Reid
+    term, unweighted and weighted; the weighted Cox-Reid row cut at 0.5)
+    against their plain versions on the card at checks.SHAPES for p = 1,
+    2, 3 and at checks.EDGES, in float32 and float64, gated under
+    checks.TOL as the default mode is (float32 also against the float64
+    plain version); every launch twice, bit-identical.  Fills worst[name]
+    for each mode's row."""
+    from deseq2_tpu_torch.ops import checks, disp
+    from deseq2_tpu_torch.ops.cuda_grid import fit_disp_grid
+    from deseq2_tpu_torch.ops.cuda_ls import fit_disp_line_search
+
+    cases = [(S, G, p) for S, G in checks.SHAPES for p in (1, 2, 3)]
+    for mode, weighted in (("nocr", False), ("nocr", True), ("thr", True)):
+        sfx = ("_w" if weighted else "") + "_" + mode
+        for k in ("disp_ls", "disp_grid"):
+            worst.setdefault(k + sfx, 0.0)
+        for dname in ("float32", "float64"):
+            dt = getattr(torch, dname)
+            f32 = dname == "float32"
+            for S, G, p in cases + list(checks.EDGES):
+                raw = checks.solver_inputs(G, S, p, 10 * p + S + 7,
+                                           weighted=weighted)
+                d = checks.with_mode(checks.as_tensors(raw, dt, dev), mode)
+                case = f"{dname} p={p} S={S} G={G} {k_label(mode, weighted)}"
+                for use_prior in (False, True):
+                    k2 = checks.run_ls(fit_disp_line_search, d, use_prior)
+                    rep2 = checks.differing_outputs(
+                        k2, checks.run_ls(fit_disp_line_search, d, use_prior))
+                    p2 = checks.run_ls(disp.fit_disp_line_search_plain, d,
+                                       use_prior)
+                    r2 = checks.check_ls(
+                        k2, p2, d, use_prior,
+                        ref=checks.line_search_reference(d, use_prior)
+                        if f32 else None)
+                    k3 = checks.run_grid(fit_disp_grid, d, use_prior)
+                    rep3 = checks.differing_outputs(
+                        {"log_alpha": k3},
+                        {"log_alpha": checks.run_grid(fit_disp_grid, d,
+                                                      use_prior)})
+                    p3 = checks.run_grid(disp.fit_disp_grid_plain, d,
+                                         use_prior)
+                    r3 = checks.check_grid(
+                        k3, p3, d, use_prior,
+                        ref=checks.grid_reference(d, use_prior)
+                        if f32 else None)
+                    torch.cuda.synchronize()
+                    for name, r, rp in (("disp_ls", r2, rep2),
+                                        ("disp_grid", r3, rep3)):
+                        log(f"  {case} prior={use_prior} {name}: {fmt(r)} "
+                            f"repeat_differs={rp}")
+                        if not r["ok"] or rp:
+                            failed.append(f"{case} prior={use_prior} {name}")
+                        worst[name + sfx] = max(worst[name + sfx],
+                                                r["max_abs_err"])
+
+
+def k_label(mode, weighted):
+    return {"nocr": "use_cr=False", "thr": "weight_threshold=0.5"}[mode] \
+        + (" weighted" if weighted else "")
 
 
 # ---------------------------------------------------------------------------
@@ -296,10 +408,21 @@ def check_kernels(torch, dev, modes=(False, True)):
 
 COUNTERS = {"irls": ("fit_beta", "launches"),
             "irls_w": ("fit_beta", "launches_weighted"),
+            "irls_wide": ("fit_beta", "launches_wide"),
+            "irls_plain": ("fit_beta", "launches_plain"),
             "disp_ls": ("fit_disp_line_search", "launches"),
             "disp_ls_w": ("fit_disp_line_search", "launches_weighted"),
+            "disp_ls_w_thr": ("fit_disp_line_search", "launches_threshold"),
+            "disp_ls_nocr": ("fit_disp_line_search", "launches_nocr"),
+            "disp_ls_w_nocr": ("fit_disp_line_search",
+                               "launches_weighted_nocr"),
+            "disp_ls_plain": ("fit_disp_line_search", "launches_plain"),
             "disp_grid": ("fit_disp_grid", "launches"),
-            "disp_grid_w": ("fit_disp_grid", "launches_weighted")}
+            "disp_grid_w": ("fit_disp_grid", "launches_weighted"),
+            "disp_grid_w_thr": ("fit_disp_grid", "launches_threshold"),
+            "disp_grid_nocr": ("fit_disp_grid", "launches_nocr"),
+            "disp_grid_w_nocr": ("fit_disp_grid", "launches_weighted_nocr"),
+            "disp_grid_plain": ("fit_disp_grid", "launches_plain")}
 
 
 def _wrappers():
@@ -1118,6 +1241,311 @@ def expanded_k1_timing(torch, dev, fit, launches, worst):
     return rows, f64_row
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the host-exact engine
+# ---------------------------------------------------------------------------
+
+G_WIDE = 6000   # the p = 10 call's genes (the plain route's width, cut)
+
+
+def host_call(torch, name, counts, need, device="cuda", **kw):
+    """One float64 deseq() + results() call through the host engine (or
+    "auto"), with the launch counters zeroed just before it and read just
+    after, and the stage timers on (they synchronize the card at each
+    stage's ends): wall seconds, the stage table, the counters; fails if
+    a kernel in `need` was not launched or the table is malformed."""
+    from deseq2_tpu_torch import glm, profiling
+    zero_counts()
+    glm.fit_glm_tensors.optim_rows = 0
+    profiling.reset()
+    profiling.enable()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, fit = public_run(torch, counts, "float64", device=device, **kw)
+    wall = time.perf_counter() - t0
+    profiling.disable()
+    launches = {k: v for k, v in read_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    g = counts.shape[0]
+    stat, padj = np.asarray(res["stat"]), np.asarray(res["padj"])
+    log(f"  {name}: {wall:.3f} s = {g / wall:,.0f} genes/s (stage timers "
+        f"on), engine {fit.attrs.get('engine')}, peak device memory "
+        f"{peak:.2f} GiB, finite stat {np.isfinite(stat).mean():.4f}, "
+        f"rejections {int(np.sum(padj < 0.1))}, L-BFGS-B rows "
+        f"{glm.fit_glm_tensors.optim_rows}, launches {launches}")
+    log(f"  {name} stage timings:")
+    for line in profiling.report().splitlines():
+        log(f"    {line}")
+    missing = [k for k in need if not launches.get(k)]
+    if missing:
+        raise SystemExit(f"host engine call {name} never launched {missing}")
+    if stat.shape != (g,) or np.isfinite(stat).mean() <= 0.95 \
+            or np.isfinite(padj).mean() <= 0.5:
+        raise SystemExit(f"host engine call {name}: output malformed")
+    return dict(wall_s=wall, genes_per_s=g / wall, peak_gib=peak,
+                launches=launches, engine=fit.attrs.get("engine"),
+                optim_rows=glm.fit_glm_tensors.optim_rows), res, fit
+
+
+def host_phase(torch):
+    """The host engine at 60,000 x 1,024 in float64: the main path's
+    ~ condition Wald through engine="host" (cold, then warm); ~ batch +
+    condition with betaPrior and poscounts size factors through "auto";
+    the weighted path with 1% of the rows' weights rank-deficient through
+    "auto" (weightsFail); the configuration's useCR = FALSE (unweighted
+    and weighted), and the weighted Cox-Reid row cut at 0.5, all with
+    maxit_disp = 10 (so the grid fallback runs); then a 10-level factor
+    (p = 10) at
+    6,000 x 1,024 through "auto" and lfc_shrink(type="normal").  Each
+    call's counters and stage table; the modes' kernel launches gated."""
+    import deseq2_tpu_torch as dt
+    counts, _ = make_inputs(G_MAIN, S_MAIN)
+    w, _ = _main_variant_inputs()
+    out = {}
+    t0 = time.perf_counter()
+    public_run(torch, counts, "float64", engine="host")
+    out["wald_cold_s"] = time.perf_counter() - t0
+    log(f"  ~ condition, engine='host': cold {out['wald_cold_s']:.3f} s")
+    # in float64 the line search converges on every gene here, so K3 runs
+    # in the two mode calls below, whose shortened search (maxit_disp =
+    # 10) leaves genes to the grid
+    out["wald"], _, _ = host_call(torch, "~ condition, engine='host'",
+                                  counts, ("irls", "disp_ls"),
+                                  engine="host")
+    out["betaprior_poscounts"], _, bp = host_call(
+        torch, "~ batch + condition, beta_prior, poscounts, 'auto'", counts,
+        ("irls",), design="~ batch + condition", beta_prior=True,
+        sf_type="poscounts")
+    if bp.attrs.get("engine") != "host" or len(bp.attrs["modelMatrixNames"]) \
+            != 5:
+        raise SystemExit("betaPrior on ~ batch + condition did not run the "
+                         "host engine's expanded p = 5 fit")
+    wf = w.copy()
+    bad = np.arange(0, G_MAIN, 100)
+    wf[bad, S_MAIN // 2:] = 0.0      # no weight on condition B
+    import warnings
+    with warnings.catch_warnings():     # the weightsFail warning
+        warnings.simplefilter("ignore")
+        out["weights_fail"], _, wfit = host_call(
+            torch, "weights, 1% rows rank-deficient, 'auto'", counts,
+            ("irls_w", "disp_ls_w"), weights=wf)
+    flagged = np.where(np.asarray(wfit.row_data["weightsFail"], bool))[0]
+    out["weights_fail"]["flagged"] = int(flagged.size)
+    if wfit.attrs.get("engine") != "host" \
+            or not np.array_equal(flagged, bad):
+        raise SystemExit(f"weightsFail rows: {flagged.size} flagged, "
+                         f"{bad.size} made rank-deficient")
+    out["no_cr"], _, _ = host_call(
+        torch, "useCR=FALSE, maxit_disp=10, engine='host'", counts,
+        ("disp_ls_nocr", "disp_grid_nocr", "disp_grid"), engine="host",
+        config=dt.DESeqConfig(use_cr=False, maxit_disp=10))
+    out["no_cr_weighted"], _, _ = host_call(
+        torch, "weights, useCR=FALSE, maxit_disp=10, engine='host'", counts,
+        ("disp_ls_w_nocr", "disp_grid_w_nocr"), engine="host", weights=w,
+        config=dt.DESeqConfig(use_cr=False, maxit_disp=10))
+    out["threshold"], _, _ = host_call(
+        torch, "weights, weightThreshold=0.5, maxit_disp=10, engine='host'",
+        counts, ("disp_ls_w_thr", "disp_grid_w_thr", "irls_w"),
+        engine="host", weights=w,
+        config=dt.DESeqConfig(weight_threshold=0.5, maxit_disp=10))
+    # p = 10: a 10-level factor at 6,000 genes
+    labels = np.array([f"L{j % 10}" for j in range(S_MAIN)])
+    wide, _ = make_inputs(G_WIDE, S_MAIN)
+    out["p10"], _, pfit = host_call(
+        torch, f"p = 10 at {G_WIDE} x {S_MAIN}, 'auto'", wide,
+        ("irls_wide", "disp_ls_plain"), labels=labels)
+    zero_counts()
+    t0 = time.perf_counter()
+    shr = dt.lfc_shrink(pfit, type="normal", contrast=("condition", "L9",
+                                                        "L0"))
+    torch.cuda.synchronize()
+    out["p10"]["normal_shrink_s"] = time.perf_counter() - t0
+    out["p10"]["normal_shrink_launches"] = read_counts()["irls_wide"]
+    lfc = np.asarray(shr["log2FoldChange"])
+    log(f"  p = 10 lfc_shrink(normal): {out['p10']['normal_shrink_s']:.3f} "
+        f"s, wide K1 launches {out['p10']['normal_shrink_launches']}, "
+        f"finite {np.isfinite(lfc).mean():.4f}")
+    if not out["p10"]["normal_shrink_launches"] \
+            or np.isfinite(lfc).mean() <= 0.95:
+        raise SystemExit("p = 10 normal shrinkage did not run its wide fit")
+    return out
+
+
+def host_gates(torch):
+    """On the 2,048 x 1,024 gate slice, float64: the host engine on the
+    card against the fused engine on the card and against the host engine
+    on the CPU (bench.py's thresholds)."""
+    sub, _ = gate_inputs(G_GATE, S_MAIN)
+    host_card, _ = public_run(torch, sub, "float64", engine="host")
+    fused_card, _ = public_run(torch, sub, "float64", engine="fused")
+    t0 = time.perf_counter()
+    host_cpu, _ = public_run(torch, sub, "float64", engine="host",
+                             device="cpu")
+    log(f"  host engine on the CPU: {time.perf_counter() - t0:.1f} s")
+    out, failed = {}, []
+    for name, ref in (("vs fused on the card", fused_card),
+                      ("vs host on the CPU", host_cpu)):
+        gate, checks = gate_compare(host_card, ref)
+        out[name] = gate
+        log(f"  host engine on the card {name}: {json.dumps(gate)}")
+        failed += [f"{name}: {k}" for k in ("jaccard", "flips", "lfc")
+                   if not checks[k]]
+    if failed:
+        raise SystemExit(f"host engine gates failed: {failed}")
+    return out
+
+
+def mode_timings(torch, dev, launches, worst):
+    """K2 and K3 in the host engine's other modes at the main path's
+    shapes in float64 (the host engine's dtype), on the inputs the
+    pipeline's stages hand them: without the Cox-Reid term (unweighted
+    and weighted), and with the weighted Cox-Reid row cut at 0.5 (the
+    weighted path's weights floored at 1e-6); each held against its plain
+    version with phase 3's float64 limits, then timed beside it and its
+    bound.
+    `launches`: phase 8's counters per mode."""
+    from deseq2_tpu_torch.ops import checks, disp
+    from deseq2_tpu_torch.ops.cuda_grid import fit_disp_grid
+    from deseq2_tpu_torch.ops.cuda_ls import fit_disp_line_search
+
+    dname, dt = "float64", torch.float64
+    counts, x_np = make_inputs(G_MAIN, S_MAIN)
+    G, S, P, it = G_MAIN, S_MAIN, 2, 8
+    rows, failed = [], []
+    for mode, weighted in (("nocr", False), ("nocr", True), ("thr", True)):
+        sfx = ("_w" if weighted else "") + "_" + mode
+        nw = int(weighted)
+        pin = checks.pipeline_inputs(
+            counts, x_np, dt, dev,
+            weights=_main_variant_inputs()[0] if weighted else None)
+        kw = checks.MODES[mode]
+        cr = kw.get("use_cr", True)
+        y_s, mu_s, x, la0 = pin["y"], pin["mu"], pin["x"], pin["la0"]
+        w_ge, grid = pin["w_ge"], pin["grid"]
+        ls_args = (y_s, x, mu_s, la0, la0, 1.0, pin["min_la"])
+        k2 = fit_disp_line_search(*ls_args, weights=w_ge, **kw)
+        p2 = disp.fit_disp_line_search_plain(*ls_args, weights=w_ge, **kw)
+        d2 = checks.with_mode(dict(y=y_s, mu=mu_s, x=x, la0=la0, pm=la0),
+                              mode)
+        if weighted:
+            d2["w"] = w_ge
+        r2 = checks.check_ls(k2, p2, d2, False, prior_var=1.0)
+        ms2 = time_ms(torch, lambda: fit_disp_line_search(
+            *ls_args, weights=w_ge, **kw), 3)
+        pms2 = time_ms(torch, lambda: disp.fit_disp_line_search_plain(
+            *ls_args, weights=w_ge, **kw), 1)
+        evals = float((k2["iter"].double() + 1).sum())
+        per_s = ops_ls(P) - (0 if cr else 6 * (P * (P + 1) // 2) + 1)
+        per_pt = ops_ls_point(P) - (0 if cr else P ** 3)
+        b2, by2 = bound(it * ((2 + nw) * G * S + S * P + 2 * G + 8 * G),
+                        evals * (S * (per_s + 2 * nw) + per_pt), dname)
+        conv = (k2["iter"] < 100) & (k2["iter"] != 1)
+        need = torch.nonzero(~conv).squeeze(1)
+        if need.numel() == 0:
+            need = torch.arange(4096, device=dev)
+        gy, gm = y_s[need], mu_s[need]
+        gpm = torch.zeros(len(need), dtype=dt, device=dev)
+        gw = None if w_ge is None else w_ge[need]
+        g_args = (gy, x, gm, grid, gpm, 1.0)
+        k3 = fit_disp_grid(*g_args, weights=gw, **kw)
+        p3 = disp.fit_disp_grid_plain(*g_args, weights=gw, **kw)
+        d3 = checks.with_mode(dict(y=gy, mu=gm, x=x, grid=grid, pm=gpm),
+                              mode)
+        if weighted:
+            d3["w"] = gw
+        r3 = checks.check_grid(k3, p3, d3, False, prior_var=1.0)
+        ms3 = time_ms(torch, lambda: fit_disp_grid(*g_args, weights=gw,
+                                                   **kw), 3)
+        pms3 = time_ms(torch, lambda: disp.fit_disp_grid_plain(
+            *g_args, weights=gw, **kw), 1)
+        Gn = len(need)
+        per_s3 = ops_grid(P) - (0 if cr else 3 + 3 * (P * (P + 1) // 2))
+        per_pt3 = ops_grid_point(P) - (0 if cr else P * P)
+        b3, by3 = bound(it * ((2 + nw) * Gn * S + S * P + 2 * Gn
+                              + len(grid)),
+                        2.0 * Gn * len(grid) * (S * (per_s3 + nw)
+                                                + per_pt3), dname)
+        for name, r, ms, pms, b, by, src, rep in (
+                ("disp_ls", r2, ms2, pms2, b2, by2, "disp_ls.cu",
+                 "deseq2_tpu/ops/pallas_ls.py:409"),
+                ("disp_grid", r3, ms3, pms3, b3, by3, "disp_grid.cu",
+                 "deseq2_tpu/ops/pallas_disp.py:244")):
+            log(f"  {name}{sfx} float64: {fmt(r)}; {ms:.3f} ms (plain "
+                f"{pms:.1f} ms, bound {b:.3f} ms by {by}), launches "
+                f"{launches.get(name + sfx, 0)}")
+            if not r["ok"]:
+                failed.append(name + sfx)
+            rows.append(dict(
+                name=name + sfx, route="cuda",
+                source=f"deseq2_tpu_torch/csrc/{src}", replaces=rep,
+                launches=launches.get(name + sfx, 0),
+                max_abs_err=max(worst.get(name + sfx, 0.0),
+                                r["max_abs_err"]),
+                ms=ms, plain_ms=pms, bound_ms=b, bound_by=by,
+                library_ms=None))
+        log(f"  {mode}: {evals / G:.1f} line-search evaluations/gene, "
+            f"{int((~conv).sum())} genes need the grid")
+    if failed:
+        raise SystemExit(f"mode checks at the main path's shapes failed: "
+                         f"{failed}")
+    return rows
+
+
+def wide_route_timing(torch, dev, launches, worst):
+    """K1 at p = 10, 60,000 x 1,024, float64 (the host engine's dtype) and
+    float32: the wrappers' route for 8 < p <= 16, the P = 16 kernel on the
+    design padded with zero columns, held against the plain version on the
+    card (float64 under phase 3's limits; float32 against the float64 fit,
+    check_irls_f64, as the rounding-bound float32 readings at p >= 5 are)
+    and timed beside it and its bound.  Returns the float64 kernels row
+    (`launches`: phase 8's wide K1 launches) and the float32 numbers."""
+    from deseq2_tpu_torch.ops import checks, irls
+    from deseq2_tpu_torch.ops.cuda_irls import P_WIDE, fit_beta
+
+    G, S, P = G_MAIN, S_MAIN, 10
+    raw = checks.solver_inputs(G, S, P, 11)
+    ref64 = None
+    rows, other, failed = [], {}, []
+    for dname in ("float64", "float32"):
+        d = checks.as_tensors(raw, getattr(torch, dname), dev)
+        n0 = fit_beta.launches_wide
+        k1 = checks.run_irls(fit_beta, d)
+        pl = checks.run_irls(irls.fit_beta_plain, d)
+        if ref64 is None:
+            ref64 = pl
+            r = checks.check_irls(k1, pl)
+        else:
+            r = checks.check_irls_f64(k1, pl, ref64)
+        ms = time_ms(torch, lambda: checks.run_irls(fit_beta, d), 3)
+        pms = time_ms(torch, lambda: checks.run_irls(irls.fit_beta_plain,
+                                                      d), 1)
+        sweeps = float(k1["iter"].double().sum())
+        o = ops_irls(P)
+        it = 8 if dname == "float64" else 4
+        b, by = bound(it * (3 * G * S + S * P + G * (1 + 3 * P) + 2 * G),
+                      S * (G * (o["init"] + o["post"])
+                           + sweeps * o["sweep"]), dname)
+        log(f"  K1 p = {P} (P = {P_WIDE} kernel, padded) {dname}: {fmt(r)}; "
+            f"{ms:.2f} ms (plain version on the card {pms:.1f} ms, bound "
+            f"{b:.3f} ms by {by}), {sweeps / G:.2f} sweeps/gene, wide "
+            f"launches {fit_beta.launches_wide - n0}")
+        if not r["ok"]:
+            failed.append(f"irls_wide {dname}")
+        if dname == "float64":
+            rows.append(dict(
+                name="irls_wide_f64", route="cuda",
+                source="deseq2_tpu_torch/csrc/irls.cu",
+                replaces="deseq2_tpu/ops/pallas_irls.py:360",
+                launches=launches, max_abs_err=r["max_abs_err"], ms=ms,
+                plain_ms=pms, bound_ms=b, bound_by=by, library_ms=None))
+        else:
+            other = dict(ms=ms, plain_ms=pms, bound_ms=b, bound_by=by,
+                         max_abs_err=r["max_abs_err"])
+    if failed:
+        raise SystemExit(f"wide K1 checks failed: {failed}")
+    return rows, other
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1180,9 +1608,22 @@ def main():
     rows += exp_rows
     done("7")
 
+    phase("8", f"[8] host engine at {G_MAIN} x {S_MAIN}")
+    host_out = host_phase(torch)
+    host_out["gates"] = host_gates(torch)
+    mode_launches = {}
+    for key in ("no_cr", "no_cr_weighted", "threshold"):
+        mode_launches.update(host_out[key]["launches"])
+    rows += mode_timings(torch, dev, mode_launches, worst)
+    wide_rows, host_out["irls_wide_f32"] = wide_route_timing(
+        torch, dev, host_out["p10"]["launches"].get("irls_wide", 0)
+        + host_out["p10"]["normal_shrink_launches"], worst)
+    rows += wide_rows
+    done("8")
+
     log(json.dumps({"main_path": {k: v for k, v in main_out.items()},
                     "gate": gate, "variant_gates": gates,
-                    "prior_phase": prior_out,
+                    "prior_phase": prior_out, "host_phase": host_out,
                     "kernel_resources": resources, "phase_seconds": seconds}))
     print(json.dumps({"kernels": rows}))
     print(smi_line())

@@ -1,26 +1,33 @@
 """deseq2_tpu_torch: the PyTorch/CUDA port of deseq2_tpu for NVIDIA Hopper.
 
-The public bulk deseq() + results() runs on the card: the Wald test or the
-LRT (reduced to the intercept, a formula or a matrix), with or without
+The public bulk deseq() + results() runs on the card, through one of two
+engines, as in the JAX package.  The fused pipeline takes the Wald test or
+the LRT (reduced to the intercept, a formula or a matrix), with or without
 observation weights, gene x sample normalization factors and t p-values
-(use_t), under the parametric, local or mean dispersion trend; betaPrior
-on a single-factor design with an intercept (the expanded model matrix);
-results(contrast=...) in character, list and numeric form, with add_mle;
-and lfc_shrink of types "apeglm", "ashr" and "normal" (contrast mode).
-The per-gene solvers (ridge NB IRLS, the dispersion line search and the
-grid search, each unweighted or weighted) are hand-written CUDA kernels
-built from csrc/ at first use; the rest is PyTorch.  deseq() runs on
-"cuda" unless the caller passes device="cpu", which runs the kernels'
-plain PyTorch versions; results() and lfc_shrink() run where the fit
-ran.  The dtype is DESeqConfig.dtype: "float64" by default, "float32" for
-the fast path.
+(use_t), under the parametric, local or mean dispersion trend, and
+betaPrior on a single-factor design with an intercept.  The host-exact
+engine (engine="host", and the "auto" fallback) takes everything else the
+JAX package's host path runs: sfType "poscounts" and "iterate", any
+DESeqConfig field and minmu, betaPrior on any design (expanded or
+standard), weights that fail the rank tests (flagged weightsFail), with its
+stages exported (estimate_size_factors, the estimate_dispersions*
+functions, nbinom_wald_test, nbinom_lrt, replace_outliers, ...).  Then
+results(contrast=...) in character, list and numeric form, with add_mle,
+and lfc_shrink of types "apeglm", "ashr" and "normal".  The per-gene
+solvers (ridge NB IRLS, the dispersion line search and the grid search, in
+their weighted, no-Cox-Reid and weight-threshold modes) are hand-written
+CUDA kernels built from csrc/ at first use, for designs of up to 8
+columns (the IRLS up to 16, from its P = 16 build on a zero-padded
+design); wider designs run their plain PyTorch versions on the card.  The
+rest is PyTorch.  deseq() runs on "cuda" unless the caller passes
+device="cpu", which runs the kernels' plain PyTorch versions; results()
+and lfc_shrink() run where the fit ran.  The fused engine's dtype is
+DESeqConfig.dtype: "float64" by default, "float32" for the fast path; the
+host engine runs in float64.
 
 What is not ported raises NotImplementedError naming the ROADMAP.md item
-that owns it: the host engine, betaPrior on other designs and the
-normal-shrink cases the JAX package runs on its host Wald test (item 7),
-glmGamPoi (item 8), the transforms (item 9) and a device mesh (item 11).
-Weights that fail the estimability tests raise ValueError (the host
-path's weightsFail bookkeeping is item 7).
+that owns it: glmGamPoi (item 8), the transforms (item 9) and a device
+mesh (item 11).
 """
 
 import torch as _torch
@@ -35,17 +42,33 @@ from .config import DESeqConfig  # noqa: E402
 from .convert import dataset_from_arrays  # noqa: E402
 from .dataset import DESeqDataSet, dataset_from_matrix  # noqa: E402
 from .deseq import deseq  # noqa: E402
+from .dispersions import (estimate_dispersions,  # noqa: E402
+                          estimate_dispersions_fit,
+                          estimate_dispersions_gene_est,
+                          estimate_dispersions_map,
+                          estimate_dispersions_prior_var)
 from .formula import Factor, Formula, parse_formula  # noqa: E402
+from .lrt import nbinom_lrt  # noqa: E402
+from .outliers import replace_outliers  # noqa: E402
 from .results import DESeqResults, remove_results, results  # noqa: E402
 from .results import results_names  # noqa: E402
 from .shrink import lfc_shrink  # noqa: E402
 from .simulate import make_example_dataset  # noqa: E402
+from .sizefactors import (estimate_size_factors,  # noqa: E402
+                          size_factors_for_matrix)
+from .wald import (estimate_beta_prior_var,  # noqa: E402
+                   estimate_mle_for_beta_prior_var, nbinom_wald_test)
 
 __version__ = "0.1.0"
 
 __all__ = [
     "DESeqConfig", "DESeqDataSet", "DESeqResults", "Factor", "Formula",
-    "dataset_from_arrays", "dataset_from_matrix", "deseq", "lfc_shrink",
-    "make_example_dataset", "parse_formula", "profiling", "remove_results",
-    "results", "results_names",
+    "dataset_from_arrays", "dataset_from_matrix", "deseq",
+    "estimate_beta_prior_var", "estimate_dispersions",
+    "estimate_dispersions_fit", "estimate_dispersions_gene_est",
+    "estimate_dispersions_map", "estimate_dispersions_prior_var",
+    "estimate_mle_for_beta_prior_var", "estimate_size_factors",
+    "lfc_shrink", "make_example_dataset", "nbinom_lrt", "nbinom_wald_test",
+    "parse_formula", "profiling", "remove_results", "replace_outliers",
+    "results", "results_names", "size_factors_for_matrix",
 ]

@@ -269,11 +269,12 @@ __device__ __forceinline__ T wscale(T v, const T* wr, int s) {
   return v;
 }
 
-// The weighted Cox-Reid term keeps the rows whose weight exceeds 1e-2
-// (src/DESeq2.cpp:38-44; ops/disp.py's CR_WEIGHT_THRESHOLD).
+// The weighted Cox-Reid term keeps the rows whose weight exceeds the
+// launch's threshold thr (src/DESeq2.cpp:38-44, the reference's
+// weightThreshold; 1e-2 by default, ops/disp.py's CR_WEIGHT_THRESHOLD).
 template <typename T>
-__device__ __forceinline__ bool cr_keeps(T w) {
-  return w > T(1e-2);
+__device__ __forceinline__ bool cr_keeps(T w, T thr) {
+  return w > thr;
 }
 
 // Column-mask the Cox-Reid matrix b (and its derivative db, when given)
@@ -352,12 +353,12 @@ __device__ __forceinline__ void x_row(const T* xr, int s, T (&xs)[P]) {
 // every lane of its warp: column k stays when some kept row has x_k != 0.
 template <typename T, int P>
 __device__ __forceinline__ unsigned warp_cr_col_mask(const T* wr, const T* xr,
-                                                     int S) {
+                                                     int S, T thr) {
   T acc[P];
 #pragma unroll
   for (int k = 0; k < P; ++k) acc[k] = T(0);
   for (int s = lane_id(); s < S; s += 32) {
-    if (cr_keeps(wr[s])) {
+    if (cr_keeps(wr[s], thr)) {
       T xs[P];
       x_row<T, P>(xr, s, xs);
 #pragma unroll
@@ -414,6 +415,23 @@ inline int persistent_blocks(K kernel, size_t smem, int G, int* err) {
 
 }  // namespace dk
 
+// A wide build compiles one more width with -DDK_WIDE_P=n (and, with
+// -DDK_WIDE_ONLY, that width alone); the kernels' own builds define
+// neither.
+#ifdef DK_WIDE_P
+#define DK_WIDE_CASE(...) \
+  case DK_WIDE_P: { constexpr int P = DK_WIDE_P; __VA_ARGS__; } break;
+#else
+#define DK_WIDE_CASE(...)
+#endif
+
+#ifdef DK_WIDE_ONLY
+#define DK_DISPATCH_P(p, ...)        \
+  switch (p) {                       \
+    DK_WIDE_CASE(__VA_ARGS__)        \
+    default: return (int)cudaErrorInvalidValue; \
+  }
+#else
 // Dispatch a templated launch on the runtime design width p = 1..8.
 #define DK_DISPATCH_P(p, ...) \
   switch (p) {                 \
@@ -425,5 +443,7 @@ inline int persistent_blocks(K kernel, size_t smem, int G, int* err) {
     case 6: { constexpr int P = 6; __VA_ARGS__; } break; \
     case 7: { constexpr int P = 7; __VA_ARGS__; } break; \
     case 8: { constexpr int P = 8; __VA_ARGS__; } break; \
+    DK_WIDE_CASE(__VA_ARGS__)                             \
     default: return (int)cudaErrorInvalidValue;   \
   }
+#endif

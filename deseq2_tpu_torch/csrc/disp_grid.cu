@@ -40,6 +40,14 @@
 // masked Cox-Reid term.  This is an extension of the TPU kernel, whose JAX
 // pipeline runs the weighted grid on its XLA core (fused.py:583); the port
 // runs no plain version on the card, so the weighted grid is a kernel too.
+// Its row threshold is the launch's `thr` (the reference's weightThreshold,
+// 1e-2 by default).
+//
+// Without the Cox-Reid term (UseCR false, a template parameter;
+// pallas_disp.py's use_cr, the reference's useCR = FALSE): the posterior
+// is the likelihood terms (and the prior) alone, and no p x p matrix is
+// accumulated.  The default instantiations (UseCR true) keep the code of a
+// kernel without this mode.
 #include "common.cuh"
 
 namespace {
@@ -57,13 +65,13 @@ __device__ __forceinline__ double mul_rn(double a, double b) {
   return __dmul_rn(a, b);
 }
 
-// log posterior at log-alpha `la`, on every lane of the calling warp.  wr
-// and cm (the column-mask bits) are read in the weighted mode only.
-template <typename T, int P, bool UseW>
+// log posterior at log-alpha `la`, on every lane of the calling warp.  wr,
+// cm (the column-mask bits) and thr are read in the weighted mode only.
+template <typename T, int P, bool UseW, bool UseCR>
 __device__ __forceinline__ T log_post(const T* yr, const T* mr, const T* wr,
-                                      unsigned cm, const T* xr, int S, T la,
-                                      T pm, T prior_var, int use_prior) {
-  constexpr int NV = 1 + P * (P + 1) / 2;
+                                      unsigned cm, T thr, const T* xr, int S,
+                                      T la, T pm, T prior_var, int use_prior) {
+  constexpr int NV = UseCR ? 1 + P * (P + 1) / 2 : 1;
   const T alpha = d_exp(la);
   const LgConst<T> k = lg_const(T(1) / alpha);
   T acc[NV];
@@ -75,19 +83,24 @@ __device__ __forceinline__ T log_post(const T* yr, const T* mr, const T* wr,
     const T mua = m * alpha;
     const T r = T(1) / (T(1) + mua);
     acc[0] += wscale<UseW>(lg_diff(yv, k) - (yv + k.c) * d_log1p(mua), wr, s);
-    T w = m * r;
-    if constexpr (UseW) {
-      if (!cr_keeps(wr[s])) w = T(0);
+    if constexpr (UseCR) {
+      T w = m * r;
+      if constexpr (UseW) {
+        if (!cr_keeps(wr[s], thr)) w = T(0);
+      }
+      T xs[P];
+      x_row<T, P>(xr, s, xs);
+      acc_outer<T, P>(acc + 1, w, xs);
     }
-    T xs[P];
-    x_row<T, P>(xr, s, xs);
-    acc_outer<T, P>(acc + 1, w, xs);
   }
   warp_allsum<T, NV>(acc);
-  T b[P][P], L[P][P];
-  unpack_sym<T, P>(acc + 1, b);
-  if constexpr (UseW) cr_apply_mask<T, P>(cm, b, nullptr);
-  T lp = acc[0] - T(0.5) * cholesky<T, P>(b, L);
+  T lp = acc[0];
+  if constexpr (UseCR) {
+    T b[P][P], L[P][P];
+    unpack_sym<T, P>(acc + 1, b);
+    if constexpr (UseW) cr_apply_mask<T, P>(cm, b, nullptr);
+    lp = acc[0] - T(0.5) * cholesky<T, P>(b, L);
+  }
   if (use_prior) lp -= T(0.5) * (la - pm) * (la - pm) / prior_var;
   return lp;
 }
@@ -113,13 +126,13 @@ __device__ __forceinline__ int first_max(const T* cand_lp,
 }
 
 // The weighted mode's parameter comes last, as in the other kernels.
-template <typename T, int P, bool UseW>
+template <typename T, int P, bool UseW, bool UseCR>
 __global__ void __launch_bounds__(32 * kGridWarps)
     grid_kernel(const T* __restrict__ y, const T* __restrict__ mu,
                 const T* __restrict__ x, const T* __restrict__ grid,
                 const T* __restrict__ prior_mean, int S, int n, T prior_var,
                 int use_prior, int stage_x, T* __restrict__ out,
-                const T* __restrict__ wts) {
+                const T* __restrict__ wts, T thr) {
   // each warp's candidate (lp, j) per stage: 0 coarse, 1 fine
   __shared__ T cand_lp[2][kGridWarps];
   __shared__ int cand_j[2][kGridWarps];
@@ -138,7 +151,7 @@ __global__ void __launch_bounds__(32 * kGridWarps)
     __syncthreads();
   }
   unsigned cm = ~0u;
-  if constexpr (UseW) cm = warp_cr_col_mask<T, P>(wr, xr, S);
+  if constexpr (UseW && UseCR) cm = warp_cr_col_mask<T, P>(wr, xr, S, thr);
   const T pm = prior_mean[g];
 
   // this warp's points j = warp, warp + kGridWarps, ... of a stage, in
@@ -148,8 +161,9 @@ __global__ void __launch_bounds__(32 * kGridWarps)
     T best_lp = -INFINITY;
     int best_j = -1;
     for (int j = warp; j < n; j += kGridWarps) {
-      const T lp = log_post<T, P, UseW>(yr, mr, wr, cm, xr, S, point(j), pm,
-                                        prior_var, use_prior);
+      const T lp = log_post<T, P, UseW, UseCR>(yr, mr, wr, cm, thr, xr, S,
+                                               point(j), pm, prior_var,
+                                               use_prior);
       if (lp > best_lp) {
         best_lp = lp;
         best_j = j;
@@ -181,42 +195,52 @@ __global__ void __launch_bounds__(32 * kGridWarps)
   }
 }
 
-template <typename T, int P, bool UseW>
+template <typename T, int P, bool UseW, bool UseCR>
 int launch_p(const T* y, const T* mu, const T* w, const T* x, const T* grid,
              const T* pm, int G, int S, int n, T prior_var, int use_prior,
-             T* out, cudaStream_t st) {
+             T thr, T* out, cudaStream_t st) {
   const size_t smem = block_stage_bytes<T>(S, P);
-  grid_kernel<T, P, UseW><<<G, 32 * kGridWarps, smem, st>>>(
-      y, mu, x, grid, pm, S, n, prior_var, use_prior, smem > 0, out, w);
+  grid_kernel<T, P, UseW, UseCR><<<G, 32 * kGridWarps, smem, st>>>(
+      y, mu, x, grid, pm, S, n, prior_var, use_prior, smem > 0, out, w, thr);
   return (int)cudaGetLastError();
 }
 
-// w == nullptr selects the unweighted instantiations
+// w == nullptr selects the unweighted instantiations, use_cr == 0 the ones
+// without the Cox-Reid term
 template <typename T>
 int launch(const T* y, const T* mu, const T* w, const T* x, const T* grid,
            const T* pm, int G, int S, int p, int n, T prior_var,
-           int use_prior, T* out, void* stream) {
+           int use_prior, int use_cr, T thr, T* out, void* stream) {
   if (n < 2) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define DK_GRID_LAUNCH(W, CR)                                              \
+  DK_DISPATCH_P(p, return launch_p<T, P, W, CR>(y, mu, w, x, grid, pm, G, \
+                                                S, n, prior_var, use_prior,\
+                                                thr, out, st))
   if (w != nullptr) {
-    DK_DISPATCH_P(p, return launch_p<T, P, true>(y, mu, w, x, grid, pm, G, S,
-                                                 n, prior_var, use_prior, out,
-                                                 st))
+    if (use_cr) {
+      DK_GRID_LAUNCH(true, true)
+    } else {
+      DK_GRID_LAUNCH(true, false)
+    }
   } else {
-    DK_DISPATCH_P(p, return launch_p<T, P, false>(y, mu, w, x, grid, pm, G, S,
-                                                  n, prior_var, use_prior,
-                                                  out, st))
+    if (use_cr) {
+      DK_GRID_LAUNCH(false, true)
+    } else {
+      DK_GRID_LAUNCH(false, false)
+    }
   }
+#undef DK_GRID_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
 // resident blocks per SM of the instantiation a launch would take (-1 on
 // a refusal or an unsupported p)
-template <typename T, bool UseW>
+template <typename T, bool UseW, bool UseCR>
 int occupancy(int p, int S) {
   int err = 0;
   DK_DISPATCH_P(p, {
-    const int n = blocks_per_sm(grid_kernel<T, P, UseW>,
+    const int n = blocks_per_sm(grid_kernel<T, P, UseW, UseCR>,
                                 block_stage_bytes<T>(S, P), &err,
                                 32 * kGridWarps);
     return err ? -1 : n;
@@ -224,33 +248,40 @@ int occupancy(int p, int S) {
   return -1;
 }
 
+template <typename T>
+int occupancy_mode(int weighted, int use_cr, int p, int S) {
+  if (weighted) {
+    return use_cr ? occupancy<T, true, true>(p, S)
+                  : occupancy<T, true, false>(p, S);
+  }
+  return use_cr ? occupancy<T, false, true>(p, S)
+                : occupancy<T, false, false>(p, S);
+}
+
 }  // namespace
 
 extern "C" {
 
-int grid_blocks_per_sm(int f64, int weighted, int p, int S) {
-  if (f64) {
-    return weighted ? occupancy<double, true>(p, S)
-                    : occupancy<double, false>(p, S);
-  }
-  return weighted ? occupancy<float, true>(p, S)
-                  : occupancy<float, false>(p, S);
+int grid_blocks_per_sm(int f64, int weighted, int p, int S, int use_cr) {
+  return f64 ? occupancy_mode<double>(weighted, use_cr, p, S)
+             : occupancy_mode<float>(weighted, use_cr, p, S);
 }
 
 int grid_launch_f32(const float* y, const float* mu, const float* w,
                     const float* x, const float* grid, const float* pm, int G,
                     int S, int p, int n, float prior_var, int use_prior,
-                    float* out, void* stream) {
+                    int use_cr, float thr, float* out, void* stream) {
   return launch<float>(y, mu, w, x, grid, pm, G, S, p, n, prior_var,
-                       use_prior, out, stream);
+                       use_prior, use_cr, thr, out, stream);
 }
 
 int grid_launch_f64(const double* y, const double* mu, const double* w,
                     const double* x, const double* grid, const double* pm,
                     int G, int S, int p, int n, double prior_var,
-                    int use_prior, double* out, void* stream) {
+                    int use_prior, int use_cr, double thr, double* out,
+                    void* stream) {
   return launch<double>(y, mu, w, x, grid, pm, G, S, p, n, prior_var,
-                        use_prior, out, stream);
+                        use_prior, use_cr, thr, out, stream);
 }
 
 }  // extern "C"

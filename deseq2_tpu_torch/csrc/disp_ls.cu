@@ -43,7 +43,15 @@
 // cr_keeps) and drops, per gene, the columns left without support on those
 // rows (b_kk <- 1 and its off-diagonals 0, so the kept submatrix's log
 // determinant survives; db's rows and columns 0).  The column mask depends
-// on the weights only: each warp computes it once per gene.
+// on the weights only: each warp computes it once per gene.  The row
+// threshold is the launch's `thr` (the reference's weightThreshold, 1e-2
+// by default).
+//
+// Without the Cox-Reid term (UseCR false, a template parameter;
+// pallas_ls.py's use_cr, the reference's useCR = FALSE): lp and dlp are
+// the likelihood terms (and the prior) alone, and the warp accumulates no
+// p x p matrix.  The default instantiations (UseCR true) keep the code of
+// a kernel without this mode.
 #include "common.cuh"
 
 namespace {
@@ -52,15 +60,15 @@ using namespace dk;
 
 constexpr double kArmijo = 1.0e-4;
 
-// lp and dlp at log-alpha `la`, on every lane of the gene's warp.  wr and
-// cm (the column-mask bits) are read in the weighted mode only.
-template <typename T, int P, bool UseW>
+// lp and dlp at log-alpha `la`, on every lane of the gene's warp.  wr,
+// cm (the column-mask bits) and thr are read in the weighted mode only.
+template <typename T, int P, bool UseW, bool UseCR>
 __device__ __forceinline__ void lp_dlp(const T* yr, const T* mr, const T* wr,
-                                       unsigned cm, const T* xr, int S, T la,
-                                       T pm, T prior_var, int use_prior, T& lp,
-                                       T& dlp) {
+                                       unsigned cm, T thr, const T* xr, int S,
+                                       T la, T pm, T prior_var, int use_prior,
+                                       T& lp, T& dlp) {
   constexpr int NT = P * (P + 1) / 2;
-  constexpr int NV = 2 + 2 * NT;
+  constexpr int NV = UseCR ? 2 + 2 * NT : 2;
   const T alpha = d_exp(la);
   const NbConst<T> k = nb_const(T(1) / alpha);
   T acc[NV];
@@ -76,37 +84,44 @@ __device__ __forceinline__ void lp_dlp(const T* yr, const T* mr, const T* wr,
     nb_diffs(yv, k, lgd, dgd);
     acc[0] += wscale<UseW>(lgd - (yv + k.c) * l1p, wr, s);
     acc[1] += wscale<UseW>(l1p - mua * r + yv * alpha * r - dgd, wr, s);
-    T w = m * r;
-    if constexpr (UseW) {
-      if (!cr_keeps(wr[s])) w = T(0);
+    if constexpr (UseCR) {
+      T w = m * r;
+      if constexpr (UseW) {
+        if (!cr_keeps(wr[s], thr)) w = T(0);
+      }
+      T xs[P];
+      x_row<T, P>(xr, s, xs);
+      acc_outer<T, P>(acc + 2, w, xs);
+      acc_outer<T, P>(acc + 2 + NT, -w * w, xs);
     }
-    T xs[P];
-    x_row<T, P>(xr, s, xs);
-    acc_outer<T, P>(acc + 2, w, xs);
-    acc_outer<T, P>(acc + 2 + NT, -w * w, xs);
   }
   warp_allsum<T, NV>(acc);
-  T b[P][P], db[P][P], L[P][P], binv[P][P];
-  unpack_sym<T, P>(acc + 2, b);
-  unpack_sym<T, P>(acc + 2 + NT, db);
-  if constexpr (UseW) cr_apply_mask<T, P>(cm, b, db);
-  const T logdet = cholesky<T, P>(b, L);
-  chol_inverse<T, P>(L, binv);
-  T tr = T(0);
+  if constexpr (UseCR) {
+    T b[P][P], db[P][P], L[P][P], binv[P][P];
+    unpack_sym<T, P>(acc + 2, b);
+    unpack_sym<T, P>(acc + 2 + NT, db);
+    if constexpr (UseW) cr_apply_mask<T, P>(cm, b, db);
+    const T logdet = cholesky<T, P>(b, L);
+    chol_inverse<T, P>(L, binv);
+    T tr = T(0);
 #pragma unroll
-  for (int i = 0; i < P; ++i) {
+    for (int i = 0; i < P; ++i) {
 #pragma unroll
-    for (int j = 0; j < P; ++j) tr += binv[i][j] * db[j][i];
+      for (int j = 0; j < P; ++j) tr += binv[i][j] * db[j][i];
+    }
+    lp = acc[0] - T(0.5) * logdet;
+    dlp = (acc[1] / (alpha * alpha) - T(0.5) * tr) * alpha;
+  } else {
+    lp = acc[0];
+    dlp = (acc[1] / (alpha * alpha)) * alpha;
   }
-  lp = acc[0] - T(0.5) * logdet;
-  dlp = (acc[1] / (alpha * alpha) - T(0.5) * tr) * alpha;
   if (use_prior) {
     lp -= T(0.5) * (la - pm) * (la - pm) / prior_var;
     dlp -= (la - pm) / prior_var;
   }
 }
 
-template <typename T, int P, bool UseW>
+template <typename T, int P, bool UseW, bool UseCR>
 __global__ void __launch_bounds__(kWarpBlock)
     ls_kernel(const T* __restrict__ y, const T* __restrict__ mu,
               const T* __restrict__ wts, const T* __restrict__ x,
@@ -117,7 +132,7 @@ __global__ void __launch_bounds__(kWarpBlock)
               T* __restrict__ out_dlp0, T* __restrict__ out_lp,
               T* __restrict__ out_dlp, T* __restrict__ out_change,
               int* __restrict__ out_iter, int* __restrict__ out_accept,
-              int* __restrict__ counter) {
+              int* __restrict__ counter, T thr) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const T* xr = x;
   if (stage_x) {
@@ -135,12 +150,12 @@ __global__ void __launch_bounds__(kWarpBlock)
     const T* mr = mu + (size_t)g * S;
     const T* wr = UseW ? wts + (size_t)g * S : nullptr;
     unsigned cm = ~0u;
-    if constexpr (UseW) cm = warp_cr_col_mask<T, P>(wr, xr, S);
+    if constexpr (UseW && UseCR) cm = warp_cr_col_mask<T, P>(wr, xr, S, thr);
     const T pm = prior_mean[g];
     const T a0 = la0[g];
     T lp0, dlp0;
-    lp_dlp<T, P, UseW>(yr, mr, wr, cm, xr, S, a0, pm, prior_var, use_prior,
-                       lp0, dlp0);
+    lp_dlp<T, P, UseW, UseCR>(yr, mr, wr, cm, thr, xr, S, a0, pm, prior_var,
+                              use_prior, lp0, dlp0);
 
     // control state: the same values on every lane
     const T tol_eff =
@@ -154,8 +169,8 @@ __global__ void __launch_bounds__(kWarpBlock)
       if (a_propose > T(10)) kappa = (T(10) - a) / dlp;
       const T a_new = a + kappa * dlp;
       T lp_new, dlp_next;
-      lp_dlp<T, P, UseW>(yr, mr, wr, cm, xr, S, a_new, pm, prior_var,
-                         use_prior, lp_new, dlp_next);
+      lp_dlp<T, P, UseW, UseCR>(yr, mr, wr, cm, thr, xr, S, a_new, pm,
+                                prior_var, use_prior, lp_new, dlp_next);
       const bool accept = -lp_new <= -lp - kappa * T(kArmijo) * dlp * dlp;
       if (accept) ++iter_accept;
       const T change_new = lp_new - lp;
@@ -193,98 +208,115 @@ __global__ void __launch_bounds__(kWarpBlock)
   }
 }
 
-template <typename T, int P, bool UseW>
+template <typename T, int P, bool UseW, bool UseCR>
 int launch_p(const T* y, const T* mu, const T* w, const T* x, const T* la0,
              const T* pm, int G, int S, T prior_var, T kappa_0, T tol,
              T min_la, int maxit, int use_prior, T* out_la, T* out_lp0,
              T* out_dlp0, T* out_lp, T* out_dlp, T* out_change, int* out_iter,
-             int* out_accept, int* counter, cudaStream_t st) {
+             int* out_accept, int* counter, T thr, cudaStream_t st) {
   const size_t smem = block_stage_bytes<T>(S, P);
-  auto kernel = ls_kernel<T, P, UseW>;
+  auto kernel = ls_kernel<T, P, UseW, UseCR>;
   int err = 0;
   const int blocks = persistent_blocks(kernel, smem, G, &err);
   if (err) return err;
   kernel<<<blocks, kWarpBlock, smem, st>>>(
       y, mu, w, x, la0, pm, G, S, prior_var, kappa_0, tol, min_la, maxit,
       use_prior, smem > 0, out_la, out_lp0, out_dlp0, out_lp, out_dlp,
-      out_change, out_iter, out_accept, counter);
+      out_change, out_iter, out_accept, counter, thr);
   return (int)cudaGetLastError();
 }
 
-// w == nullptr selects the unweighted instantiations; `counter` is one
-// zeroed int of device memory (the warps' gene counter)
+// w == nullptr selects the unweighted instantiations, use_cr == 0 the ones
+// without the Cox-Reid term; `counter` is one zeroed int of device memory
+// (the warps' gene counter)
 template <typename T>
 int launch(const T* y, const T* mu, const T* w, const T* x, const T* la0,
            const T* pm, int G, int S, int p, T prior_var, T kappa_0, T tol,
-           T min_la, int maxit, int use_prior, T* out_la, T* out_lp0,
-           T* out_dlp0, T* out_lp, T* out_dlp, T* out_change, int* out_iter,
-           int* out_accept, int* counter, void* stream) {
+           T min_la, int maxit, int use_prior, int use_cr, T thr, T* out_la,
+           T* out_lp0, T* out_dlp0, T* out_lp, T* out_dlp, T* out_change,
+           int* out_iter, int* out_accept, int* counter, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define DK_LS_LAUNCH(W, CR)                                                  \
+  DK_DISPATCH_P(p, return launch_p<T, P, W, CR>(                             \
+                       y, mu, w, x, la0, pm, G, S, prior_var, kappa_0, tol,  \
+                       min_la, maxit, use_prior, out_la, out_lp0, out_dlp0,  \
+                       out_lp, out_dlp, out_change, out_iter, out_accept,    \
+                       counter, thr, st))
   if (w != nullptr) {
-    DK_DISPATCH_P(p, return launch_p<T, P, true>(
-                         y, mu, w, x, la0, pm, G, S, prior_var, kappa_0, tol,
-                         min_la, maxit, use_prior, out_la, out_lp0,
-                         out_dlp0, out_lp, out_dlp, out_change, out_iter,
-                         out_accept, counter, st))
+    if (use_cr) {
+      DK_LS_LAUNCH(true, true)
+    } else {
+      DK_LS_LAUNCH(true, false)
+    }
   } else {
-    DK_DISPATCH_P(p, return launch_p<T, P, false>(
-                         y, mu, w, x, la0, pm, G, S, prior_var, kappa_0, tol,
-                         min_la, maxit, use_prior, out_la, out_lp0,
-                         out_dlp0, out_lp, out_dlp, out_change, out_iter,
-                         out_accept, counter, st))
+    if (use_cr) {
+      DK_LS_LAUNCH(false, true)
+    } else {
+      DK_LS_LAUNCH(false, false)
+    }
   }
+#undef DK_LS_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
 // resident blocks per SM of the instantiation a launch would take (-1 on
 // a refusal or an unsupported p)
-template <typename T, bool UseW>
+template <typename T, bool UseW, bool UseCR>
 int occupancy(int p, int S) {
   int err = 0;
   DK_DISPATCH_P(p, {
-    const int n = blocks_per_sm(ls_kernel<T, P, UseW>,
+    const int n = blocks_per_sm(ls_kernel<T, P, UseW, UseCR>,
                                 block_stage_bytes<T>(S, P), &err);
     return err ? -1 : n;
   })
   return -1;
 }
 
+template <typename T>
+int occupancy_mode(int weighted, int use_cr, int p, int S) {
+  if (weighted) {
+    return use_cr ? occupancy<T, true, true>(p, S)
+                  : occupancy<T, true, false>(p, S);
+  }
+  return use_cr ? occupancy<T, false, true>(p, S)
+                : occupancy<T, false, false>(p, S);
+}
+
 }  // namespace
 
 extern "C" {
 
-int ls_blocks_per_sm(int f64, int weighted, int p, int S) {
-  if (f64) {
-    return weighted ? occupancy<double, true>(p, S)
-                    : occupancy<double, false>(p, S);
-  }
-  return weighted ? occupancy<float, true>(p, S) : occupancy<float, false>(p, S);
+int ls_blocks_per_sm(int f64, int weighted, int p, int S, int use_cr) {
+  return f64 ? occupancy_mode<double>(weighted, use_cr, p, S)
+             : occupancy_mode<float>(weighted, use_cr, p, S);
 }
 
 int ls_launch_f32(const float* y, const float* mu, const float* w,
                   const float* x, const float* la0, const float* pm, int G,
                   int S, int p, float prior_var, float kappa_0, float tol,
-                  float min_la, int maxit, int use_prior, float* out_la,
-                  float* out_lp0, float* out_dlp0, float* out_lp,
-                  float* out_dlp, float* out_change, int* out_iter,
-                  int* out_accept, int* counter, void* stream) {
+                  float min_la, int maxit, int use_prior, int use_cr,
+                  float thr, float* out_la, float* out_lp0, float* out_dlp0,
+                  float* out_lp, float* out_dlp, float* out_change,
+                  int* out_iter, int* out_accept, int* counter,
+                  void* stream) {
   return launch<float>(y, mu, w, x, la0, pm, G, S, p, prior_var, kappa_0, tol,
-                       min_la, maxit, use_prior, out_la, out_lp0, out_dlp0,
-                       out_lp, out_dlp, out_change, out_iter, out_accept,
-                       counter, stream);
+                       min_la, maxit, use_prior, use_cr, thr, out_la, out_lp0,
+                       out_dlp0, out_lp, out_dlp, out_change, out_iter,
+                       out_accept, counter, stream);
 }
 
 int ls_launch_f64(const double* y, const double* mu, const double* w,
                   const double* x, const double* la0, const double* pm, int G,
                   int S, int p, double prior_var, double kappa_0, double tol,
-                  double min_la, int maxit, int use_prior, double* out_la,
-                  double* out_lp0, double* out_dlp0, double* out_lp,
-                  double* out_dlp, double* out_change, int* out_iter,
-                  int* out_accept, int* counter, void* stream) {
+                  double min_la, int maxit, int use_prior, int use_cr,
+                  double thr, double* out_la, double* out_lp0,
+                  double* out_dlp0, double* out_lp, double* out_dlp,
+                  double* out_change, int* out_iter, int* out_accept,
+                  int* counter, void* stream) {
   return launch<double>(y, mu, w, x, la0, pm, G, S, p, prior_var, kappa_0,
-                        tol, min_la, maxit, use_prior, out_la, out_lp0,
-                        out_dlp0, out_lp, out_dlp, out_change, out_iter,
-                        out_accept, counter, stream);
+                        tol, min_la, maxit, use_prior, use_cr, thr, out_la,
+                        out_lp0, out_dlp0, out_lp, out_dlp, out_change,
+                        out_iter, out_accept, counter, stream);
 }
 
 }  // extern "C"

@@ -16,6 +16,7 @@ from __future__ import annotations
 import copy as _copy
 
 import numpy as np
+import torch
 
 import warnings
 
@@ -314,6 +315,8 @@ class DESeqDataSet:
         new.metadata = dict(self.metadata)
         new.dispersion_function = _copy.copy(self.dispersion_function)
         new.config = self.config
+        # the counts' device copy (engine.device_counts), the same values
+        new._counts_dev = getattr(self, "_counts_dev", None)
         return new
 
     def subset_genes(self, idx):
@@ -323,6 +326,9 @@ class DESeqDataSet:
             idx = np.where(idx)[0]
         new = self.copy()
         new.counts = self.counts[idx]
+        if new._counts_dev is not None:
+            new._counts_dev = new._counts_dev[
+                torch.as_tensor(idx, device=new._counts_dev.device)]
         new.row_names = [self.row_names[i] for i in idx]
         new.row_data = {k: v[idx] for k, v in self.row_data.items()}
         new.assays = {k: v[idx] for k, v in self.assays.items()}

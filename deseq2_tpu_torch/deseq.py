@@ -1,13 +1,22 @@
 """The DESeq() entry point (reference R/core.R:280-432).
 
-Argument checks mirror the reference; the Wald test or the LRT, with or
-without observation weights, normalization factors and use_t, with the
-parametric, local or mean trend, and the Wald test with betaPrior on a
-single-factor design with an intercept, runs the fused pipeline
-(engine.deseq_fused) on the card, or on the CPU with device="cpu".
-glmGamPoi, a mesh, the host engine and the configurations the fused engine
-does not take (betaPrior on other designs among them) raise
-NotImplementedError naming the ROADMAP.md item that will port them.
+Argument checks mirror the reference.  Two engines, as in the JAX package
+(deseq2_tpu/deseq.py:148-242):
+- the fused pipeline (engine.deseq_fused): the Wald test or the LRT, with
+  or without observation weights, normalization factors and use_t, with
+  the parametric, local or mean trend, and the Wald test with betaPrior on
+  a single-factor design with an intercept;
+- the host-exact engine (sizefactors.py, dispersions.py, wald.py, lrt.py,
+  outliers.py): the JAX package's host orchestration, with its batched
+  per-gene fits through K1-K3 in float64 on the same device.  It runs
+  every other configuration: sfType "iterate", a non-default DESeqConfig
+  field or minmu, betaPrior on any design, samples <= coefficients, and
+  weights that fail the rank tests (flagged weightsFail).
+engine="auto" (the default) runs the fused pipeline wherever it is
+eligible and the host engine otherwise (with the JAX package's warning
+when quiet=False); "fused" and "host" force one.  Both run on "cuda"
+unless the caller passes device="cpu".  glmGamPoi and a device mesh raise
+NotImplementedError naming their ROADMAP.md items.
 """
 
 from __future__ import annotations
@@ -18,18 +27,8 @@ import numpy as np
 
 from .dataset import check_full_rank
 from .formula import parse_formula
+from .lrt import check_lrt
 from . import profiling
-
-
-def check_lrt(full, reduced):
-    """(reference checkLRT, R/core.R:2475-2481)"""
-    full_vars = set(parse_formula(full).variables)
-    missing = [v for v in parse_formula(reduced).variables
-               if v not in full_vars]
-    if missing:
-        raise ValueError(
-            "the following variables in the reduced formula not in the full "
-            "formula: " + ", ".join(missing))
 
 
 def deseq(dds, test="Wald", fit_type="parametric", sf_type="ratio",
@@ -42,13 +41,14 @@ def deseq(dds, test="Wald", fit_type="parametric", sf_type="ratio",
 
     `device`: "cuda" (the default) runs the hand-written kernels; "cpu"
     runs their plain PyTorch versions.  Without a card and without
-    device="cpu" this raises.  The dtype is DESeqConfig.dtype ("float64"
-    by default; "float32" is the fast path).  `config` defaults to the
-    dataset's own."""
+    device="cpu" this raises.  The fused engine's dtype is
+    DESeqConfig.dtype ("float64" by default; "float32" is the fast path);
+    the host engine runs in float64.  `engine`: "auto" (the default),
+    "fused" or "host" (see the module docstring).  `config` defaults to
+    the dataset's own."""
     from .config import cfg
-    from .engine import (deseq_fused, fused_ineligibility, resolve_device,
-                         resolve_dtype)
-    from .parallel.fused import ROADMAP_HOST, ROADMAP_MESH, not_ported
+    from .engine import fused_ineligibility, resolve_device, resolve_dtype
+    from .parallel.fused import ROADMAP_MESH, not_ported
 
     if config is None:
         config = dds.config
@@ -121,31 +121,125 @@ def deseq(dds, test="Wald", fit_type="parametric", sf_type="ratio",
         check_full_rank(model_matrix)
 
     # configurations outside this slice
-    if engine == "host":
-        raise not_ported("engine='host'", ROADMAP_HOST)
     if fit_type == "glmGamPoi":
         raise not_ported("fit_type='glmGamPoi'",
                          "ROADMAP.md queue 1, item 8 (single-cell path)")
     if mesh is not None:
         raise not_ported("a device mesh", ROADMAP_MESH)
-    if dds.size_factors is None and dds.normalization_factors is None \
-            and sf_type != "ratio":
-        raise not_ported(f"sf_type={sf_type!r}", ROADMAP_HOST)
-    reason = fused_ineligibility(dds, sf_type, model_matrix, minmu, config,
-                                 beta_prior, model_matrix_type)
-    if reason is not None:
-        raise not_ported(f"this configuration ({reason})", ROADMAP_HOST)
 
     dev = resolve_device(device)
-    dtype = resolve_dtype(config)
+    engine = engine or "auto"
+    if engine != "host":
+        reason = fused_ineligibility(dds, sf_type, model_matrix, minmu,
+                                     config, beta_prior, model_matrix_type)
+        if reason is None:
+            routed = _deseq_fused(
+                dds, dev, resolve_dtype(config), sf_type, test=test,
+                fit_type=fit_type, full=full, reduced=reduced, quiet=quiet,
+                use_t=use_t,
+                min_replicates_for_replace=min_replicates_for_replace,
+                model_matrix=model_matrix,
+                model_matrix_type=model_matrix_type, beta_prior=beta_prior)
+            if routed is not None:
+                return routed
+            reason = ("weights do not allow parameter estimation for "
+                      "some rows (weightsFail bookkeeping is host-side)")
+        if engine == "fused":
+            raise ValueError(f"engine='fused' unavailable: {reason}")
+        if not quiet:
+            warnings.warn(f"fused engine unavailable ({reason}); "
+                          "running the host-exact path")
+    return _deseq_host(dds, dev, test, fit_type, sf_type, beta_prior, full,
+                       reduced, quiet, min_replicates_for_replace,
+                       model_matrix, model_matrix_type, use_t, minmu, config)
+
+
+def _deseq_fused(dds, dev, dtype, sf_type, **kw):
+    """The fused route; poscounts size factors are estimated first, as the
+    JAX package's deseq_fused does.  None when the weights fail the rank
+    tests (the host engine then runs)."""
+    from .engine import deseq_fused
+    from .sizefactors import estimate_size_factors
     # the fused route never mutates counts in place, so the copy aliases
     # the counts buffer
     with profiling.stage("deseq.copy"):
         dds = dds.copy(share_counts=True)
+    if sf_type == "poscounts" and dds.size_factors is None \
+            and dds.normalization_factors is None:
+        with profiling.stage("estimateSizeFactors", genes=dds.n_genes):
+            dds = estimate_size_factors(dds, type=sf_type, device=dev)
     with profiling.stage("deseqFused", genes=dds.n_genes):
-        return deseq_fused(
-            dds, dev, dtype, test=test, fit_type=fit_type, full=full,
-            reduced=reduced, quiet=quiet, use_t=use_t,
-            min_replicates_for_replace=min_replicates_for_replace,
-            model_matrix=model_matrix, model_matrix_type=model_matrix_type,
-            beta_prior=beta_prior)
+        return deseq_fused(dds, dev, dtype, **kw)
+
+
+def _deseq_host(dds, dev, test, fit_type, sf_type, beta_prior, full,
+                reduced, quiet, min_replicates_for_replace, model_matrix,
+                model_matrix_type, use_t, minmu, config):
+    """The host-exact engine (deseq2_tpu/deseq.py:188-242): size factors,
+    dispersions, the Wald test or the LRT, and the outlier refit, with the
+    batched fits on `dev` in float64."""
+    from .dispersions import estimate_dispersions, n_or_more_in_cell
+    from .lrt import nbinom_lrt
+    from .outliers import refit_without_outliers
+    from .sizefactors import estimate_size_factors
+    from .wald import nbinom_wald_test
+
+    from .engine import DeviceArray
+    from .hostdev import as_t
+
+    with profiling.stage("deseq.copy"):
+        dds = dds.copy(share_counts=True)
+    if "weights" in dds.assays \
+            and not isinstance(dds.assays["weights"], DeviceArray):
+        # uploaded once: every stage's dataset copy then shares the tensor
+        with profiling.stage("deseq.weightsUpload"):
+            dds.assays["weights"] = DeviceArray(as_t(dds.assays["weights"],
+                                                     dev))
+    dds.attrs["betaPrior"] = beta_prior
+    # Single-cell-scale guardrail (the reference's own SC guidance,
+    # R/core.R:297-303): covariate designs at tens of thousands of
+    # samples hold several (G,S) float64 intermediates
+    S_n = dds.n_samples
+    if S_n >= 10000 and not quiet:
+        mm_chk = np.asarray(model_matrix if model_matrix is not None
+                            else dds.model_matrix()[0])
+        if len({tuple(r) for r in mm_chk}) != mm_chk.shape[1]:
+            warnings.warn(
+                f"design with covariates at {S_n} samples takes the "
+                "materializing host path (several (genes x samples) "
+                "intermediates)")
+    G = dds.n_genes
+    if dds.size_factors is None and dds.normalization_factors is None:
+        with profiling.stage("estimateSizeFactors", genes=G):
+            dds = estimate_size_factors(dds, type=sf_type, quiet=quiet,
+                                        device=dev)
+    with profiling.stage("estimateDispersions", genes=G):
+        dds = estimate_dispersions(dds, fit_type=fit_type, quiet=quiet,
+                                   model_matrix=model_matrix, min_mu=minmu,
+                                   config=config, device=dev)
+    if test == "Wald":
+        with profiling.stage("nbinomWaldTest", genes=G):
+            dds = nbinom_wald_test(dds, beta_prior=beta_prior, quiet=quiet,
+                                   model_matrix=model_matrix,
+                                   model_matrix_type=model_matrix_type,
+                                   use_t=use_t, min_mu=minmu, config=config,
+                                   device=dev)
+    else:
+        with profiling.stage("nbinomLRT", genes=G):
+            dds = nbinom_lrt(dds,
+                             full=full if full is not None else dds.design,
+                             reduced=reduced, quiet=quiet, min_mu=minmu,
+                             config=config, device=dev)
+    if np.isfinite(min_replicates_for_replace):
+        sufficient = np.any(n_or_more_in_cell(dds.attrs["modelMatrix"],
+                                              min_replicates_for_replace))
+        if sufficient:
+            with profiling.stage("refitWithoutOutliers", genes=G):
+                dds = refit_without_outliers(
+                    dds, test=test, beta_prior=beta_prior, full=full,
+                    reduced=reduced, quiet=quiet,
+                    min_replicates_for_replace=min_replicates_for_replace,
+                    model_matrix=model_matrix,
+                    model_matrix_type=model_matrix_type, device=dev)
+    dds.attrs["engine"] = "host"
+    return dds

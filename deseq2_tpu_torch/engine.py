@@ -8,8 +8,8 @@ The fused route covers the Wald test and the LRT, observation weights,
 gene x sample normalization factors, use_t, the parametric, local and
 mean trends, and betaPrior on a single-factor design with an intercept
 (the expanded model matrix, its MAP and MLE_ columns, the prior variance);
-the other betaPrior configurations and the host path raise
-NotImplementedError naming their ROADMAP.md item.
+what it does not take (fused_ineligibility) runs the host-exact engine
+(deseq.py).
 
 Gene x sample assays produced on the device (mu, H, cooks, replaceCounts,
 replaceCooks) stay there as DeviceArray wrappers, fetched by whoever
@@ -239,8 +239,9 @@ def deseq_fused(dds, device, dtype, test="Wald", fit_type="parametric",
     stages (estimateSizeFactors -> estimateDispersions -> nbinomWaldTest or
     nbinomLRT -> refitWithoutOutliers) would.  A parametric trend that
     comes back invalid is replaced by the local trend, as the host does
-    (R/core.R:888-893).  Weights that fail the estimability tests raise
-    ValueError (parallel/fused.py:validated_weights).  `beta_prior`: the
+    (R/core.R:888-893).  Weights that fail the estimability tests return
+    None (parallel/fused.py:validated_weights): deseq() then runs the host
+    engine, whose weightsFail bookkeeping flags those rows.  `beta_prior`: the
     stored contract of nbinomWaldTest with betaPrior (the expanded model
     matrix and its MAP columns, MLE_ columns, betaPriorVar)."""
     from .dataset import DispersionFunction
@@ -277,7 +278,9 @@ def deseq_fused(dds, device, dtype, test="Wald", fit_type="parametric",
         with profiling.stage("fused.weightsUploadValidate",
                              genes=dds.n_genes):
             weights = validated_weights(dds.assays["weights"], mm, device,
-                                        dtype)
+                                        dtype, refuse=False)
+        if weights is None:
+            return None
     nf = dds.normalization_factors
     sf = dds.size_factors
     if beta_prior:

@@ -26,6 +26,9 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build"
 KERNELS = ("irls", "disp_ls", "disp_grid")
+# K1's wide library: csrc/irls.cu at P = 16 alone (ops/cuda_irls.py serves
+# 8 < p <= 16 from it), built beside the three
+WIDE = ("-DDK_WIDE_P=16", "-DDK_WIDE_ONLY")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,30 +44,33 @@ def _nvcc():
     return path
 
 
-def _digest(name):
+def _digest(name, defines=()):
     h = hashlib.sha256()
     for f in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
         h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + tuple(defines)).encode())
     return h.hexdigest()[:12]
 
 
-def so_path(name):
-    return BUILD_DIR / f"lib{name}-{_digest(name)}.so"
+def so_path(name, defines=()):
+    """The library of csrc/<name>.cu; `defines` (-D flags, for a study
+    build) give it another name."""
+    tag = "".join("-" + d.lstrip("-D").replace("=", "") for d in defines)
+    return BUILD_DIR / f"lib{name}{tag}-{_digest(name, defines)}.so"
 
 
-def log_path(name):
+def log_path(name, defines=()):
     """nvcc's output for the library (the -Xptxas -v resource report)."""
-    return so_path(name).with_suffix(".log")
+    return so_path(name, defines).with_suffix(".log")
 
 
-def ptxas_resources(name):
+def ptxas_resources(name, defines=()):
     """{kernel symbol: (registers, spill bytes)} of a kernel library, from
     nvcc's -Xptxas -v report (built first if needed)."""
     import re
-    load(name)
+    load(name, defines)
     out = {}
-    for part in log_path(name).read_text().split(
+    for part in log_path(name, defines).read_text().split(
             "Compiling entry function '")[1:]:
         regs = re.search(r"Used (\d+) registers", part)
         spill = re.findall(r"(\d+) bytes spill (?:stores|loads)", part)
@@ -73,16 +79,17 @@ def ptxas_resources(name):
     return out
 
 
-def _start(name):
+def _start(name, defines=()):
     """Start nvcc for one source unless its library is already built.
     Returns (process, temporary output path) or None."""
-    out = so_path(name)
+    out = so_path(name, defines)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    log = open(log_path(name), "w")
+    cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
+    log = open(log_path(name, defines), "w")
     try:
         proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
     finally:
@@ -90,45 +97,52 @@ def _start(name):
     return proc, tmp
 
 
-def _finish(name, started):
+def _finish(name, started, defines=()):
     if started is None:
         return
     proc, tmp = started
     rc = proc.wait()
     if rc != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu (exit {rc}):\n"
-                           + log_path(name).read_text()[-4000:])
-    os.replace(tmp, so_path(name))
+                           + log_path(name, defines).read_text()[-4000:])
+    os.replace(tmp, so_path(name, defines))
 
 
 def build_all(names=KERNELS):
-    """Build every named kernel library, one nvcc process per source,
-    all started together.  Returns {name: nvcc output}."""
+    """Build every named kernel library (and K1's wide one with "irls"),
+    one nvcc process per library, all started together.  Returns
+    {name: nvcc output}, the wide library as "irls_wide"."""
+    libs = {n: (n, ()) for n in names}
+    if "irls" in names:
+        libs["irls_wide"] = ("irls", WIDE)
     with _lock:
-        started = {n: _start(n) for n in names}
+        started = {k: _start(*v) for k, v in libs.items()}
         try:
-            for n in names:
-                _finish(n, started[n])
+            for k, (n, d) in libs.items():
+                _finish(n, started[k], d)
         finally:
             for s in started.values():
                 if s is not None and s[0].poll() is None:
                     s[0].kill()
                     s[0].wait()
-    return {n: log_path(n).read_text() if log_path(n).exists() else ""
-            for n in names}
+    return {k: log_path(*v).read_text() if log_path(*v).exists() else ""
+            for k, v in libs.items()}
 
 
-def load(name):
-    """ctypes handle of a kernel library, built first if needed."""
-    lib = _libs.get(name)
+def load(name, defines=()):
+    """ctypes handle of a kernel library, built first if needed;
+    `defines`: a study build's -D flags."""
+    key = (name, tuple(defines))
+    lib = _libs.get(key)
     if lib is not None:
         return lib
-    build_all((name,))
     with _lock:
-        lib = _libs.get(name)
+        _finish(name, _start(name, defines), defines)
+    with _lock:
+        lib = _libs.get(key)
         if lib is None:
-            lib = ctypes.CDLL(str(so_path(name)))
-            _libs[name] = lib
+            lib = ctypes.CDLL(str(so_path(name, defines)))
+            _libs[key] = lib
     return lib
 
 

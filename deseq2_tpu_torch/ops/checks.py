@@ -46,9 +46,12 @@ import numpy as np
 import torch
 
 from .disp import fit_disp_grid_plain, fit_disp_line_search_plain
-from .disp import log_posterior, make_cr_masks
+from .disp import CR_WEIGHT_THRESHOLD, log_posterior, make_cr_masks
 
 MIN_LA = float(np.log(1e-9))
+# log alpha below which (1/alpha > 1e8) the posterior is flat to within
+# lgamma's rounding
+FLAT_LA = float(np.log(1e-8))
 PRIOR_VAR = 1.3
 SEPARATED = 16.0
 # (S, G) of the kernel checks: few and many samples, ragged gene counts
@@ -215,6 +218,24 @@ def ridge_for(p, dtype, device):
                       device=device)
 
 
+# K2's and K3's modes besides the default (the Cox-Reid term at the 1e-2
+# weight threshold), as the entries of a check's inputs d that select them:
+# without the Cox-Reid term, and (weighted) the row cut at 0.5
+MODES = {"nocr": dict(use_cr=False), "thr": dict(weight_threshold=0.5)}
+
+
+def with_mode(d, mode):
+    """d with the entries of MODES[mode] (None: d itself)."""
+    return d if mode is None else dict(d, **MODES[mode])
+
+
+def mode_kw(d):
+    """The mode arguments of K2 and K3 that d selects."""
+    return dict(use_cr=d.get("use_cr", True),
+                weight_threshold=d.get("weight_threshold",
+                                       CR_WEIGHT_THRESHOLD))
+
+
 def _f64(d):
     return {k: v.double() if torch.is_tensor(v) and v.is_floating_point()
             else v for k, v in d.items()}
@@ -223,14 +244,16 @@ def _f64(d):
 def lp_at(la, d, use_prior, prior_var=PRIOR_VAR):
     """float64 log posterior at log alpha `la` (the quantity K2 and K3
     maximize), evaluated by the plain code.  d holds y, mu, x, pm and
-    optionally w."""
+    optionally w and the mode entries (with_mode)."""
     f = torch.float64
     x = d["x"].to(f)
     w = d.get("w")
     w = None if w is None else w.to(f)
-    rm, cm = make_cr_masks(x, w)
+    kw = mode_kw(d)
+    rm, cm = make_cr_masks(x, w, kw["weight_threshold"])
     return log_posterior(la.to(f), d["y"].to(f), d["mu"].to(f), x,
-                         d["pm"].to(f), prior_var, use_prior, w, rm, cm)
+                         d["pm"].to(f), prior_var, use_prior, w, rm, cm,
+                         kw["use_cr"])
 
 
 def run_irls(fn, d, maxit=100):
@@ -246,13 +269,14 @@ def run_irls(fn, d, maxit=100):
 def run_ls(fn, d, use_prior, prior_var=PRIOR_VAR, min_log_alpha=MIN_LA):
     """fn (the K2 wrapper or its plain version) on d's inputs."""
     return fn(d["y"], d["x"], d["mu"], d["la0"], d["pm"], prior_var,
-              min_log_alpha, use_prior=use_prior, weights=d.get("w"))
+              min_log_alpha, use_prior=use_prior, weights=d.get("w"),
+              **mode_kw(d))
 
 
 def run_grid(fn, d, use_prior, prior_var=PRIOR_VAR):
     """fn (the K3 wrapper or its plain version) on d's inputs."""
     return fn(d["y"], d["x"], d["mu"], d["grid"], d["pm"], prior_var,
-              use_prior=use_prior, weights=d.get("w"))
+              use_prior=use_prior, weights=d.get("w"), **mode_kw(d))
 
 
 def _is_f32(t):
@@ -361,16 +385,37 @@ def line_search_reference(d, use_prior, prior_var=PRIOR_VAR,
 
 def check_ls(k, pl, d, use_prior, prior_var=PRIOR_VAR, ref=None, maxit=100):
     """K2 readings: kernel result k against the plain result pl on inputs d
-    (y, mu, x, la0, pm).  float32 needs ref, the float64 reference."""
+    (y, mu, x, la0, pm).  float32 needs ref, the float64 reference.
+
+    In float32 without the Cox-Reid term (d's mode "nocr") the share of
+    genes whose log alpha agrees to 1e-3 is printed, not gated: without
+    the term the posterior is flat enough near its maximum that the
+    float32 stopping tolerance (an lp change below 50 eps |lp|) ends the
+    search anywhere in a window up to ~0.1 wide in log alpha, so the
+    plain version against itself in another summation order already
+    reads 0.907-0.959 (5 sample permutations on the CPU) against the 0.9
+    limit.  The kernel is held there by its lp shortfall below the
+    float64 reference, as every float32 reading is."""
     lk = lp_at(k["log_alpha"], d, use_prior, prior_var)
     lpl = lp_at(pl["log_alpha"], d, use_prior, prior_var)
     agree = ((k["log_alpha"].double() - pl["log_alpha"].double()).abs()
              < 1e-3).double().mean().item()
     if not _is_f32(pl["log_alpha"]):
         t = TOL["float64"]
-        rel = ((lpl - lk) / lpl.abs().clamp(min=1.0)).max().item()
+        gap = lpl - lk
+        held = torch.ones_like(gap, dtype=torch.bool)
+        if not mode_kw(d)["use_cr"]:
+            # without the Cox-Reid term an underdispersed gene's search
+            # runs to alpha -> 0; past 1/alpha = 1e8 the lp is flat to
+            # within lgamma's rounding (|lgamma(1/alpha)| > 1.7e9, ~1e-6
+            # per term), so the lp there is read by agreement only
+            held = (k["log_alpha"] > FLAT_LA) & (pl["log_alpha"] > FLAT_LA)
+        rel = ((gap / lpl.abs().clamp(min=1.0))[held]).max().item() \
+            if bool(held.any()) else 0.0
         r = dict(lp_rel=max(rel, 0.0), agree=agree,
-                 max_abs_err=max((lpl - lk).max().item(), 0.0))
+                 max_abs_err=max(gap[held].max().item(), 0.0)
+                 if bool(held.any()) else 0.0,
+                 n_flat=int((~held).sum()))
         r["ok"] = r["lp_rel"] <= t["lp_rel"] and agree >= t["ls_agree"]
         return r
     t = TOL["float32"]
@@ -392,11 +437,13 @@ def check_ls(k, pl, d, use_prior, prior_var=PRIOR_VAR, ref=None, maxit=100):
              short_plain_mean=sp.mean().item() if sp.numel() else 0.0,
              same_conv=same_conv, agree=agree, n_conv=int(both.sum()),
              max_abs_err=max(gap.max().item(), 0.0) if gap.numel() else 0.0)
+    agree_gated = mode_kw(d)["use_cr"]
     r["ok"] = (r["short_kernel_max"]
                <= t["ls_max_x"] * r["short_plain_max"] + floor
                and r["short_kernel_mean"]
                <= t["ls_mean_x"] * r["short_plain_mean"] + floor
-               and same_conv >= t["same_conv"] and agree >= t["ls_agree"])
+               and same_conv >= t["same_conv"]
+               and (agree >= t["ls_agree"] or not agree_gated))
     return r
 
 

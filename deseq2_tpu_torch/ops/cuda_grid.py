@@ -1,12 +1,15 @@
 """K3 wrapper: two-stage dispersion grid search on the card through
 csrc/disp_grid.cu.
 
-Replaces deseq2_tpu/ops/pallas_disp.py:fit_disp_grid_pallas, and extends
-it with a weighted mode (`weights`; the JAX pipeline runs its weighted grid
-on the XLA core).  A CUDA tensor launches the hand-written kernel (or
-raises); a CPU tensor runs the plain version, ops/disp.py:
-fit_disp_grid_plain.  ``fit_disp_grid.launches`` counts the unweighted
-kernel's launches, ``fit_disp_grid.launches_weighted`` the weighted one's.
+Replaces deseq2_tpu/ops/pallas_disp.py:fit_disp_grid_pallas, in its modes
+(`use_cr=False`: without the Cox-Reid term), and extends it with a weighted
+mode (`weights`, with the Cox-Reid row cut `weight_threshold`; the JAX
+pipeline runs its weighted grid on the XLA core).  A CUDA tensor with
+1 <= p <= 8 launches the hand-written kernel (or raises); p > 8 runs the
+plain version on the card (the JAX package's XLA core for p > 8); a CPU
+tensor runs the plain version, ops/disp.py:fit_disp_grid_plain.  The route
+is chosen from the tensor's device and p alone, before any launch.  The
+counts are cuda_ls.py's, one per mode (cuda_ls.COUNTERS).
 """
 
 from __future__ import annotations
@@ -16,28 +19,36 @@ import ctypes
 import torch
 
 from . import build
-from .disp import fit_disp_grid_plain
+from .cuda_ls import COUNTERS, P_MAX, mode_counter
+from .disp import CR_WEIGHT_THRESHOLD, fit_disp_grid_plain
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def fit_disp_grid(y, x, mu, disp_grid, prior_mean, prior_var,
-                  use_prior=False, weights=None):
+                  use_prior=False, weights=None, use_cr=True,
+                  weight_threshold=CR_WEIGHT_THRESHOLD):
     """Batched fitDispGrid: y, mu (G,S); x (S,p); disp_grid (n,) shared
     coarse log-alpha grid; prior_mean (G,); weights (G,S) or None.
     Returns (G,) log alpha."""
+    kw = dict(use_prior=use_prior, weights=weights, use_cr=use_cr,
+              weight_threshold=weight_threshold)
     if not mu.is_cuda:
         return fit_disp_grid_plain(y, x, mu, disp_grid, prior_mean,
-                                   prior_var, use_prior=use_prior,
-                                   weights=weights)
+                                   prior_var, **kw)
     dtype = mu.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"grid kernel takes float32/float64, not {dtype}")
     G, S = mu.shape
     p = x.shape[1]
     n = disp_grid.shape[0]
-    if not 1 <= p <= 8 or n < 2:
-        raise ValueError(f"grid kernel takes 1 <= p <= 8 and >= 2 grid "
+    if p > P_MAX:
+        fit_disp_grid.launches_plain += 1
+        return fit_disp_grid_plain(y, x.to(mu.device), mu,
+                                   disp_grid.to(mu.device), prior_mean,
+                                   prior_var, **kw)
+    if p < 1 or n < 2:
+        raise ValueError(f"grid kernel takes p >= 1 and >= 2 grid "
                          f"points, got p={p}, n={n}")
     if weights is not None and weights.shape != (G, S):
         raise ValueError("weights must be (G,S)")
@@ -56,19 +67,18 @@ def fit_disp_grid(y, x, mu, disp_grid, prior_mean, prior_var,
     scal = ctypes.c_double if f64 else ctypes.c_float
     lib = build.load("disp_grid")
     fn = build.bind(lib, "grid_launch_f64" if f64 else "grid_launch_f32",
-                    [_P] * 6 + [_I] * 4 + [scal, _I, _P, _P])
+                    [_P] * 6 + [_I] * 4 + [scal, _I, _I, scal, _P, _P])
     with torch.cuda.device(dev):
         err = fn(build.ptr(y_), build.ptr(mu_), build.ptr(w_),
                  build.ptr(x_), build.ptr(grid_), build.ptr(pm_), G, S, p, n,
                  float(prior_var), int(bool(use_prior)),
+                 int(bool(use_cr)), float(weight_threshold),
                  build.ptr(out), build.stream_of(mu_))
     build.check(err, "disp_grid")
-    if w_ is None:
-        fit_disp_grid.launches += 1
-    else:
-        fit_disp_grid.launches_weighted += 1
+    name = mode_counter(w_, use_cr, weight_threshold)
+    setattr(fit_disp_grid, name, getattr(fit_disp_grid, name) + 1)
     return out
 
 
-fit_disp_grid.launches = 0
-fit_disp_grid.launches_weighted = 0
+for _c in COUNTERS:
+    setattr(fit_disp_grid, _c, 0)

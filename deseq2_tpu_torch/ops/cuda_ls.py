@@ -1,11 +1,20 @@
 """K2 wrapper: dispersion line search on the card through csrc/disp_ls.cu.
 
-Replaces deseq2_tpu/ops/pallas_ls.py:fit_disp_line_search_pallas, both
-modes: `weights` selects the kernel's weighted instantiation.  A CUDA
-tensor launches the hand-written kernel (or raises); a CPU tensor runs the
-plain version, ops/disp.py:fit_disp_line_search_plain.
-``fit_disp_line_search.launches`` counts the unweighted kernel's launches,
-``fit_disp_line_search.launches_weighted`` the weighted one's.
+Replaces deseq2_tpu/ops/pallas_ls.py:fit_disp_line_search_pallas, in all
+its modes: `weights` selects the kernel's weighted instantiations,
+`use_cr=False` the ones without the Cox-Reid term, and `weight_threshold`
+is the weighted Cox-Reid term's row cut.  A CUDA tensor with 1 <= p <= 8
+launches the hand-written kernel (or raises); p > 8 runs the plain version
+on the card, the counterpart of the XLA core the JAX package runs for
+p > 8 outside any Pallas kernel (its _use_pallas_* gates); a CPU tensor
+runs the plain version, ops/disp.py:fit_disp_line_search_plain.  The route
+is chosen from the tensor's device and p alone, before any launch.
+
+Each launch adds one to exactly one count: ``launches`` (unweighted),
+``launches_weighted`` (weighted, threshold 1e-2), ``launches_threshold``
+(weighted, another threshold), ``launches_nocr`` and
+``launches_weighted_nocr`` (without the Cox-Reid term), and
+``launches_plain`` (p > 8 on the card, the plain version).
 """
 
 from __future__ import annotations
@@ -15,31 +24,52 @@ import ctypes
 import torch
 
 from . import build
-from .disp import fit_disp_line_search_plain
+from .disp import CR_WEIGHT_THRESHOLD, fit_disp_line_search_plain
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# the widest design the kernels take; wider ones run the plain version
+P_MAX = 8
+
+
+def mode_counter(weights, use_cr, weight_threshold):
+    """The name of the count a launch in this mode adds to."""
+    if not use_cr:
+        return "launches_nocr" if weights is None else \
+            "launches_weighted_nocr"
+    if weights is None:
+        return "launches"
+    return "launches_weighted" if weight_threshold == CR_WEIGHT_THRESHOLD \
+        else "launches_threshold"
 
 
 def fit_disp_line_search(y, x, mu, log_alpha_init, prior_mean, prior_var,
                          min_log_alpha, kappa_0=1.0, tol=1e-6, maxit=100,
-                         use_prior=False, weights=None):
+                         use_prior=False, weights=None, use_cr=True,
+                         weight_threshold=CR_WEIGHT_THRESHOLD):
     """Batched fitDisp: y, mu (G,S); x (S,p); log_alpha_init, prior_mean
     (G,); weights (G,S) or None.  Returns dict(log_alpha, iter,
     iter_accept, last_change, initial_lp, initial_dlp, last_lp, last_dlp)
     in mu's dtype."""
+    kw = dict(kappa_0=kappa_0, tol=tol, maxit=maxit, use_prior=use_prior,
+              weights=weights, use_cr=use_cr,
+              weight_threshold=weight_threshold)
     if not mu.is_cuda:
         return fit_disp_line_search_plain(
             y, x, mu, log_alpha_init, prior_mean, prior_var, min_log_alpha,
-            kappa_0=kappa_0, tol=tol, maxit=maxit, use_prior=use_prior,
-            weights=weights)
+            **kw)
     dtype = mu.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"line-search kernel takes float32/float64, not "
                         f"{dtype}")
     G, S = mu.shape
     p = x.shape[1]
-    if not 1 <= p <= 8:
-        raise ValueError(f"line-search kernel takes 1 <= p <= 8, got {p}")
+    if p > P_MAX:
+        fit_disp_line_search.launches_plain += 1
+        return fit_disp_line_search_plain(
+            y, x.to(mu.device), mu, log_alpha_init, prior_mean, prior_var,
+            min_log_alpha, **kw)
+    if p < 1:
+        raise ValueError(f"line-search kernel takes p >= 1, got {p}")
     if weights is not None and weights.shape != (G, S):
         raise ValueError("weights must be (G,S)")
     dev = mu.device
@@ -61,7 +91,8 @@ def fit_disp_line_search(y, x, mu, log_alpha_init, prior_mean, prior_var,
     scal = ctypes.c_double if f64 else ctypes.c_float
     lib = build.load("disp_ls")
     fn = build.bind(lib, "ls_launch_f64" if f64 else "ls_launch_f32",
-                    [_P] * 6 + [_I, _I, _I] + [scal] * 4 + [_I, _I]
+                    [_P] * 6 + [_I, _I, _I] + [scal] * 4 + [_I, _I, _I,
+                                                            scal]
                     + [_P] * 10)
     counter = torch.zeros(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -69,17 +100,19 @@ def fit_disp_line_search(y, x, mu, log_alpha_init, prior_mean, prior_var,
                  build.ptr(x_), build.ptr(la0_), build.ptr(pm_), G, S, p,
                  float(prior_var), float(kappa_0), float(tol),
                  float(min_log_alpha), maxit,
-                 int(bool(use_prior)),
+                 int(bool(use_prior)), int(bool(use_cr)),
+                 float(weight_threshold),
                  *(build.ptr(out[k]) for k in names),
                  build.ptr(out["iter"]), build.ptr(out["iter_accept"]),
                  build.ptr(counter), build.stream_of(mu_))
     build.check(err, "disp_ls")
-    if w_ is None:
-        fit_disp_line_search.launches += 1
-    else:
-        fit_disp_line_search.launches_weighted += 1
+    name = mode_counter(w_, use_cr, weight_threshold)
+    setattr(fit_disp_line_search, name,
+            getattr(fit_disp_line_search, name) + 1)
     return out
 
 
-fit_disp_line_search.launches = 0
-fit_disp_line_search.launches_weighted = 0
+COUNTERS = ("launches", "launches_weighted", "launches_threshold",
+            "launches_nocr", "launches_weighted_nocr", "launches_plain")
+for _c in COUNTERS:
+    setattr(fit_disp_line_search, _c, 0)

@@ -10,10 +10,11 @@ reference's form without the lgamma(y+1) constant: the gene-wise
 
 With observation weights (`weights`, (G,S)) the likelihood terms are
 weighted, and the Cox-Reid term is not: it keeps the design rows whose
-weight exceeds CR_WEIGHT_THRESHOLD and drops, per gene, the columns left
-without support, with a unit diagonal so the kept submatrix's log
-determinant survives (cpp:38-44; the JAX package's make_cr_masks and
-_cr_b_matrices).
+weight exceeds `weight_threshold` (CR_WEIGHT_THRESHOLD by default) and
+drops, per gene, the columns left without support, with a unit diagonal so
+the kept submatrix's log determinant survives (cpp:38-44; the JAX
+package's make_cr_masks and _cr_b_matrices).  `use_cr=False` drops the
+Cox-Reid term altogether (the reference's useCR).
 
 Every gene is independent, so each line-search trip runs only on the genes
 still iterating, gathered with torch.nonzero: the result equals a lockstep
@@ -34,13 +35,13 @@ EPSILON_ARMIJO = 1.0e-4  # cpp:175
 CR_WEIGHT_THRESHOLD = 1e-2
 
 
-def make_cr_masks(x, weights):
+def make_cr_masks(x, weights, weight_threshold=CR_WEIGHT_THRESHOLD):
     """Row mask (G,S) and column mask (G,p) of the weighted Cox-Reid term:
-    the rows with weight > CR_WEIGHT_THRESHOLD, and the columns with nonzero
+    the rows with weight > weight_threshold, and the columns with nonzero
     x on some kept row.  (None, None) without weights."""
     if weights is None:
         return None, None
-    row_mask = weights > CR_WEIGHT_THRESHOLD
+    row_mask = weights > weight_threshold
     col_mask = (row_mask.to(x.dtype) @ x.abs()) > 0.0
     return row_mask, col_mask
 
@@ -66,16 +67,20 @@ def _wsum(terms, weights):
 
 
 def log_posterior(log_alpha, y, mu, x, prior_mean, prior_var, use_prior,
-                  weights=None, row_mask=None, col_mask=None):
+                  weights=None, row_mask=None, col_mask=None, use_cr=True):
     """Batched NB log posterior of dispersion (cpp:31-64).
 
     log_alpha, prior_mean: (G,); y, mu: (G,S); x: (S,p); prior_var scalar;
-    weights (G,S) with the masks of make_cr_masks, or None.
+    weights (G,S) with the masks of make_cr_masks, or None; `use_cr`
+    adds the Cox-Reid term.
     """
     alpha = torch.exp(log_alpha)[:, None]
     inv_alpha = 1.0 / alpha
-    w = 1.0 / (1.0 / mu + alpha)
-    cr = -0.5 * spd_logdet(_cr_b(x, w, row_mask, col_mask, embed=True))
+    if use_cr:
+        w = 1.0 / (1.0 / mu + alpha)
+        cr = -0.5 * spd_logdet(_cr_b(x, w, row_mask, col_mask, embed=True))
+    else:
+        cr = 0.0
     l1p = torch.log1p(mu * alpha)
     ll = _wsum(lgamma_diff_centered(y, inv_alpha) - (y + inv_alpha) * l1p,
                weights)
@@ -85,17 +90,20 @@ def log_posterior(log_alpha, y, mu, x, prior_mean, prior_var, use_prior,
 
 
 def dlog_posterior(log_alpha, y, mu, x, prior_mean, prior_var, use_prior,
-                   weights=None, row_mask=None, col_mask=None):
+                   weights=None, row_mask=None, col_mask=None, use_cr=True):
     """d/d(log alpha) of the log posterior (cpp:68-107)."""
     alpha_v = torch.exp(log_alpha)
     alpha = alpha_v[:, None]
     inv_alpha = 1.0 / alpha
-    denom = 1.0 / mu + alpha
-    w = 1.0 / denom
-    dw = -1.0 / denom ** 2
-    b_inv = spd_inverse(_cr_b(x, w, row_mask, col_mask, embed=True))
-    dcr = -0.5 * torch.einsum("gpq,gqp->g", b_inv,
-                              _cr_b(x, dw, row_mask, col_mask))
+    if use_cr:
+        denom = 1.0 / mu + alpha
+        w = 1.0 / denom
+        dw = -1.0 / denom ** 2
+        b_inv = spd_inverse(_cr_b(x, w, row_mask, col_mask, embed=True))
+        dcr = -0.5 * torch.einsum("gpq,gqp->g", b_inv,
+                                  _cr_b(x, dw, row_mask, col_mask))
+    else:
+        dcr = 0.0
     terms = (torch.log1p(mu * alpha)
              - mu * alpha / (1.0 + mu * alpha)
              - digamma_diff(y, inv_alpha) + y / (mu + inv_alpha))
@@ -106,12 +114,12 @@ def dlog_posterior(log_alpha, y, mu, x, prior_mean, prior_var, use_prior,
     return out + 0.0
 
 
-def _gene_rows(weights, x, dtype):
+def _gene_rows(weights, x, dtype, weight_threshold):
     """The per-gene (weights, row mask, column mask) triple, or Nones."""
     if weights is None:
         return None, None, None
     weights = weights.to(dtype)
-    rm, cm = make_cr_masks(x, weights)
+    rm, cm = make_cr_masks(x, weights, weight_threshold)
     return weights, rm, cm
 
 
@@ -122,7 +130,8 @@ def _take(t, idx):
 def fit_disp_line_search_plain(y, x, mu, log_alpha_init, prior_mean,
                                prior_var, min_log_alpha, kappa_0=1.0,
                                tol=1e-6, maxit=100, use_prior=False,
-                               weights=None):
+                               weights=None, use_cr=True,
+                               weight_threshold=CR_WEIGHT_THRESHOLD):
     """Batched Armijo backtracking ascent on log(alpha) (cpp:163-277).
 
     Returns dict(log_alpha, iter, iter_accept, last_change, initial_lp,
@@ -134,17 +143,17 @@ def fit_disp_line_search_plain(y, x, mu, log_alpha_init, prior_mean,
     x = x.to(dtype)
     prior_mean = prior_mean.to(dtype)
     a = log_alpha_init.to(dtype).clone()
-    wts, rm, cm = _gene_rows(weights, x, dtype)
+    wts, rm, cm = _gene_rows(weights, x, dtype, weight_threshold)
 
     def lp_fn(la, idx):
         return log_posterior(la, y[idx], mu[idx], x, prior_mean[idx],
                              prior_var, use_prior, _take(wts, idx),
-                             _take(rm, idx), _take(cm, idx))
+                             _take(rm, idx), _take(cm, idx), use_cr)
 
     def dlp_fn(la, idx):
         return dlog_posterior(la, y[idx], mu[idx], x, prior_mean[idx],
                               prior_var, use_prior, _take(wts, idx),
-                              _take(rm, idx), _take(cm, idx))
+                              _take(rm, idx), _take(cm, idx), use_cr)
 
     every = torch.arange(G, device=dev)
     lp0 = lp_fn(a, every)
@@ -210,7 +219,8 @@ def grid_fractions(n, dtype, device):
 
 
 def fit_disp_grid_plain(y, x, mu, disp_grid, prior_mean, prior_var,
-                        use_prior=False, weights=None):
+                        use_prior=False, weights=None, use_cr=True,
+                        weight_threshold=CR_WEIGHT_THRESHOLD):
     """Two-stage grid search over log alpha (cpp:468-513): the shared
     coarse grid, then n points spanning the gene's argmax +- one coarse
     step; the first maximum wins.  Returns (G,) log alpha."""
@@ -222,7 +232,7 @@ def fit_disp_grid_plain(y, x, mu, disp_grid, prior_mean, prior_var,
     prior_mean = prior_mean.to(dtype)
     n = disp_grid.shape[0]
     delta = disp_grid[1] - disp_grid[0]
-    wts, rm, cm = _gene_rows(weights, x, dtype)
+    wts, rm, cm = _gene_rows(weights, x, dtype, weight_threshold)
 
     def argmax_over(points):
         best_lp = torch.full((G,), float("-inf"), dtype=dtype,
@@ -230,7 +240,7 @@ def fit_disp_grid_plain(y, x, mu, disp_grid, prior_mean, prior_var,
         best_a = torch.zeros(G, dtype=dtype, device=mu.device)
         for a_row in points:
             lp = log_posterior(a_row, y, mu, x, prior_mean, prior_var,
-                               use_prior, wts, rm, cm)
+                               use_prior, wts, rm, cm, use_cr)
             better = lp > best_lp
             best_lp = torch.where(better, lp, best_lp)
             best_a = torch.where(better, a_row, best_a)

@@ -1,5 +1,6 @@
-"""Compare the machine code (SASS) of the kernels' unweighted
-instantiations between two checkouts of the repository:
+"""Compare the machine code (SASS) of the kernels' default
+instantiations, unweighted and weighted, between two checkouts of the
+repository:
 
     python -m deseq2_tpu_torch.ops.sass_compare OLD_ROOT NEW_ROOT [KERNEL ...]
 
@@ -9,8 +10,10 @@ with ops/build.py's nvcc flags (one nvcc per source, all started together)
 into NEW_ROOT/build/sass/, and disassembled with cuobjdump.  For every
 kernel, dtype and design width p it prints both instruction counts and
 whether the instructions (addresses and encodings stripped) are the same.
-A kernel template with a `bool UseW` parameter is matched by its `false`
-instantiation, one without it by itself.  Needs the CUDA toolkit (nvcc,
+Each kernel template's `bool UseW` parameter is matched by its `false`
+(unweighted) and `true` (weighted) instantiations, and a trailing `bool
+UseCR` parameter (K2, K3) by its `true` instantiation, the default
+mode.  Needs the CUDA toolkit (nvcc,
 cuobjdump), not a card.
 """
 
@@ -62,10 +65,11 @@ def functions(cubin):
     return out
 
 
-def _pick(funcs, sym, t, p):
-    """The unweighted <t, p> instantiation of kernel `sym`, or None."""
+def _pick(funcs, sym, t, p, w=0):
+    """The <t, p> instantiation of kernel `sym` in its default mode,
+    unweighted (w=0) or weighted (w=1), or None."""
     hits = [n for n in funcs
-            if re.search(rf"{sym}I{t}Li{p}E(Lb0E)?E", n)]
+            if re.search(rf"{sym}I{t}Li{p}ELb{w}E(Lb1E)?E", n)]
     return funcs[hits[0]] if len(hits) == 1 else None
 
 
@@ -82,20 +86,21 @@ def compare(old_root, new_root, kernels=KERNELS):
                     for tag in ("old", "new"))
         for t, dname in (("f", "float"), ("d", "double")):
             for p in range(1, 9):
-                a, b = (_pick(f, SYMBOL[k], t, p) for f in (old, new))
-                if a is None or b is None:
-                    print(f"{k} <{dname},{p}>: not found")
-                    differ += 1
-                    continue
-                same = a == b
-                differ += not same
-                match = sum(m.size for m in difflib.SequenceMatcher(
-                    None, a, b, autojunk=False).get_matching_blocks())
-                print(f"{k} <{dname},{p}> unweighted: {len(a)} / {len(b)} "
-                      f"instructions, identical={same}, in order {match}")
+                for w, wname in ((0, "unweighted"), (1, "weighted")):
+                    a, b = (_pick(f, SYMBOL[k], t, p, w) for f in (old, new))
+                    if a is None or b is None:
+                        print(f"{k} <{dname},{p}> {wname}: not found")
+                        differ += 1
+                        continue
+                    same = a == b
+                    differ += not same
+                    match = sum(m.size for m in difflib.SequenceMatcher(
+                        None, a, b, autojunk=False).get_matching_blocks())
+                    print(f"{k} <{dname},{p}> {wname}: {len(a)} / {len(b)} "
+                          f"instructions, identical={same}, in order {match}")
     return differ
 
 
 if __name__ == "__main__":
     n = compare(sys.argv[1], sys.argv[2], tuple(sys.argv[3:]) or KERNELS)
-    print(f"{n} unweighted instantiation(s) differ")
+    print(f"{n} default instantiation(s) differ")

@@ -7,6 +7,7 @@ ROADMAP.md:
     python -m deseq2_tpu_torch.ops.studies edges [N_PERM]
     python -m deseq2_tpu_torch.ops.studies expanded
     python -m deseq2_tpu_torch.ops.studies mainpath PARENT_ROOT [CALLS]
+    python -m deseq2_tpu_torch.ops.studies wide [REPS]
 
 `eigvalsh`: the largest batch of symmetric n x n matrices that
 torch.linalg.eigvalsh takes on the card, per dtype and n, found by
@@ -62,6 +63,16 @@ saved once to build/), in fresh processes alternating between PARENT_ROOT
 and this checkout (parent, change, change, parent): each turn makes a
 cold call, then CALLS warm calls (default 5), and the study prints every
 warm call's genes/s and each checkout's median.
+
+`wide`: K1 at p = 10, 60,000 x 1,024 (checks.solver_inputs), float64 and
+float32: the plain version on the card, the wrapper's route (the P = 16
+library, ops/cuda_irls.py), and study builds of csrc/irls.cu with one more
+width (-DDK_WIDE_P=10: the exact width; -DDK_WIDE_P=16: a width that serves p =
+9..16, the design padded with zero columns under the same ridge, which
+leaves the first p coefficients' arithmetic as it is): each build's
+registers and spills, each route's median of REPS launches (default 3)
+after a warm-up, and each build's largest beta difference from the plain
+route on the genes both take as converged.
 """
 
 from __future__ import annotations
@@ -484,6 +495,91 @@ def kernels_study(dev, parent_root, reps):
               f"{same}")
 
 
+def wide_study(dev, reps):
+    """The p > 8 route against study builds of K1 with a wider P."""
+    import ctypes
+
+    from . import build
+    from .cuda_irls import fit_beta
+    from .irls import fit_beta_plain
+
+    G, S, p = 60000, 1024, 10
+    raw = checks.solver_inputs(G, S, p, 11)
+
+    def median_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            ts.append(a.elapsed_time(b))
+        return sorted(ts)[len(ts) // 2]
+
+    for dname in ("float64", "float32"):
+        dt = getattr(torch, dname)
+        d = checks.as_tensors(raw, dt, dev)
+        args = (d["y"], d["x"], torch.ones(S, dtype=dt, device=dev),
+                d["alpha"], d["b0"], checks.ridge_for(p, dt, dev))
+        ref = fit_beta_plain(*args)
+        ms = median_ms(lambda: fit_beta_plain(*args))
+        print(f"{dname} p={p} plain version on the card: {ms:.2f} ms",
+              flush=True)
+        n0 = fit_beta.launches_wide
+        ms_w = median_ms(lambda: fit_beta(*args))
+        print(f"{dname} p={p} the wrapper's route: {ms_w:.2f} ms, "
+              f"launches_wide +{fit_beta.launches_wide - n0}", flush=True)
+        for P in (10, 16):
+            defines = (f"-DDK_WIDE_P={P}",)
+            lib = build.load("irls", defines)
+            res = {k: v for k, v in build.ptxas_resources(
+                "irls", defines).items() if f"Li{P}E" in k}
+            f64 = dname == "float64"
+            scal = ctypes.c_double if f64 else ctypes.c_float
+            fn = build.bind(lib, "irls_launch_f64" if f64 else
+                            "irls_launch_f32",
+                            [ctypes.c_void_p] * 2 + [ctypes.c_longlong]
+                            + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                            + [scal, ctypes.c_int, scal]
+                            + [ctypes.c_void_p] * 8)
+            pad = P - p
+            x = torch.cat([d["x"], torch.zeros(S, pad, dtype=dt,
+                                                device=dev)], 1).contiguous()
+            b0 = torch.cat([d["b0"], torch.zeros(G, pad, dtype=dt,
+                                                 device=dev)], 1).contiguous()
+            ridge = checks.ridge_for(P, dt, dev)
+            y, nf, al = args[0].contiguous(), args[2], args[3].contiguous()
+            out = dict(beta=torch.empty(G, P, dtype=dt, device=dev),
+                       beta_var=torch.empty(G, P, dtype=dt, device=dev),
+                       deviance=torch.empty(G, dtype=dt, device=dev),
+                       iter=torch.empty(G, dtype=torch.int32, device=dev),
+                       mu=torch.empty(G, S, dtype=dt, device=dev),
+                       hat=torch.empty(G, S, dtype=dt, device=dev))
+
+            def launch():
+                counter = torch.zeros(1, dtype=torch.int32, device=dev)
+                err = fn(build.ptr(y), build.ptr(nf), 0, build.ptr(None),
+                         build.ptr(al), build.ptr(b0), build.ptr(ridge),
+                         build.ptr(x), G, S, P, 1e-8, 100, 0.5,
+                         *(build.ptr(out[k]) for k in (
+                             "beta", "beta_var", "deviance", "iter", "mu",
+                             "hat")),
+                         build.ptr(counter), build.stream_of(y))
+                build.check(err, "irls (study build)")
+
+            ms_p = median_ms(launch)
+            conv = (out["iter"] < 100) & (ref["iter"] < 100)
+            diff = (out["beta"][:, :p] - ref["beta"]).abs()[conv].max()
+            print(f"{dname} p={p} K1 built with P={P}: {ms_p:.2f} ms, "
+                  f"registers/spill bytes {res}, converged "
+                  f"{int(conv.sum())}/{G}, max |beta - plain| "
+                  f"{diff.item():.3g}", flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1] in ("edges", "expanded"):
         any_dev = (torch.device("cuda", 0) if torch.cuda.is_available()
@@ -503,6 +599,8 @@ if __name__ == "__main__":
     elif sys.argv[1] == "mainpath":
         mainpath_study(Path(sys.argv[2]).resolve(),
                        int(sys.argv[3]) if len(sys.argv) > 3 else 5)
+    elif sys.argv[1] == "wide":
+        wide_study(dev, int(sys.argv[2]) if len(sys.argv) > 2 else 3)
     elif sys.argv[1] == "kernels":
         kernels_study(dev, Path(sys.argv[2]).resolve(),
                       int(sys.argv[3]) if len(sys.argv) > 3 else 7)

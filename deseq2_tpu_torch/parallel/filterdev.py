@@ -25,15 +25,19 @@ def quantile_type7(sorted_v, q):
 
 
 def theta_grid_dev(filter_stat, n_theta=50):
-    """Default theta grid (reference R/results.R:645-649)."""
+    """Default theta grid (reference R/results.R:645-649): R's
+    seq(lower, upper, length.out=n), lower + i * by with the last point
+    set to upper, in float64 (so bit-equal to the host flow's np.linspace),
+    then in filter_stat's dtype."""
     G = filter_stat.shape[0]
-    dtype = filter_stat.dtype
-    lower = (filter_stat == 0).to(dtype).sum() / G
+    lower = (filter_stat == 0).to(torch.float64).sum() / G
     upper = torch.where(lower < 0.95, torch.full_like(lower, 0.95),
                         torch.ones_like(lower))
-    t = torch.arange(n_theta, dtype=dtype,
-                     device=filter_stat.device) / (n_theta - 1)
-    return lower + (upper - lower) * t
+    by = (upper - lower) / (n_theta - 1)
+    t = lower + torch.arange(n_theta, dtype=torch.float64,
+                             device=filter_stat.device) * by
+    t[-1] = upper
+    return t.to(filter_stat.dtype)
 
 
 def _rev_cummin(v):

@@ -4,9 +4,10 @@ LRT, plus the results tail (Cook's distances, count-outlier replacement and
 refit, Cook's p-value masking, filtered BH).
 
 The per-gene solvers go through the kernel wrappers (ops/cuda_*.py): on a
-CUDA device the hand-written kernels K1-K3, on the CPU their plain
-versions.  The cross-gene reductions (trend fits, MAD, prior variance, BH
-and the filtering quantiles) are ordinary tensor reductions.  Every gene
+CUDA device the hand-written kernels K1-K3 (past 8 columns K1's P = 16
+build and the plain K2/K3 on the card), on the CPU their plain versions.
+The cross-gene reductions (trend fits, MAD, prior variance, BH and the
+filtering quantiles) are ordinary tensor reductions.  Every gene
 is independent, so the grid fallback and the outlier refit run on the
 selected rows only (gathered with torch.nonzero), which equals running
 them on every row and keeping the selected ones.
@@ -45,7 +46,6 @@ from .filterdev import bh_adjust, filtered_bh_dev, theta_grid_dev
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 
-ROADMAP_HOST = "ROADMAP.md queue 1, item 7 (host-exact orchestration)"
 ROADMAP_MESH = "ROADMAP.md queue 1, item 11 (multi-GPU)"
 
 
@@ -1045,7 +1045,7 @@ def reduced_args(reduced):
 EIGH_CHUNK = 2048
 
 
-def weights_ok_dev(w, x):
+def weights_ok_dev(w, x, threshold=CR_WEIGHT_THRESHOLD):
     """Per-gene estimability tests of getAndCheckWeights
     (R/core.R:2697-2752) on w's device: full rank of X'W^2X and of the
     gram of the rows with weight above the Cox-Reid threshold (dropped
@@ -1067,7 +1067,7 @@ def weights_ok_dev(w, x):
 
     xx = (x[:, :, None] * x[:, None, :]).reshape(x.shape[0], m * m)
     gram1 = ((wn * wn) @ xx).reshape(-1, m, m)
-    sub = (wn > CR_WEIGHT_THRESHOLD).double()
+    sub = (wn > threshold).double()
     cm = ((sub @ x.abs()) > 0.0).double()
     gram2 = (sub @ xx).reshape(-1, m, m)
     gram2 = gram2 * (cm[:, :, None] * cm[:, None, :]) \
@@ -1078,11 +1078,12 @@ def weights_ok_dev(w, x):
         bool(neg.any()), bool(nopos.any())
 
 
-def validated_weights(weights, x_np, device, dtype):
+def validated_weights(weights, x_np, device, dtype, refuse=True):
     """Upload the raw observation weights to `device` in `dtype` and
     validate them there (getAndCheckWeights' rank tests).  Rows that fail
-    raise ValueError: the host path's weightsFail/allZero bookkeeping is
-    not ported."""
+    raise ValueError (the fused pipeline does not do the weightsFail/
+    allZero bookkeeping), or with refuse=False give None: deseq() then
+    runs the host engine, which does."""
     w = torch.as_tensor(np.asarray(weights)).to(device=device, dtype=dtype)
     x = torch.as_tensor(np.asarray(x_np, np.float64), device=device)
     ok, neg, nopos = weights_ok_dev(w, x)
@@ -1092,12 +1093,14 @@ def validated_weights(weights, x_np, device, dtype):
         raise ValueError("each gene needs at least one positive weight")
     bad = ~ok.cpu().numpy()
     if bad.any():
+        if not refuse:
+            return None
         raise ValueError(
             f"{int(bad.sum())} row(s) have weights that do not allow "
             "parameter estimation (rank-deficient weighted design); the "
-            "fused path refuses them, and the host path that flags such "
-            "rows weightsFail/allZero is not ported yet: see "
-            f"{ROADMAP_HOST} (first rows: {np.where(bad)[0][:5].tolist()})")
+            "fused pipeline refuses them, and deseq() runs such rows on "
+            "its host engine with the weightsFail/allZero bookkeeping "
+            f"(first rows: {np.where(bad)[0][:5].tolist()})")
     return w
 
 

@@ -10,8 +10,10 @@ package's shrink.py.  Every arm runs on the device the fit ran on (the
   expanded design through K1 (ops/cuda_irls.py) on the original counts at
   the stored dispersions, and the contrast sandwich.  The cases the JAX
   package sends to its host Wald test (coef mode, weights, numeric or
-  list contrasts, lfc_threshold > 0, a user model matrix) raise
-  NotImplementedError naming ROADMAP.md item 7;
+  list contrasts, lfc_threshold > 0, a user model matrix, a prior that
+  does not cover the expanded columns) run the host engine's
+  nbinom_wald_test(beta_prior=True) (wald.py) on the fit's device, then
+  results();
 - type="apeglm": a heavy-tailed (Cauchy) prior on the coefficient of
   interest, its scale from the MLEs, posterior mode and SD by a damped
   Newton in float64 on the device; genes still iterating are gathered
@@ -75,7 +77,8 @@ def lfc_shrink(dds, coef=None, contrast=None, res=None, type="apeglm",
         raise ValueError("lfc_shrink requires standard errors")
 
     if type == "normal":
-        return _shrink_normal(dds, coef, contrast, res, lfc_threshold)
+        return _shrink_normal(dds, coef, contrast, res, coef_alpha,
+                              lfc_threshold)
     if type == "apeglm":
         if contrast is not None:
             raise ValueError("type='apeglm' shrinkage only for use with "
@@ -91,12 +94,10 @@ def lfc_shrink(dds, coef=None, contrast=None, res=None, type="apeglm",
 # normal
 # ---------------------------------------------------------------------------
 
-def _shrink_normal(dds, coef, contrast, res, lfc_threshold):
-    """(reference R/lfcShrink.R:221-327): the device arm, or a
-    NotImplementedError naming the host path for the cases the JAX package
-    sends there."""
-    from .parallel.fused import ROADMAP_HOST, not_ported
-
+def _shrink_normal(dds, coef, contrast, res, coef_alpha, lfc_threshold):
+    """(reference R/lfcShrink.R:221-327): the device arm, or the host Wald
+    test for the cases the JAX package sends there
+    (deseq2_tpu/shrink.py:93-160)."""
     if coef is None and contrast is None:
         raise ValueError("type='normal' requires either 'coef' or "
                          "'contrast'")
@@ -104,15 +105,66 @@ def _shrink_normal(dds, coef, contrast, res, lfc_threshold):
         if any(o > 1 for o in dds.design.term_orders):
             raise ValueError("LFC shrinkage type='normal' not implemented "
                              "for designs with interactions")
-    reason = _normal_host_reason(dds, contrast, lfc_threshold)
-    if reason is not None:
-        raise not_ported(f"lfc_shrink(type='normal') with {reason}",
-                         ROADMAP_HOST)
     if not any("log2 fold change (MLE)" in d
                for _, d in dds.row_meta.values()):
         raise ValueError("lfc_shrink type='normal' requires MLE "
                          "coefficients from deseq(beta_prior=False)")
-    return _shrink_normal_fused(dds, contrast, res, lfc_threshold)
+    if _normal_host_reason(dds, contrast, lfc_threshold) is None:
+        out = _shrink_normal_fused(dds, contrast, res, lfc_threshold)
+        if out is not None:
+            return out
+    return _shrink_normal_host(dds, contrast, res, coef_alpha,
+                               lfc_threshold)
+
+
+def _shrink_normal_host(dds, contrast, res, coef_alpha, lfc_threshold):
+    """The JAX package's host arm: the prior variance from the stored
+    MLEs, the host engine's nbinom_wald_test(beta_prior=True) on the
+    standard (coef mode) or expanded (contrast mode) matrix, on the fit's
+    device, then results() of the shrunken fit."""
+    from .engine import fit_device
+    from .wald import estimate_beta_prior_var, nbinom_wald_test
+
+    dds = dds.copy()
+    model_matrix_type = "standard" if contrast is None else "expanded"
+    dds.attrs["modelMatrixType"] = model_matrix_type
+    # rename the MLE coefficient columns (description "log2 fold change
+    # (MLE)") to MLE_* for estimate_beta_prior_var, as the reference does
+    # (R/lfcShrink.R:264-269)
+    beta_cols = [n for n, (t, d) in dds.row_meta.items()
+                 if "log2 fold change (MLE)" in d]
+    if not any(n.startswith("MLE_") for n in beta_cols):
+        for n in beta_cols:
+            dds.row_data[f"MLE_{n}"] = dds.row_data.pop(n)
+            dds.row_meta[f"MLE_{n}"] = dds.row_meta.pop(n)
+    nz = ~np.asarray(dds.row_data["allZero"], bool)
+    obj_nz = dds.copy(share_counts=True)
+    obj_nz.assays = {}
+    obj_nz.row_data = {k: np.asarray(v)[nz]
+                       for k, v in obj_nz.row_data.items()}
+    beta_prior_var, _ = estimate_beta_prior_var(obj_nz)
+    dds_shr = nbinom_wald_test(dds, beta_prior=True,
+                               beta_prior_var=beta_prior_var,
+                               model_matrix_type=model_matrix_type,
+                               quiet=True, device=fit_device(dds))
+    if contrast is None:
+        res_shr = results(dds_shr, name=coef_alpha,
+                          lfc_threshold=lfc_threshold)
+    else:
+        res_shr = results(dds_shr, contrast=contrast,
+                          lfc_threshold=lfc_threshold)
+    out = DESeqResults(base_mean=res.base_mean,
+                       log2_fold_change=res_shr.log2_fold_change,
+                       lfc_se=res_shr.lfc_se,
+                       stat=(res_shr.stat if lfc_threshold > 0 else res.stat),
+                       pvalue=(res_shr.pvalue if lfc_threshold > 0
+                               else res.pvalue),
+                       padj=(res_shr.padj if lfc_threshold > 0 else res.padj),
+                       row_names=res.row_names)
+    out.metadata["lfcThreshold"] = lfc_threshold
+    out.prior_info = dict(type="normal", package="deseq2_tpu",
+                          betaPriorVar=beta_prior_var)
+    return out
 
 
 def _normal_host_reason(dds, contrast, lfc_threshold):
@@ -145,12 +197,13 @@ def _shrink_normal_fused(dds, contrast, res, lfc_threshold):
     the contrast sandwich at its final mu (float64), then the zero-zero
     and replaced-row rules.  Where the JAX package falls back to its host
     path (a prior that does not cover the expanded columns, a level the
-    expanded names lack) this raises NotImplementedError."""
+    expanded names lack) this returns None, and the caller runs the host
+    arm."""
     from .engine import device_counts, fit_device, resolve_dtype
     from .expanded import make_expanded_model_matrix
     from .formula import make_names
     from .ops.cuda_irls import fit_beta
-    from .parallel.fused import ROADMAP_HOST, contrast_sandwich, not_ported
+    from .parallel.fused import contrast_sandwich
     from .wald import estimate_beta_prior_var
 
     factor_name, num_level, den_level = contrast
@@ -178,8 +231,7 @@ def _shrink_normal_fused(dds, contrast, res, lfc_threshold):
     den_col = make_names([f"{factor_name}{den_level}"])[0]
     if len(prior_var) != x_e.shape[1] or np.any(prior_var == 0) \
             or num_col not in names_e or den_col not in names_e:
-        raise not_ported("lfc_shrink(type='normal') with this contrast "
-                         "(its expanded prior refit)", ROADMAP_HOST)
+        return None
     cvec = np.zeros(len(names_e))
     cvec[names_e.index(num_col)] = 1.0
     cvec[names_e.index(den_col)] = -1.0

@@ -13,7 +13,10 @@ p >= 2).  Every kernel also runs at checks.EDGES (sample counts where a
 warp's lanes wrap, p = 5 and 8), where the float32 readings that rounding
 alone fails (checks.ROUNDING_BOUND) hold K1 to the float64 fit and leave
 K2's and K3's out, and twice on the same inputs, where its outputs must be
-the same bit for bit.
+the same bit for bit.  K2 and K3 also run in their other modes (without
+the Cox-Reid term; the weighted row cut at 0.5), the wrappers' p > 8
+route is held to the CPU, and the host engine's deseq(engine="host") on
+the card to the same call with device="cpu".
 """
 
 import numpy as np
@@ -175,14 +178,159 @@ def test_kernels_repeatable(cuda, dt, weighted):
 
 
 def test_wrapper_refuses_unsupported(cuda):
+    """A dtype the kernels do not take raises; a design wider than 8
+    columns is no longer refused: K2 takes the p > 8 route (the plain
+    version on the card, counted in launches_plain)."""
     d = _inputs(8, 24, 2, 0, torch.float32, cuda)
     with pytest.raises(TypeError):
         fit_disp_grid(d["y"].half(), d["x"].half(), d["mu"].half(),
                       d["grid"].half(), d["pm"].half(), 1.0)
     x9 = torch.ones(24, 9, device=cuda)
-    with pytest.raises(ValueError):
-        fit_disp_line_search(d["y"], x9, d["mu"], d["la0"], d["pm"], 1.0,
-                             MIN_LA)
+    n0 = fit_disp_line_search.launches_plain
+    out = fit_disp_line_search(d["y"], x9, d["mu"], d["la0"], d["pm"], 1.0,
+                               MIN_LA)
+    assert out["log_alpha"].is_cuda
+    assert fit_disp_line_search.launches_plain == n0 + 1
+
+
+# K2's and K3's other modes (checks.MODES): without the Cox-Reid term,
+# unweighted and weighted, and the weighted Cox-Reid row cut at 0.5
+MODE_CASES = [(m, c, u) for m, wt in (("nocr", False), ("nocr", True),
+                                      ("thr", True))
+              for c in CASES + EDGE_CASES if c[4] == wt
+              for u in (False, True)]
+MODE_COUNTER = {("nocr", False): "launches_nocr",
+                ("nocr", True): "launches_weighted_nocr",
+                ("thr", True): "launches_threshold"}
+
+
+@pytest.mark.parametrize("mode,case,use_prior", MODE_CASES,
+                         ids=[f"{m}-{u}-{_id(c)}" for m, c, u in MODE_CASES])
+def test_kernel_modes_match_plain(cuda, mode, case, use_prior):
+    """K2 and K3 without the Cox-Reid term and at the 0.5 weight threshold
+    against their plain versions in the same mode (phase 3's readings and
+    limits), each launch counted in its mode's counter."""
+    dt, p, S, G, wt = case
+    d = checks.with_mode(_inputs(G, S, p, 10 * p + S + 7, dt, cuda, wt),
+                         mode)
+    counter = MODE_COUNTER[(mode, wt)]
+    n2 = getattr(fit_disp_line_search, counter)
+    n3 = getattr(fit_disp_grid, counter)
+    k2 = checks.run_ls(fit_disp_line_search, d, use_prior)
+    k3 = checks.run_grid(fit_disp_grid, d, use_prior)
+    torch.cuda.synchronize()
+    assert getattr(fit_disp_line_search, counter) == n2 + 1
+    assert getattr(fit_disp_grid, counter) == n3 + 1
+    f32 = dt == torch.float32
+    r2 = checks.check_ls(
+        k2, checks.run_ls(disp.fit_disp_line_search_plain, d, use_prior), d,
+        use_prior, ref=checks.line_search_reference(d, use_prior)
+        if f32 else None)
+    r3 = checks.check_grid(
+        k3, checks.run_grid(disp.fit_disp_grid_plain, d, use_prior), d,
+        use_prior, ref=checks.grid_reference(d, use_prior) if f32 else None)
+    assert r2["ok"], r2
+    assert r3["ok"], r3
+
+
+@pytest.mark.parametrize("p", [10, 16, 17])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_wide_route_on_card_matches_cpu(cuda, weighted, p):
+    """Past p = 8 each wrapper takes its route by p: K1 the P = 16 kernel
+    on the zero-padded design for p <= 16 (launches_wide) and the plain
+    version on the card past 16 (launches_plain); K2 and K3 the plain
+    version on the card (launches_plain).  Each gives the CPU's result:
+    the same deviance and log alpha, and the same betas off the first ten
+    genes, whose weights put 1e-3 on half the samples (checks.
+    solver_inputs): their wide weighted designs are ill-conditioned
+    enough that the card's and the CPU's rounding moves a beta by ~4e-6
+    relative, and the deviance by ~1.3e-8 relative."""
+    raw = checks.solver_inputs(64, 40, p, 5, weighted=weighted)
+    card = checks.as_tensors(raw, torch.float64, cuda)
+    cpu = checks.as_tensors(raw, torch.float64, torch.device("cpu"))
+    k1 = "launches_wide" if p <= 16 else "launches_plain"
+    before = [getattr(fit_beta, k1), fit_disp_line_search.launches_plain,
+              fit_disp_grid.launches_plain]
+    outs = [(checks.run_irls(fit_beta, card), checks.run_irls(fit_beta, cpu)),
+            (checks.run_ls(fit_disp_line_search, card, True),
+             checks.run_ls(fit_disp_line_search, cpu, True)),
+            ({"log_alpha": checks.run_grid(fit_disp_grid, card, True)},
+             {"log_alpha": checks.run_grid(fit_disp_grid, cpu, True)})]
+    torch.cuda.synchronize()
+    assert [getattr(fit_beta, k1), fit_disp_line_search.launches_plain,
+            fit_disp_grid.launches_plain] == [v + 1 for v in before]
+    well = slice(10 if weighted else 0, None)
+    for a, b in outs:
+        for key, rows, tol in (("beta", well, 1e-6), ("deviance", well, 1e-9),
+                               ("deviance", slice(None), 1e-7),
+                               ("log_alpha", slice(None), 1e-6)):
+            if key in a:
+                conv = slice(None)
+                if key != "log_alpha":
+                    both = (a["iter"].cpu() < 100) & (b["iter"] < 100)
+                    conv = both[rows]
+                torch.testing.assert_close(a[key][rows].cpu()[conv],
+                                           b[key][rows][conv], rtol=tol,
+                                           atol=1e-8, equal_nan=True)
+
+
+HOST_CASES = {
+    "default": dict(),
+    "no_cr_niter2": dict(config=dict(use_cr=False, niter_disp=2)),
+    "threshold": dict(config=dict(weight_threshold=0.5), weights=True),
+    "weights_fail": dict(weights="fail"),
+    "beta_prior_multi": dict(beta_prior=True, batch=True,
+                             sf_type="poscounts"),
+    "p10": dict(levels=10),
+}
+
+
+@pytest.mark.parametrize("case", sorted(HOST_CASES))
+def test_host_engine_on_card_matches_cpu(cuda, case):
+    """deseq(engine="host") + results() on the card in float64 against
+    device="cpu", for the engine's modes: the default, useCR = FALSE with
+    two gene-wise iterations, the weighted row cut at 0.5, weights that
+    fail the rank tests, betaPrior on ~ batch + condition with poscounts
+    size factors, and a 10-level factor (the p > 8 route)."""
+    import deseq2_tpu_torch as dt
+    kw = dict(HOST_CASES[case])
+    levels = kw.pop("levels", 2)
+    rng = np.random.default_rng(6)
+    m = 30 if levels > 2 else 12
+    dds = dt.make_example_dataset(n=300, m=m, beta_sd=1.0, seed=6)
+    if levels > 2:
+        dds.col_data["condition"] = dt.Factor(
+            np.array([f"L{j % levels}" for j in range(m)]),
+            levels=[f"L{j}" for j in range(levels)])
+    if kw.pop("batch", False):
+        dds.col_data["batch"] = dt.Factor(np.tile(["1", "2", "3"], 4),
+                                          levels=["1", "2", "3"])
+        dds.design = dt.parse_formula("~ batch + condition")
+    w = kw.pop("weights", None)
+    if w is not None:
+        wts = rng.uniform(0.2, 1.0, dds.counts.shape)
+        if w == "fail":
+            wts[[4, 90], 6:] = 0.0
+        dds.assays["weights"] = wts
+    if "config" in kw:
+        kw["config"] = dt.DESeqConfig(**kw["config"])
+    before = {f: dict(vars(f)) for f in (fit_beta, fit_disp_line_search)}
+    on_card = dt.deseq(dds, engine="host", **kw)
+    moved = [f.__name__ for f in before
+             if any(getattr(f, k) != v for k, v in before[f].items()
+                    if k.startswith("launches"))]
+    assert moved == ["fit_beta", "fit_disp_line_search"]
+    on_cpu = dt.deseq(dds, engine="host", device="cpu", **kw)
+    if w == "fail":
+        assert np.where(on_card.row_data["weightsFail"])[0].tolist() \
+            == [4, 90]
+    rc, rp = dt.results(on_card), dt.results(on_cpu)
+    for col in ("log2FoldChange", "lfcSE", "stat", "pvalue", "padj"):
+        a, b = np.asarray(rc[col]), np.asarray(rp[col])
+        assert np.array_equal(np.isnan(a), np.isnan(b)), col
+        mk = ~np.isnan(a)
+        np.testing.assert_allclose(a[mk], b[mk], rtol=1e-6, atol=1e-8,
+                                   err_msg=col)
 
 
 def test_weights_ok_dev_on_card_matches_cpu(cuda):

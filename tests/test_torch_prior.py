@@ -339,22 +339,6 @@ def test_beta_prior_reference_errors():
         assert str(et.value) == str(ej.value)
 
 
-def test_beta_prior_host_only_designs_raise():
-    """betaPrior configurations the JAX package sends to its host engine
-    raise NotImplementedError naming ROADMAP item 7: two factors, no
-    intercept, the standard model matrix."""
-    rng = np.random.default_rng(2)
-    counts = rng.poisson(30, (50, 12))
-    cd = {"batch": np.tile(["x", "y"], 6),
-          "condition": np.repeat(["A", "B"], 6)}
-    for design, kw in (("~ batch + condition", {}),
-                       ("~ 0 + condition", {}),
-                       ("~ condition", dict(model_matrix_type="standard"))):
-        dds = tdt.dataset_from_arrays(counts, cd, design)
-        with pytest.raises(NotImplementedError, match="item 7"):
-            tdt.deseq(dds, device="cpu", beta_prior=True, **kw)
-
-
 def test_float32_map_betas_follow_float64():
     """In float32 the expanded design's null direction n = (1, -1, -1, -1)
     is held only by the ridge, and rounding moves an IRLS fit along it by

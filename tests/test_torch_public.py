@@ -3,7 +3,8 @@ against the JAX package's fused_results on the same arrays, for the
 default Wald route and each variant (LRT, local and mean trends, use_t,
 observation weights, normalization factors, the parametric trend's
 fallback to the local one), and the refusals of what the port does not
-cover yet.
+cover yet (weights that fail the rank tests, once refused here, run the
+host engine: tests/test_torch_host.py).
 
 float64 on the CPU on both sides; tolerance rtol 1e-6, atol 1e-9 with
 equal NaN patterns, as in tests/test_fused_exact.py.
@@ -116,18 +117,14 @@ def test_deseq_without_card_raises(monkeypatch):
         tdt.deseq(_port_dataset(counts, labels))
 
 
-@pytest.mark.parametrize("kwargs", [dict(beta_prior=True,
-                                         model_matrix_type="standard"),
-                                    dict(engine="host"),
-                                    dict(fit_type="glmGamPoi"),
-                                    dict(sf_type="poscounts"),
+@pytest.mark.parametrize("kwargs", [dict(fit_type="glmGamPoi"),
                                     dict(mesh=object())])
 def test_unported_options_raise(kwargs):
-    """What the port still refuses (the LRT, local trend and use_t cases
-    that stood here run now: test_lrt_public, test_trend_fit_types_public,
-    test_use_t_public; betaPrior runs on a single-factor design with an
-    intercept, tests/test_torch_prior.py, and its standard-matrix form, which
-    the JAX package runs on its host path, is refused)."""
+    """What the port still refuses: glmGamPoi (ROADMAP item 8) and a device
+    mesh (item 11).  The LRT, local trend and use_t cases that stood here
+    run (test_lrt_public, test_trend_fit_types_public, test_use_t_public),
+    and so do engine="host", sf_type="poscounts" and betaPrior with the
+    standard matrix, on the host engine (tests/test_torch_host.py)."""
     counts, labels, _ = _arrays(n=50)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tdt.deseq(_port_dataset(counts, labels), device="cpu", **kwargs)
@@ -233,19 +230,6 @@ def test_weights_public():
     live = np.isfinite(df)
     _cmp(df[live], (wn.sum(axis=1) - 2)[live], "tDegreesFreedom",
          rtol=1e-12)
-
-
-def test_weights_raise():
-    """Weights that leave a gene's weighted design rank-deficient raise the
-    JAX package's ValueError, naming the host path's weightsFail
-    bookkeeping (not ported) and its ROADMAP.md item."""
-    counts, labels, _ = _arrays(n=50)
-    dds = _port_dataset(counts, labels)
-    w = np.ones(counts.shape)
-    w[3, 6:] = 0.0
-    dds.assays["weights"] = w
-    with pytest.raises(ValueError, match="weightsFail.*ROADMAP.md"):
-        tdt.deseq(dds, device="cpu")
 
 
 def test_norm_factors_public():

@@ -3,9 +3,9 @@ fits: type="apeglm" (coef by name and 1-based, svalue, lfc_threshold),
 type="ashr", type="normal" through its device arm (without and with
 replaced rows; the JAX side forced onto its device arm with
 DESEQ2_TPU_ENGINE=fused, as tests/test_shrink.py does), the argument errors
-of tests/test_shrink.py, and the normal-shrink cases the JAX package sends
-to its host Wald test, which raise NotImplementedError naming ROADMAP.md
-item 7.
+of tests/test_shrink.py.  The normal-shrink cases the JAX package sends
+to its host Wald test run the port's host engine
+(tests/test_torch_host.py:test_normal_host_cases_match_jax).
 
 float64 on the CPU on both sides; tolerance rtol 1e-6, atol 1e-9 with equal
 NaN patterns, as in tests/test_fused_exact.py.
@@ -193,22 +193,3 @@ def test_beta_prior_fit_and_missing_se_raise():
     assert str(et.value) == str(ej.value)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(coef="condition_B_vs_A"),
-    dict(contrast=np.array([0.0, 1.0])),
-    dict(contrast=[["condition_B_vs_A"], []]),
-    dict(contrast=("condition", "B", "A"), lfc_threshold=0.5),
-    dict(contrast=("condition", "B", "A"), weights=True),
-], ids=["coef", "numeric", "list", "threshold", "weights"])
-def test_normal_host_fallbacks_raise(fits, kw):
-    """The normal-shrinkage cases the JAX package runs on its host Wald test
-    (coef mode, numeric and list contrasts, lfc_threshold > 0, weights)
-    raise NotImplementedError naming ROADMAP.md item 7."""
-    _, tf = fits
-    kw = dict(kw)
-    if kw.pop("weights", False):
-        tf = tf.copy()
-        tf.assays["weights"] = np.ones(tf.counts.shape)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, "
-                                                  "item 7"):
-        tdt.lfc_shrink(tf, type="normal", **kw)
