@@ -81,6 +81,27 @@ Phases; any failure exits non-zero and no phase's failure is caught:
    shapes in float64 (rows of the JSON line), and the p > 8 route's K1
    timed at 60,000 x 1,024, p = 10.  Phase 3 also checks K2 and K3 in
    those modes against their plain versions, gated.
+9. the transforms at 60,000 x 1,024 on the main path's counts, each
+   public call warm (after a first call), timed once to its payload on the
+   card (counters zeroed just before it and read just after; peak device
+   memory) and once including DESeqTransform.matrix's download: vst
+   (blind, nsub = 1000), varianceStabilizingTransformation (blind;
+   parametric, mean, local), rlog (blind), normTransform, the parametric
+   VST and rlog with a float32 payload, the VST of a float32 deseq() fit
+   (blind=False; the fit made as phase 4 makes it), and plot_pca_data on
+   the VST payload without its download; a stage table of one more VST
+   and rlog call.  Fails unless every blind call
+   with a dispersion step launches K2 and no K1 (the gene-wise estimate
+   and the trend only); in float64 the full line search leaves no gene to
+   the grid at this width, so one more blind VST with maxit_disp = 10
+   must launch K3.  K2 and K3 at p = 1 are then held against their plain
+   versions on the inputs those calls handed them (recorded) and timed
+   beside them and their bound.  Gates on the 2,048 x 1,024 gate slice,
+   the transforms on the card against the port in float64 on the CPU
+   (limits ops/checks.py:TRANSFORM_TOL): float64 VST (three trends), vst
+   and normTransform within 1e-6, rlog within 1e-4; float32 payloads
+   within 0.01, and plot_pca_data's coordinates on the float32 VST within
+   0.01 of their largest value, up to each component's sign.
 
 Each phase prints its seconds.  The last two lines are the card's
 nvidia-smi line and the JSON result line.
@@ -173,17 +194,9 @@ def make_inputs(G, S, seed=0):
 
 
 def gate_inputs(g, s, seed=0):
-    rng = np.random.default_rng(seed)
-    s2 = s // 2
-    x = np.column_stack([np.ones(s), np.repeat([0.0, 1.0], [s2, s - s2])])
-    intercept = rng.normal(4.0, 2.0, g)
-    mu0 = 2.0 ** intercept
-    disp = 4.0 / mu0 + 0.1
-    lfc = np.where(rng.random(g) < 0.5, rng.normal(0.0, 1.0, g), 0.0)
-    mu = mu0[:, None] * 2.0 ** (lfc[:, None] * x[:, 1][None, :])
-    size = 1.0 / disp[:, None]
-    counts = rng.negative_binomial(size, size / (size + mu)).astype(np.int32)
-    return counts, x
+    """bench.py's _gate_inputs (deseq2_tpu_torch/ops/checks.py:gate_counts)."""
+    from deseq2_tpu_torch.ops import checks
+    return checks.gate_counts(g, s, seed)
 
 
 # ---------------------------------------------------------------------------
@@ -1546,6 +1559,246 @@ def wide_route_timing(torch, dev, launches, worst):
     return rows, other
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the transforms
+# ---------------------------------------------------------------------------
+
+def transform_dataset(counts, dtype_name="float64", **cfg):
+    """The main path's ~ condition dataset over `counts`, with
+    DESeqConfig(dtype=dtype_name, **cfg)."""
+    import deseq2_tpu_torch as dt
+    s = counts.shape[1]
+    return dt.dataset_from_matrix(
+        counts, {"condition": np.repeat(["A", "B"], [s // 2, s - s // 2])},
+        "~ condition", config=dt.DESeqConfig(dtype=dtype_name, **cfg))
+
+
+# the public transform calls of phase 9 and its gates: name -> (call on a
+# dataset and a device, blind: it runs the dispersion step)
+TRANSFORMS = {
+    "vst": (lambda dt, d, dev: dt.vst(d, nsub=1000, device=dev), True),
+    "VST parametric": (lambda dt, d, dev:
+                       dt.variance_stabilizing_transformation(
+                           d, device=dev), True),
+    "VST mean": (lambda dt, d, dev: dt.variance_stabilizing_transformation(
+        d, fit_type="mean", device=dev), True),
+    "VST local": (lambda dt, d, dev: dt.variance_stabilizing_transformation(
+        d, fit_type="local", device=dev), True),
+    "rlog": (lambda dt, d, dev: dt.rlog(d, device=dev), True),
+    "normTransform": (lambda dt, d, dev: dt.norm_transform(d, device=dev),
+                      False),
+}
+
+
+def _k_launches(launches):
+    """K1, K2 and K3 launches of a call, over every mode and route."""
+    return tuple(sum(v for k, v in launches.items() if k.startswith(pre))
+                 for pre in ("irls", "disp_ls", "disp_grid"))
+
+
+def transform_call(torch, name, fn, blind, g):
+    """One public transform call, warm (after a first call): timed to its
+    payload on the card with the counters zeroed just before and read just
+    after, the K2/K3 calls recorded and the peak device memory read; then
+    timed again including .matrix's download.  Fails if the output is
+    malformed or a blind call launched K1 or no K2."""
+    from deseq2_tpu_torch.ops import checks
+    fn()
+    torch.cuda.synchronize()
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with checks.recorded_disp_calls() as calls:
+        t = fn()
+        torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    launches = {k: v for k, v in read_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not torch.is_tensor(t.matrix_device) or not t.matrix_device.is_cuda:
+        raise SystemExit(f"transform {name}: the payload is not on the card")
+    dtype = str(t.matrix_device.dtype).replace("torch.", "")
+    del t
+    t0 = time.perf_counter()
+    m = fn().matrix
+    host_s = time.perf_counter() - t0
+    k1, k2, k3 = _k_launches(launches)
+    log(f"  {name}: {dev_s:.3f} s to the payload ({dtype}), {host_s:.3f} s "
+        f"with the download, peak device memory {peak:.2f} GiB, launches "
+        f"K1 {k1} K2 {k2} K3 {k3}, finite {np.isfinite(m).mean():.4f}")
+    if m.shape != (g, S_MAIN) or not np.isfinite(m).all():
+        raise SystemExit(f"transform {name}: output malformed")
+    if blind and (k1 or not k2):
+        raise SystemExit(f"blind transform {name} launched K1 {k1} and K2 "
+                         f"{k2} times: its dispersion step must run K2 and "
+                         f"no GLM fit")
+    return dict(device_s=dev_s, with_download_s=host_s, peak_gib=peak,
+                dtype=dtype, launches=launches), calls
+
+
+def transform_phase(torch):
+    """Phase 9's timed calls at 60,000 x 1,024 (module docstring); returns
+    the summary and the recorded K2 and K3 calls at p = 1."""
+    import deseq2_tpu_torch as dt
+    from deseq2_tpu_torch.plots import plot_pca_data
+    counts, _ = make_inputs(G_MAIN, S_MAIN)
+    out, rec = {}, {}
+    dds = transform_dataset(counts)
+    for name, (fn, blind) in TRANSFORMS.items():
+        out[name], calls = transform_call(
+            torch, name, functools.partial(fn, dt, dds, None), blind, G_MAIN)
+        if name == "VST parametric":
+            rec["ls"] = calls["ls"][0]
+        if calls["grid"]:
+            rec.setdefault("grid", (calls["grid"][0], name))
+    for name in ("VST parametric", "rlog"):
+        fn, blind = TRANSFORMS[name]
+        out[name + ", float32"], _ = transform_call(
+            torch, name + ", float32", functools.partial(
+                fn, dt, transform_dataset(counts, "float32"), None), blind,
+            G_MAIN)
+    if "grid" not in rec:
+        name = "VST parametric, maxit_disp = 10"
+        out[name], calls = transform_call(
+            torch, name, functools.partial(
+                TRANSFORMS["VST parametric"][0], dt,
+                transform_dataset(counts, maxit_disp=10), None), True,
+            G_MAIN)
+        if not calls["grid"]:
+            raise SystemExit("no transform call launched K3")
+        rec["grid"] = (calls["grid"][0], name)
+    from deseq2_tpu_torch import profiling
+    for name in ("VST parametric", "rlog"):
+        profiling.reset()
+        profiling.enable()
+        TRANSFORMS[name][0](dt, dds, None).matrix
+        profiling.disable()
+        log(f"  {name} stage timings (one more call, timers synchronize):")
+        for line in profiling.report().splitlines():
+            log(f"    {line}")
+    _, fit = public_run(torch, counts, "float32")
+    out["VST of a float32 fit, blind=False"], _ = transform_call(
+        torch, "VST of a float32 fit, blind=False",
+        lambda: dt.variance_stabilizing_transformation(fit, blind=False),
+        False, G_MAIN)
+    del fit
+    vsd = TRANSFORMS["VST parametric"][0](dt, dds, None)
+    plot_pca_data(vsd)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pca = plot_pca_data(vsd)
+    pca_s = time.perf_counter() - t0
+    if not torch.is_tensor(vsd.matrix_device) or pca["x"].shape != (S_MAIN,):
+        raise SystemExit("plot_pca_data downloaded the payload or failed")
+    out["plot_pca_data"] = dict(host_s=pca_s)
+    log(f"  plot_pca_data on the VST payload: {pca_s:.3f} s (the payload "
+        f"stays on the card; PC1 {pca['percent_var'][0]:.4f} of the "
+        f"variance)")
+    return out, rec
+
+
+def p1_timings(torch, rec, out):
+    """K2 and K3 at p = 1 in float64 on the inputs the transforms' blind
+    dispersion step handed them (recorded in phase 9): held against their
+    plain versions with phase 3's float64 readings, then timed beside them
+    and their bound.  `launches`: the recording call's count."""
+    from deseq2_tpu_torch.ops import checks, disp
+    from deseq2_tpu_torch.ops.cuda_grid import fit_disp_grid
+    from deseq2_tpu_torch.ops.cuda_ls import fit_disp_line_search
+    P, it, dname = 1, 8, "float64"
+    rows, failed = [], []
+    for kind, call, src_name in (("ls", rec["ls"], "VST parametric"),
+                                 ("grid",) + rec["grid"]):
+        a, kw = call
+        Gn, S = a[2].shape
+        if kind == "ls":
+            kern, plain = fit_disp_line_search, \
+                disp.fit_disp_line_search_plain
+            name, src, rep = ("disp_ls_p1_f64", "disp_ls.cu",
+                              "deseq2_tpu/ops/pallas_ls.py:409")
+        else:
+            kern, plain = fit_disp_grid, disp.fit_disp_grid_plain
+            name, src, rep = ("disp_grid_p1_f64", "disp_grid.cu",
+                              "deseq2_tpu/ops/pallas_disp.py:244")
+        k, pl = kern(*a, **kw), plain(*a, **kw)
+        d, use_prior, prior_var = checks.recorded_case(kind, call)
+        r = (checks.check_ls if kind == "ls" else checks.check_grid)(
+            k, pl, d, use_prior, prior_var=prior_var)
+        ms = time_ms(torch, lambda: kern(*a, **kw), 3)
+        pms = time_ms(torch, lambda: plain(*a, **kw), 1)
+        if kind == "ls":
+            evals = float((k["iter"].double() + 1).sum())
+            b, by = bound(it * (2 * Gn * S + S * P + 2 * Gn + 8 * Gn),
+                          evals * (S * ops_ls(P) + ops_ls_point(P)), dname)
+            note = f"{evals / Gn:.1f} line-search evaluations/gene"
+        else:
+            n_grid = a[3].numel()
+            b, by = bound(it * (2 * Gn * S + S * P + 2 * Gn + n_grid),
+                          2.0 * Gn * n_grid * (S * ops_grid(P)
+                                               + ops_grid_point(P)), dname)
+            note = f"{Gn} genes on the grid"
+        launches = _k_launches(out[src_name]["launches"])[
+            1 if kind == "ls" else 2]
+        log(f"  {name} ({src_name}'s call, {note}): {fmt(r)}; {ms:.3f} ms "
+            f"(plain {pms:.1f} ms, bound {b:.3f} ms by {by}), launches "
+            f"{launches}")
+        if not r["ok"]:
+            failed.append(name)
+        rows.append(dict(name=name, route="cuda",
+                         source=f"deseq2_tpu_torch/csrc/{src}", replaces=rep,
+                         launches=launches, max_abs_err=r["max_abs_err"],
+                         ms=ms, plain_ms=pms, bound_ms=b, bound_by=by,
+                         library_ms=None))
+    if failed:
+        raise SystemExit(f"p = 1 kernel checks failed: {failed}")
+    return rows
+
+
+def transform_gates(torch):
+    """Phase 9's gates on the 2,048 x 1,024 gate slice: each transform on
+    the card (float64, then a float32 payload) against the port in float64
+    on the CPU, limits ops/checks.py:TRANSFORM_TOL; and plot_pca_data's
+    coordinates on the float32 VST payload against those of the CPU's."""
+    import deseq2_tpu_torch as dt
+    from deseq2_tpu_torch.ops import checks
+    from deseq2_tpu_torch.plots import plot_pca_data
+    sub, _ = gate_inputs(G_GATE, S_MAIN)
+    t0 = time.perf_counter()
+    cpu = {name: fn(dt, transform_dataset(sub), "cpu")
+           for name, (fn, _) in TRANSFORMS.items()}
+    log(f"  the transforms on the CPU: {time.perf_counter() - t0:.1f} s")
+    out, failed = {}, []
+    for dname in ("float64", "float32"):
+        for name, (fn, _) in TRANSFORMS.items():
+            card = fn(dt, transform_dataset(sub, dname), None)
+            err = float(np.max(np.abs(card.matrix - cpu[name].matrix)))
+            tol = checks.TRANSFORM_TOL[
+                "rlog_float64" if name == "rlog" and dname == "float64"
+                else dname]
+            out[f"{name}, {dname}"] = err
+            log(f"  {name} {dname} on the card vs float64 on the CPU: max "
+                f"|diff| {err:.3g} (limit {tol:g})")
+            if not err <= tol:
+                failed.append(f"{name} {dname}")
+    vsd32 = TRANSFORMS["VST parametric"][0](
+        dt, transform_dataset(sub, "float32"), None)
+    want = plot_pca_data(dt.DESeqTransform(
+        cpu["VST parametric"].matrix, vsd32.col_data, vsd32.row_names,
+        vsd32.col_names))
+    got = plot_pca_data(vsd32)
+    pca = max(min(np.max(np.abs(got[k] - want[k])),
+                  np.max(np.abs(got[k] + want[k]))) / np.max(np.abs(want[k]))
+              for k in ("x", "y"))
+    out["plot_pca_data, float32, relative"] = float(pca)
+    log(f"  plot_pca_data on the float32 VST payload vs the CPU's: largest "
+        f"coordinate difference up to sign {pca:.3g} of the largest "
+        f"coordinate (limit {checks.TRANSFORM_TOL['float32']:g})")
+    if not pca <= checks.TRANSFORM_TOL["float32"]:
+        failed.append("plot_pca_data float32")
+    if failed:
+        raise SystemExit(f"transform gates failed: {failed}")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1621,9 +1874,17 @@ def main():
     rows += wide_rows
     done("8")
 
+    phase("9", f"[9] transforms at {G_MAIN} x {S_MAIN}")
+    transform_out, rec = transform_phase(torch)
+    rows += p1_timings(torch, rec, transform_out)
+    del rec
+    transform_out["gates"] = transform_gates(torch)
+    done("9")
+
     log(json.dumps({"main_path": {k: v for k, v in main_out.items()},
                     "gate": gate, "variant_gates": gates,
                     "prior_phase": prior_out, "host_phase": host_out,
+                    "transform_phase": transform_out,
                     "kernel_resources": resources, "phase_seconds": seconds}))
     print(json.dumps({"kernels": rows}))
     print(smi_line())

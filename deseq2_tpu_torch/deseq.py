@@ -156,16 +156,18 @@ def deseq(dds, test="Wald", fit_type="parametric", sf_type="ratio",
 
 def _deseq_fused(dds, dev, dtype, sf_type, **kw):
     """The fused route; poscounts size factors are estimated first, as the
-    JAX package's deseq_fused does.  None when the weights fail the rank
-    tests (the host engine then runs)."""
+    JAX package's deseq_fused does, and so are a tximport dataset's
+    normalization factors (its avgTxLength assay, R/methods.R:383-391),
+    which the JAX package's fused route leaves out.  None when the weights
+    fail the rank tests (the host engine then runs)."""
     from .engine import deseq_fused
     from .sizefactors import estimate_size_factors
     # the fused route never mutates counts in place, so the copy aliases
     # the counts buffer
     with profiling.stage("deseq.copy"):
         dds = dds.copy(share_counts=True)
-    if sf_type == "poscounts" and dds.size_factors is None \
-            and dds.normalization_factors is None:
+    if dds.size_factors is None and dds.normalization_factors is None \
+            and (sf_type == "poscounts" or "avgTxLength" in dds.assays):
         with profiling.stage("estimateSizeFactors", genes=dds.n_genes):
             dds = estimate_size_factors(dds, type=sf_type, device=dev)
     with profiling.stage("deseqFused", genes=dds.n_genes):

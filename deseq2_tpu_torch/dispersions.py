@@ -308,46 +308,25 @@ def _gamma_deviance(y, mu):
     return 2.0 * np.sum((y - mu) / mu - np.log(y / mu))
 
 
-def local_dispersion_fit(means, disps, min_disp):
+def local_dispersion_fit(means, disps, min_disp, device="cpu"):
     """Local regression of log disp on log mean, weighted by mean
     (reference localDispersionFit, R/core.R:2194-2203, which uses locfit):
     tricube-weighted local quadratic regression (span 0.7) times the
-    reference's prior weights = means, as in the JAX package."""
+    reference's prior weights = means, as in the JAX package, whose
+    point-by-point numpy loop costs O(genes x fit points) on the host.
+    Here the fit points stay on `device` in float64 and every evaluation
+    runs the fused engine's estimator there (parallel/fused.py:
+    local_trend_eval, the same k nearest points and weights)."""
     if np.all(disps < min_disp * 10):
         return lambda m: np.full(np.shape(m), min_disp), None
-    sel = disps >= min_disp * 10
-    lx = np.log(means[sel])
-    ly = np.log(disps[sel])
-    pw = means[sel]  # prior weights, as in the reference call
-
-    order = np.argsort(lx)
-    lx_s, ly_s, pw_s = lx[order], ly[order], pw[order]
-
-    def fitted_at(x0):
-        x0 = np.atleast_1d(np.asarray(x0, dtype=np.float64))
-        out = np.empty(len(x0))
-        n = len(lx_s)
-        k = max(int(np.ceil(0.7 * n)), 3)
-        for i, xv in enumerate(x0):
-            d = np.abs(lx_s - xv)
-            idx = np.argpartition(d, min(k, n) - 1)[:k]
-            h = d[idx].max()
-            if h == 0:
-                h = 1.0
-            wloc = (1 - np.minimum(d[idx] / h, 1.0) ** 3) ** 3 * pw_s[idx]
-            X = np.column_stack([np.ones(k), lx_s[idx] - xv,
-                                 (lx_s[idx] - xv) ** 2])
-            XtW = X.T * wloc
-            try:
-                beta = np.linalg.solve(XtW @ X, XtW @ ly_s[idx])
-            except np.linalg.LinAlgError:
-                beta = [np.average(ly_s[idx], weights=wloc)]
-            out[i] = beta[0]
-        return out
+    from .parallel.fused import local_trend_eval, local_trend_state
+    ts = local_trend_state(as_t(means, device), as_t(disps, device),
+                           as_t(disps >= min_disp * 10, device, torch.bool))
 
     def fn(m):
         m = np.asarray(m, dtype=np.float64)
-        return np.exp(fitted_at(np.log(m)))
+        x0 = torch.log(as_t(m.reshape(-1), ts["lxs"].device))
+        return to_np(local_trend_eval(ts, x0)).reshape(m.shape)
 
     return fn, None
 
@@ -360,9 +339,10 @@ def estimate_dispersions_fit(dds, fit_type="parametric", min_disp=1e-8,
     from .dataset import DispersionFunction
     from .parallel.fused import not_ported
 
+    dev = resolve_device(device)
     dds = dds.copy()
     if "allZero" not in dds.row_data:
-        dds = get_base_means_and_variances(dds, device)
+        dds = get_base_means_and_variances(dds, dev)
     nz = ~dds.row_data["allZero"]
     gene_ests = dds.row_data["dispGeneEst"][nz]
     base_means = dds.row_data["baseMean"][nz]
@@ -389,7 +369,7 @@ def estimate_dispersions_fit(dds, fit_type="parametric", min_disp=1e-8,
             fit_type = "local"
     if fit_type == "local":
         fn, _ = local_dispersion_fit(base_means[use_for_fit],
-                                     gene_ests[use_for_fit], min_disp)
+                                     gene_ests[use_for_fit], min_disp, dev)
         disp_fn = DispersionFunction(fn, "local")
     elif fit_type == "mean":
         use_for_mean = gene_ests > 10 * min_disp

@@ -42,6 +42,8 @@ side; the limits leave a margin over both.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -156,6 +158,23 @@ def bench_counts(G, S, seed=0):
     return counts, x
 
 
+def gate_counts(G, S, seed=0):
+    """bench.py's gate generator (_gate_inputs): bench_counts' NB counts
+    with a log2 fold change N(0, 1) on half the genes between the two
+    halves of the samples; returns (counts (G,S) int32, the design)."""
+    rng = np.random.default_rng(seed)
+    s2 = S // 2
+    x = np.column_stack([np.ones(S), np.repeat([0.0, 1.0], [s2, S - s2])])
+    intercept = rng.normal(4.0, 2.0, G)
+    mu0 = 2.0 ** intercept
+    disp = 4.0 / mu0 + 0.1
+    lfc = np.where(rng.random(G) < 0.5, rng.normal(0.0, 1.0, G), 0.0)
+    mu = mu0[:, None] * 2.0 ** (lfc[:, None] * x[:, 1][None, :])
+    size = 1.0 / disp[:, None]
+    counts = rng.negative_binomial(size, size / (size + mu)).astype(np.int32)
+    return counts, x
+
+
 def variant_inputs(counts, seed=0):
     """The weights assay and the (G,S) normalization factors of the
     variant paths, from `seed`: weights uniform(0.3, 1) with 5% of the
@@ -216,6 +235,13 @@ def as_tensors(raw, dtype, device):
 def ridge_for(p, dtype, device):
     return torch.full((p,), 1e-6 / np.log(2.0) ** 2, dtype=dtype,
                       device=device)
+
+
+# the transforms' payload on the card against the port in float64 on the
+# CPU, max |difference| in log2 units: float64 VST, vst and normTransform
+# to rounding; float64 rlog to its IRLS's stopping rule (a relative
+# deviance change of 1e-4); a float32 payload to bench.py's |dLFC| limit
+TRANSFORM_TOL = {"float64": 1e-6, "rlog_float64": 1e-4, "float32": 0.01}
 
 
 # K2's and K3's modes besides the default (the Cox-Reid term at the 1e-2
@@ -491,3 +517,51 @@ def check_grid(k, pl, d, use_prior, prior_var=PRIOR_VAR, ref=None):
     r["ok"] = (r["short_kernel"] <= t["grid_short"] and n_sep > 0
                and r["sep_same_kernel"] >= t["grid_sep_same"])
     return r
+
+
+@contextlib.contextmanager
+def recorded_disp_calls():
+    """Within the block, every call of the K2 and K3 wrappers
+    (cuda_ls.fit_disp_line_search, cuda_grid.fit_disp_grid) is recorded as
+    (args, kwargs) in the yielded dict's "ls" and "grid" lists, then made
+    as usual: the wrapper itself runs, so its launch counts move as they
+    would without the recording."""
+    from . import cuda_grid, cuda_ls
+    calls = {"ls": [], "grid": []}
+    hooked = []
+
+    def hook(mod, name, key):
+        fn = getattr(mod, name)
+
+        def recorder(*a, **k):
+            calls[key].append((a, k))
+            setattr(mod, name, fn)      # the wrapper counts on its own name
+            try:
+                return fn(*a, **k)
+            finally:
+                setattr(mod, name, recorder)
+
+        setattr(mod, name, recorder)
+        hooked.append((mod, name, fn))
+
+    hook(cuda_ls, "fit_disp_line_search", "ls")
+    hook(cuda_grid, "fit_disp_grid", "grid")
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in hooked:
+            setattr(mod, name, fn)
+
+
+def recorded_case(kind, call):
+    """A recorded K2 ("ls") or K3 ("grid") call as the readings' inputs:
+    (d, use_prior, prior_var)."""
+    a, kw = call
+    d = dict(y=a[0], x=a[1], mu=a[2], pm=a[4])
+    d["la0" if kind == "ls" else "grid"] = a[3]
+    if kw.get("weights") is not None:
+        d["w"] = kw["weights"]
+    for k in ("use_cr", "weight_threshold"):
+        if k in kw:
+            d[k] = kw[k]
+    return d, bool(kw.get("use_prior", False)), float(a[5])

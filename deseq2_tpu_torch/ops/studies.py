@@ -8,6 +8,7 @@ ROADMAP.md:
     python -m deseq2_tpu_torch.ops.studies expanded
     python -m deseq2_tpu_torch.ops.studies mainpath PARENT_ROOT [CALLS]
     python -m deseq2_tpu_torch.ops.studies wide [REPS]
+    python -m deseq2_tpu_torch.ops.studies rlog [N_SEEDS]
 
 `eigvalsh`: the largest batch of symmetric n x n matrices that
 torch.linalg.eigvalsh takes on the card, per dtype and n, found by
@@ -73,6 +74,17 @@ leaves the first p coefficients' arithmetic as it is): each build's
 registers and spills, each route's median of REPS launches (default 3)
 after a warm-up, and each build's largest beta difference from the plain
 route on the genes both take as converged.
+
+`rlog` (the card if there is one, else the CPU): rlog's arrow IRLS
+(transforms.py:rlog_arrow_irls) on the inputs a blind rlog hands it
+(gene-wise dispersions and trend fitted in float64, the prior variance),
+run in float64 and in float32, on the main path's generator at 4,000 x
+1,024 (seed 0) and on bench.py's 2,048 x 1,024 gate slice for N_SEEDS
+seeds (default 4): the float64 fit's sweeps per gene (mean,
+percentiles, share at maxit), how many genes stop after another number of
+sweeps in float32, and the float32 fit's largest difference from the
+float64 one in log2 units, with the genes past 1e-3 and 0.01.  Behind
+rlog_data's float64 fit for a float32 payload.
 """
 
 from __future__ import annotations
@@ -84,6 +96,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from . import checks
@@ -580,13 +593,57 @@ def wide_study(dev, reps):
                   f"{diff.item():.3g}", flush=True)
 
 
+def rlog_study(dev, n_seeds):
+    import deseq2_tpu_torch as dt
+    from ..engine import LOG2E, device_counts
+    from ..hostdev import factors_t
+    from ..transforms import (_blind, _dispersion_step, _rlog_prior_var,
+                              rlog_arrow_irls)
+    print(f"rlog's arrow IRLS, float32 against float64, {dev}")
+    cases = [("main path's generator", checks.bench_counts, 4000, 0)] + [
+        ("gate slice", checks.gate_counts, 2048, seed)
+        for seed in range(n_seeds)]
+    for name, make, G, seed in cases:
+        S = 1024
+        counts, _ = make(G, S, seed)
+        dds = dt.dataset_from_matrix(
+            counts, {"condition": np.repeat(["A", "B"], S // 2)},
+            "~ condition")
+        _blind(dds)
+        dds = _dispersion_step(dt.estimate_size_factors(dds, device=dev),
+                               "parametric", dev)
+        nz = ~np.asarray(dds.row_data["allZero"], bool)
+        y = device_counts(dds, dev)[torch.as_tensor(np.where(nz)[0],
+                                                    device=dev)].double()
+        nf = factors_t(dds, dev)
+        dfit = torch.as_tensor(dds.row_data["dispFit"][nz], device=dev)
+        bm = torch.as_tensor(dds.row_data["baseMean"][nz], device=dev)
+        bpv = _rlog_prior_var(y / nf, bm, dfit)
+        lam1, lam0 = (1.0 / bpv) / np.log(2.0) ** 2, 1e-6 / np.log(2.0) ** 2
+        x64, _, it64 = rlog_arrow_irls(y, nf, dfit, lam0, lam1, True)
+        x32, _, it32 = rlog_arrow_irls(y.float(), nf.float(), dfit.float(),
+                                       lam0, lam1, True)
+        d = (LOG2E * (x32.double() - x64).abs()).amax(dim=1).cpu().numpy()
+        it = it64.cpu().numpy()
+        print(f"  {name}, {G} x {S}, seed {seed}: float64 sweeps/gene mean {it.mean():.2f}, "
+              f"p50/p90/p99 {np.percentile(it, [50, 90, 99])}, at maxit "
+              f"{(it >= 100).mean():.4f}; float32 stops after other sweep "
+              f"counts on {int((it32.cpu().numpy() != it).sum())} genes; "
+              f"largest |float32 - float64| {d.max():.3g} log2 units, "
+              f"genes past 1e-3 {int((d > 1e-3).sum())}, past 0.01 "
+              f"{int((d > 0.01).sum())}", flush=True)
+
+
 if __name__ == "__main__":
-    if sys.argv[1] in ("edges", "expanded"):
+    if sys.argv[1] in ("edges", "expanded", "rlog"):
         any_dev = (torch.device("cuda", 0) if torch.cuda.is_available()
                    else torch.device("cpu"))
         if sys.argv[1] == "edges":
             edges_study(any_dev, int(sys.argv[2]) if len(sys.argv) > 2
                         else 5)
+        elif sys.argv[1] == "rlog":
+            rlog_study(any_dev, int(sys.argv[2]) if len(sys.argv) > 2
+                       else 4)
         else:
             expanded_study(any_dev)
         raise SystemExit(0)

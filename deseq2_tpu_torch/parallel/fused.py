@@ -250,7 +250,11 @@ def local_trend_eval(ts, x0, tile_bytes=2 ** 27):
         wd2 = wd * dxm
         s0, s1, s2 = w.sum(1), wd.sum(1), wd2.sum(1)
         s3, s4 = (wd2 * dxm).sum(1), (wd2 * dxm * dxm).sum(1)
-        t0, t1, t2 = w @ lys, wd @ lys, wd2 @ lys
+        # row reductions, not gemv: BLAS sums a product in an order that
+        # depends on the tile's row count, which would break the tiles'
+        # bit-for-bit independence
+        t0, t1, t2 = ((w * lys).sum(1), (wd * lys).sum(1),
+                      (wd2 * lys).sum(1))
         A = torch.stack([torch.stack([s0, s1, s2], -1),
                          torch.stack([s1, s2, s3], -1),
                          torch.stack([s2, s3, s4], -1)], -2)       # (e,3,3)

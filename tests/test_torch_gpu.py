@@ -486,3 +486,74 @@ def test_prior_contrast_shrink_on_card_matches_cpu(prior_fits, call):
         m = ~np.isnan(a)
         np.testing.assert_allclose(a[m], b[m], rtol=1e-6, atol=1e-8,
                                    err_msg=col)
+
+
+def _transform_dataset(G, S, seed, config=None):
+    import deseq2_tpu_torch as dt
+    counts, _ = checks.bench_counts(G, S, seed)
+    return dt.dataset_from_matrix(
+        counts, {"condition": np.repeat(["A", "B"], [S // 2, S - S // 2])},
+        "~ condition", config=config or dt.DESeqConfig())
+
+
+@pytest.mark.parametrize("maxit", [100, 10])
+def test_transform_disp_kernels_p1_match_plain(cuda, maxit):
+    """K2 and K3 at p = 1 as a blind VST's dispersion step hands them
+    their inputs (recorded there), each held against its plain version on
+    those inputs with the float64 readings; the step launches no K1.
+    maxit_disp = 10 leaves genes to the grid (K3)."""
+    import deseq2_tpu_torch as dt
+    dds = _transform_dataset(4000, 96, 5, dt.DESeqConfig(maxit_disp=maxit))
+    n1, n2, n3 = (fit_beta.launches, fit_disp_line_search.launches,
+                  fit_disp_grid.launches)
+    with checks.recorded_disp_calls() as calls:
+        dt.variance_stabilizing_transformation(dds)
+    assert fit_beta.launches == n1
+    assert fit_disp_line_search.launches == n2 + len(calls["ls"]) >= n2 + 1
+    assert fit_disp_grid.launches == n3 + len(calls["grid"])
+    if maxit == 10:
+        assert calls["grid"], "maxit_disp = 10 sent no gene to the grid"
+    for kind, k_fn, p_fn, check in (
+            ("ls", fit_disp_line_search, disp.fit_disp_line_search_plain,
+             checks.check_ls),
+            ("grid", fit_disp_grid, disp.fit_disp_grid_plain,
+             checks.check_grid)):
+        for call in calls[kind]:
+            a, kw = call
+            assert a[1].shape[1] == 1 and a[2].is_cuda
+            assert a[2].dtype == torch.float64
+            k, pl = k_fn(*a, **kw), p_fn(*a, **kw)
+            d, use_prior, prior_var = checks.recorded_case(kind, call)
+            r = check(k, pl, d, use_prior, prior_var=prior_var)
+            assert r["ok"], (kind, r)
+
+
+TRANSFORM_CALLS = {
+    "vst": lambda dt, d, dev: dt.vst(d, nsub=1000, device=dev),
+    "VST parametric": lambda dt, d, dev:
+        dt.variance_stabilizing_transformation(d, device=dev),
+    "VST mean": lambda dt, d, dev: dt.variance_stabilizing_transformation(
+        d, fit_type="mean", device=dev),
+    "VST local": lambda dt, d, dev: dt.variance_stabilizing_transformation(
+        d, fit_type="local", device=dev),
+    "rlog": lambda dt, d, dev: dt.rlog(d, device=dev),
+    "normTransform": lambda dt, d, dev: dt.norm_transform(d, device=dev),
+}
+
+
+@pytest.mark.parametrize("dtype_name", ["float64", "float32"])
+@pytest.mark.parametrize("call", sorted(TRANSFORM_CALLS))
+def test_transforms_on_card_match_cpu(cuda, call, dtype_name):
+    """The public transforms on the card against the port in float64 on
+    the CPU, at chip_smoke phase 9's limits (checks.TRANSFORM_TOL)."""
+    import deseq2_tpu_torch as dt
+    fn = TRANSFORM_CALLS[call]
+    cpu = fn(dt, _transform_dataset(2048, 128, 7), "cpu").matrix
+    dds = _transform_dataset(2048, 128, 7, dt.DESeqConfig(dtype=dtype_name))
+    t = fn(dt, dds, None)
+    assert t.matrix_device.is_cuda
+    assert t.matrix_device.dtype == getattr(torch, dtype_name)
+    tol = checks.TRANSFORM_TOL[
+        "rlog_float64" if call == "rlog" and dtype_name == "float64"
+        else dtype_name]
+    assert np.max(np.abs(t.matrix - cpu)) <= tol

@@ -17,7 +17,9 @@ FORBIDDEN = ("jax", "jaxlib", "deseq2_tpu")
 def test_import_loads_no_jax():
     code = ("import sys, deseq2_tpu_torch, deseq2_tpu_torch.parallel.fused, "
             "deseq2_tpu_torch.ops.cuda_irls, deseq2_tpu_torch.ops.cuda_ls, "
-            "deseq2_tpu_torch.ops.cuda_grid\n"
+            "deseq2_tpu_torch.ops.cuda_grid, deseq2_tpu_torch.transforms, "
+            "deseq2_tpu_torch.helper, deseq2_tpu_torch.io, "
+            "deseq2_tpu_torch.plots, deseq2_tpu_torch.singlecell_tab\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]"
             "\nprint(bad)\nsys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
