@@ -103,6 +103,40 @@ Phases; any failure exits non-zero and no phase's failure is caught:
    within 0.01, and plot_pca_data's coordinates on the float32 VST within
    0.01 of their largest value, up to each component's sign.
 
+10. the single-cell path (ROADMAP item 8) at 30,000 genes x 50,000 cells,
+   bench.py:main_sc's configuration: UMI-like counts made on the card
+   (ops/checks.py:sc_bench_counts, seed 0, int32), unit size factors.
+   a. parallel.sc.fused_sc_results(test="LRT", fit_type="glmGamPoi") on
+      the two alternating groups in float32, cold, warm (genes/s, peak
+      device memory, the chunk, the histogram overflow count, the stage
+      table) and once more under
+      torch.profiler (the device's busy share);
+   b. the same for the covariate design [1, batch, condition] against
+      [1, batch];
+   c. the parametric Wald call (the MAP search), warm;
+   d. the public route: dataset_from_matrix of those counts (timed apart),
+      deseq(test="LRT", reduced="~ 1", fit_type="glmGamPoi") + results(),
+      cold and warm; fails unless it took the streamed route ("fused-sc");
+   e. the host engine's glmGamPoi at 60,000 x 1,024 in float64 on the main
+      path's counts, counters zeroed just before each call and read just
+      after: the LRT of ~ condition against ~ 1 (K1 >= 1: the full fit,
+      the reduced model being the closed form; K2 >= 1), the LRT of ~
+      batch + condition against ~ batch (K1 >= 2) and the Wald test
+      through "auto" (K1, K2 >= 1); then K1 at minmu = 1e-6 held against
+      its plain version at checks.SHAPES (p = 2, 3; ten genes
+      counting zero in one group) in both dtypes, and on the inputs the
+      first LRT handed it (recorded), checked and timed beside its plain
+      version and its bound in float64 (the kernels line's
+      irls_min_mu_f64 row) and float32 (logged);
+   f. gates: bench.py's single-cell gates on its 2,048 x 4,096 group and
+      covariate fixtures (float32 on the card against float64 on the CPU,
+      histogram order matched: |dLFC| < 0.02, log10 p excess < 1.0, no
+      confident flips, Jaccard >= 0.94), and the host glmGamPoi LRT on
+      the 2,048 x 1,024 gate slice on the card against the CPU (Jaccard
+      >= 0.995, no flips, |dLFC| < 0.01).
+   The streamed path launches none of K1-K3 (the JAX package's runs no
+   Pallas kernel either); its per-chunk passes are PyTorch.
+
 Each phase prints its seconds.  The last two lines are the card's
 nvidia-smi line and the JSON result line.
 """
@@ -439,11 +473,13 @@ COUNTERS = {"irls": ("fit_beta", "launches"),
 
 
 def _wrappers():
-    from deseq2_tpu_torch.ops.cuda_grid import fit_disp_grid
-    from deseq2_tpu_torch.ops.cuda_irls import fit_beta
-    from deseq2_tpu_torch.ops.cuda_ls import fit_disp_line_search
-    return {"fit_beta": fit_beta, "fit_disp_line_search": fit_disp_line_search,
-            "fit_disp_grid": fit_disp_grid}
+    """The kernel wrappers, whose attributes hold the launch counts (the
+    wrappers themselves while checks.recorded_disp_calls records them)."""
+    from deseq2_tpu_torch.ops import cuda_grid, cuda_irls, cuda_ls
+    fns = {"fit_beta": cuda_irls.fit_beta,
+           "fit_disp_line_search": cuda_ls.fit_disp_line_search,
+           "fit_disp_grid": cuda_grid.fit_disp_grid}
+    return {k: getattr(f, "__wrapped__", f) for k, f in fns.items()}
 
 
 def zero_counts():
@@ -548,6 +584,20 @@ def main_path(torch):
     return out
 
 
+def device_busy(prof):
+    """The device's kernel seconds in a torch.profiler run, and its
+    kernels as (microseconds, count, name), longest first."""
+    rows = []
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            rows.append((us, e.count, e.key))
+    rows.sort(reverse=True)
+    return sum(r[0] for r in rows) / 1e6, rows
+
+
 def stage_breakdown(torch):
     """One more float32 main-path call with the port's stage timers on
     (each stage synchronizes the card at both ends) under torch.profiler:
@@ -569,15 +619,7 @@ def stage_breakdown(torch):
     log("  float32 stage timings (profiled call, timers synchronize):")
     for line in profiling.report().splitlines():
         log(f"    {line}")
-    rows = []
-    for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = e.self_cuda_time_total
-            rows.append((us, e.count, e.key))
-    busy_s = sum(r[0] for r in rows) / 1e6
-    rows.sort(reverse=True)
+    busy_s, rows = device_busy(prof)
     log(f"  profiled call: wall {wall:.3f} s, device kernel time "
         f"{busy_s:.3f} s ({len(rows)} kernels), busy share "
         f"{busy_s / wall:.3f}" if rows else
@@ -1799,6 +1841,325 @@ def transform_gates(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the single-cell path
+# ---------------------------------------------------------------------------
+
+G_SC, S_SC = 30000, 50000       # bench.py:main_sc's configuration
+G_SC_GATE, S_SC_GATE = 2048, 4096
+
+
+def sc_counts(torch):
+    """bench.py:main_sc's counts at 30,000 x 50,000, made on the card
+    (deseq2_tpu_torch/ops/checks.py:sc_bench_counts, seed 0)."""
+    from deseq2_tpu_torch.ops import checks
+    t0 = time.perf_counter()
+    counts, cells = checks.sc_bench_counts(G_SC, S_SC, "cuda")
+    torch.cuda.synchronize()
+    log(f"  counts made on the card in {time.perf_counter() - t0:.2f} s: "
+        f"{G_SC} x {S_SC} int32 ({counts.numel() * 4 / 1e9:.2f} GB), "
+        f"largest count {int(counts.max())}")
+    return counts, cells
+
+
+def sc_call(torch, name, counts, profiled=False, **kw):
+    """One float32 fused_sc_results call at full width with the stage
+    timers on (they synchronize the card at each stage's ends; off under
+    the profiler): wall seconds, genes/s, peak device memory, the chunk,
+    the histogram overflow count, the stage table; with `profiled`, under torch.profiler for the device's busy
+    share.  Fails on a malformed result."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deseq2_tpu_torch import profiling
+    from deseq2_tpu_torch.parallel.sc import fused_sc_results
+    info = {}
+    profiling.reset()
+    if not profiled:
+        profiling.enable()
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+        if profiled else None
+    if prof is not None:
+        prof.__enter__()
+    t0 = time.perf_counter()
+    out = fused_sc_results(counts, size_factors=np.ones(S_SC), device="cuda",
+                           dtype=torch.float32, info=info, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if prof is not None:
+        prof.__exit__(None, None, None)
+    profiling.disable()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    stat, padj = np.asarray(out["stat"]), np.asarray(out["padj"])
+    r = dict(wall_s=wall, genes_per_s=G_SC / wall, peak_gib=peak,
+             chunk=info["chunk"], n_chunks=info["n_chunks"],
+             hist=info["use_hist"],
+             hist_overflow_genes=info["hist_overflow_genes"],
+             rejections=int(np.sum(padj < 0.1)))
+    if profiled:
+        busy_s, rows = device_busy(prof)
+        r.update(device_busy_s=busy_s if rows else None,
+                 busy_share=busy_s / wall if rows else None)
+        log(f"  {name}, profiled: wall {wall:.3f} s, device kernel time "
+            f"{busy_s:.3f} s, busy share {busy_s / wall:.3f}" if rows else
+            f"  {name}, profiled: wall {wall:.3f} s, device time not "
+            f"measured (the profiler recorded no device kernels)")
+        for us, n, key in rows[:8]:
+            log(f"    {us / 1e3:9.2f} ms  x{n:<6d} {key[:80]}")
+    else:
+        log(f"  {name}: {wall:.3f} s = {G_SC / wall:,.0f} genes/s, peak "
+            f"device memory {peak:.2f} GiB, chunk {info['chunk']} "
+            f"({info['n_chunks']} chunks), histogram {info['use_hist']} "
+            f"(overflow genes {info['hist_overflow_genes']}), finite stat "
+            f"{np.isfinite(stat).mean():.4f}, rejections {r['rejections']}")
+        r["stages"] = {x["stage"]: x["seconds"] for x in profiling.records()}
+        for line in profiling.report().splitlines():
+            log(f"    {line}")
+    if stat.shape != (G_SC,) or np.isfinite(stat).mean() <= 0.9 \
+            or not np.isfinite(padj).any():
+        raise SystemExit(f"single-cell call {name}: output malformed")
+    return r
+
+
+def sc_phase(torch):
+    """Phase 10a-d: the group QL call (cold, warm, profiled), the
+    covariate QL call ~ batch + condition against ~ batch (the same), the
+    parametric Wald call (warm), and the public route: a dataset of the
+    same counts, deseq(test="LRT", reduced="~ 1", fit_type="glmGamPoi") +
+    results(), which must take the streamed route (engine "fused-sc")."""
+    import deseq2_tpu_torch as dt
+    counts, cells = sc_counts(torch)
+    out = {}
+    batch = ((np.arange(S_SC) // 2) % 2).astype(np.float64)
+    design = np.column_stack([np.ones(S_SC), batch, cells.astype(float)])
+    calls = {"group_ql": dict(cells=cells, n_groups=2, test="LRT",
+                              fit_type="glmGamPoi"),
+             "covariate_ql": dict(design=design, reduced_design=design[:, :2],
+                                  test="LRT", fit_type="glmGamPoi")}
+    for key, kw in calls.items():
+        t0 = time.perf_counter()
+        sc_call(torch, f"{key} cold", counts, **kw)
+        cold = time.perf_counter() - t0
+        out[key] = sc_call(torch, f"{key} warm", counts, **kw)
+        out[key]["cold_s"] = cold
+        out[key].update({k: v for k, v in sc_call(
+            torch, key, counts, profiled=True, **kw).items()
+            if k in ("device_busy_s", "busy_share")})
+    out["wald"] = sc_call(torch, "group Wald (parametric) warm", counts,
+                          cells=cells, n_groups=2, test="Wald",
+                          fit_type="parametric")
+    # the public route
+    t0 = time.perf_counter()
+    host = counts.cpu().numpy()
+    fetch = time.perf_counter() - t0
+    labels = np.where(cells == 0, "A", "B")
+    del counts
+    t0 = time.perf_counter()
+    dds = dt.dataset_from_matrix(host, {"condition": labels}, "~ condition",
+                                 config=dt.DESeqConfig(dtype="float32"))
+    dds.size_factors = np.ones(S_SC)
+    build = time.perf_counter() - t0
+    runs = []
+    for _ in range(2):      # deseq() copies the dataset: cold, then warm
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fit = dt.deseq(dds, test="LRT", reduced="~ 1", fit_type="glmGamPoi")
+        res = dt.results(fit)
+        padj = np.asarray(res["padj"])
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0,
+                     torch.cuda.max_memory_allocated() / 2 ** 30))
+        if fit.attrs.get("engine") != "fused-sc":
+            raise SystemExit("the public glmGamPoi LRT did not take the "
+                             f"streamed route: {fit.attrs.get('engine')}")
+        del fit
+    del dds
+    warm, peak = runs[-1]
+    out["public"] = dict(fetch_counts_s=fetch, dataset_s=build,
+                         deseq_results_s=warm, cold_s=runs[0][0],
+                         genes_per_s=G_SC / warm, peak_gib=peak,
+                         engine="fused-sc",
+                         rejections=int(np.nansum(padj < 0.1)))
+    log(f"  public deseq(fit_type='glmGamPoi', test='LRT') + results(): "
+        f"engine fused-sc, counts to the host {fetch:.2f} s, "
+        f"dataset_from_matrix {build:.2f} s, deseq() + results() cold "
+        f"{runs[0][0]:.3f} s, warm {warm:.3f} s = {G_SC / warm:,.0f} "
+        f"genes/s, peak device memory {peak:.2f} GiB, rejections "
+        f"{out['public']['rejections']}")
+    if padj.shape != (G_SC,) or not np.isfinite(padj).any():
+        raise SystemExit("public glmGamPoi results malformed")
+    return out
+
+
+def sc_host_phase(torch):
+    """Phase 10e: the host engine's glmGamPoi at 60,000 x 1,024 in float64
+    on the main path's counts: the LRT of ~ condition against ~ 1 (K1 for
+    the full fit at minmu = 1e-6, the reduced model in closed form, K2
+    for the gene-wise estimate), the LRT of ~ batch + condition against
+    ~ batch (K1 for the gene-wise estimate's mu and both fits), and the
+    Wald test through "auto" (the host engine, the JAX package's route).
+    Returns the phase's numbers and the K1 calls the first LRT made."""
+    from deseq2_tpu_torch.ops import checks
+    counts, _ = make_inputs(G_MAIN, S_MAIN)
+    out = {}
+    with checks.recorded_disp_calls() as rec:
+        out["lrt"], _, _ = host_call(
+            torch, "glmGamPoi LRT ~ condition vs ~ 1, engine='host'",
+            counts, ("irls", "disp_ls"), engine="host", test="LRT",
+            reduced="~ 1", fit_type="glmGamPoi")
+    irls_calls = list(rec["irls"])
+    del rec
+    out["lrt_batch"], _, _ = host_call(
+        torch, "glmGamPoi LRT ~ batch + condition vs ~ batch, engine='host'",
+        counts, ("irls", "disp_ls"), engine="host", test="LRT",
+        reduced="~ batch", fit_type="glmGamPoi", design="~ batch + condition")
+    out["wald"], _, wfit = host_call(
+        torch, "glmGamPoi Wald, 'auto'", counts, ("irls", "disp_ls"),
+        fit_type="glmGamPoi")
+    if wfit.attrs.get("engine") != "host":
+        raise SystemExit("glmGamPoi Wald through 'auto' did not run the "
+                         "host engine")
+    if out["lrt"]["launches"]["irls"] < 1 \
+            or out["lrt_batch"]["launches"]["irls"] < 2:
+        raise SystemExit(f"host glmGamPoi LRT K1 launches: "
+                         f"{out['lrt']['launches']}, "
+                         f"{out['lrt_batch']['launches']}")
+    return out, irls_calls
+
+
+def min_mu_k1_timing(torch, dev, calls, launches, worst):
+    """K1 at minmu = 1e-6 on the inputs the host glmGamPoi LRT handed it
+    (its full fit, 60,000 x 1,024, p = 2, alpha at the trend): held
+    against its plain version (phase 3's readings and limits), then timed
+    beside it and its bound, in float64 (the host engine's dtype) and in
+    float32 (the same inputs cast).  And K1 at minmu = 1e-6 at
+    checks.SHAPES, p = 2 and 3, both dtypes, on inputs whose first
+    ten genes count zero in one group (checks.check_irls_min_mu: float32
+    gated off those ten genes, where it misses TOL; there both float32
+    fits are read against the float64 plain fit)."""
+    from deseq2_tpu_torch.ops import checks, irls
+    from deseq2_tpu_torch.ops.cuda_irls import fit_beta
+    failed = []
+    for dname in ("float64", "float32"):
+        dt = getattr(torch, dname)
+        for p in (2, 3):
+            for S, G in checks.SHAPES:
+                inputs = checks.zero_group_inputs(G, S, p, 7 * p + S)
+                d = checks.as_tensors(inputs, dt, dev)
+                k = checks.run_irls(fit_beta, d, min_mu=checks.MIN_MU_QL)
+                pl = checks.run_irls(irls.fit_beta_plain, d,
+                                     min_mu=checks.MIN_MU_QL)
+                d64 = checks.as_tensors(inputs, torch.float64, dev)
+                ref = None if dname == "float64" else checks.run_irls(
+                    irls.fit_beta_plain, d64, min_mu=checks.MIN_MU_QL)
+                r = checks.check_irls_min_mu(k, pl, ref, d64)
+                key = f"irls_min_mu_{dname}"
+                worst[key] = max(worst.get(key, 0.0), r["max_abs_err"])
+                log(f"  irls minmu=1e-6 {dname} p={p} S={S} G={G}: "
+                    f"{fmt(r)}")
+                if not r["ok"]:
+                    failed.append(f"{dname} p={p} S={S}")
+    if len(calls) != 1:
+        raise SystemExit(f"the host QL LRT made {len(calls)} K1 calls, "
+                         "expected its full fit's one")
+    a, kw = calls[0]
+    G, S = a[0].shape
+    P = a[1].shape[1]
+    rows, f64_pl, f32 = [], None, None
+    for dname in ("float64", "float32"):
+        dt = getattr(torch, dname)
+        args = tuple(t.to(dt) for t in a)
+        k1 = fit_beta(*args, **kw)
+        pl = irls.fit_beta_plain(*args, **kw)
+        r = checks.check_irls(k1, pl)
+        if dname == "float32":
+            # printed beside the gated reading: both float32 fits held to
+            # the float64 plain fit
+            r64 = checks.check_irls_f64(k1, pl, f64_pl)
+            log(f"  irls minmu=1e-6 float32 against the float64 fit: "
+                f"{fmt(r64)}")
+        f64_pl = pl
+        log(f"  irls minmu=1e-6 {dname} at the host QL LRT's full fit "
+            f"({G} x {S}, p = {P}): {fmt(r)}")
+        if not r["ok"]:
+            failed.append(f"{dname} main shape")
+        ms = time_ms(torch, lambda: fit_beta(*args, **kw), 3)
+        pms = time_ms(torch, lambda: irls.fit_beta_plain(*args, **kw), 1)
+        sweeps = float(k1["iter"].double().sum())
+        o = ops_irls(P)
+        it = 4 if dname == "float32" else 8
+        nf_el = a[2].numel()
+        b1, by1 = bound(it * (3 * G * S + nf_el + S * P + G * (1 + 3 * P)
+                              + 2 * G),
+                        S * (G * (o["init"] + o["post"])
+                             + sweeps * o["sweep"]), dname)
+        log(f"  irls minmu=1e-6 {dname}: {ms:.3f} ms (plain {pms:.1f} ms, "
+            f"bound {b1:.3f} ms by {by1}, {100 * b1 / ms:.1f}% of it), "
+            f"{sweeps / G:.2f} sweeps/gene, the LRT's launches {launches}")
+        row = dict(name="irls_min_mu_f64", route="cuda",
+                   source="deseq2_tpu_torch/csrc/irls.cu",
+                   replaces="deseq2_tpu/ops/pallas_irls.py:360",
+                   launches=launches,
+                   max_abs_err=max(worst[f"irls_min_mu_{dname}"],
+                                   r["max_abs_err"]),
+                   ms=ms, plain_ms=pms, bound_ms=b1, bound_by=by1,
+                   library_ms=None)
+        if dname == "float64":
+            rows.append(row)
+        else:
+            # the float32 instantiation on the same inputs: no path of
+            # this run launches it at minmu = 1e-6 (the host engine fits
+            # in float64), so it is logged, not a row of the kernels line
+            f32 = {k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by")}
+    if failed:
+        raise SystemExit(f"K1 at minmu = 1e-6 failed: {failed}")
+    return rows, f32
+
+
+def sc_gates(torch):
+    """Phase 10f: bench.py's single-cell gates (sc_accuracy_gate,
+    sc_covariate_accuracy_gate) on their 2,048 x 4,096 fixtures: the port
+    in float32 on the card against the port in float64 on the CPU, the
+    histogram order matched (checks.sc_gate, bench.py's limits); and the
+    host glmGamPoi LRT on the 2,048 x 1,024 gate slice on the card
+    against the CPU (Jaccard >= 0.995, zero flips, |dLFC| < 0.01)."""
+    from deseq2_tpu_torch.ops import checks
+    from deseq2_tpu_torch.parallel.sc import fused_sc_results
+    out, failed = {}, []
+    for name in ("group", "covariate"):
+        if name == "group":
+            c, cells, sf = checks.sc_gate_inputs(G_SC_GATE, S_SC_GATE)
+            kw = dict(cells=cells, n_groups=2)
+        else:
+            c, x, red, sf = checks.sc_cov_gate_inputs(G_SC_GATE, S_SC_GATE)
+            kw = dict(design=x, reduced_design=red)
+        run = dict(size_factors=sf, test="LRT", fit_type="glmGamPoi", **kw)
+        card = fused_sc_results(c, device="cuda", dtype=torch.float32, **run)
+        t0 = time.perf_counter()
+        cpu = fused_sc_results(c, device="cpu", dtype=torch.float64,
+                               use_hist=True, **run)
+        r = checks.sc_gate(card, cpu)
+        out[name] = r
+        log(f"  {name} QL gate (float32 card vs float64 CPU, CPU "
+            f"{time.perf_counter() - t0:.1f} s): {json.dumps(r)}")
+        if not r["ok"]:
+            failed.append(name)
+    sub, _ = gate_inputs(G_GATE, S_MAIN)
+    kw = dict(engine="host", test="LRT", reduced="~ 1",
+              fit_type="glmGamPoi")
+    card, _ = public_run(torch, sub, "float64", **kw)
+    cpu, _ = public_run(torch, sub, "float64", device="cpu", **kw)
+    gate, ok = gate_compare(card, cpu)
+    out["host_ql"] = gate
+    log(f"  host glmGamPoi LRT, card vs CPU: {json.dumps(gate)}")
+    failed += [f"host_ql {k}" for k in ("jaccard", "flips", "lfc")
+               if not ok[k]]
+    if failed:
+        raise SystemExit(f"single-cell gates failed: {failed}")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1881,10 +2242,21 @@ def main():
     transform_out["gates"] = transform_gates(torch)
     done("9")
 
+    phase("10", f"[10] the single-cell path at {G_SC} x {S_SC}")
+    sc_out = sc_phase(torch)
+    sc_out["host"], irls_calls = sc_host_phase(torch)
+    mm_rows, sc_out["irls_min_mu_f32"] = min_mu_k1_timing(
+        torch, dev, irls_calls, sc_out["host"]["lrt"]["launches"]["irls"],
+        worst)
+    rows += mm_rows
+    del irls_calls
+    sc_out["gates"] = sc_gates(torch)
+    done("10")
+
     log(json.dumps({"main_path": {k: v for k, v in main_out.items()},
                     "gate": gate, "variant_gates": gates,
                     "prior_phase": prior_out, "host_phase": host_out,
-                    "transform_phase": transform_out,
+                    "transform_phase": transform_out, "sc_phase": sc_out,
                     "kernel_resources": resources, "phase_seconds": seconds}))
     print(json.dumps({"kernels": rows}))
     print(smi_line())

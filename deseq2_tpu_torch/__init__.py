@@ -33,9 +33,16 @@ engine's dtype, and the transforms' payload dtype, is DESeqConfig.dtype:
 "float64" by default, "float32" for the fast path; the host engine runs
 in float64.
 
+deseq(fit_type="glmGamPoi") runs the JAX package's routing: the LRT on a
+group or small-p covariate design takes the streamed single-cell path
+(parallel.sc.fused_sc_results, which streams sample chunks of the int32
+counts and keeps (G,p) state; `fused_sc_results` and `fused_sc_pipeline`
+are exported from deseq2_tpu_torch.parallel), the rest the host engine's
+glmGamPoi branches (the loc-median trend, the quasi-likelihood shrinkage
+and F-test, its fits through K1 at minmu = 1e-6).
+
 What is not ported raises NotImplementedError naming the ROADMAP.md item
-that owns it: glmGamPoi and the single-cell path (item 8) and a device
-mesh (item 11).
+that owns it: a device mesh (item 11).
 """
 
 import torch as _torch

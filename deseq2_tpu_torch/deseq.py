@@ -12,11 +12,15 @@ Argument checks mirror the reference.  Two engines, as in the JAX package
   every other configuration: sfType "iterate", a non-default DESeqConfig
   field or minmu, betaPrior on any design, samples <= coefficients, and
   weights that fail the rank tests (flagged weightsFail).
+fit_type="glmGamPoi" with the LRT runs the streamed single-cell pipeline
+(engine.deseq_sc_fused, parallel/sc.py) on group and small-p covariate
+designs, and the host engine's glmGamPoi branches (the QL shrinkage and
+the quasi-likelihood F-test) for the cases the JAX package sends there.
 engine="auto" (the default) runs the fused pipeline wherever it is
 eligible and the host engine otherwise (with the JAX package's warning
 when quiet=False); "fused" and "host" force one.  Both run on "cuda"
-unless the caller passes device="cpu".  glmGamPoi and a device mesh raise
-NotImplementedError naming their ROADMAP.md items.
+unless the caller passes device="cpu".  A device mesh raises
+NotImplementedError naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -63,7 +67,13 @@ def deseq(dds, test="Wald", fit_type="parametric", sf_type="ratio",
     if sf_type not in ("ratio", "poscounts", "iterate"):
         raise ValueError("unknown sfType")
     if minmu is None:
+        # reference default: minmu = 1e-6 for glmGamPoi else 0.5
         minmu = 1e-6 if fit_type == "glmGamPoi" else 0.5
+    if fit_type == "glmGamPoi":
+        min_replicates_for_replace = np.inf
+        if test == "Wald" and not quiet:
+            warnings.warn("the glmGamPoi dispersion estimator should be "
+                          "used in combination with test='LRT'")
 
     model_as_formula = (full is None or not isinstance(full, np.ndarray)) \
         and not isinstance(dds.design, np.ndarray)
@@ -120,10 +130,6 @@ def deseq(dds, test="Wald", fit_type="parametric", sf_type="ratio",
         model_matrix = full if full is not None else dds.design
         check_full_rank(model_matrix)
 
-    # configurations outside this slice
-    if fit_type == "glmGamPoi":
-        raise not_ported("fit_type='glmGamPoi'",
-                         "ROADMAP.md queue 1, item 8 (single-cell path)")
     if mesh is not None:
         raise not_ported("a device mesh", ROADMAP_MESH)
 
@@ -131,7 +137,11 @@ def deseq(dds, test="Wald", fit_type="parametric", sf_type="ratio",
     engine = engine or "auto"
     if engine != "host":
         reason = fused_ineligibility(dds, sf_type, model_matrix, minmu,
-                                     config, beta_prior, model_matrix_type)
+                                     config, beta_prior, model_matrix_type,
+                                     test=test, fit_type=fit_type)
+        if reason is None and fit_type == "glmGamPoi":
+            return _deseq_sc(dds, dev, resolve_dtype(config), full=full,
+                             reduced=reduced, quiet=quiet)
         if reason is None:
             routed = _deseq_fused(
                 dds, dev, resolve_dtype(config), sf_type, test=test,
@@ -174,6 +184,18 @@ def _deseq_fused(dds, dev, dtype, sf_type, **kw):
         return deseq_fused(dds, dev, dtype, **kw)
 
 
+def _deseq_sc(dds, dev, dtype, **kw):
+    """The streamed single-cell route of deseq(fit_type="glmGamPoi",
+    test="LRT"); the dataset's copy aliases its counts (the route never
+    mutates them)."""
+    from .engine import deseq_sc_fused
+    with profiling.stage("deseq.copy"):
+        dds = dds.copy(share_counts=True)
+    dds.attrs["betaPrior"] = False
+    with profiling.stage("deseqFusedSC", genes=dds.n_genes):
+        return deseq_sc_fused(dds, dev, dtype, **kw)
+
+
 def _deseq_host(dds, dev, test, fit_type, sf_type, beta_prior, full,
                 reduced, quiet, min_replicates_for_replace, model_matrix,
                 model_matrix_type, use_t, minmu, config):
@@ -199,17 +221,23 @@ def _deseq_host(dds, dev, test, fit_type, sf_type, beta_prior, full,
                                                      dev))
     dds.attrs["betaPrior"] = beta_prior
     # Single-cell-scale guardrail (the reference's own SC guidance,
-    # R/core.R:297-303): covariate designs at tens of thousands of
-    # samples hold several (G,S) float64 intermediates
+    # R/core.R:297-303): the host-exact path materializes several (G,S)
+    # float64 intermediates, so covariate designs at tens of thousands
+    # of samples can exhaust host/device memory; the streamed path
+    # (parallel.sc.fused_sc_results) handles them with (G,p) state
     S_n = dds.n_samples
-    if S_n >= 10000 and not quiet:
+    if S_n >= 10000:
         mm_chk = np.asarray(model_matrix if model_matrix is not None
                             else dds.model_matrix()[0])
-        if len({tuple(r) for r in mm_chk}) != mm_chk.shape[1]:
+        group_like = len({tuple(r) for r in mm_chk}) == mm_chk.shape[1]
+        if not group_like and not quiet:
             warnings.warn(
                 f"design with covariates at {S_n} samples takes the "
                 "materializing host path (several (genes x samples) "
-                "intermediates)")
+                "intermediates). For single-cell scale use the streamed "
+                "path: parallel.sc.fused_sc_results(design=model_matrix, "
+                "reduced_design=..., fit_type='glmGamPoi') handles "
+                "arbitrary small-p designs with (G,p) persistent state")
     G = dds.n_genes
     if dds.size_factors is None and dds.normalization_factors is None:
         with profiling.stage("estimateSizeFactors", genes=G):
@@ -231,7 +259,9 @@ def _deseq_host(dds, dev, test, fit_type, sf_type, beta_prior, full,
             dds = nbinom_lrt(dds,
                              full=full if full is not None else dds.design,
                              reduced=reduced, quiet=quiet, min_mu=minmu,
-                             config=config, device=dev)
+                             type=("glmGamPoi" if fit_type == "glmGamPoi"
+                                   else "DESeq2"), config=config,
+                             device=dev)
     if np.isfinite(min_replicates_for_replace):
         sufficient = np.any(n_or_more_in_cell(dds.attrs["modelMatrix"],
                                               min_replicates_for_replace))

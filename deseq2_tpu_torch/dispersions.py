@@ -36,7 +36,6 @@ __all__ = [
     "model_matrix_groups", "n_or_more_in_cell",
 ]
 
-ROADMAP_SC = "ROADMAP.md queue 1, item 8 (single-cell path)"
 
 
 # ---------------------------------------------------------------------------
@@ -337,7 +336,6 @@ def estimate_dispersions_fit(dds, fit_type="parametric", min_disp=1e-8,
     (reference estimateDispersionsFit, R/core.R:864-939, and the
     dispersionFunction<- setter, R/methods.R:142-194)."""
     from .dataset import DispersionFunction
-    from .parallel.fused import not_ported
 
     dev = resolve_device(device)
     dds = dds.copy()
@@ -378,7 +376,14 @@ def estimate_dispersions_fit(dds, fit_type="parametric", min_disp=1e-8,
                                      if np.ndim(m) else mean_disp,
                                      "mean", mean=mean_disp)
     elif fit_type == "glmGamPoi":
-        raise not_ported("fit_type='glmGamPoi'", ROADMAP_SC)
+        # local median trend with nearest-base-mean prediction
+        # (reference R/core.R:906-925); the windows on the stage's device
+        from .gampoi import loc_median_fit_dev, make_closest_index_disp_fn
+        bm_fit = base_means[use_for_fit]
+        medians = loc_median_fit_dev(bm_fit, gene_ests[use_for_fit], dev,
+                                     F64)
+        fn = make_closest_index_disp_fn(bm_fit, medians)
+        disp_fn = DispersionFunction(fn, "glmGamPoi")
     elif fit_type not in ("parametric", "local", "mean"):
         raise ValueError("unknown fitType")
 
@@ -546,7 +551,6 @@ def estimate_dispersions_map(dds, outlier_sd=None, disp_prior_var=None,
     from .config import cfg
     from .ops.cuda_grid import fit_disp_grid
     from .ops.cuda_ls import fit_disp_line_search
-    from .parallel.fused import not_ported
     outlier_sd = cfg(outlier_sd, "outlier_sd", config)
     min_disp = cfg(min_disp, "min_disp", config)
     kappa_0 = cfg(kappa_0, "kappa_0", config)
@@ -555,9 +559,6 @@ def estimate_dispersions_map(dds, outlier_sd=None, disp_prior_var=None,
     use_cr = cfg(use_cr, "use_cr", config)
     weight_threshold = cfg(weight_threshold, "weight_threshold", config)
     dev = resolve_device(device)
-    if type == "glmGamPoi":
-        raise not_ported("estimate_dispersions_map(type='glmGamPoi')",
-                         ROADMAP_SC)
     dds = dds.copy()
     if "allZero" not in dds.row_data:
         dds = get_base_means_and_variances(dds, dev)
@@ -590,6 +591,9 @@ def estimate_dispersions_map(dds, outlier_sd=None, disp_prior_var=None,
     nz_i = idx_t(nz, dev)
     w_nz = weights[nz_i] if weights is not None else None
     var_log_disp_ests = dds.dispersion_function.var_log_disp_ests
+    if type == "glmGamPoi":
+        return _map_gampoi(dds, nz, model_matrix, use_weights, min_disp,
+                           outlier_sd, var_log_disp_ests, dev)
 
     y_nz = counts_t(dds, dev)[nz_i]
     mu = as_t(dds.assays["mu"], dev)[nz_i]
@@ -653,6 +657,57 @@ def estimate_dispersions_map(dds, outlier_sd=None, disp_prior_var=None,
     return dds
 
 
+def _map_gampoi(dds, nz, model_matrix, use_weights, min_disp, outlier_sd,
+                var_log_disp_ests, dev):
+    """The glmGamPoi branch of estimateDispersionsMAP: quasi-likelihood
+    shrinkage instead of the log-normal-prior MAP (reference
+    R/core.R:1064-1096; deseq2_tpu/dispersions.py:631-660), on the host
+    over (G,) columns but for the QL trend's windows (on `dev`)."""
+    from .gampoi import overdispersion_shrinkage, ql_to_nb_alpha
+    if use_weights:
+        raise ValueError("type='glmGamPoi' cannot handle weights")
+    gene_est = dds.row_data["dispGeneEst"][nz]
+    disp_fit = dds.row_data["dispFit"][nz]
+    gene_means = dds.row_data["baseMean"][nz]
+    df = dds.n_samples - model_matrix.shape[1]
+    shrink = overdispersion_shrinkage(gene_est, gene_means, df, disp_fit,
+                                      device=dev)
+    max_disp = max(10.0, dds.n_samples)
+    disp_fit_corrected = ql_to_nb_alpha(
+        shrink["ql_disp_trend"], gene_means, disp_fit, min_disp, max_disp)
+    for name, vals, desc in (
+            ("qlDispMLE", shrink["ql_disp_estimate"],
+             "quasi likelihood dispersion MLE"),
+            ("qlDispFit", shrink["ql_disp_trend"],
+             "quasi likelihood dispersion Trend"),
+            ("qlDispMAP", shrink["ql_disp_shrunken"],
+             "quasi likelihood dispersion MAP"),
+            ("dispFitQLCorrected", disp_fit_corrected,
+             "dispersion trend corrected by quasi likelihood")):
+        dds.set_row_data(name, na_pad(vals, nz), "intermediate", desc)
+    dds.attrs["quasiLikelihood_df0"] = shrink["ql_df0"]
+    disp_map = ql_to_nb_alpha(shrink["ql_disp_shrunken"], gene_means,
+                              disp_fit, min_disp, max_disp)
+    dispersion_final = disp_map.copy()
+    with np.errstate(divide="ignore", invalid="ignore"):
+        disp_outlier = (np.log(gene_est) > np.log(disp_fit)
+                        + outlier_sd * np.sqrt(var_log_disp_ests))
+    disp_outlier = np.where(np.isnan(disp_outlier), False,
+                            disp_outlier).astype(bool)
+    dispersion_final[disp_outlier] = gene_est[disp_outlier]
+    dds.set_row_data("dispersion", na_pad(dispersion_final, nz),
+                     "intermediate", "final estimate of dispersion")
+    dds.set_row_data("dispIter", na_pad(np.zeros(int(nz.sum())), nz),
+                     "intermediate", "number of iterations")
+    disp_outlier_full = np.zeros(dds.n_genes, dtype=bool)
+    disp_outlier_full[nz] = disp_outlier
+    dds.set_row_data("dispOutlier", disp_outlier_full, "intermediate",
+                     "dispersion flagged as outlier")
+    dds.set_row_data("dispMAP", na_pad(disp_map, nz), "intermediate",
+                     "maximum a posteriori estimate")
+    return dds
+
+
 def estimate_dispersions(dds, fit_type="parametric", min_disp=None,
                          quiet=True, model_matrix=None, min_mu=None,
                          config=None, device=None, **kw):
@@ -660,11 +715,8 @@ def estimate_dispersions(dds, fit_type="parametric", min_disp=None,
     (reference R/methods.R:500-568).  `device`: where the (G,S) state and
     the searches live (the card by default)."""
     from .config import cfg
-    from .parallel.fused import not_ported
     min_disp = cfg(min_disp, "min_disp", config)
     min_mu = cfg(min_mu, "min_mu", config)
-    if fit_type == "glmGamPoi":
-        raise not_ported("fit_type='glmGamPoi'", ROADMAP_SC)
     if dds.size_factors is None and dds.normalization_factors is None:
         raise ValueError("first call estimate_size_factors")
     if "dispersion" in dds.row_data:
@@ -695,7 +747,8 @@ def estimate_dispersions(dds, fit_type="parametric", min_disp=None,
                                        min_disp=min_disp, quiet=quiet,
                                        device=device)
     with profiling.stage("dispersions.MAP", genes=G):
-        dds = estimate_dispersions_map(dds, min_disp=min_disp, quiet=quiet,
-                                       model_matrix=model_matrix,
-                                       config=config, device=device)
+        dds = estimate_dispersions_map(
+            dds, min_disp=min_disp, quiet=quiet, model_matrix=model_matrix,
+            type=("glmGamPoi" if fit_type == "glmGamPoi" else "DESeq2"),
+            config=config, device=device)
     return dds

@@ -158,9 +158,11 @@ class LazyRowData(dict):
 
 
 def fused_ineligibility(dds, sf_type, model_matrix, minmu, config,
-                        beta_prior=False, model_matrix_type=None):
-    """None when the configuration can run on the fused engine, else a
-    one-line reason (the JAX package sends those to its host path)."""
+                        beta_prior=False, model_matrix_type=None,
+                        test="Wald", fit_type="parametric"):
+    """None when the configuration can run on the fused engine (for
+    fit_type="glmGamPoi" the streamed single-cell route), else a one-line
+    reason (the JAX package sends those to its host path)."""
     from .config import DEFAULT, DESeqConfig
     from .formula import Factor
 
@@ -183,6 +185,31 @@ def fused_ineligibility(dds, sf_type, model_matrix, minmu, config,
         mm = dds.design
     if mm.shape[1] >= S:
         return "no residual degrees of freedom (samples <= coefficients)"
+    if fit_type == "glmGamPoi":
+        if test != "LRT":
+            return ("glmGamPoi with test='Wald' runs host-side (the "
+                    "reference warns against the combination)")
+        if "weights" in dds.assays:
+            return "glmGamPoi cannot handle weights (host raises)"
+        if dds.normalization_factors is not None \
+                and _sc_group_mode(dds) is not None:
+            return ("glmGamPoi group design with normalization factors "
+                    "runs host-side (the streamed group factorization "
+                    "assumes shared per-sample factors; covariate "
+                    "designs stream the (G,S) factors)")
+        if isinstance(dds.design, np.ndarray) or model_matrix is not None:
+            return "glmGamPoi with a user model matrix runs host-side"
+        if minmu is not None and minmu != 1e-6:
+            return "non-default minmu"
+        if _sc_group_mode(dds) is None \
+                and len({tuple(r) for r in np.asarray(mm)}) == mm.shape[1]:
+            # the host gene-est uses linearMu for cell-means designs;
+            # the streamed path reproduces that only through the group
+            # factorization (single factor + intercept)
+            return ("glmGamPoi linearMu design shape (cell-means "
+                    "without a single intercept+factor form) runs "
+                    "host-side")
+        return None
     if minmu is not None and minmu != 0.5:
         return "non-default minmu"
     if beta_prior:
@@ -197,6 +224,22 @@ def fused_ineligibility(dds, sf_type, model_matrix, minmu, config,
                     "multi-factor expanded matrices run host-side")
         if not dds.design_has_intercept():
             return "betaPrior requires an intercept design"
+    return None
+
+
+def _sc_group_mode(dds):
+    """(cells codes, n_groups) when the design is a single factor with an
+    intercept (the streamed group factorization, and the host's linearMu
+    rule, applies), else None."""
+    from .formula import Factor
+    if isinstance(dds.design, np.ndarray):
+        return None
+    dvars = dds.design.variables
+    if (len(dvars) == 1 and dds.design_has_intercept()
+            and isinstance(dds.col_data.get(dvars[0]), Factor)
+            and all(o < 2 for o in dds.design.term_orders)):
+        fac = dds.col_data[dvars[0]]
+        return np.asarray(fac.codes, np.int32), fac.nlevels
     return None
 
 
@@ -524,5 +567,150 @@ def deseq_fused(dds, device, dtype, test="Wald", fit_type="parametric",
         lv = dds.col_data[dds.design.variables[0]]
         dds._fused_tail["defaultContrast"] = (
             dds.design.variables[0], lv.levels[-1], lv.levels[0])
+    dds._counts_dev = counts_dev
+    return dds
+
+
+def deseq_sc_fused(dds, device, dtype, reduced, full=None, quiet=True,
+                   maxit=100):
+    """Run deseq(fit_type='glmGamPoi', test='LRT') through the streamed
+    single-cell pipeline (parallel/sc.py:fused_sc_results) on `device` in
+    `dtype`, and populate the dataset with the host glmGamPoi columns
+    (the estimateDispersions glmGamPoi branch and the quasi-likelihood
+    F-test, R/core.R:789-816, 1064-1096, 1898-1947).
+
+    No (genes x samples) intermediate is made, so `~ batch + condition`
+    at 50k cells fits the card beside its counts.  The mu/H assays are not
+    stored (they are (G,S)); results() does not need them, and the
+    reference disables the Cook's/outlier machinery for glmGamPoi
+    (R/core.R:297-303, maxCooks is NA).  Size factors, when the dataset
+    has neither them nor normalization factors, are the port's
+    median-of-ratios on the device."""
+    from .dataset import DispersionFunction
+    from .formula import parse_formula
+    from .gampoi import make_closest_index_disp_fn, ql_to_nb_alpha
+    from .parallel.fused import size_factors_dev
+    from .parallel.sc import fused_sc_results
+
+    mm, names = dds.renamed_model_matrix(rename=dds.design_has_intercept())
+    mm = np.asarray(mm, np.float64)
+    reduced_mm, _ = dds.model_matrix(reduced)
+    full_f = dds.design if full is None else parse_formula(full)
+    comparison = f"'{full_f}' vs '{parse_formula(reduced)}'"
+
+    with profiling.stage("fused.upload", genes=dds.n_genes):
+        counts_dev = device_counts(dds, device)
+    nf = dds.normalization_factors
+    sf = dds.size_factors
+    if sf is None and nf is None:
+        with profiling.stage("estimateSizeFactors", genes=dds.n_genes):
+            sf = size_factors_dev(counts_dev.to(dtype)).double().cpu()
+        dds.size_factors = sf.numpy()
+    elif sf is None:
+        sf = np.ones(dds.n_samples)
+
+    grp = _sc_group_mode(dds)
+    if grp is not None and not (reduced_mm.shape[1] == 1
+                                and np.all(reduced_mm == 1.0)):
+        grp = None    # the group mode's reduced model is ~ 1's closed form
+    kw = dict(size_factors=sf, test="LRT", fit_type="glmGamPoi",
+              maxit=maxit, independent_filtering=False, quiet=quiet,
+              device=device, dtype=dtype)
+    with profiling.stage("fused.scPipeline", genes=dds.n_genes):
+        if grp is not None:
+            # single factor + intercept: the group factorization (exact
+            # linearMu semantics, the host's cell-means mu rule)
+            cells, n_groups = grp
+            out = fused_sc_results(counts_dev, cells=cells,
+                                   n_groups=n_groups, **kw)
+        else:
+            out = fused_sc_results(counts_dev, design=mm,
+                                   reduced_design=reduced_mm,
+                                   norm_factors=nf, **kw)
+
+    az = np.asarray(out["allZero"], bool)
+    nz = ~az
+
+    def napad(v):
+        return np.where(az, np.nan, np.asarray(v, float))
+
+    rd = dds.set_row_data
+    rd("baseMean", np.asarray(out["baseMean"], float), "intermediate",
+       "mean of normalized counts for all samples")
+    rd("baseVar", np.asarray(out["baseVar"], float), "intermediate",
+       "variance of normalized counts for all samples")
+    rd("allZero", az, "intermediate", "all counts for a gene are zero")
+    rd("dispGeneEst", np.asarray(out["dispGeneEst"], float),
+       "intermediate", "gene-wise estimates of dispersion")
+    rd("dispGeneIter", napad(out["dispGeneIter"]), "intermediate",
+       "number of iterations for gene-wise")
+    rd("dispFit", np.asarray(out["dispFit"], float), "intermediate",
+       "fitted values of dispersion")
+
+    bm = np.asarray(out["baseMean"], float)
+    dge = np.asarray(out["dispGeneEst"], float)
+    fitv = np.asarray(out["dispFit"], float)
+    for name, desc in (("qlDispMLE", "quasi likelihood dispersion MLE"),
+                       ("qlDispFit", "quasi likelihood dispersion Trend"),
+                       ("qlDispMAP", "quasi likelihood dispersion MAP")):
+        rd(name, np.asarray(out[name], float), "intermediate", desc)
+    min_disp, max_disp = 1e-8, max(10.0, dds.n_samples)
+    with np.errstate(invalid="ignore"):
+        fit_corr = np.full(dds.n_genes, np.nan)
+        fit_corr[nz] = ql_to_nb_alpha(
+            np.asarray(out["qlDispFit"], float)[nz], bm[nz], fitv[nz],
+            min_disp, max_disp)
+    rd("dispFitQLCorrected", fit_corr, "intermediate",
+       "dispersion trend corrected by quasi likelihood")
+    dds.attrs["quasiLikelihood_df0"] = float(out["ql_df0"])
+    rd("dispersion", np.asarray(out["dispersion"], float),
+       "intermediate", "final estimate of dispersion")
+    rd("dispIter", napad(np.zeros(dds.n_genes)), "intermediate",
+       "number of iterations")
+    rd("dispOutlier", np.asarray(out["dispOutlier"], bool),
+       "intermediate", "dispersion flagged as outlier")
+    rd("dispMAP", np.asarray(out["dispMAP"], float), "intermediate",
+       "maximum a posteriori estimate")
+
+    # the trend function: glmGamPoi's closest-index lookup over the
+    # fitted medians, rebuilt from the fit values themselves
+    use = nz & np.isfinite(dge) & (dge > 100 * min_disp)
+    disp_fn = DispersionFunction(
+        make_closest_index_disp_fn(bm[use], fitv[use]), "glmGamPoi")
+    disp_fn.disp_prior_var = float(np.asarray(out["dispPriorVar"]))
+    disp_fn.var_log_disp_ests = float(np.asarray(out["varLogDispEsts"]))
+    dds.dispersion_function = disp_fn
+
+    # ---- results columns (the QL F-test; host _nbinom_lrt_gampoi) ----
+    beta = np.asarray(out["beta"], float)
+    na = np.full(dds.n_genes, np.nan)
+    for j, n in enumerate(names):
+        ns = n.replace("_", " ")
+        rd(n, beta[:, j], "results", f"log2 fold change (MLE): {ns}")
+        rd(f"SE_{n}", na.copy(), "results", f"standard error: {ns}")
+    rd("LRTStatistic", np.asarray(out["LRTStatistic"], float), "results",
+       f"LRT statistic: {comparison}")
+    rd("LRTPvalue", np.asarray(out["LRTPvalue"], float), "results",
+       f"LRT p-value: {comparison}")
+    rd("fullBetaConv", napad(np.ones(dds.n_genes)), "results",
+       "convergence of betas for full model")
+    rd("reducedBetaConv", napad(np.ones(dds.n_genes)), "results",
+       "convergence of betas for reduced model")
+    rd("betaIter", na.copy(), "results",
+       "iterations for betas for full model")
+    rd("deviance", -2.0 * np.asarray(out["llFull"], float), "results",
+       "deviance of the full model")
+    rd("maxCooks", na.copy(), "results",
+       "maximum Cook's distance for row")
+
+    dds.attrs["betaPrior"] = False
+    dds.attrs["betaPriorVar"] = np.full(mm.shape[1], 1e6)
+    dds.attrs["modelMatrix"] = mm
+    dds.attrs["modelMatrixNames"] = list(names)
+    dds.attrs["modelMatrixType"] = "standard"
+    dds.attrs["reducedModelMatrix"] = reduced_mm
+    dds.attrs["dispModelMatrix"] = mm
+    dds.attrs["test"] = "LRT"
+    dds.attrs["engine"] = "fused-sc"
     dds._counts_dev = counts_dev
     return dds

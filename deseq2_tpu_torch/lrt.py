@@ -1,7 +1,8 @@
 """Likelihood ratio test (reference nbinomLRT, R/core.R:1787-2012): the
 JAX package's lrt.py, with both fits through K1 in float64 on the device
-of the (G,S) state (glm.py).  The quasi-likelihood F-test of the glmGamPoi
-path is ROADMAP.md queue 1, item 8."""
+of the (G,S) state (glm.py), and the quasi-likelihood F-test of the
+glmGamPoi path (R/core.R:1898-1947), whose fits run K1 at minmu = 1e-6
+with the dispersions held at the trend."""
 
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import torch
 from scipy.stats import chi2
 
 from .cooks import calculate_cooks_distance, record_max_cooks
-from .dispersions import ROADMAP_SC, get_base_means_and_variances
+from .dispersions import get_base_means_and_variances
 from .engine import resolve_device
 from .formula import parse_formula
 from .glm import fit_nbinom_glms
@@ -34,12 +35,10 @@ def nbinom_lrt(dds, full=None, reduced=None, beta_tol=None, maxit=None,
                use_optim=None, quiet=True, use_qr=None, min_mu=None,
                type="DESeq2", config=None, device=None):
     """Full-vs-reduced likelihood ratio chi-squared test
-    (reference nbinomLRT, R/core.R:1787-2012).  type='glmGamPoi' (the
-    quasi-likelihood F-test, R/core.R:1898-1947) is ROADMAP.md item 8.
-    `device`: where the fits and the (G,S) state live (the card by
-    default)."""
+    (reference nbinomLRT, R/core.R:1787-2012); type='glmGamPoi' runs the
+    quasi-likelihood F-test instead (R/core.R:1898-1947).  `device`: where
+    the fits and the (G,S) state live (the card by default)."""
     from .config import cfg
-    from .parallel.fused import not_ported
     dev = resolve_device(device)
     beta_tol = cfg(beta_tol, "beta_tol", config)
     maxit = cfg(maxit, "maxit_beta", config)
@@ -83,7 +82,9 @@ def nbinom_lrt(dds, full=None, reduced=None, beta_tol=None, maxit=None,
     obj_nz = dds.subset_genes(nz)
 
     if type == "glmGamPoi":
-        raise not_ported("nbinom_lrt(type='glmGamPoi')", ROADMAP_SC)
+        return _nbinom_lrt_gampoi(dds, obj_nz, nz, full, reduced, full_mm,
+                                  reduced_mm, df, model_as_formula,
+                                  rename_cols, beta_tol, maxit, use_qr, dev)
 
     if model_as_formula:
         full_model = fit_nbinom_glms(obj_nz, model_formula=full,
@@ -167,5 +168,87 @@ def nbinom_lrt(dds, full=None, reduced=None, beta_tol=None, maxit=None,
     dds.set_row_data("deviance", na_pad(deviance, nz), "results",
                      "deviance of the full model")
     dds.set_row_data("maxCooks", na_pad(max_cooks, nz), "results",
+                     "maximum Cook's distance for row")
+    return dds
+
+
+def _nbinom_lrt_gampoi(dds, obj_nz, nz, full, reduced, full_mm, reduced_mm,
+                       df, model_as_formula, rename_cols, beta_tol, maxit,
+                       use_qr, dev):
+    """Quasi-likelihood F-test path (reference R/core.R:1898-1947;
+    deseq2_tpu/lrt.py:166-247): betas fit with the *trend* dispersions
+    held fixed, at minmu = 1e-6 (K1), test statistic F = (deviance drop /
+    df) / qlDispMAP with denominator df ql_df0 + residual df."""
+    from .gampoi import ql_f_test
+
+    for needed in ("qlDispMAP", "dispFit"):
+        if needed not in dds.row_data:
+            raise ValueError(
+                "nbinomLRT of type 'glmGamPoi' requires first calling "
+                "estimate_dispersions(dds, fit_type='glmGamPoi')")
+    if "quasiLikelihood_df0" not in dds.attrs:
+        raise ValueError("missing quasiLikelihood_df0; run "
+                         "estimate_dispersions(fit_type='glmGamPoi')")
+
+    disp_trend = obj_nz.row_data["dispFit"]
+    kwargs = dict(rename_cols=False, beta_tol=beta_tol, maxit=maxit,
+                  use_optim=False, use_qr=use_qr, warn_nonpos_var=False,
+                  min_mu=1e-6, alpha_hat=disp_trend, device=dev)
+    if model_as_formula:
+        full_model = fit_nbinom_glms(obj_nz, model_formula=full,
+                                     **{**kwargs,
+                                        "rename_cols": rename_cols})
+        reduced_model = fit_nbinom_glms(obj_nz, model_formula=reduced,
+                                        **kwargs)
+        model_matrix = full_model["model_matrix"]
+    else:
+        full_model = fit_nbinom_glms(obj_nz, model_matrix=full_mm, **kwargs)
+        reduced_model = fit_nbinom_glms(obj_nz, model_matrix=reduced_mm,
+                                        **kwargs)
+        model_matrix = full_mm
+
+    ql_df0 = dds.attrs["quasiLikelihood_df0"]
+    df_resid = dds.n_samples - model_matrix.shape[1]
+    f_stat, pval = ql_f_test(full_model["log_like"],
+                             reduced_model["log_like"], df,
+                             obj_nz.row_data["qlDispMAP"], ql_df0, df_resid)
+    deviance = -2.0 * full_model["log_like"]
+
+    dds.attrs["betaPrior"] = False
+    dds.attrs["betaPriorVar"] = np.full(model_matrix.shape[1], 1e6)
+    dds.attrs["modelMatrix"] = model_matrix
+    dds.attrs["modelMatrixNames"] = full_model["model_matrix_names"]
+    dds.attrs["reducedModelMatrix"] = reduced_mm
+    dds.attrs["dispModelMatrix"] = model_matrix
+    dds.attrs["test"] = "LRT"
+    dds.assays["mu"] = dev_array(na_pad_t(full_model["mu"], nz))
+
+    if model_as_formula:
+        comparison = f"'{full}' vs '{parse_formula(reduced)}'"
+    else:
+        comparison = "full vs reduced"
+    names = full_model["model_matrix_names"]
+    names_spaces = [n.replace("_", " ") for n in names]
+    beta_matrix = full_model["beta_matrix"]
+    na = np.full(obj_nz.n_genes, np.nan)
+    ones = np.ones(obj_nz.n_genes)
+    for j, (n, ns) in enumerate(zip(names, names_spaces)):
+        dds.set_row_data(n, na_pad(beta_matrix[:, j], nz), "results",
+                         f"log2 fold change (MLE): {ns}")
+        dds.set_row_data(f"SE_{n}", na_pad(na, nz), "results",
+                         f"standard error: {ns}")
+    dds.set_row_data("LRTStatistic", na_pad(f_stat, nz), "results",
+                     f"LRT statistic: {comparison}")
+    dds.set_row_data("LRTPvalue", na_pad(pval, nz), "results",
+                     f"LRT p-value: {comparison}")
+    dds.set_row_data("fullBetaConv", na_pad(ones, nz), "results",
+                     "convergence of betas for full model")
+    dds.set_row_data("reducedBetaConv", na_pad(ones, nz), "results",
+                     "convergence of betas for reduced model")
+    dds.set_row_data("betaIter", na_pad(na, nz), "results",
+                     "iterations for betas for full model")
+    dds.set_row_data("deviance", na_pad(deviance, nz), "results",
+                     "deviance of the full model")
+    dds.set_row_data("maxCooks", na_pad(na, nz), "results",
                      "maximum Cook's distance for row")
     return dds

@@ -49,6 +49,7 @@ import torch
 
 from .disp import fit_disp_grid_plain, fit_disp_line_search_plain
 from .disp import CR_WEIGHT_THRESHOLD, log_posterior, make_cr_masks
+from .nb import nb_logpmf
 
 MIN_LA = float(np.log(1e-9))
 # log alpha below which (1/alpha > 1e8) the posterior is flat to within
@@ -282,14 +283,15 @@ def lp_at(la, d, use_prior, prior_var=PRIOR_VAR):
                          kw["use_cr"])
 
 
-def run_irls(fn, d, maxit=100):
+def run_irls(fn, d, maxit=100, min_mu=0.5):
     """fn (the kernel wrapper or the plain version) on d's K1 inputs, with
     unit normalization factors and d's weights, if any."""
     dt, dev = d["y"].dtype, d["y"].device
     S, p = d["x"].shape
     ridge = d["ridge"] if "ridge" in d else ridge_for(p, dt, dev)
     return fn(d["y"], d["x"], torch.ones(S, dtype=dt, device=dev),
-              d["alpha"], d["b0"], ridge, maxit=maxit, weights=d.get("w"))
+              d["alpha"], d["b0"], ridge, maxit=maxit, min_mu=min_mu,
+              weights=d.get("w"))
 
 
 def run_ls(fn, d, use_prior, prior_var=PRIOR_VAR, min_log_alpha=MIN_LA):
@@ -521,13 +523,14 @@ def check_grid(k, pl, d, use_prior, prior_var=PRIOR_VAR, ref=None):
 
 @contextlib.contextmanager
 def recorded_disp_calls():
-    """Within the block, every call of the K2 and K3 wrappers
-    (cuda_ls.fit_disp_line_search, cuda_grid.fit_disp_grid) is recorded as
-    (args, kwargs) in the yielded dict's "ls" and "grid" lists, then made
-    as usual: the wrapper itself runs, so its launch counts move as they
-    would without the recording."""
-    from . import cuda_grid, cuda_ls
-    calls = {"ls": [], "grid": []}
+    """Within the block, every call of the K1, K2 and K3 wrappers
+    (cuda_irls.fit_beta, cuda_ls.fit_disp_line_search,
+    cuda_grid.fit_disp_grid) is recorded as (args, kwargs) in the yielded
+    dict's "irls", "ls" and "grid" lists, then made as usual: the wrapper
+    itself runs, so its launch counts move as they would without the
+    recording."""
+    from . import cuda_grid, cuda_irls, cuda_ls
+    calls = {"irls": [], "ls": [], "grid": []}
     hooked = []
 
     def hook(mod, name, key):
@@ -541,9 +544,11 @@ def recorded_disp_calls():
             finally:
                 setattr(mod, name, recorder)
 
+        recorder.__wrapped__ = fn      # where the launch counts live
         setattr(mod, name, recorder)
         hooked.append((mod, name, fn))
 
+    hook(cuda_irls, "fit_beta", "irls")
     hook(cuda_ls, "fit_disp_line_search", "ls")
     hook(cuda_grid, "fit_disp_grid", "grid")
     try:
@@ -565,3 +570,173 @@ def recorded_case(kind, call):
         if k in kw:
             d[k] = kw[k]
     return d, bool(kw.get("use_prior", False)), float(a[5])
+
+
+# ---------------------------------------------------------------------------
+# single-cell path: bench.py's fixtures and gate, and K1 at minmu = 1e-6
+# ---------------------------------------------------------------------------
+
+# minmu of the quasi-likelihood fits (the host glmGamPoi LRT); K1 is
+# checked there at SHAPES on zero_group_inputs
+MIN_MU_QL = 1e-6
+
+
+ZERO_ROWS = 10
+
+
+def check_irls_min_mu(k, pl, ref=None, d64=None):
+    """K1 readings at minmu = 1e-6 on zero_group_inputs: float64 on every
+    gene; float32 on the genes with counts in both groups, beside the
+    reading over every gene (printed).  On a zero-group gene the group's
+    beta is held by the ridge where the deviance is flat (mu at the
+    clamp), and the float32 kernel and plain version stop up to 0.11
+    apart relative there (measured on one H100), past TOL's 5e-3.
+
+    With `ref` (the float64 plain fit on the float64 inputs `d64`) the
+    zero-group genes are also read, not gated, against it: each float32
+    fit's largest |dbeta| / (1 + |beta|) and its largest deviance excess
+    over the float64 fit, the deviances taken in float64 at each fit's
+    betas (a flat optimum: betas far apart, deviances equal)."""
+    r = check_irls(k, pl)
+    if not _is_f32(pl["beta"]):
+        return r
+    rows = check_irls({m: k[m][ZERO_ROWS:] for m in ("beta", "iter")},
+                      {m: pl[m][ZERO_ROWS:] for m in ("beta", "iter")})
+    rows["beta_rel_all_genes"] = r["beta_rel"]
+    if ref is not None:
+        rb = ref["beta"][:ZERO_ROWS]
+        dev_ref = _deviance64(d64, rb)
+        for name, res in (("kernel", k), ("plain", pl)):
+            b = res["beta"][:ZERO_ROWS].double()
+            rows[f"zero_rows_beta_rel_f64_{name}"] = (
+                (b - rb).abs() / (1.0 + rb.abs())).max().item()
+            rows[f"zero_rows_dev_excess_{name}"] = (
+                _deviance64(d64, b) - dev_ref).max().item()
+    return rows
+
+
+def _deviance64(d64, beta):
+    """Per-gene NB deviance (-2 log-likelihood) in float64 of the first
+    beta.shape[0] genes of d64 at `beta`, mu clamped at MIN_MU_QL."""
+    g = beta.shape[0]
+    mu = torch.clamp(torch.exp(beta.double() @ d64["x"].double().T),
+                     min=MIN_MU_QL)
+    return -2.0 * nb_logpmf(d64["y"][:g].double(), mu,
+                            d64["alpha"][:g].double()[:, None]).sum(dim=1)
+
+
+def zero_group_inputs(G, S, p, seed, zero_rows=ZERO_ROWS):
+    """solver_inputs with the counts of the first `zero_rows` genes set to
+    0 on the samples where the design's second column is 1 (one group of a
+    two-group design), so that mu falls to the 1e-6 clamp there, the IRLS
+    weights mu/(1 + alpha mu) to ~0 and X'WX towards its ridge; alpha at
+    its generating value (the fits of the QL test hold it at the trend)."""
+    d = solver_inputs(G, S, p, seed)
+    if p >= 2:
+        d["y"][:zero_rows][:, d["x"][:, 1] > 0] = 0.0
+    return d
+
+
+def sc_gate_inputs(g, s, seed=0):
+    """bench.py's _sc_gate_inputs: UMI-like counts (mu0 = max(2^N(-1, 2),
+    0.01), dispersion min(4/mu0 + 0.3, 20)), two alternating groups, half
+    the genes with a log2 fold change N(0, 1), unit size factors; returns
+    (counts (g,s) int32, cells, size factors)."""
+    rng = np.random.default_rng(seed)
+    cells = (np.arange(s) % 2).astype(np.int32)
+    mu0 = np.maximum(2.0 ** rng.normal(-1.0, 2.0, g), 0.01)
+    disp = np.minimum(4.0 / mu0 + 0.3, 20.0)
+    lfc = np.where(rng.random(g) < 0.5, rng.normal(0.0, 1.0, g), 0.0)
+    mu = mu0[:, None] * 2.0 ** (lfc[:, None] * cells[None, :])
+    size = 1.0 / disp[:, None]
+    counts = rng.negative_binomial(size, size / (size + mu)).astype(
+        np.int32)
+    return counts, cells, np.ones(s)
+
+
+def sc_cov_gate_inputs(g, s, seed=1):
+    """bench.py's _sc_cov_gate_inputs: the ~ batch + condition fixture
+    (batch alternating in pairs, a batch log2 effect N(0, 0.3)); returns
+    (counts, design [1, batch, condition], reduced [1, batch], size
+    factors)."""
+    rng = np.random.default_rng(seed)
+    cond = (np.arange(s) % 2).astype(np.float64)
+    batch = ((np.arange(s) // 2) % 2).astype(np.float64)
+    design = np.column_stack([np.ones(s), batch, cond])
+    mu0 = np.maximum(2.0 ** rng.normal(-1.0, 2.0, g), 0.01)
+    disp = np.minimum(4.0 / mu0 + 0.3, 20.0)
+    lfc = np.where(rng.random(g) < 0.5, rng.normal(0.0, 1.0, g), 0.0)
+    blfc = rng.normal(0.0, 0.3, g)
+    mu = mu0[:, None] * 2.0 ** (lfc[:, None] * cond[None, :]
+                                + blfc[:, None] * batch[None, :])
+    size = 1.0 / disp[:, None]
+    counts = rng.negative_binomial(size, size / (size + mu)).astype(
+        np.int32)
+    return counts, design, design[:, :2], np.ones(s)
+
+
+# bench.py's single-cell gate limits (sc_accuracy_gate)
+SC_GATE = dict(max_dlfc=0.02, logp_excess=1.0, flips=0, jaccard=0.94)
+
+
+def sc_gate(res32, res64, alpha=0.1):
+    """bench.py's single-cell gate readings of a float32 run against a
+    float64 run (dicts with log2FoldChange, pvalue, padj): max |dLFC|, the
+    log10 p excess over half of |log10 p|, the alpha rejection-set
+    Jaccard and the confident flips (padj < 0.01 on one side, > 0.5 on
+    the other); "ok" under SC_GATE."""
+    lfc32 = np.asarray(res32["log2FoldChange"], np.float64)
+    lfc64 = np.asarray(res64["log2FoldChange"], np.float64)
+    both = np.isfinite(lfc32) & np.isfinite(lfc64)
+    d_lfc = float(np.max(np.abs(lfc32[both] - lfc64[both])))
+    p32 = np.asarray(res32["pvalue"], np.float64)
+    p64 = np.asarray(res64["pvalue"], np.float64)
+    pb = np.isfinite(p32) & np.isfinite(p64)
+    l32 = np.log10(np.maximum(p32[pb], 1e-30))
+    l64 = np.log10(np.maximum(p64[pb], 1e-30))
+    excess = float(np.max(np.abs(l32 - l64) - 0.5 * np.abs(l64)))
+    a32 = np.asarray(res32["padj"], np.float64)
+    a64 = np.asarray(res64["padj"], np.float64)
+    rej32 = np.isfinite(a32) & (a32 < alpha)
+    rej64 = np.isfinite(a64) & (a64 < alpha)
+    union = int((rej32 | rej64).sum())
+    jacc = float((rej32 & rej64).sum() / union) if union else 1.0
+    q32 = np.where(np.isfinite(a32), a32, 1.0)
+    q64 = np.where(np.isfinite(a64), a64, 1.0)
+    flips = int((((q32 < 0.01) & (q64 > 0.5))
+                 | ((q64 < 0.01) & (q32 > 0.5))).sum())
+    r = dict(max_dlfc=d_lfc, logp_excess=excess, jaccard=jacc, flips=flips,
+             rejections=int(rej64.sum()))
+    r["ok"] = (d_lfc < SC_GATE["max_dlfc"]
+               and excess < SC_GATE["logp_excess"]
+               and flips <= SC_GATE["flips"]
+               and jacc >= SC_GATE["jaccard"])
+    return r
+
+
+def sc_bench_counts(G, S, device, seed=0, chunk=2500):
+    """bench.py:main_sc's single-cell counts at (G, S), made on `device`:
+    mu0 = max(2^N(-1, 2), 0.01) and dispersion min(4/mu0 + 0.3, 20) per
+    gene from numpy's generator at `seed` (bench.py's), then a
+    gamma-Poisson mixture drawn in sample chunks from the device's
+    generator seeded with `seed` (numpy negative-binomial sampling of
+    1.5e9 values takes minutes on the host).  Returns the (G,S) int32
+    counts and the alternating two-group cell codes."""
+    rng = np.random.default_rng(seed)
+    cells = (np.arange(S) % 2).astype(np.int32)
+    mu0 = np.maximum(2.0 ** rng.normal(-1.0, 2.0, G), 0.01)
+    disp = np.minimum(4.0 / mu0 + 0.3, 20.0)
+    dev = torch.device(device)
+    shape = torch.as_tensor(1.0 / disp, dtype=torch.float32,
+                            device=dev)[:, None]
+    scale = torch.as_tensor(disp * mu0, dtype=torch.float32,
+                            device=dev)[:, None]
+    out = torch.empty((G, S), dtype=torch.int32, device=dev)
+    with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
+        torch.manual_seed(seed)
+        for s0 in range(0, S, chunk):
+            w = min(chunk, S - s0)
+            lam = torch._standard_gamma(shape.expand(G, w).contiguous()) \
+                * scale
+            out[:, s0:s0 + w] = torch.poisson(lam).to(torch.int32)
+    return out, cells

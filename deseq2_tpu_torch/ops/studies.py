@@ -9,6 +9,7 @@ ROADMAP.md:
     python -m deseq2_tpu_torch.ops.studies mainpath PARENT_ROOT [CALLS]
     python -m deseq2_tpu_torch.ops.studies wide [REPS]
     python -m deseq2_tpu_torch.ops.studies rlog [N_SEEDS]
+    python -m deseq2_tpu_torch.ops.studies sc [G S]
 
 `eigvalsh`: the largest batch of symmetric n x n matrices that
 torch.linalg.eigvalsh takes on the card, per dtype and n, found by
@@ -49,6 +50,25 @@ permuted (so only the summation order differs), N_PERM permutations
 (default 5), K1, K2 and K3 both modes: how far the readings move when
 nothing but rounding does.  A reading that fails in any permutation is
 rounding-bound (checks.ROUNDING_BOUND).
+
+`sc`: the streamed single-cell path (parallel/sc.py) at G x S (default
+30,000 x 50,000, bench.py:main_sc's counts made on the card), the group
+QL call of fused_sc_results in float32, warm: its seconds, peak device
+memory and stage table at sample chunks of 1,024, 2,048, 4,096 and 8,192
+with the dispersion estimation in float64, and at 2,048 with it in
+float32 (sc.SEARCH_DTYPE rebound); then bench.py's gate (checks.sc_gate:
+the float32 call on the card against the float64 call on the CPU,
+histogram order matched) with each search dtype, on the 2,048 x 4,096
+gate fixtures, group seeds 0-6 and covariate seeds 1-3 (`sc G S SEEDS`:
+SEEDS group seeds, at most 3 covariate ones; 0 skips the gates).  These
+set sc.DEFAULT_CHUNK and sc.SEARCH_DTYPE.
+
+`scpaths PARENT_ROOT [CALLS]`: the streamed single-cell path at 30,000 x
+50,000 in float32 on the card (bench.py:main_sc's counts) in fresh
+processes alternating between PARENT_ROOT and this checkout (parent,
+change, change, parent): each turn times CALLS (default 2) warm calls of
+group QL, covariate QL and covariate QL with (G,S) normalization
+factors, and the study prints each case's median per checkout.
 
 `expanded` (the card if there is one, else the CPU): the plain float32
 IRLS at the betaPrior refit's expanded design (checks.EXPANDED, both
@@ -384,6 +404,63 @@ def mainpath_study(parent_root, calls):
               f"{max(rates):,.0f}")
 
 
+def _time_sc_paths(G, S, calls):
+    """One turn of the scpaths study, run as `python -c` in the checkout
+    being timed: bench.py:main_sc's counts made on the card, then per case
+    (group QL; covariate QL [1, batch, condition] against [1, batch];
+    the same with (G,S) float32 normalization factors exp(N(0, 0.2)) made
+    on the card) a warm-up and `calls` warm float32 calls of
+    fused_sc_results; prints {case: [wall seconds]} as one JSON line."""
+    import json
+    import time
+    import numpy as np
+    import torch
+    from deseq2_tpu_torch.ops import checks
+    from deseq2_tpu_torch.parallel.sc import fused_sc_results
+    dev = torch.device("cuda", 0)
+    counts, cells = checks.sc_bench_counts(G, S, dev)
+    batch = ((np.arange(S) // 2) % 2).astype(np.float64)
+    x = np.column_stack([np.ones(S), batch, cells.astype(float)])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    nf = torch.exp(0.2 * torch.randn(G, S, generator=gen, device=dev))
+    cov = dict(design=x, reduced_design=x[:, :2])
+    cases = {"group_ql": dict(cells=cells, n_groups=2),
+             "covariate_ql": cov,
+             "covariate_ql_nf": dict(cov, norm_factors=nf)}
+    out = {}
+    for name, kw in cases.items():
+        def call():
+            fused_sc_results(counts, size_factors=np.ones(S), test="LRT",
+                             fit_type="glmGamPoi", device=dev,
+                             dtype=torch.float32, **kw)
+            torch.cuda.synchronize()
+        call()
+        out[name] = []
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            call()
+            out[name].append(time.perf_counter() - t0)
+    print(json.dumps(out))
+
+
+def scpaths_study(parent_root, calls):
+    import statistics
+    change_root = Path(__file__).resolve().parents[2]
+    got = {}
+    for tag, root in (("parent", parent_root), ("change", change_root),
+                      ("change", change_root), ("parent", parent_root)):
+        secs = _run_turn(_time_sc_paths, (30000, 50000, calls), root)
+        print(f"turn {tag}: " + "; ".join(
+            f"{k} " + ", ".join(f"{t:.3f}" for t in v)
+            for k, v in secs.items()), flush=True)
+        for k, v in secs.items():
+            got.setdefault((tag, k), []).extend(v)
+    for (tag, k), v in sorted(got.items(), key=lambda kv: kv[0][::-1]):
+        print(f"{k}, {tag}: median {statistics.median(v):.3f} s over "
+              f"{len(v)} warm calls, range {min(v):.3f}-{max(v):.3f}")
+
+
 def _time_kernels(path, reps):
     """One turn of the kernels study, run as `python -c` in the checkout
     being timed (so its own package is imported): time K1, K2 and K3 on the
@@ -634,6 +711,62 @@ def rlog_study(dev, n_seeds):
               f"{int((d > 0.01).sum())}", flush=True)
 
 
+def sc_study(dev, G=30000, S=50000, seeds=7):
+    from .. import profiling
+    from ..parallel import sc
+    counts, cells = checks.sc_bench_counts(G, S, dev)
+    torch.cuda.synchronize()
+    print(f"single-cell group QL, float32 calls, {G} x {S}, "
+          f"max count {int(counts.max())}", flush=True)
+    kw = dict(cells=cells, n_groups=2, size_factors=np.ones(S),
+              test="LRT", fit_type="glmGamPoi", device=dev,
+              dtype=torch.float32)
+    sc.fused_sc_results(counts, **kw)          # warm-up
+    f32, f64 = torch.float32, torch.float64
+    cases = [(ck, f64) for ck in (1024, 2048, 4096, 8192)] + [(2048, f32)]
+    for chunk, sdt in cases:
+        sc.SEARCH_DTYPE = sdt
+        info = {}
+        profiling.reset()
+        profiling.enable()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = sc.fused_sc_results(counts, chunk=chunk, info=info, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        profiling.disable()
+        stages = {r["stage"]: round(r["seconds"], 3)
+                  for r in profiling.records()}
+        print(f"  chunk {chunk}, searches {str(sdt)[6:]}: {wall:.3f} s = "
+              f"{G / wall:,.0f} genes/s, peak "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+              f"rejections {int(np.sum(out['padj'] < 0.1))}, stages "
+              f"{stages}", flush=True)
+    del counts
+    # bench.py's gate: float32 calls on the card against the float64 call
+    # on the CPU, with float64 and with float32 searches, over seeds
+    for design in ("group", "covariate"):
+        for seed in range(seeds if design == "group" else min(seeds, 3)):
+            if design == "group":
+                c, cl, sf = checks.sc_gate_inputs(2048, 4096, seed=seed)
+                gk = dict(cells=cl, n_groups=2)
+            else:
+                c, x, red, sf = checks.sc_cov_gate_inputs(2048, 4096,
+                                                          seed=seed + 1)
+                gk = dict(design=x, reduced_design=red)
+            gk.update(size_factors=sf, test="LRT", fit_type="glmGamPoi")
+            sc.SEARCH_DTYPE = f64
+            ref = sc.fused_sc_results(c, device="cpu", dtype=f64,
+                                      use_hist=True, **gk)
+            for sdt in (f64, f32):
+                sc.SEARCH_DTYPE = sdt
+                o = sc.fused_sc_results(c, device=dev, dtype=f32, **gk)
+                r = checks.sc_gate(o, ref)
+                print(f"  {design} gate, seed {seed}, searches "
+                      f"{str(sdt)[6:]}: {r}", flush=True)
+    sc.SEARCH_DTYPE = f64
+
+
 if __name__ == "__main__":
     if sys.argv[1] in ("edges", "expanded", "rlog"):
         any_dev = (torch.device("cuda", 0) if torch.cuda.is_available()
@@ -658,6 +791,11 @@ if __name__ == "__main__":
                        int(sys.argv[3]) if len(sys.argv) > 3 else 5)
     elif sys.argv[1] == "wide":
         wide_study(dev, int(sys.argv[2]) if len(sys.argv) > 2 else 3)
+    elif sys.argv[1] == "sc":
+        sc_study(dev, *[int(a) for a in sys.argv[2:5]])
+    elif sys.argv[1] == "scpaths":
+        scpaths_study(Path(sys.argv[2]).resolve(),
+                      int(sys.argv[3]) if len(sys.argv) > 3 else 2)
     elif sys.argv[1] == "kernels":
         kernels_study(dev, Path(sys.argv[2]).resolve(),
                       int(sys.argv[3]) if len(sys.argv) > 3 else 7)

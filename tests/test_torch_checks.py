@@ -87,3 +87,44 @@ def test_irls_check(dtype):
     assert checks.check_irls(pl, pl)["ok"]
     off = dict(pl, beta=pl["beta"] * 1.02)
     assert not checks.check_irls(off, pl)["ok"]
+
+
+def test_check_irls_min_mu_gates_float32_off_zero_rows():
+    """float64 is read on every gene; float32 off the zero-group genes,
+    with the every-gene reading beside it."""
+    import torch
+    from deseq2_tpu_torch.ops import checks
+    G = 40
+    for dt in (torch.float64, torch.float32):
+        beta = torch.ones(G, 2, dtype=dt)
+        it = torch.full((G,), 5, dtype=torch.int32)
+        off = beta.clone()
+        off[:checks.ZERO_ROWS, 1] += 0.5
+        r = checks.check_irls_min_mu(dict(beta=off, iter=it),
+                                     dict(beta=beta, iter=it))
+        if dt == torch.float64:
+            assert not r["ok"] and "beta_rel_all_genes" not in r
+        else:
+            assert r["ok"] and r["beta_rel"] == 0.0
+            assert r["beta_rel_all_genes"] == 0.25
+            assert "zero_rows_dev_excess_kernel" not in r
+
+
+def test_check_irls_min_mu_reads_zero_rows_against_float64():
+    """Given the float64 fit, the zero-group genes are read against it
+    (betas and float64 deviances), and the gate does not move."""
+    import torch
+    from deseq2_tpu_torch.ops import checks, irls
+    inputs = checks.zero_group_inputs(40, 24, 2, 3)
+    d64 = checks.as_tensors(inputs, torch.float64, "cpu")
+    d32 = checks.as_tensors(inputs, torch.float32, "cpu")
+    run = dict(min_mu=checks.MIN_MU_QL)
+    ref = checks.run_irls(irls.fit_beta_plain, d64, **run)
+    pl = checks.run_irls(irls.fit_beta_plain, d32, **run)
+    r = checks.check_irls_min_mu(pl, pl, ref, d64)
+    assert r["ok"] == checks.check_irls_min_mu(pl, pl)["ok"]
+    assert r["zero_rows_beta_rel_f64_kernel"] \
+        == r["zero_rows_beta_rel_f64_plain"] >= 0.0
+    z = checks.check_irls_min_mu(dict(pl, beta=ref["beta"].float()), pl,
+                                 ref, d64)
+    assert abs(z["zero_rows_dev_excess_kernel"]) < 1e-6

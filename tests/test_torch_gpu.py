@@ -16,7 +16,10 @@ K2's and K3's out, and twice on the same inputs, where its outputs must be
 the same bit for bit.  K2 and K3 also run in their other modes (without
 the Cox-Reid term; the weighted row cut at 0.5), the wrappers' p > 8
 route is held to the CPU, and the host engine's deseq(engine="host") on
-the card to the same call with device="cpu".
+the card to the same call with device="cpu".  K1 at the quasi-likelihood
+fits' minmu = 1e-6 is held to its plain version, and the streamed
+single-cell path on the card to the CPU (float64) and to bench.py's
+single-cell gate (float32).
 """
 
 import numpy as np
@@ -557,3 +560,84 @@ def test_transforms_on_card_match_cpu(cuda, call, dtype_name):
         "rlog_float64" if call == "rlog" and dtype_name == "float64"
         else dtype_name]
     assert np.max(np.abs(t.matrix - cpu)) <= tol
+
+
+# ---------------------------------------------------------------------------
+# the single-cell path: K1 at the QL fits' minmu = 1e-6, the streamed path
+# ---------------------------------------------------------------------------
+
+MIN_MU_CASES = [(dt, p, S, G, False) for dt in (torch.float32, torch.float64)
+                for p in (2, 3) for S, G in checks.SHAPES]
+
+
+@pytest.mark.parametrize("case", MIN_MU_CASES, ids=_id)
+def test_irls_kernel_min_mu_matches_plain(cuda, case):
+    """K1 at minmu = 1e-6 (the host glmGamPoi LRT's fits), its first ten
+    genes counting zero in one group: against its plain version by
+    phase 3's readings and limits (checks.TOL), in float32 on the genes
+    with counts in both groups (checks.check_irls_min_mu)."""
+    dt, p, S, G, _ = case
+    d = checks.as_tensors(checks.zero_group_inputs(G, S, p, 7 * p + S), dt,
+                          cuda)
+    n0 = fit_beta.launches
+    k = checks.run_irls(fit_beta, d, min_mu=checks.MIN_MU_QL)
+    torch.cuda.synchronize()
+    assert fit_beta.launches == n0 + 1
+    pl = checks.run_irls(irls.fit_beta_plain, d, min_mu=checks.MIN_MU_QL)
+    r = checks.check_irls_min_mu(k, pl)
+    assert r["ok"], r
+
+
+SC_CARD_CASES = {
+    "group_ql": dict(test="LRT", fit_type="glmGamPoi"),
+    "group_wald": dict(test="Wald", min_mu=0.5),
+    "covariate_ql_nf": dict(test="LRT", fit_type="glmGamPoi", nf=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SC_CARD_CASES))
+def test_sc_on_card_matches_cpu(cuda, case):
+    """fused_sc_results in float64 on the card against the same call on
+    the CPU (rtol 1e-6; gene-wise estimates at the 1e-8 floor within 10 x
+    minDisp)."""
+    from deseq2_tpu_torch.parallel import sc
+    kw = dict(SC_CARD_CASES[case])
+    counts, cells, sf = checks.sc_gate_inputs(400, 300, seed=3)
+    if case.startswith("covariate"):
+        x = np.column_stack([np.ones(300), (np.arange(300) // 2) % 2, cells])
+        rng = np.random.default_rng(6)
+        nf = np.exp(rng.normal(0.0, 0.2, counts.shape))
+        kw.update(design=x, reduced_design=x[:, :2], norm_factors=nf)
+    else:
+        kw.update(cells=cells, n_groups=2)
+    kw.pop("nf", None)
+    card = sc.fused_sc_results(counts, size_factors=sf, device=cuda, **kw)
+    cpu = sc.fused_sc_results(counts, size_factors=sf, device="cpu", **kw)
+    floor = (cpu["dispGeneEst"] <= 1e-7) | (card["dispGeneEst"] <= 1e-7)
+    for k in ("baseMean", "dispGeneEst", "dispFit", "dispersion",
+              "log2FoldChange", "stat", "pvalue", "padj"):
+        a, b = np.asarray(card[k], float), np.asarray(cpu[k], float)
+        assert np.array_equal(np.isnan(a), np.isnan(b)), k
+        m = ~np.isnan(b) & ~floor
+        np.testing.assert_allclose(a[m], b[m], rtol=1e-6, atol=1e-9,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("design", ["group", "covariate"])
+def test_sc_float32_card_gate(cuda, design):
+    """bench.py's single-cell gate: the float32 call on the card against
+    the float64 call on the CPU (histogram order matched), 2,048 x 4,096."""
+    from deseq2_tpu_torch.parallel import sc
+    if design == "group":
+        counts, cells, sf = checks.sc_gate_inputs(2048, 4096)
+        kw = dict(cells=cells, n_groups=2)
+    else:
+        counts, x, red, sf = checks.sc_cov_gate_inputs(2048, 4096)
+        kw = dict(design=x, reduced_design=red)
+    run = dict(size_factors=sf, test="LRT", fit_type="glmGamPoi", **kw)
+    card = sc.fused_sc_results(counts, device=cuda, dtype=torch.float32,
+                               **run)
+    cpu = sc.fused_sc_results(counts, device="cpu", dtype=torch.float64,
+                              use_hist=True, **run)
+    r = checks.sc_gate(card, cpu)
+    assert r["ok"], r
