@@ -137,6 +137,31 @@ Phases; any failure exits non-zero and no phase's failure is caught:
    The streamed path launches none of K1-K3 (the JAX package's runs no
    Pallas kernel either); its per-chunk passes are PyTorch.
 
+11. the gene mesh at full width (ROADMAP item 11): the mesh is the visible
+   cards, up to 4, or 4 shards on cuda:0 on a one-card machine (printed).
+   a. the main path ~ condition at 60,000 x 1,024 through deseq(mesh=...)
+      + results() in float32 and float64, and the host engine
+      (engine="host", float64), each against the single-device call on the
+      same inputs: warm seconds of both, peak device memory per card,
+      launches per kernel and per device (K1 and K2 on every mesh card,
+      K3 in float32), each card's busy share in a profiled call; float64
+      gated at rtol 1e-8 / atol 1e-10 on every row_data and results
+      column and the cross-gene scalars (dispPriorVar, the trend
+      coefficients, filterTheta), float32 by bench.py's gates;
+   b. group QL at 30,000 x 50,000 (phase 10's counts) through
+      fused_sc_results(mesh=...), float32, gated by bench.py's single-cell
+      gates against the single-device float64 call (the single float32
+      call's own reading printed beside it) and by the straggler test's
+      rule for iteration counts against the single float32 call (each
+      differing gene also moves with the chunk width, at most 0.1% of the
+      genes, estimates within rtol 1e-6);
+   c. two processes through torch.distributed (this script re-run with
+      --mesh-rank; NCCL with a card per rank, gloo when both share one) on
+      the 2,048 x 1,024 gate slice, the fused route and the host engine in
+      float64, against this process's single-device calls at rtol 1e-8.
+   With a second card phase 3 also holds K1-K3 against their plain
+   versions on cuda:1.
+
 Each phase prints its seconds.  The last two lines are the card's
 nvidia-smi line and the JSON result line.
 """
@@ -387,6 +412,49 @@ def check_kernels(torch, dev, modes=(False, True)):
     return worst
 
 
+def check_second_card(torch):
+    """With a second card: K1, K2 and K3 at checks.SHAPES (p = 2, both
+    dtypes, unweighted) launched on cuda:1 and held against their plain
+    versions there, as phase 3 does on cuda:0: a launch on a non-zero
+    device is where a current-device fault of the ctypes path shows.
+    Fails unless every launch landed on cuda:1."""
+    from deseq2_tpu_torch.ops import checks, disp, irls
+    from deseq2_tpu_torch.ops.cuda_grid import fit_disp_grid
+    from deseq2_tpu_torch.ops.cuda_irls import fit_beta
+    from deseq2_tpu_torch.ops.cuda_ls import fit_disp_line_search
+    dev = torch.device("cuda", 1)
+    zero_counts()
+    failed = []
+    for dname in ("float32", "float64"):
+        dt = getattr(torch, dname)
+        for S, G in checks.SHAPES:
+            raw = checks.solver_inputs(G, S, 2, 20 + S)
+            d = checks.as_tensors(raw, dt, dev)
+            r1 = checks.check_irls(checks.run_irls(fit_beta, d),
+                                   checks.run_irls(irls.fit_beta_plain, d))
+            r2 = checks.check_ls(
+                checks.run_ls(fit_disp_line_search, d, True),
+                checks.run_ls(disp.fit_disp_line_search_plain, d, True), d,
+                True, ref=checks.line_search_reference(d, True)
+                if dname == "float32" else None)
+            r3 = checks.check_grid(
+                checks.run_grid(fit_disp_grid, d, True),
+                checks.run_grid(disp.fit_disp_grid_plain, d, True), d, True,
+                ref=checks.grid_reference(d, True)
+                if dname == "float32" else None)
+            torch.cuda.synchronize(dev)
+            for name, r in (("irls", r1), ("disp_ls", r2), ("disp_grid", r3)):
+                log(f"  cuda:1 {dname} p=2 S={S} G={G} {name}: {fmt(r)}")
+                if not r["ok"]:
+                    failed.append(f"cuda:1 {dname} S={S} {name}")
+    by_dev = read_counts_by_device()
+    log(f"  cuda:1 launches by device: {by_dev}")
+    if any(set(v) != {"cuda:1"} for v in by_dev.values()):
+        failed.append(f"launches off cuda:1: {by_dev}")
+    if failed:
+        raise SystemExit(f"second-card kernel checks failed: {failed}")
+
+
 def check_kernel_modes(torch, dev, worst, failed):
     """K2 and K3 in their other modes (checks.MODES: without the Cox-Reid
     term, unweighted and weighted; the weighted Cox-Reid row cut at 0.5)
@@ -486,6 +554,13 @@ def zero_counts():
     fns = _wrappers()
     for fn, attr in COUNTERS.values():
         setattr(fns[fn], attr, 0)
+    for f in fns.values():
+        f.launches_by_device = {}
+
+
+def read_counts_by_device():
+    """Each wrapper's kernel launches per device since zero_counts()."""
+    return {k: dict(f.launches_by_device) for k, f in _wrappers().items()}
 
 
 def read_counts():
@@ -2160,6 +2235,327 @@ def sc_gates(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the gene mesh
+# ---------------------------------------------------------------------------
+
+# the per-gene columns of a fit and its results table held against the
+# single-device run in float64 (tests/test_sharding.py's limits)
+MESH_RTOL, MESH_ATOL = 1e-8, 1e-10
+
+
+def mesh_devices(torch):
+    """The phase's mesh: the visible cards, up to 4, or on a one-card
+    machine 4 shards on cuda:0 (the shards then split the work without
+    adding a device)."""
+    n = torch.cuda.device_count()
+    if n >= 2:
+        devs = [torch.device("cuda", i) for i in range(min(n, 4))]
+        return devs, f"{len(devs)} cards"
+    return [torch.device("cuda", 0)] * 4, "4 shards on cuda:0 (one card)"
+
+
+def busy_by_device(prof):
+    """Kernel seconds per card index in a torch.profiler run."""
+    busy = {}
+    for e in prof.events():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            i = getattr(e, "device_index", 0)
+            busy[i] = busy.get(i, 0.0) + e.time_range.elapsed_us() / 1e6
+    return busy
+
+
+def mesh_timed(torch, name, devs, fn, warm_up=True, profiled=True):
+    """fn() once, warm (after a first call unless `warm_up` is False: the
+    earlier phases warmed its path), with the counters zeroed just before
+    it and read just after: wall seconds, peak device memory per card,
+    launches per kernel and per device; with `profiled` once more under
+    torch.profiler for each card's busy share.  Returns the record and the
+    warm call's result."""
+    from torch.profiler import ProfilerActivity, profile
+    cards = sorted({d.index for d in devs})
+    if warm_up:
+        fn()
+    zero_counts()
+    for i in cards:
+        torch.cuda.reset_peak_memory_stats(i)
+    t0 = time.perf_counter()
+    result = fn()
+    for i in cards:
+        torch.cuda.synchronize(i)
+    wall = time.perf_counter() - t0
+    r = dict(wall_s=wall, peak_gib={
+        f"cuda:{i}": torch.cuda.max_memory_allocated(i) / 2 ** 30
+        for i in cards},
+        launches={k: v for k, v in read_counts().items() if v},
+        launches_by_device=read_counts_by_device())
+    busy = None
+    if profiled:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            for i in cards:
+                torch.cuda.synchronize(i)
+            pwall = time.perf_counter() - t0
+        busy = busy_by_device(prof)
+        r["profiled_wall_s"] = pwall
+        r["busy_share"] = {f"cuda:{i}": busy.get(i, 0.0) / pwall
+                           for i in cards} if busy else None
+    log(f"  {name}: warm {wall:.3f} s, peak device memory "
+        f"{', '.join(f'{k} {v:.2f} GiB' for k, v in r['peak_gib'].items())}"
+        f", launches {r['launches']}, by device {r['launches_by_device']}"
+        + (f", busy share {r['busy_share']} of a {pwall:.3f} s profiled "
+           "call" if busy else ", busy share not measured" if profiled
+           else ""))
+    return r, result
+
+
+def need_launches(r, devs, kernels, name):
+    """Fails unless every mesh card launched each of `kernels`."""
+    missing = [(k, str(d)) for k in kernels for d in devs
+               if not r["launches_by_device"][k].get(str(d))]
+    if missing:
+        raise SystemExit(f"{name}: no launches of {missing}")
+
+
+def fit_columns(fit, res):
+    """A public fit's per-gene columns (row_data, results) and cross-gene
+    scalars, as float64 arrays."""
+    cols = {}
+    for k in list(fit.row_data):
+        v = np.asarray(fit.row_data[k])
+        if v.dtype != object and v.ndim == 1:
+            cols[f"row_data {k}"] = v.astype(float)
+    for c in res.column_names:
+        cols[f"results {c}"] = np.asarray(res[c], float)
+    fn = fit.dispersion_function
+    cols["dispPriorVar"] = np.atleast_1d(float(fn.disp_prior_var))
+    if fn.coefficients is not None:
+        cols["trendCoefs"] = np.asarray(fn.coefficients, float)
+    if "filterTheta" in res.metadata:
+        cols["filterTheta"] = np.atleast_1d(float(res.metadata["filterTheta"]))
+    return cols
+
+
+def same_as_single(got, want, name):
+    """float64 gate: every column at MESH_RTOL / MESH_ATOL, equal NaN
+    patterns; returns the largest relative difference and the columns
+    that failed."""
+    worst, bad = 0.0, []
+    for k, w in want.items():
+        g = got[k]
+        fin = np.isfinite(w) & np.isfinite(g)
+        if fin.any():
+            worst = max(worst, float(np.max(np.abs(g[fin] - w[fin])
+                                            / np.maximum(np.abs(w[fin]),
+                                                         1e-300))))
+        if not np.allclose(g, w, rtol=MESH_RTOL, atol=MESH_ATOL,
+                           equal_nan=True):
+            bad.append(k)
+    log(f"  {name}: largest relative difference from the single-device "
+        f"run {worst:.3g} over {len(want)} columns; off at rtol "
+        f"{MESH_RTOL:g}: {bad}")
+    return worst, bad
+
+
+def mesh_phase(torch):
+    """Phase 11a-c: the main path ~ condition at 60,000 x 1,024 through
+    deseq(mesh=...) + results() in float32 and float64, the host engine in
+    float64, and group QL at 30,000 x 50,000 through fused_sc_results(
+    mesh=...), each against the single-device call on the same inputs."""
+    from deseq2_tpu_torch.ops import checks
+    from deseq2_tpu_torch.parallel import gene_mesh
+    from deseq2_tpu_torch.parallel.sc import fused_sc_results
+    devs, what = mesh_devices(torch)
+    mesh = gene_mesh(devices=devs)
+    log(f"  the mesh: {what}, {mesh}")
+    counts, _ = make_inputs(G_MAIN, S_MAIN)
+    out = dict(mesh=what, shards=len(devs))
+    failed = []
+    for dname, engine in (("float32", None), ("float64", None),
+                          ("float64", "host")):
+        key = f"{dname}{'' if engine is None else ' host engine'}"
+        kw = {} if engine is None else dict(engine=engine)
+        res1, fit1 = public_run(torch, counts, dname, **kw)
+        t0 = time.perf_counter()
+        public_run(torch, counts, dname, **kw)
+        single_s = time.perf_counter() - t0
+        r, (res, fit) = mesh_timed(
+            torch, f"deseq(mesh) + results() {key}", devs,
+            lambda: public_run(torch, counts, dname, mesh=mesh, **kw))
+        r["single_wall_s"] = single_s
+        log(f"  single-device call {key}: warm {single_s:.3f} s")
+        need_launches(r, devs, ("fit_beta", "fit_disp_line_search"), key)
+        if dname == "float32" and not r["launches"].get("disp_grid"):
+            raise SystemExit(f"{key}: the mesh run launched no K3")
+        want, got = fit_columns(fit1, res1), fit_columns(fit, res)
+        if dname == "float64":
+            r["max_rel"], bad = same_as_single(got, want, key)
+            failed += [f"{key} {k}" for k in bad]
+        else:
+            gate, ok = gate_compare(res, res1)
+            r["max_rel"], _ = same_as_single(got, want, key)
+            r["gate"] = gate
+            log(f"  {key} mesh vs single, bench.py's gates: "
+                f"{json.dumps(gate)}")
+            failed += [f"{key} {k}" for k in ("jaccard", "flips", "lfc")
+                       if not ok[k]]
+        out[key] = r
+        del fit, fit1, res, res1
+    # group QL on the streamed route, phase 10's counts: the single-device
+    # float32 and float64 calls, then the mesh's float32 call
+    sc, cells = sc_counts(torch)
+    kw = dict(cells=cells, n_groups=2, size_factors=np.ones(S_SC),
+              test="LRT", fit_type="glmGamPoi", device="cuda")
+    t0 = time.perf_counter()
+    one = fused_sc_results(sc, dtype=torch.float32, **kw)
+    single_s = time.perf_counter() - t0
+    one64 = fused_sc_results(sc, dtype=torch.float64, **kw)
+    r, got = mesh_timed(
+        torch, f"group QL fused_sc_results(mesh) at {G_SC} x {S_SC}, "
+        "float32", devs, lambda: fused_sc_results(
+            sc, mesh=mesh, dtype=torch.float32, **kw), warm_up=False,
+        # the profiler's events of a streamed call take minutes to read
+        # (a profiled 4-shard call on one H100: busy share 0.595, PERF.md)
+        profiled=False)
+    wall = r["wall_s"]
+    r.update(single_wall_s=single_s, genes_per_s=G_SC / wall)
+    # bench.py's single-cell gates hold a float32 run to a float64 one:
+    # the mesh's float32 call to the single-device float64 call, beside
+    # the single-device float32 call's own reading
+    gate = checks.sc_gate(got, one64)
+    base = checks.sc_gate(one, one64)
+
+    def iters_differ(a, b):
+        return (a["dispGeneIter"] != b["dispGeneIter"]) \
+            & ~(np.isnan(a["dispGeneIter"]) & np.isnan(b["dispGeneIter"]))
+
+    off = np.where(iters_differ(got, one))[0]
+    rule = dict(differing_genes=int(off.size))
+    if off.size:
+        # the iteration-count rule of tests/test_torch_sc.py's straggler
+        # test: each differing gene's count also moves with the chunk
+        moved = np.zeros(G_SC, bool)
+        for m, ref in ((None, one), (mesh, got)):
+            moved |= iters_differ(fused_sc_results(
+                sc, mesh=m, chunk=4096, dtype=torch.float32, **kw), ref)
+        dge, dge1 = got["dispGeneEst"][off], one["dispGeneEst"][off]
+        rule.update(moved=int(moved[off].sum()),
+                    est_max_rel=float(np.max(np.abs(dge - dge1) / dge1)))
+        rule["ok"] = bool(moved[off].all() and off.size <= G_SC // 1000
+                          and np.allclose(dge, dge1, rtol=1e-6, atol=0.0))
+    else:
+        rule["ok"] = True
+    r.update(gate=gate, single_gate=base, iteration_rule=rule,
+             vs_single_f32=checks.sc_gate(got, one),
+             filter_theta=dict(mesh=got["filterTheta"],
+                               single_f32=one["filterTheta"],
+                               single_f64=one64["filterTheta"]))
+    log(f"  group QL: the mesh {G_SC / wall:,.0f} genes/s, the "
+        f"single-device call {single_s:.3f} s")
+    log(f"  bench.py's single-cell gates, the mesh's float32 call against "
+        f"the single-device float64 call: {json.dumps(gate)}; the "
+        f"single-device float32 call against it: {json.dumps(base)}; "
+        f"the mesh against the single-device float32 call: "
+        f"{json.dumps(r['vs_single_f32'])}; filter theta "
+        f"{r['filter_theta']}; iteration counts: {rule}")
+    if not gate["ok"]:
+        failed.append("sc gates")
+    if not rule["ok"]:
+        failed.append("sc iteration counts")
+    out["group_ql"] = r
+    del sc
+    if failed:
+        raise SystemExit(f"gene mesh gates failed: {failed}")
+    return out
+
+
+def mesh_worker(rank, world, port, out_dir, backend):
+    """One rank of the multi-process phase (chip_smoke.py --mesh-rank):
+    the gate slice through deseq(mesh=...) + results() on the fused route
+    and the host engine, float64, over a mesh of one card per rank joined
+    by torch.distributed; rank 0 saves the results tables and seconds."""
+    import torch
+    import torch.distributed as dist
+
+    from deseq2_tpu_torch.parallel import gene_mesh
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = gene_mesh(devices=[dev], process_group=dist.group.WORLD)
+        sub, _ = gate_inputs(G_GATE, S_MAIN)
+        out = {}
+        for engine in ("fused", "host"):
+            public_run(torch, sub, "float64", engine=engine, mesh=mesh)
+            t0 = time.perf_counter()
+            res, _ = public_run(torch, sub, "float64", engine=engine,
+                                mesh=mesh)
+            out[f"{engine} seconds"] = np.array(time.perf_counter() - t0)
+            for c in res.column_names:
+                out[f"{engine} {c}"] = np.asarray(res[c], float)
+        if rank == 0:
+            np.savez(f"{out_dir}/result.npz", **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def multiprocess_phase(torch):
+    """Phase 11d: two processes through torch.distributed on the 2,048 x
+    1,024 gate slice (NCCL with a card per rank, gloo through host memory
+    when both share one card, which NCCL refuses), against this process's
+    single-device runs at MESH_RTOL."""
+    import socket
+    import tempfile
+
+    from deseq2_tpu_torch.ops import build
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir = tempfile.mkdtemp(prefix="mesh_mp_", dir=build.BUILD_DIR)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--mesh-rank", str(rank), "2", str(port),
+         out_dir, backend], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for rank in (0, 1)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0].decode())
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for rank, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise SystemExit(f"multi-process rank {rank} failed "
+                             f"({p.returncode}): {text[-3000:]}")
+    got = dict(np.load(f"{out_dir}/result.npz"))
+    sub, _ = gate_inputs(G_GATE, S_MAIN)
+    want = {}
+    for engine in ("fused", "host"):
+        res, _ = public_run(torch, sub, "float64", engine=engine)
+        for c in res.column_names:
+            want[f"{engine} {c}"] = np.asarray(res[c], float)
+    worst, bad = same_as_single({k: got[k] for k in want}, want,
+                                f"two processes over {backend}")
+    r = dict(backend=backend, processes_wall_s=wall,
+             fused_s=float(got["fused seconds"]),
+             host_s=float(got["host seconds"]), max_rel=worst)
+    log(f"  two processes ({backend}, {G_GATE} x {S_MAIN}, float64): "
+        f"processes {wall:.1f} s in all, warm fused call "
+        f"{r['fused_s']:.3f} s, host engine {r['host_s']:.3f} s")
+    if bad:
+        raise SystemExit(f"multi-process mesh differs: {bad}")
+    return r
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2191,6 +2587,8 @@ def main():
 
     phase("3", "[3] kernels vs plain versions on the card")
     worst = check_kernels(torch, dev)
+    if torch.cuda.device_count() >= 2:
+        check_second_card(torch)
     done("3")
 
     phase("4", f"[4] main path: deseq() + results() at {G_MAIN} x {S_MAIN}")
@@ -2253,10 +2651,16 @@ def main():
     sc_out["gates"] = sc_gates(torch)
     done("10")
 
+    phase("11", "[11] gene mesh at full width")
+    mesh_out = mesh_phase(torch)
+    mesh_out["two_processes"] = multiprocess_phase(torch)
+    done("11")
+
     log(json.dumps({"main_path": {k: v for k, v in main_out.items()},
                     "gate": gate, "variant_gates": gates,
                     "prior_phase": prior_out, "host_phase": host_out,
                     "transform_phase": transform_out, "sc_phase": sc_out,
+                    "mesh_phase": mesh_out,
                     "kernel_resources": resources, "phase_seconds": seconds}))
     print(json.dumps({"kernels": rows}))
     print(smi_line())
@@ -2266,4 +2670,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        mesh_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                    sys.argv[5], sys.argv[6])
+    else:
+        main()

@@ -41,8 +41,11 @@ are exported from deseq2_tpu_torch.parallel), the rest the host engine's
 glmGamPoi branches (the loc-median trend, the quasi-likelihood shrinkage
 and F-test, its fits through K1 at minmu = 1e-6).
 
-What is not ported raises NotImplementedError naming the ROADMAP.md item
-that owns it: a device mesh (item 11).
+deseq(mesh=parallel.gene_mesh(n)) shards the genes axis over n devices on
+every route (the fused pipeline, the host engine, the streamed single-cell
+path), with the single-device run's results on the mesh's first device;
+a mesh may also span processes (gene_mesh(process_group=...), over
+torch.distributed).
 """
 
 import torch as _torch

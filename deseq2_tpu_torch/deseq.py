@@ -19,12 +19,21 @@ the quasi-likelihood F-test) for the cases the JAX package sends there.
 engine="auto" (the default) runs the fused pipeline wherever it is
 eligible and the host engine otherwise (with the JAX package's warning
 when quiet=False); "fused" and "host" force one.  Both run on "cuda"
-unless the caller passes device="cpu".  A device mesh raises
-NotImplementedError naming its ROADMAP.md item.
+unless the caller passes device="cpu".
+
+`mesh` (parallel.gene_mesh; the reference's parallel=TRUE, R/core.R:
+407-416, and the JAX package's deseq2_tpu/deseq.py:38-58) shards the genes
+axis over its devices on every route: the fused pipeline and the streamed
+single-cell one run their per-gene chains block by block on the shards
+and their cross-gene steps on the gathered vectors; the host engine runs
+under ops/placement.py:use_gene_mesh, every batched fit of every stage
+sharded.  The results equal the single-device run's and land on the
+mesh's first device, where results() and lfc_shrink() then run.
 """
 
 from __future__ import annotations
 
+import contextlib
 import warnings
 
 import numpy as np
@@ -49,10 +58,10 @@ def deseq(dds, test="Wald", fit_type="parametric", sf_type="ratio",
     DESeqConfig.dtype ("float64" by default; "float32" is the fast path);
     the host engine runs in float64.  `engine`: "auto" (the default),
     "fused" or "host" (see the module docstring).  `config` defaults to
-    the dataset's own."""
+    the dataset's own.  `mesh`: a GeneMesh (module docstring); `device`
+    may then only repeat its first device's type."""
     from .config import cfg
     from .engine import fused_ineligibility, resolve_device, resolve_dtype
-    from .parallel.fused import ROADMAP_MESH, not_ported
 
     if config is None:
         config = dds.config
@@ -130,10 +139,7 @@ def deseq(dds, test="Wald", fit_type="parametric", sf_type="ratio",
         model_matrix = full if full is not None else dds.design
         check_full_rank(model_matrix)
 
-    if mesh is not None:
-        raise not_ported("a device mesh", ROADMAP_MESH)
-
-    dev = resolve_device(device)
+    dev = resolve_device(device, mesh)
     engine = engine or "auto"
     if engine != "host":
         reason = fused_ineligibility(dds, sf_type, model_matrix, minmu,
@@ -141,7 +147,7 @@ def deseq(dds, test="Wald", fit_type="parametric", sf_type="ratio",
                                      test=test, fit_type=fit_type)
         if reason is None and fit_type == "glmGamPoi":
             return _deseq_sc(dds, dev, resolve_dtype(config), full=full,
-                             reduced=reduced, quiet=quiet)
+                             reduced=reduced, quiet=quiet, mesh=mesh)
         if reason is None:
             routed = _deseq_fused(
                 dds, dev, resolve_dtype(config), sf_type, test=test,
@@ -149,7 +155,8 @@ def deseq(dds, test="Wald", fit_type="parametric", sf_type="ratio",
                 use_t=use_t,
                 min_replicates_for_replace=min_replicates_for_replace,
                 model_matrix=model_matrix,
-                model_matrix_type=model_matrix_type, beta_prior=beta_prior)
+                model_matrix_type=model_matrix_type, beta_prior=beta_prior,
+                mesh=mesh)
             if routed is not None:
                 return routed
             reason = ("weights do not allow parameter estimation for "
@@ -159,9 +166,13 @@ def deseq(dds, test="Wald", fit_type="parametric", sf_type="ratio",
         if not quiet:
             warnings.warn(f"fused engine unavailable ({reason}); "
                           "running the host-exact path")
-    return _deseq_host(dds, dev, test, fit_type, sf_type, beta_prior, full,
-                       reduced, quiet, min_replicates_for_replace,
-                       model_matrix, model_matrix_type, use_t, minmu, config)
+    from .ops.placement import use_gene_mesh
+    with (use_gene_mesh(mesh) if mesh is not None
+          else contextlib.nullcontext()):
+        return _deseq_host(dds, dev, test, fit_type, sf_type, beta_prior,
+                           full, reduced, quiet, min_replicates_for_replace,
+                           model_matrix, model_matrix_type, use_t, minmu,
+                           config)
 
 
 def _deseq_fused(dds, dev, dtype, sf_type, **kw):

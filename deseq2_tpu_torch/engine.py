@@ -38,11 +38,19 @@ _FROZEN_CONFIG = ("min_disp", "kappa_0", "disp_tol", "maxit_disp",
 _LAZY = object()   # sentinel marking a row_data column still on the device
 
 
-def resolve_device(device):
+def resolve_device(device, mesh=None):
     """torch.device for an entry point: CUDA unless the caller asks for
-    the CPU.  Without a card the entry points raise: there is no silent
-    CPU run."""
-    dev = torch.device("cuda" if device is None else device)
+    the CPU, or under a gene `mesh` (parallel.sharding.GeneMesh) the
+    mesh's first device, which `device` may only name by its type.
+    Without a card the entry points raise: there is no silent CPU run."""
+    from .parallel.sharding import as_mesh
+    if as_mesh(mesh) is not None:
+        dev = mesh.first_device
+        if device is not None and torch.device(device).type != dev.type:
+            raise ValueError(f"device={device!r} does not match the mesh "
+                             f"{mesh}")
+    else:
+        dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run the plain PyTorch versions on the CPU")
@@ -277,7 +285,8 @@ def _two_group(dds):
 def deseq_fused(dds, device, dtype, test="Wald", fit_type="parametric",
                 full=None, reduced=None, quiet=True, use_t=False,
                 min_replicates_for_replace=7, model_matrix=None,
-                model_matrix_type=None, maxit=100, beta_prior=False):
+                model_matrix_type=None, maxit=100, beta_prior=False,
+                mesh=None):
     """Run the fused pipeline on `device` and populate dds as the host
     stages (estimateSizeFactors -> estimateDispersions -> nbinomWaldTest or
     nbinomLRT -> refitWithoutOutliers) would.  A parametric trend that
@@ -286,7 +295,10 @@ def deseq_fused(dds, device, dtype, test="Wald", fit_type="parametric",
     None (parallel/fused.py:validated_weights): deseq() then runs the host
     engine, whose weightsFail bookkeeping flags those rows.  `beta_prior`: the
     stored contract of nbinomWaldTest with betaPrior (the expanded model
-    matrix and its MAP columns, MLE_ columns, betaPriorVar)."""
+    matrix and its MAP columns, MLE_ columns, betaPriorVar).  `mesh`: a
+    GeneMesh whose first device is `device`; the pipeline's per-gene
+    chains run on its shards and every output lands on `device`, as the
+    JAX package gathers a mesh run's results (engine.py:418-427)."""
     from .dataset import DispersionFunction
     from .formula import parse_formula, rename_model_matrix_columns
     from .parallel.fused import (default_grid, design_cells,
@@ -352,7 +364,8 @@ def deseq_fused(dds, device, dtype, test="Wald", fit_type="parametric",
             two_group=_two_group(dds), dtype=dtype,
             x_reduced=None if x_red is None else torch.as_tensor(x_red),
             reduced_intercept=red_int, use_t=use_t, weights=weights,
-            norm_factors=nf, fit_type=fit_type, beta_prior=beta_prior)
+            norm_factors=nf, fit_type=fit_type, beta_prior=beta_prior,
+            mesh=mesh)
     # one small eager fetch of what the host reads; the (G,S) assays stay
     # on the device and the per-gene diagnostics are registered lazily
     eager = ("allZero", "replace", "trendValid", "trendCoefs", "meanDisp",
@@ -380,7 +393,7 @@ def deseq_fused(dds, device, dtype, test="Wald", fit_type="parametric",
                                min_replicates_for_replace),
                            model_matrix=model_matrix,
                            model_matrix_type=model_matrix_type, maxit=maxit,
-                           beta_prior=beta_prior)
+                           beta_prior=beta_prior, mesh=mesh)
     az = np.asarray(fetched["allZero"], bool)
 
     if sf is None and nf is None:
@@ -572,7 +585,7 @@ def deseq_fused(dds, device, dtype, test="Wald", fit_type="parametric",
 
 
 def deseq_sc_fused(dds, device, dtype, reduced, full=None, quiet=True,
-                   maxit=100):
+                   maxit=100, mesh=None):
     """Run deseq(fit_type='glmGamPoi', test='LRT') through the streamed
     single-cell pipeline (parallel/sc.py:fused_sc_results) on `device` in
     `dtype`, and populate the dataset with the host glmGamPoi columns
@@ -585,7 +598,9 @@ def deseq_sc_fused(dds, device, dtype, reduced, full=None, quiet=True,
     reference disables the Cook's/outlier machinery for glmGamPoi
     (R/core.R:297-303, maxCooks is NA).  Size factors, when the dataset
     has neither them nor normalization factors, are the port's
-    median-of-ratios on the device."""
+    median-of-ratios on the device.  `mesh`: a GeneMesh whose first device
+    is `device`, over whose shards the streamed stages run (the JAX
+    package's deseq_sc_fused, engine.py:764-784)."""
     from .dataset import DispersionFunction
     from .formula import parse_formula
     from .gampoi import make_closest_index_disp_fn, ql_to_nb_alpha
@@ -604,7 +619,7 @@ def deseq_sc_fused(dds, device, dtype, reduced, full=None, quiet=True,
     sf = dds.size_factors
     if sf is None and nf is None:
         with profiling.stage("estimateSizeFactors", genes=dds.n_genes):
-            sf = size_factors_dev(counts_dev.to(dtype)).double().cpu()
+            sf = size_factors_dev(counts_dev.to(dtype), mesh).double().cpu()
         dds.size_factors = sf.numpy()
     elif sf is None:
         sf = np.ones(dds.n_samples)
@@ -615,7 +630,7 @@ def deseq_sc_fused(dds, device, dtype, reduced, full=None, quiet=True,
         grp = None    # the group mode's reduced model is ~ 1's closed form
     kw = dict(size_factors=sf, test="LRT", fit_type="glmGamPoi",
               maxit=maxit, independent_filtering=False, quiet=quiet,
-              device=device, dtype=dtype)
+              device=device, dtype=dtype, mesh=mesh)
     with profiling.stage("fused.scPipeline", genes=dds.n_genes):
         if grp is not None:
             # single factor + intercept: the group factorization (exact

@@ -166,6 +166,15 @@ def stream_of(t):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def count_launch(fn, name, device):
+    """One launch of the wrapper `fn`'s kernel: add one to its count
+    `name` and to its count for `device` (``fn.launches_by_device``, keyed
+    by the device's name, every mode together)."""
+    setattr(fn, name, getattr(fn, name) + 1)
+    key = str(device)
+    fn.launches_by_device[key] = fn.launches_by_device.get(key, 0) + 1
+
+
 def check(err, name):
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

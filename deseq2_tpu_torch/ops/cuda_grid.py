@@ -9,7 +9,9 @@ pipeline runs its weighted grid on the XLA core).  A CUDA tensor with
 plain version on the card (the JAX package's XLA core for p > 8); a CPU
 tensor runs the plain version, ops/disp.py:fit_disp_grid_plain.  The route
 is chosen from the tensor's device and p alone, before any launch.  The
-counts are cuda_ls.py's, one per mode (cuda_ls.COUNTERS).
+counts are cuda_ls.py's, one per mode (cuda_ls.COUNTERS), and
+``launches_by_device``.  Under ops/placement.py:use_gene_mesh the call
+runs shard by shard over the mesh.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 from . import build
 from .cuda_ls import COUNTERS, P_MAX, mode_counter
 from .disp import CR_WEIGHT_THRESHOLD, fit_disp_grid_plain
+from .placement import active_gene_mesh, place_gene_axis
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -31,6 +34,13 @@ def fit_disp_grid(y, x, mu, disp_grid, prior_mean, prior_var,
     """Batched fitDispGrid: y, mu (G,S); x (S,p); disp_grid (n,) shared
     coarse log-alpha grid; prior_mean (G,); weights (G,S) or None.
     Returns (G,) log alpha."""
+    if active_gene_mesh() is not None:
+        return place_gene_axis(
+            fit_disp_grid, dict(y=y, mu=mu, prior_mean=prior_mean,
+                                weights=weights),
+            dict(x=x, disp_grid=disp_grid, prior_var=prior_var,
+                 use_prior=use_prior, use_cr=use_cr,
+                 weight_threshold=weight_threshold))
     kw = dict(use_prior=use_prior, weights=weights, use_cr=use_cr,
               weight_threshold=weight_threshold)
     if not mu.is_cuda:
@@ -75,10 +85,11 @@ def fit_disp_grid(y, x, mu, disp_grid, prior_mean, prior_var,
                  int(bool(use_cr)), float(weight_threshold),
                  build.ptr(out), build.stream_of(mu_))
     build.check(err, "disp_grid")
-    name = mode_counter(w_, use_cr, weight_threshold)
-    setattr(fit_disp_grid, name, getattr(fit_disp_grid, name) + 1)
+    build.count_launch(fit_disp_grid,
+                       mode_counter(w_, use_cr, weight_threshold), dev)
     return out
 
 
 for _c in COUNTERS:
     setattr(fit_disp_grid, _c, 0)
+fit_disp_grid.launches_by_device = {}

@@ -15,7 +15,10 @@ tensor's device and p alone, before any launch.  ``fit_beta.launches``
 counts the unweighted P <= 8 kernels' launches,
 ``fit_beta.launches_weighted`` the weighted ones', ``fit_beta.launches_wide``
 the P = 16 kernel's (either mode) and ``fit_beta.launches_plain`` the
-p > 16 route's.
+p > 16 route's; ``fit_beta.launches_by_device`` counts the kernels'
+launches per device.  Under ops/placement.py:use_gene_mesh the call runs
+shard by shard over the mesh (the gene-axis inputs split, the outputs
+gathered onto y's device).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 from . import build
 from .cuda_ls import P_MAX
 from .irls import fit_beta_plain
+from .placement import active_gene_mesh, place_gene_axis
 
 # the wide instantiation's width (build.WIDE)
 P_WIDE = 16
@@ -40,6 +44,11 @@ def fit_beta(y, x, nf, alpha, beta_init, ridge, tol=1e-8, maxit=100,
     beta_init (G,p); ridge (p,); weights (G,S), max-1 normalized, or None.
     Returns dict(beta, beta_var, iter, hat_diag, deviance, mu) in
     beta_init's dtype."""
+    if active_gene_mesh() is not None:
+        gene = dict(y=y, alpha=alpha, beta_init=beta_init, weights=weights)
+        shared = dict(x=x, ridge=ridge, tol=tol, maxit=maxit, min_mu=min_mu)
+        (gene if nf.dim() == 2 else shared)["nf"] = nf
+        return place_gene_axis(fit_beta, gene, shared)
     if not y.is_cuda:
         return fit_beta_plain(y, x, nf, alpha, beta_init, ridge, tol=tol,
                               maxit=maxit, min_mu=min_mu, weights=weights)
@@ -106,12 +115,9 @@ def fit_beta(y, x, nf, alpha, beta_init, ridge, tol=1e-8, maxit=100,
                  build.ptr(out["mu"]), build.ptr(out["hat_diag"]),
                  build.ptr(counter), build.stream_of(y_))
     build.check(err, "irls")
-    if p == P_WIDE:
-        fit_beta.launches_wide += 1
-    elif w_ is None:
-        fit_beta.launches += 1
-    else:
-        fit_beta.launches_weighted += 1
+    build.count_launch(fit_beta, "launches_wide" if p == P_WIDE
+                       else "launches" if w_ is None
+                       else "launches_weighted", dev)
     return out
 
 
@@ -119,3 +125,4 @@ fit_beta.launches = 0
 fit_beta.launches_weighted = 0
 fit_beta.launches_wide = 0
 fit_beta.launches_plain = 0
+fit_beta.launches_by_device = {}

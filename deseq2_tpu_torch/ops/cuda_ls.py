@@ -14,7 +14,9 @@ Each launch adds one to exactly one count: ``launches`` (unweighted),
 ``launches_weighted`` (weighted, threshold 1e-2), ``launches_threshold``
 (weighted, another threshold), ``launches_nocr`` and
 ``launches_weighted_nocr`` (without the Cox-Reid term), and
-``launches_plain`` (p > 8 on the card, the plain version).
+``launches_plain`` (p > 8 on the card, the plain version);
+``launches_by_device`` counts the kernel's launches per device.  Under
+ops/placement.py:use_gene_mesh the call runs shard by shard over the mesh.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 
 from . import build
 from .disp import CR_WEIGHT_THRESHOLD, fit_disp_line_search_plain
+from .placement import active_gene_mesh, place_gene_axis
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # the widest design the kernels take; wider ones run the plain version
@@ -50,6 +53,14 @@ def fit_disp_line_search(y, x, mu, log_alpha_init, prior_mean, prior_var,
     (G,); weights (G,S) or None.  Returns dict(log_alpha, iter,
     iter_accept, last_change, initial_lp, initial_dlp, last_lp, last_dlp)
     in mu's dtype."""
+    if active_gene_mesh() is not None:
+        return place_gene_axis(
+            fit_disp_line_search,
+            dict(y=y, mu=mu, log_alpha_init=log_alpha_init,
+                 prior_mean=prior_mean, weights=weights),
+            dict(x=x, prior_var=prior_var, min_log_alpha=min_log_alpha,
+                 kappa_0=kappa_0, tol=tol, maxit=maxit, use_prior=use_prior,
+                 use_cr=use_cr, weight_threshold=weight_threshold))
     kw = dict(kappa_0=kappa_0, tol=tol, maxit=maxit, use_prior=use_prior,
               weights=weights, use_cr=use_cr,
               weight_threshold=weight_threshold)
@@ -106,9 +117,8 @@ def fit_disp_line_search(y, x, mu, log_alpha_init, prior_mean, prior_var,
                  build.ptr(out["iter"]), build.ptr(out["iter_accept"]),
                  build.ptr(counter), build.stream_of(mu_))
     build.check(err, "disp_ls")
-    name = mode_counter(w_, use_cr, weight_threshold)
-    setattr(fit_disp_line_search, name,
-            getattr(fit_disp_line_search, name) + 1)
+    build.count_launch(fit_disp_line_search,
+                       mode_counter(w_, use_cr, weight_threshold), dev)
     return out
 
 
@@ -116,3 +126,4 @@ COUNTERS = ("launches", "launches_weighted", "launches_threshold",
             "launches_nocr", "launches_weighted_nocr", "launches_plain")
 for _c in COUNTERS:
     setattr(fit_disp_line_search, _c, 0)
+fit_disp_line_search.launches_by_device = {}

@@ -10,6 +10,7 @@ ROADMAP.md:
     python -m deseq2_tpu_torch.ops.studies wide [REPS]
     python -m deseq2_tpu_torch.ops.studies rlog [N_SEEDS]
     python -m deseq2_tpu_torch.ops.studies sc [G S]
+    python -m deseq2_tpu_torch.ops.studies batch_rows
 
 `eigvalsh`: the largest batch of symmetric n x n matrices that
 torch.linalg.eigvalsh takes on the card, per dtype and n, found by
@@ -50,6 +51,17 @@ permuted (so only the summation order differs), N_PERM permutations
 (default 5), K1, K2 and K3 both modes: how far the readings move when
 nothing but rounding does.  A reading that fails in any permutation is
 rounding-bound (checks.ROUNDING_BOUND).
+
+`batch_rows` (the card, or the CPU): whether the first (and last) N rows
+of a per-gene quantity come out bit for bit as the same rows of the whole
+call, for N from 3 to half the rows, at (2,048 | 60,000) x 1,024 and
+30,000 x 2,048 in both dtypes: a row sum, a (N,S) x (S,4) and a (N,4) x
+(4,S) matrix product, and the pipeline's forms of the two products
+(parallel/fused.py:rowdot, rowcomb); then the fused pipeline on the
+2,048 x 1,024 gate slice in float64, a 2-block mesh on the same device
+against one block: the genes that differ, per output.  What it reads
+decides which forms a gene mesh's blocks compute their per-gene glue in
+(fused.MIN_ROWS).
 
 `sc`: the streamed single-cell path (parallel/sc.py) at G x S (default
 30,000 x 50,000, bench.py:main_sc's counts made on the card), the group
@@ -767,8 +779,49 @@ def sc_study(dev, G=30000, S=50000, seeds=7):
     sc.SEARCH_DTYPE = f64
 
 
+def batch_rows_study(dev):
+    """Row-count dependence of per-gene reductions and products."""
+    from ..parallel.fused import rowcomb, rowdot
+    g = torch.Generator(device="cpu").manual_seed(0)
+    for dt in (torch.float64, torch.float32):
+        for G, S in ((2048, 1024), (60000, 1024), (30000, 2048)):
+            x = torch.rand(G, S, generator=g, dtype=torch.float64).to(dev, dt)
+            w = torch.rand(S, 4, generator=g, dtype=torch.float64).to(dev, dt)
+            forms = {"row sum": lambda a: a.sum(1),
+                     "(N,S)@(S,4)": lambda a: a @ w,
+                     "(N,4)@(4,S)": lambda a: a[:, :4] @ w.T,
+                     "rowdot": lambda a: rowdot(a, w),
+                     "rowcomb": lambda a: rowcomb(a[:, :4], w)}
+            whole = {k: f(x) for k, f in forms.items()}
+            for N in (3, 5, 15, 16, 17, 100, 1024, G // 4, G // 2):
+                same = {k: (torch.equal(f(x[:N]), whole[k][:N]),
+                            torch.equal(f(x[G - N:].contiguous()),
+                                        whole[k][G - N:]))
+                        for k, f in forms.items()}
+                print(f"{str(dt)[6:]} G={G} S={S} N={N}: " + ", ".join(
+                    f"{k} {a}/{b}" for k, (a, b) in same.items()), flush=True)
+    # the fused pipeline on the gate slice, float64: a 2-block mesh on the
+    # same device against one block, genes that differ per output
+    from ..parallel import fused, gene_mesh
+    from . import checks
+    counts, _ = checks.gate_counts(2048, 1024)
+    x = np.column_stack([np.ones(1024), np.repeat([0.0, 1.0], 512)])
+    runs = [fused.fused_wald_pipeline(
+        torch.as_tensor(counts).to(dev), torch.as_tensor(x), None,
+        torch.as_tensor(fused.default_grid(1024)),
+        cells=fused.design_cells(x), two_group=True, mesh=m)
+        for m in (None, gene_mesh(devices=[dev, dev]))]
+    for k, v in runs[0].items():
+        if torch.is_tensor(v) and v.dim() and v.shape[0] == counts.shape[0]:
+            a, b = v.double().cpu().numpy(), runs[1][k].double().cpu().numpy()
+            off = ~np.isclose(b, a, rtol=1e-8, atol=1e-10, equal_nan=True)
+            off = off.reshape(off.shape[0], -1).any(axis=1)
+            print(f"fused pipeline, 2 blocks vs 1, {k}: {int(off.sum())} "
+                  "genes differ", flush=True)
+
+
 if __name__ == "__main__":
-    if sys.argv[1] in ("edges", "expanded", "rlog"):
+    if sys.argv[1] in ("edges", "expanded", "rlog", "batch_rows"):
         any_dev = (torch.device("cuda", 0) if torch.cuda.is_available()
                    else torch.device("cpu"))
         if sys.argv[1] == "edges":
@@ -777,6 +830,8 @@ if __name__ == "__main__":
         elif sys.argv[1] == "rlog":
             rlog_study(any_dev, int(sys.argv[2]) if len(sys.argv) > 2
                        else 4)
+        elif sys.argv[1] == "batch_rows":
+            batch_rows_study(any_dev)
         else:
             expanded_study(any_dev)
         raise SystemExit(0)

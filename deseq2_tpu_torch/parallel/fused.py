@@ -21,8 +21,9 @@ contrast over the model-matrix columns (getContrast's sandwich at the
 final fit), and betaPrior: the prior variance from the MLE betas on the
 device, then the ridge refit on the expanded model matrix (intercept plus
 one indicator per level) through K1 at p = levels + 1, with its default
-or a user contrast.  A device mesh raises NotImplementedError naming the
-ROADMAP.md item that will port it.
+or a user contrast.  A gene mesh (parallel/sharding.py) runs the per-gene
+chains block by block on its devices and the cross-gene reductions on the
+gathered vectors (fused_wald_pipeline's `mesh`, run_fused_sharded).
 """
 
 from __future__ import annotations
@@ -46,18 +47,47 @@ from .filterdev import bh_adjust, filtered_bh_dev, theta_grid_dev
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 
-ROADMAP_MESH = "ROADMAP.md queue 1, item 11 (multi-GPU)"
+# On the card the per-gene products are row reductions and elementwise
+# passes, not matrix products: a product's summation order there follows
+# its row count (cuBLAS picks its kernel from the shape; rows of a (1,024,
+# 1,024) x (1,024, 4) float64 product differ in the last bits from the same
+# rows of the (2,048, 1,024) product), while a row reduction's does not
+# from MIN_ROWS rows on (`python -m deseq2_tpu_torch.ops.studies
+# batch_rows`).  So a gene's values do not depend on the other genes of its
+# block, and a gene mesh's blocks give the whole's bits.  On the CPU they
+# stay products, whose rounding the tests hold to the JAX package's dots
+# (an iteration count that rounding decides follows it).
+MIN_ROWS = 16
 
 
-def not_ported(what, item):
-    return NotImplementedError(
-        f"{what} is not ported to deseq2_tpu_torch yet: see {item}")
+def rowdot(a, x):
+    """a @ x for (G,S) rows and an (S,k) matrix: on the card k row
+    reductions."""
+    if not a.is_cuda:
+        return a @ x
+    return torch.stack([(a * x[:, j]).sum(dim=1) for j in range(x.shape[1])],
+                       dim=1)
 
 
-def refuse_unported(mesh=None):
-    """Raise for the option of the JAX pipeline the port leaves out."""
-    if mesh is not None:
-        raise not_ported("a device mesh", ROADMAP_MESH)
+def rowcomb(coef, x):
+    """coef @ x.T for (G,k) coefficients and an (S,k) matrix: on the card
+    k elementwise passes, summed in column order."""
+    if not coef.is_cuda:
+        return coef @ x.T
+    out = coef[:, :1] * x[:, 0]
+    for j in range(1, coef.shape[1]):
+        out = out + coef[:, j:j + 1] * x[:, j]
+    return out
+
+
+def _bmm(a, b):
+    """Batched (G,p,p) products a @ b: on the card p elementwise passes."""
+    if not a.is_cuda:
+        return a @ b
+    out = a[:, :, :1] * b[:, :1, :]
+    for k in range(1, a.shape[2]):
+        out = out + a[:, :, k:k + 1] * b[:, k:k + 1, :]
+    return out
 
 
 def contrast_sandwich(beta, mu_cl, alpha, x, ridge, c, w=None):
@@ -77,12 +107,13 @@ def contrast_sandwich(beta, mu_cl, alpha, x, ridge, c, w=None):
     wc = mu / (1.0 + alpha.to(f)[:, None] * mu)
     if w is not None:
         wc = w.to(f) * wc
-    xtwx = (wc @ xx_flat(x64)).reshape(-1, p, p)
+    xtwx = rowdot(wc, xx_flat(x64)).reshape(-1, p, p)
     ainv = torch.linalg.inv(xtwx + torch.diag(ridge.to(f)))
-    sigma = ainv @ xtwx @ ainv
+    sigma = _bmm(_bmm(ainv, xtwx), ainv)
     cv = torch.as_tensor(c, dtype=f, device=x.device)
-    num = beta.to(f) @ cv
-    den = torch.sqrt(torch.einsum("i,gij,j->g", cv, sigma, cv))
+    num = rowcomb(beta.to(f), cv[None, :])[:, 0]
+    den = torch.sqrt(rowcomb(rowcomb(sigma.reshape(-1, p), cv[None, :])
+                             .reshape(-1, p), cv[None, :])[:, 0])
     var = torch.diagonal(sigma, dim1=-2, dim2=-1)
     return num.to(beta.dtype), den.to(beta.dtype), var.to(beta.dtype)
 
@@ -90,8 +121,8 @@ def contrast_sandwich(beta, mu_cl, alpha, x, ridge, c, w=None):
 def _ls_fitted(y, x):
     """Least-squares fitted values y X (X'X)^-1 X' (the reference's QR
     rewrite, R/core.R:2454-2463, as a p x p SPD solve)."""
-    coef = chol_solve(x.T @ x, (y @ x).T).T
-    return coef @ x.T
+    coef = chol_solve(x.T @ x, rowdot(y, x).T).T
+    return rowcomb(coef, x)
 
 
 def nanmedian(v, dim=0):
@@ -111,17 +142,26 @@ def _masked_median(v, mask):
     return nanmedian(torch.where(mask, v, torch.full_like(v, float("nan"))))
 
 
-def size_factors_dev(y):
+def log_ratios(y):
+    """Each count's log ratio to its gene's log geometric mean, NaN where
+    the count or the mean is zero: the per-gene half of the median of
+    ratios."""
+    logy = torch.log(y)
+    lg = logy.mean(dim=1)
+    return torch.where(torch.isfinite(lg)[:, None] & (y > 0),
+                       logy - lg[:, None], torch.full_like(logy, float("nan")))
+
+
+def size_factors_dev(y, mesh=None):
     """Median-of-ratios size factors on the device (estimateSizeFactors
     ForMatrix type='ratio', R/core.R:535-578): per-sample median of the
     finite log ratios to the log geometric mean, over genes with a
-    positive count."""
-    logy = torch.log(y)
-    lg = logy.mean(dim=1)
-    ratios = torch.where(torch.isfinite(lg)[:, None] & (y > 0),
-                         logy - lg[:, None],
-                         torch.full_like(logy, float("nan")))
-    return torch.exp(nanmedian(ratios, dim=0))
+    positive count.  Under `mesh` (a GeneMesh) each row block's log ratios
+    are taken on its shard's device and gathered for the median."""
+    if mesh is None:
+        return torch.exp(nanmedian(log_ratios(y), dim=0))
+    return torch.exp(nanmedian(mesh.gather(
+        [log_ratios(b) for b in mesh.split(y)], y.shape[0]), dim=0))
 
 
 def gamma_trend_fit(means, disps, use_mask):
@@ -408,12 +448,13 @@ class Stages:
             # lp-change stopping rule of the line search turns 1e-15
             # differences in mu into ~1e-3 differences in log alpha
             q_m, r_m = torch.linalg.qr(x)
-            b0 = torch.linalg.solve(r_m, (torch.log(norm_c + 0.1) @ q_m).T).T
+            b0 = torch.linalg.solve(r_m, rowdot(torch.log(norm_c + 0.1),
+                                                q_m).T).T
             f0 = fit_beta(y_safe, x, self.sf if nf is None else nf,
                           alpha_init, b0, self.lam_nat, maxit=self.maxit,
                           min_mu=self.min_mu,
                           weights=None if w is None else _max1(w))
-            mu_disp = torch.clamp(nf_b * torch.exp(f0["beta"] @ x.T),
+            mu_disp = torch.clamp(nf_b * torch.exp(rowcomb(f0["beta"], x)),
                                   min=self.min_mu)
         mu_safe = torch.where(all_zero[:, None], torch.ones_like(mu_disp),
                               mu_disp)
@@ -485,13 +526,13 @@ class Stages:
         dispersion = torch.where(disp_outlier, dge, disp_map)
 
         log_nc = torch.log(est["norm_c"] + 0.1)
-        beta_init = chol_solve(x.T @ x, (log_nc @ x).T).T
+        beta_init = chol_solve(x.T @ x, rowdot(log_nc, x).T).T
         fit = self._fit(y_safe, x, nf, dispersion, beta_init, self.lam_nat,
                         w)
         # mu and the deviance are recomputed UNclamped from the final betas
         # (R/fitNbinomGLMs.R:180, nbinomLogLike R/core.R:2208-2230); the
         # kernel's clamped mu is internal to the fit and the hat diagonal
-        mu_out = nf_b * torch.exp(fit["beta"] @ x.T)
+        mu_out = nf_b * torch.exp(rowcomb(fit["beta"], x))
         ll_out = nb_loglik(y_safe, mu_out, dispersion, w)
         out = dict(disp_fit=disp_fit, disp_map=disp_map,
                    disp_iter=map_res["iter"], disp_outlier=disp_outlier,
@@ -519,12 +560,12 @@ class Stages:
                 out["beta_iter_reduced"] = torch.zeros_like(fit["iter"])
             else:
                 xr = self.x_reduced
-                b0_red = chol_solve(xr.T @ xr, (log_nc @ xr).T).T
+                b0_red = chol_solve(xr.T @ xr, rowdot(log_nc, xr).T).T
                 lam_red = torch.full((xr.shape[1],), 1e-6 / LN2 ** 2,
                                      dtype=xr.dtype, device=xr.device)
                 fit_red = self._fit(y_safe, xr, nf, dispersion, b0_red,
                                     lam_red, w)
-                mu_red = nf_b * torch.exp(fit_red["beta"] @ xr.T)
+                mu_red = nf_b * torch.exp(rowcomb(fit_red["beta"], xr))
                 out["beta_iter_reduced"] = fit_red["iter"]
             out["ll_full"] = ll_out
             out["ll_reduced"] = nb_loglik(y_safe, mu_red, dispersion, w)
@@ -570,12 +611,12 @@ class Stages:
         n[0] = 1.0
         lam64 = lam_e.double()
         b64 = fit["beta"].double()
-        beta = (b64 - ((b64 * lam64) @ n / (n * lam64 * n).sum())[:, None]
-                * n).to(dtype)
+        beta = (b64 - (rowcomb(b64 * lam64, n[None, :])
+                       / (n * lam64 * n).sum()) * n).to(dtype)
         num, den, var = contrast_sandwich(beta, fit["mu"], disp, x_e, lam_e,
                                           self.contrast_exp, w_n)
         nf_b = self.sf[None, :] if nf is None else nf
-        mu_e = nf_b * torch.exp(beta @ x_e.T)
+        mu_e = nf_b * torch.exp(rowcomb(beta, x_e))
         ll_e = nb_loglik(y_safe, mu_e, disp, w_n)
         return dict(beta_e=beta, beta_var_e=var, iter_e=fit["iter"],
                     num=num, den=den, deviance_e=-2.0 * ll_e)
@@ -587,10 +628,15 @@ def _refit_rows(st, y_new, idx, cols, ts, disp_prior_var, var_log_disp,
     frozen trend and prior (refitWithoutOutliers, R/core.R:2497-2560) and
     splice the new values into copies of the per-gene columns.  The LRT's
     Cook's distances use the gene-wise mu (nbinomLRT does not refresh
-    it, R/core.R:1888)."""
-    y_blk = y_new[idx]
-    est2 = st.gene_est(y_blk, None if w is None else w[idx],
-                       None if nf is None else nf[idx])
+    it, R/core.R:1888).  On the card a block of fewer than MIN_ROWS rows
+    runs with its first row repeated up to MIN_ROWS, so that its row
+    reductions sum in the order they do for any larger block."""
+    n = idx.numel()
+    idx_run = idx if n >= MIN_ROWS or not y_new.is_cuda else torch.cat(
+        [idx, idx[:1].expand(MIN_ROWS - n)])
+    y_blk = y_new[idx_run]
+    est2 = st.gene_est(y_blk, None if w is None else w[idx_run],
+                       None if nf is None else nf[idx_run])
     post2 = st.post_trend(est2, ts, disp_prior_var, var_log_disp)
     cooks2 = cooks_distance_dev(y_blk, est2["norm_c"],
                                 est2["mu_safe"] if st.lrt else post2["mu"],
@@ -607,7 +653,7 @@ def _refit_rows(st, y_new, idx, cols, ts, disp_prior_var, var_log_disp,
                                 prior_v, est2.get("w"), est2.get("nf")))
     cols = {k: v.clone() for k, v in cols.items()}
     for k in cols:
-        cols[k][idx] = new[k].to(cols[k].dtype)
+        cols[k][idx] = new[k][:n].to(cols[k].dtype)
     return cols
 
 
@@ -629,13 +675,20 @@ def _fit_trend(fit_type, base_mean, disp_gene_est, all_zero, min_disp):
     raise ValueError("fused fit_type must be parametric/local/mean")
 
 
+def _on(v, dev):
+    """A trend state (a tensor, or local_trend_state's dict) on `dev`."""
+    if isinstance(v, dict):
+        return {k: _on(u, dev) for k, u in v.items()}
+    return v.to(dev) if torch.is_tensor(v) else v
+
+
 def fused_wald_pipeline(counts, x, size_factors, grid, maxit=100,
                         min_disp=1e-8, cells=None, two_group=False,
                         min_replicates=7, alpha=0.1, linear_mu=True,
                         dtype=torch.float64, x_reduced=None,
                         reduced_intercept=False, use_t=False, weights=None,
                         norm_factors=None, fit_type="parametric",
-                        beta_prior=False, contrast=None, **unported):
+                        beta_prior=False, contrast=None, mesh=None):
     """counts: (G,S) integer tensor; x: (S,p); size_factors: (S,) or None to
     estimate median-of-ratios factors on the device (ignored with
     `norm_factors`); grid: (20,) log-alpha grid.  Everything runs on
@@ -666,13 +719,34 @@ def fused_wald_pipeline(counts, x, size_factors, grid, maxit=100,
     (refitWithoutOutliers, R/core.R:2484-2563) when some cell has
     >= min_replicates replicates, Cook's p-value masking with the two-group
     heuristic (R/results.R:520-565) and the independent-filtering theta
-    grid (R/results.R:638-718)."""
-    refuse_unported(**unported)
-    dev = counts.device
+    grid (R/results.R:638-718).
+
+    `mesh` (parallel.sharding.GeneMesh): the genes axis is split into the
+    mesh's row blocks, and the per-gene chains (the gene-wise estimate and
+    its grid fallback, MAP and IRLS, the expanded refit, Cook's distances
+    and the outlier refit) run block by block, each on its shard's device,
+    as the JAX package's run under shard_map (fused.py:329-337); each
+    block compacts its own grid-fallback and refit rows.  The cross-gene
+    reductions (size factors, trend, MAD, prior variances, the beta
+    prior's quantile, BH, the filtering quantiles) and the results tail
+    run once on the gathered vectors on the mesh's first device, where
+    every output lands.  Without a mesh the counts' device is the one
+    block."""
+    from .sharding import GeneMesh, as_mesh
+    mesh = as_mesh(mesh) or GeneMesh([counts.device])
+    dev = mesh.first_device
     G, S = counts.shape
+    blocks = mesh.shards(G)
+    if not blocks:
+        raise ValueError(f"no genes of {G} fall to this process's shards "
+                         f"of {mesh}")
+
+    def gat(parts):
+        return mesh.gather(parts, G)
+
     x = torch.as_tensor(x).to(device=dev, dtype=dtype)
     p = x.shape[1]
-    y = counts.to(dtype)
+    ys = [c.to(dtype) for c in mesh.split(counts)]
     out = {}
     nfm = None
     if norm_factors is not None:
@@ -681,7 +755,8 @@ def fused_wald_pipeline(counts, x, size_factors, grid, maxit=100,
         xim = (1.0 / nfm.mean(dim=0)).mean()
     elif size_factors is None:
         with profiling.stage("fused.sizeFactors", genes=G):
-            sf = size_factors_dev(y)
+            sf = torch.exp(nanmedian(gat([log_ratios(y) for y in ys]),
+                                     dim=0))
         out["sizeFactors"] = sf
         xim = None
     else:
@@ -691,6 +766,7 @@ def fused_wald_pipeline(counts, x, size_factors, grid, maxit=100,
     if weights is not None:
         w_raw = torch.as_tensor(weights).to(device=dev, dtype=dtype)
         linear_mu = False          # weights disable linearMu (host rule)
+    nfs, ws = mesh.split(nfm, G), mesh.split(w_raw, G)
     lrt = reduced_intercept or x_reduced is not None
     if x_reduced is not None:
         x_reduced = torch.as_tensor(x_reduced).to(device=dev, dtype=dtype)
@@ -718,11 +794,17 @@ def fused_wald_pipeline(counts, x, size_factors, grid, maxit=100,
         else:
             cvec_e = tuple([0.0, -1.0] + [0.0] * (pe - 3) + [1.0])
     grid = torch.as_tensor(grid).to(device=dev, dtype=dtype)
-    st = Stages(x, sf, grid, maxit=maxit, min_disp=min_disp,
-                linear_mu=linear_mu, fit_type=fit_type, xim=xim,
-                x_reduced=x_reduced, reduced_intercept=reduced_intercept,
-                contrast=None if beta_prior else contrast, x_exp=x_exp,
-                contrast_exp=cvec_e)
+
+    def stages_on(d):
+        return Stages(x.to(d), sf.to(d), grid.to(d), maxit=maxit,
+                      min_disp=min_disp, linear_mu=linear_mu,
+                      fit_type=fit_type, xim=_on(xim, d),
+                      x_reduced=_on(x_reduced, d),
+                      reduced_intercept=reduced_intercept,
+                      contrast=None if beta_prior else contrast,
+                      x_exp=_on(x_exp, d), contrast_exp=cvec_e)
+
+    sts = [stages_on(d) for _, _, d in blocks]
 
     # Wald p-values: normal, or t with df = S - p; with weights the
     # per-gene df = sum(max-1 weights) - p (R/core.R:1478-1508)
@@ -739,9 +821,11 @@ def fused_wald_pipeline(counts, x, size_factors, grid, maxit=100,
         return torch.special.erfc(stat.abs() / sqrt2)
 
     with profiling.stage("fused.geneEst", genes=G):
-        est = st.gene_est(y, w_raw, nfm)
-    base_mean, base_var = est["base_mean"], est["base_var"]
-    all_zero, disp_gene_est = est["all_zero"], est["disp_gene_est"]
+        ests = [s_.gene_est(y, w, nf) for s_, y, w, nf
+                in zip(sts, ys, ws, nfs)]
+    base_mean, base_var, all_zero, disp_gene_est = (
+        gat([e[k] for e in ests]) for k in ("base_mean", "base_var",
+                                           "all_zero", "disp_gene_est"))
 
     # dispersion trend, MAD and prior variance (cross-gene reductions)
     with profiling.stage("fused.trend", genes=G):
@@ -760,36 +844,38 @@ def fused_wald_pipeline(counts, x, size_factors, grid, maxit=100,
     disp_prior_var = torch.clamp(var_log_disp - exp_var.to(dev, dtype),
                                  min=0.25)
     out.update(dispPriorVar=disp_prior_var, varLogDispEsts=var_log_disp)
+    # the frozen trend and prior on each block's device
+    frozen = [(_on(ts, d), disp_prior_var.to(d), var_log_disp.to(d))
+              for _, _, d in blocks]
 
     with profiling.stage("fused.mapIrls", genes=G):
-        post = st.post_trend(est, ts, disp_prior_var, var_log_disp,
-                             disp_fit_full)
-    cols = dict(disp_gene_est=disp_gene_est,
-                disp_gene_iter=est["disp_gene_iter"],
-                disp_fit=post["disp_fit"], disp_map=post["disp_map"],
-                disp_iter=post["disp_iter"],
-                disp_outlier=post["disp_outlier"],
-                dispersion=post["dispersion"], beta=post["beta"],
-                beta_var=post["beta_var"], beta_iter=post["beta_iter"],
-                mu=post["mu"], hat=post["hat"], deviance=post["deviance"])
+        posts = [s_.post_trend(e, ts_, dpv, vld, dfit) for s_, e,
+                 (ts_, dpv, vld), dfit
+                 in zip(sts, ests, frozen, mesh.split(disp_fit_full))]
+    keep = ["disp_fit", "disp_map", "disp_iter", "disp_outlier",
+            "dispersion", "beta", "beta_var", "beta_iter", "mu", "hat",
+            "deviance"]
     if lrt:
-        for k in ("ll_full", "ll_reduced", "beta_iter_reduced"):
-            cols[k] = post[k]
-    if st.contrast is not None:
-        cols.update(num=post["num"], den=post["den"])
+        keep += ["ll_full", "ll_reduced", "beta_iter_reduced"]
+    if contrast is not None and not beta_prior:
+        keep += ["num", "den"]
+    cols_b = [dict({k: post[k] for k in keep},
+                   disp_gene_est=e["disp_gene_est"],
+                   disp_gene_iter=e["disp_gene_iter"])
+              for e, post in zip(ests, posts)]
 
     # ---- beta prior variance + expanded refit ----
-    prior_v = None
+    priors = [None] * len(blocks)
     if beta_prior:
         from .priordev import match_weighted_upper_quantile_var_dev
         with profiling.stage("fused.betaPrior", genes=G):
-            mle_log2 = LOG2E * cols["beta"]
+            mle_log2 = LOG2E * gat([c["beta"] for c in cols_b])
             # weights 1/(1/baseMean + dispFit), nonzero genes only
             # (R/core.R:1637-1646)
             wq = torch.where(all_zero, torch.zeros_like(base_mean),
                              1.0 / (1.0 / torch.where(
                                  all_zero, torch.ones_like(base_mean),
-                                 base_mean) + cols["disp_fit"]))
+                                 base_mean) + disp_fit_full))
             qcols = [mle_log2[:, j] for j in range(1, p)]
             for j in range(1, p):     # addAllContrasts (R/expanded.R:76-98)
                 for i in range(j + 1, p):
@@ -803,70 +889,142 @@ def fused_wald_pipeline(counts, x, size_factors, grid, maxit=100,
             out["mleBeta"] = torch.where(all_zero[:, None],
                                          torch.full_like(mle_log2, math.nan),
                                          mle_log2)
-            cols.update(st.prior_fit(est["y_safe"], est["norm_c"], all_zero,
-                                     cols["dispersion"], prior_v, w_raw,
-                                     nfm))
+            priors = [prior_v.to(d) for _, _, d in blocks]
+            for s_, e, c, w, nf, pv in zip(sts, ests, cols_b, ws, nfs,
+                                           priors):
+                c.update(s_.prior_fit(e["y_safe"], e["norm_c"],
+                                      e["all_zero"], c["dispersion"], pv, w,
+                                      nf))
 
-    # ---- Cook's distances + outlier replacement / refit ----
-    replace = torch.zeros(G, dtype=torch.bool, device=dev)
-    max_cooks = cooks = None
+    # ---- Cook's distances + outlier replacement / refit, per block ----
+    blk = [dict(replace=torch.zeros(hi - lo, dtype=torch.bool, device=d),
+                base_mean=e["base_mean"], base_var=e["base_var"],
+                all_zero=e["all_zero"])
+           for (lo, hi, d), e in zip(blocks, ests)]
     stage = profiling.stage("fused.cooksRefit", genes=G)
-    if cells is not None and S > p:
+    with_cooks = cells is not None and S > p
+    if with_cooks:
         from scipy.stats import f as f_dist
         cutoff99 = float(f_dist.ppf(0.99, p, S - p))
-        nf_full_b = sf[None, :] if nfm is None else nfm
-        norm_counts = y / nf_full_b
-        # nbinomWaldTest refreshes mu before Cook's; nbinomLRT does not, so
-        # LRT Cook's sees the gene-wise mu (R/core.R:1436 vs 1888/1959)
-        cooks = cooks_distance_dev(y, norm_counts,
-                                   est["mu_safe"] if lrt else cols["mu"],
-                                   cols["hat"], cells, p)
-        cooks = torch.where(all_zero[:, None],
-                            torch.full_like(cooks, float("nan")), cooks)
-        max_cooks = max_cooks_dev(cooks, cells, p)
-
         cells_np = np.asarray(cells)
         replaceable_np = np.bincount(cells_np)[cells_np] >= min_replicates
-    if cooks is not None and replaceable_np.any():
+        for s_, e, c, b, y, nf in zip(sts, ests, cols_b, blk, ys, nfs):
+            b["nf_b"] = s_.sf[None, :] if nf is None else nf
+            b["norm_counts"] = y / b["nf_b"]
+            # nbinomWaldTest refreshes mu before Cook's; nbinomLRT does
+            # not, so LRT Cook's sees the gene-wise mu (R/core.R:1436 vs
+            # 1888/1959)
+            cooks = cooks_distance_dev(y, b["norm_counts"],
+                                       e["mu_safe"] if lrt else c["mu"],
+                                       c["hat"], cells, p)
+            b["cooks"] = torch.where(e["all_zero"][:, None],
+                                     torch.full_like(cooks, float("nan")),
+                                     cooks)
+            b["max_cooks"] = max_cooks_dev(b["cooks"], cells, p)
+    if with_cooks and replaceable_np.any():
         with stage:
-            # replaceOutliers (R/core.R:2069-2115)
-            with_outlier = cooks > cutoff99             # NaN -> False
-            replace = with_outlier.any(dim=1) & ~all_zero
-            trim_base = trimmed_mean_dev(norm_counts, 0.2)
-            replacement = torch.trunc(trim_base[:, None] * nf_full_b)
-            repl_cols = torch.as_tensor(replaceable_np, device=dev)[None, :]
-            y_new = torch.where(with_outlier & repl_cols, replacement, y)
-            new_all_zero = y_new.sum(dim=1) == 0
-            need = replace & ~new_all_zero
+            for b, y, w in zip(blk, ys, ws):
+                # replaceOutliers (R/core.R:2069-2115)
+                with_outlier = b["cooks"] > cutoff99          # NaN -> False
+                replace = with_outlier.any(dim=1) & ~b["all_zero"]
+                trim_base = trimmed_mean_dev(b["norm_counts"], 0.2)
+                replacement = torch.trunc(trim_base[:, None] * b["nf_b"])
+                b["repl_cols"] = torch.as_tensor(
+                    replaceable_np, device=y.device)[None, :]
+                y_new = torch.where(with_outlier & b["repl_cols"],
+                                    replacement, y)
+                new_all_zero = y_new.sum(dim=1) == 0
+                b["need"] = replace & ~new_all_zero
+                # base stats of the replaced rows on the replaced counts
+                # (R/core.R:2508), weighted with observation weights
+                norm_new = y_new / b["nf_b"]
+                if w is not None:
+                    norm_new = w * norm_new
+                b["base_mean"] = torch.where(replace, norm_new.mean(dim=1),
+                                             b["base_mean"])
+                b["base_var"] = torch.where(
+                    replace, norm_new.var(dim=1, correction=1),
+                    b["base_var"])
+                b["all_zero"] = torch.where(replace, new_all_zero,
+                                            b["all_zero"])
+                b["replace"], b["y_new"] = replace, y_new
+            # maxCooks is recomputed when a refit ran anywhere
+            refit_any = bool(gat([b["need"] for b in blk]).any())
+            for s_, c, b, w, nf, (ts_, dpv, vld), pv in zip(
+                    sts, cols_b, blk, ws, nfs, frozen, priors):
+                c["cooks"] = b["cooks"]
+                idx = torch.nonzero(b["need"]).squeeze(1)
+                if idx.numel():
+                    c.update(_refit_rows(s_, b["y_new"], idx, c, ts_, dpv,
+                                         vld, cells, w, nf, pv))
+                b["replaceCounts"] = b["y_new"]
+                b["replaceCooks"] = c.pop("cooks")
+                # maxCooks after the refit (R/core.R:2540-2551), only when
+                # a refit ran
+                if refit_any:
+                    if replaceable_np.all():
+                        b["max_cooks"] = torch.full_like(b["max_cooks"],
+                                                         float("nan"))
+                    else:
+                        b["max_cooks"] = max_cooks_dev(
+                            torch.where(b["repl_cols"],
+                                        torch.zeros_like(b["cooks"]),
+                                        b["replaceCooks"]), cells, p)
 
-            # base stats of the replaced rows on the replaced counts
-            # (R/core.R:2508), weighted with observation weights
-            norm_new = y_new / nf_full_b
-            if w_raw is not None:
-                norm_new = w_raw * norm_new
-            base_mean = torch.where(replace, norm_new.mean(dim=1), base_mean)
-            base_var = torch.where(replace,
-                                   norm_new.var(dim=1, correction=1),
-                                   base_var)
-            all_zero = torch.where(replace, new_all_zero, all_zero)
+    # per-gene flags of the tail that read the (G,S) counts
+    zz_mode = None
+    if lrt and contrast is not None:
+        zz_mode = "numeric"
+    elif not lrt and (beta_prior or contrast is not None):
+        zz_mode = "levels" if beta_prior and contrast is None else "numeric"
 
-            cols["cooks"] = cooks
-            idx = torch.nonzero(need).squeeze(1)
-            if idx.numel():
-                cols = _refit_rows(st, y_new, idx, cols, ts, disp_prior_var,
-                                   var_log_disp, cells, w_raw, nfm, prior_v)
-            out["replaceCounts"] = y_new
-            out["replaceCooks"] = cols.pop("cooks")
+    def numeric_zero_zero(y, cvals, xmat):
+        """contrastAllZeroNumeric (R/results.R:1245-1270): rows whose counts
+        are all zero over the samples the contrast involves (mixed-sign
+        contrasts only)."""
+        ca = np.asarray(cvals)
+        if (ca >= 0).all() or (ca <= 0).all():
+            return torch.zeros(y.shape[0], dtype=torch.bool, device=y.device)
+        cbin = torch.as_tensor((ca != 0).astype(float), dtype=dtype,
+                               device=y.device)
+        which = (xmat.to(y.device) @ cbin) != 0
+        return (y * which[None, :].to(dtype)).sum(dim=1) == 0
 
-            # maxCooks after the refit (R/core.R:2540-2551), only when a
-            # refit ran
-            if max_cooks is not None and idx.numel():
-                if replaceable_np.all():
-                    max_cooks = torch.full_like(max_cooks, float("nan"))
-                else:
-                    max_cooks = max_cooks_dev(
-                        torch.where(repl_cols, torch.zeros_like(cooks),
-                                    out["replaceCooks"]), cells, p)
+    for b, y in zip(blk, ys):
+        if zz_mode == "numeric":
+            b["zz"] = numeric_zero_zero(
+                y, contrast, x_exp if beta_prior and not lrt else x)
+        elif zz_mode == "levels":
+            # the default betaPrior contrast's character rule: both
+            # involved levels all zero (R/results.R:956-959, 1237-1243)
+            carr = np.asarray(cells)
+            first = torch.as_tensor(np.where(carr == 0)[0], device=y.device)
+            last = torch.as_tensor(np.where(carr == carr.max())[0],
+                                   device=y.device)
+            b["zz"] = (y[:, first].sum(dim=1) == 0) \
+                & (y[:, last].sum(dim=1) == 0)
+        if with_cooks and two_group:
+            # no masking when >= 3 counts exceed the outlier's count
+            # (R/results.R:538-562)
+            cmax = torch.where(torch.isnan(b["cooks"]),
+                               torch.full_like(b["cooks"], float("-inf")),
+                               b["cooks"])
+            iarg = torch.argmax(cmax, dim=1)
+            out_count = torch.gather(y, 1, iarg[:, None])
+            b["unmask"] = (y > out_count).sum(dim=1) >= 3
+
+    # ---- onto the first device: the results tail ----
+    cols = {k: gat([c[k] for c in cols_b]) for k in cols_b[0]}
+    tail = {k: gat([b[k] for b in blk]) for k in (
+        "replace", "base_mean", "base_var", "all_zero", "cooks",
+        "max_cooks", "replaceCounts", "replaceCooks", "zz", "unmask")
+        if k in blk[0]}
+    replace, base_mean, base_var, all_zero = (
+        tail[k] for k in ("replace", "base_mean", "base_var", "all_zero"))
+    cooks, max_cooks = tail.get("cooks"), tail.get("max_cooks")
+    for k in ("replaceCounts", "replaceCooks"):
+        if k in tail:
+            out[k] = tail[k]
 
     # ---- Wald statistics (R/core.R:1471-1508) ----
     beta_log2 = LOG2E * cols["beta"]
@@ -879,18 +1037,6 @@ def fused_wald_pipeline(counts, x, size_factors, grid, maxit=100,
 
     def nanmask(v):
         return torch.where(all_zero, torch.full_like(v, nan), v)
-
-    def numeric_zero_zero(cvals, xmat):
-        """contrastAllZeroNumeric (R/results.R:1245-1270): rows whose counts
-        are all zero over the samples the contrast involves (mixed-sign
-        contrasts only)."""
-        ca = np.asarray(cvals)
-        if (ca >= 0).all() or (ca <= 0).all():
-            return torch.zeros(G, dtype=torch.bool, device=dev)
-        cbin = torch.as_tensor((ca != 0).astype(float), dtype=dtype,
-                               device=dev)
-        which = (xmat @ cbin) != 0
-        return (y * which[None, :].to(dtype)).sum(dim=1) == 0
 
     lfc_last = nanmask(beta_log2[:, -1])
     se_last = nanmask(se_log2[:, -1])
@@ -913,7 +1059,7 @@ def fused_wald_pipeline(counts, x, size_factors, grid, maxit=100,
             # stand (R/results.R:1021-1037)
             lfc_last = nanmask(LOG2E * cols["num"])
             se_last = nanmask(LOG2E * cols["den"])
-            zz = numeric_zero_zero(contrast, x) & ~all_zero
+            zz = tail["zz"] & ~all_zero
             lfc_last = torch.where(zz, torch.zeros_like(lfc_last), lfc_last)
     elif beta_prior or contrast is not None:
         # the contrast (under betaPrior by default the last level against
@@ -924,19 +1070,9 @@ def fused_wald_pipeline(counts, x, size_factors, grid, maxit=100,
         stat_last = nanmask(cols["num"] / cols["den"])
         p_last = nanmask(two_sided_p(stat_last))
         # zero-zero rule, LFC = 0, stat = 0, p = 1: the default betaPrior
-        # contrast takes the character rule (both involved levels all zero,
-        # R/results.R:956-959, 1237-1243), a user contrast the numeric one
-        # (R/results.R:1245-1270)
-        if beta_prior and contrast is None:
-            carr = np.asarray(cells)
-            first = torch.as_tensor(np.where(carr == 0)[0], device=dev)
-            last = torch.as_tensor(np.where(carr == carr.max())[0],
-                                   device=dev)
-            zz = (y[:, first].sum(dim=1) == 0) \
-                & (y[:, last].sum(dim=1) == 0) & ~all_zero
-        else:
-            zz = numeric_zero_zero(contrast, x_exp if beta_prior else x) \
-                & ~all_zero
+        # contrast takes the character rule, a user contrast the numeric
+        # one (R/results.R:1245-1270)
+        zz = tail["zz"] & ~all_zero
         zero = torch.zeros_like(p_last)
         lfc_last = torch.where(zz, zero, lfc_last)
         stat_last = torch.where(zz, zero, stat_last)
@@ -958,14 +1094,7 @@ def fused_wald_pipeline(counts, x, size_factors, grid, maxit=100,
                                     torch.zeros_like(replace),
                                     max_cooks > cutoff99)
         if two_group:
-            # no masking when >= 3 counts exceed the outlier's count
-            # (R/results.R:538-562)
-            cmax = torch.where(torch.isnan(cooks),
-                               torch.full_like(cooks, float("-inf")), cooks)
-            iarg = torch.argmax(cmax, dim=1)
-            out_count = torch.gather(y, 1, iarg[:, None])
-            unmask = (y > out_count).sum(dim=1) >= 3
-            cooks_outlier = cooks_outlier & ~unmask
+            cooks_outlier = cooks_outlier & ~tail["unmask"]
         p_last = torch.where(cooks_outlier, torch.full_like(p_last, nan),
                              p_last)
 
@@ -1003,8 +1132,7 @@ def fused_wald_pipeline(counts, x, size_factors, grid, maxit=100,
         filterCutoffs=cutoffs)
     if cooks is not None:
         out["cooks"] = cooks
-        out["maxCooks"] = (torch.full((G,), nan, dtype=dtype, device=dev)
-                           if max_cooks is None else nanmask(max_cooks))
+        out["maxCooks"] = nanmask(max_cooks)
     return out
 
 
@@ -1108,12 +1236,66 @@ def validated_weights(weights, x_np, device, dtype, refuse=True):
     return w
 
 
+def run_fused_sharded(counts, x, size_factors, mesh, maxit=100,
+                      min_disp=1e-8, cells=None, two_group=False,
+                      alpha=0.1, reduced=None, beta_prior=False,
+                      contrast=None, use_t=False, weights=None,
+                      norm_factors=None, min_replicates=7,
+                      fit_type="parametric", dtype=torch.float64):
+    """The fused pipeline with the genes axis sharded over `mesh` (a
+    GeneMesh; the JAX package's run_fused_sharded): the host counts and
+    (G,S) inputs go block by block to the shards' devices, and every
+    output comes back as a host numpy array.  `size_factors=None`
+    estimates median-of-ratios factors, the blocks' log ratios gathered
+    for the per-sample median."""
+    from .sharding import as_mesh
+    if as_mesh(mesh) is None:
+        raise TypeError("run_fused_sharded needs a GeneMesh")
+    x_np = np.asarray(x, dtype=np.float64)
+    out = _run_pipeline(counts, x_np, size_factors, mesh.first_device,
+                        dtype, mesh, maxit=maxit, min_disp=min_disp,
+                        cells=cells, two_group=two_group, alpha=alpha,
+                        reduced=reduced, beta_prior=beta_prior,
+                        contrast=contrast, use_t=use_t, weights=weights,
+                        norm_factors=norm_factors,
+                        min_replicates=min_replicates, fit_type=fit_type)
+    return {k: v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+            for k, v in out.items()}
+
+
+def _run_pipeline(counts, x_np, size_factors, dev, dtype, mesh, min_disp,
+                  reduced, weights, norm_factors, contrast, **kw):
+    """fused_wald_pipeline from host arrays: the counts on `dev`, or under
+    `mesh` left on the host for its blocks to go to their devices."""
+    if contrast is not None:
+        contrast = tuple(float(c) for c in np.asarray(contrast).ravel())
+    if norm_factors is not None:
+        if np.shape(norm_factors) != np.shape(counts):
+            raise ValueError("norm_factors must match the counts shape "
+                             "(genes x samples)")
+        norm_factors = torch.as_tensor(np.asarray(norm_factors, np.float64))
+    x_red, red_int = reduced_args(reduced)
+    counts_t = torch.as_tensor(np.asarray(counts))
+    if mesh is None:
+        counts_t = counts_t.to(dev)
+    return fused_wald_pipeline(
+        counts_t, torch.as_tensor(x_np), None if size_factors is None
+        else torch.as_tensor(np.asarray(size_factors, np.float64)),
+        torch.as_tensor(default_grid(x_np.shape[0], min_disp)),
+        min_disp=min_disp,
+        linear_mu=len(set(design_cells(x_np))) == x_np.shape[1],
+        dtype=dtype, x_reduced=None if x_red is None
+        else torch.as_tensor(x_red), reduced_intercept=red_int,
+        weights=weights, norm_factors=norm_factors, contrast=contrast,
+        mesh=mesh, **kw)
+
+
 def fused_results(counts, x, size_factors=None, maxit=100, min_disp=1e-8,
                   alpha=0.1, independent_filtering=True, two_group=False,
                   min_replicates=7, device=None, dtype=torch.float64,
                   reduced=None, use_t=False, weights=None,
                   norm_factors=None, fit_type="parametric",
-                  beta_prior=False, contrast=None, **unported):
+                  beta_prior=False, contrast=None, mesh=None):
     """deseq() + results() through the fused pipeline: runs it on `device`
     (default "cuda"), then picks the independent-filtering cutoff on the
     host (R/results.R:661-698) and returns the results-table columns as
@@ -1121,36 +1303,24 @@ def fused_results(counts, x, size_factors=None, maxit=100, min_disp=1e-8,
     on the device; `reduced` ('~ 1' or a matrix) runs the LRT; `weights`
     (raw, validated here), `norm_factors`, `use_t`, `fit_type`,
     `beta_prior` and `contrast` (a numeric vector over x's columns, or
-    the expanded columns under beta_prior) as in fused_wald_pipeline."""
+    the expanded columns under beta_prior) as in fused_wald_pipeline.
+    `mesh` (a GeneMesh) shards the genes axis over its devices, the
+    cross-gene steps on its first device, which `device` may only name."""
     from ..results import choose_filter_theta
     from ..engine import resolve_device
 
-    refuse_unported(**unported)
-    dev = resolve_device(device)
+    dev = resolve_device(device, mesh)
     x_np = np.asarray(x, dtype=np.float64)
     cells = design_cells(x_np)
     if weights is not None:
         weights = validated_weights(weights, x_np, dev, dtype)
-    if norm_factors is not None:
-        if np.shape(norm_factors) != np.shape(counts):
-            raise ValueError("norm_factors must match the counts shape "
-                             "(genes x samples)")
-        norm_factors = torch.as_tensor(np.asarray(norm_factors, np.float64))
-    if contrast is not None:
-        contrast = tuple(float(c) for c in np.asarray(contrast).ravel())
-    x_red, red_int = reduced_args(reduced)
-    counts_t = torch.as_tensor(np.asarray(counts)).to(dev)
-    out = fused_wald_pipeline(
-        counts_t, torch.as_tensor(x_np), None if size_factors is None
-        else torch.as_tensor(np.asarray(size_factors, np.float64)),
-        torch.as_tensor(default_grid(x_np.shape[0], min_disp)), maxit=maxit,
-        min_disp=min_disp, cells=cells, two_group=two_group,
-        min_replicates=min_replicates, alpha=alpha,
-        linear_mu=len(set(cells)) == x_np.shape[1], dtype=dtype,
-        x_reduced=None if x_red is None else torch.as_tensor(x_red),
-        reduced_intercept=red_int, use_t=use_t, weights=weights,
-        norm_factors=norm_factors, fit_type=fit_type, beta_prior=beta_prior,
-        contrast=contrast)
+    out = _run_pipeline(counts, x_np, size_factors, dev, dtype, mesh,
+                        maxit=maxit, min_disp=min_disp, cells=cells,
+                        two_group=two_group, min_replicates=min_replicates,
+                        alpha=alpha, reduced=reduced, use_t=use_t,
+                        weights=weights, norm_factors=norm_factors,
+                        fit_type=fit_type, beta_prior=beta_prior,
+                        contrast=contrast)
 
     def host(v):
         return v.cpu().numpy() if torch.is_tensor(v) else v

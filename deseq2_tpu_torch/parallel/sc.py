@@ -54,8 +54,16 @@ Entry points: `fused_sc_pipeline` (the parametric Wald pipeline, device
 tensors) and `fused_sc_results` (the staged single-cell DESeq story:
 fit_type "glmGamPoi" with the quasi-likelihood F-test, or "parametric"
 with the Wald test or the chi-square LRT, and the independent-filtering
-tail; host numpy columns).  A device mesh raises NotImplementedError
-naming ROADMAP item 11.
+tail; host numpy columns).
+
+Gene mesh (parallel/sharding.py, the JAX package's shard_map stages): the
+counts' row blocks stream on their shards' devices, each block running
+stage 1 (its straggler cascade and caps, its histogram overflow redo),
+the MAP search and the IRLS on its own; the trend, the prior, the QL
+shrinkage, the test and the filtering tail run once on the gathered
+vectors on the mesh's first device.  A count that rounding decides may
+move with a block's G, through its caps, as it moves with the chunk
+width.
 """
 
 from __future__ import annotations
@@ -69,8 +77,8 @@ from .. import profiling
 from ..ops.nb import digamma_diff, lgamma_diff_centered, trigamma
 from ..ops.padding import compact_live_indices
 from .filterdev import bh_adjust, filtered_bh_dev, theta_grid_dev
-from .fused import (LN2, LOG2E, ROADMAP_MESH, _masked_median,
-                    gamma_trend_fit, not_ported)
+from .fused import LN2, LOG2E, _masked_median, gamma_trend_fit
+from .sharding import GeneMesh, as_mesh
 
 __all__ = ["fused_sc_pipeline", "fused_sc_results", "DEFAULT_CHUNK",
            "HIST_K", "SEARCH_DTYPE"]
@@ -764,16 +772,17 @@ def _xim_x(env):
 
 
 def _sc_stage1_x(env, grid, maxit, min_disp, min_mu, use_hist=False,
-                 ovf_cap=0):
+                 ovf_cap=0, xim=None):
     """Covariate gene-wise stage: base stats + rough/moments start + a
     streamed GLM fit at the starting dispersions for mu + the dispersion
     MLE (R/core.R:657-860 with linearMu=False).  Persistent state per
-    gene: the (G,p) betas of mu, never a (G,S)."""
+    gene: the (G,p) betas of mu, never a (G,S).  `xim`: momentsDisp's
+    xim over every gene (a block's own is _xim_x of its rows)."""
     counts, dtype, x = env["counts"], env["dtype"], env["x"]
     G, S = counts.shape
     p = env["p"]
     max_disp = float(max(10.0, S))
-    xim = _xim_x(env)
+    xim = _xim_x(env) if xim is None else xim
     # the host starts the mu GLM by QR on log(normCounts + 0.1)
     # (fitNbinomGLMs.R:139-155)
     q_m, r_m = torch.linalg.qr(x)
@@ -914,11 +923,19 @@ def _hist_plan(counts, use_hist, dtype):
     on = (dtype == torch.float32) if use_hist is None else bool(use_hist)
     if not on:
         return False, 0, 0
-    n_ovf = int((counts.amax(dim=1) >= HIST_K).sum())
+    n_ovf = _n_overflow(counts)
     if n_ovf > G // 4:
         return False, 0, n_ovf
-    cap = min(1 << (max(n_ovf, 64) - 1).bit_length(), G) if n_ovf else 0
-    return True, cap, n_ovf
+    return True, _ovf_cap(n_ovf, G), n_ovf
+
+
+def _n_overflow(counts):
+    return int((counts.amax(dim=1) >= HIST_K).sum())
+
+
+def _ovf_cap(n_ovf, G):
+    """The overflow redo's power-of-two buffer for n_ovf of G genes."""
+    return min(1 << (max(n_ovf, 64) - 1).bit_length(), G) if n_ovf else 0
 
 
 def fused_sc_results(counts, cells=None, size_factors=None, n_groups=None,
@@ -955,9 +972,8 @@ def fused_sc_results(counts, cells=None, size_factors=None, n_groups=None,
     from ..gampoi import ql_f_test
     from ..results import choose_filter_theta
 
-    if mesh is not None:
-        raise not_ported("fused_sc_results with a device mesh", ROADMAP_MESH)
-    dev = resolve_device(device)
+    dev = resolve_device(device, mesh)
+    mesh = as_mesh(mesh) or GeneMesh([dev])
     G, S = counts.shape
     use_x = design is not None
     if norm_factors is not None and not use_x:
@@ -999,51 +1015,70 @@ def fused_sc_results(counts, cells=None, size_factors=None, n_groups=None,
                       "347-350); Wald p-values use the QL-mapped "
                       "dispersions")
 
-    def on_dev(v, dt=dtype):
+    def on_dev(v, dt=dtype, d=dev):
         if not torch.is_tensor(v):
             v = torch.as_tensor(np.asarray(v, np.float64))
-        return v.to(device=dev, dtype=dt)
+        return v.to(device=d, dtype=dt)
 
     counts = _counts_on(counts, dev)
-    sf = on_dev(size_factors)
-    if use_x:
-        nf = None if norm_factors is None else on_dev(norm_factors)
-    else:
+    nf = None if norm_factors is None else on_dev(norm_factors)
+    if not use_x:
         cells_d = torch.as_tensor(np.asarray(cells)).to(
             device=dev, dtype=torch.int64) if not torch.is_tensor(cells) \
             else cells.to(device=dev, dtype=torch.int64)
+    blocks = mesh.shards(G)
+    if not blocks:
+        raise ValueError(f"no genes of {G} fall to this process's shards "
+                         f"of {mesh}")
+    counts_b, nf_b = mesh.split(counts), mesh.split(nf, G)
 
-    def make_env(dt):
-        """The streamed passes' environment in `dt`, its per-sample rows
-        made from the caller's values (the (G,S) counts and factors are
-        shared: a chunk is promoted as it is read)."""
-        sf_t = on_dev(size_factors, dt)
+    def gat(parts):
+        return mesh.gather(parts, G)
+
+    def make_env(dt, c, nf_, d):
+        """The streamed passes' environment of the counts block `c` (and
+        factors `nf_`) on `d` in `dt`, its per-sample rows made from the
+        caller's values (the (G,S) counts and factors are shared: a chunk
+        is promoted as it is read)."""
+        sf_t = on_dev(size_factors, dt, d)
         if use_x:
-            return _setup(counts, on_dev(design, dt), sf_t, chunk, dt,
-                          norm_factors=nf)
-        return _setup(counts, _group_design(cells_d, n_groups, dt), sf_t,
-                      chunk, dt, cells=cells_d)
+            return _setup(c, on_dev(design, dt, d), sf_t, chunk, dt,
+                          norm_factors=nf_)
+        cd = cells_d.to(d)
+        return _setup(c, _group_design(cd, n_groups, dt), sf_t, chunk, dt,
+                      cells=cd)
 
-    env = make_env(dtype)
+    envs = [make_env(dtype, c, nf_, d) for c, nf_, (_, _, d)
+            in zip(counts_b, nf_b, blocks)]
     hist_on, ovf_cap, n_ovf = _hist_plan(counts, use_hist, dtype)
-    hkw = dict(use_hist=hist_on, ovf_cap=ovf_cap)
+    caps = [_ovf_cap(_n_overflow(c), c.shape[0]) if hist_on else 0
+            for c in counts_b]
     kw = dict(maxit=maxit, min_disp=min_disp, min_mu=min_mu)
     # the dispersion estimation (stage 1, trend, prior, QL or MAP) runs in
     # SEARCH_DTYPE; the GLM, the test and the tail in the call's dtype
     sdt = SEARCH_DTYPE
-    env_s = env if sdt == dtype else make_env(sdt)
-    grid_s = on_dev(grid, sdt)
+    envs_s = envs if sdt == dtype else [
+        make_env(sdt, c, nf_, d) for c, nf_, (_, _, d)
+        in zip(counts_b, nf_b, blocks)]
+    grids_s = [on_dev(grid, sdt, d) for _, _, d in blocks]
 
     with profiling.stage("sc.stage1", genes=G):
         if use_x:
-            st1 = _sc_stage1_x(env_s, grid_s, **kw, **hkw)
+            # momentsDisp's xim over every gene's factors
+            xim = _xim_x(dict(envs_s[0], nf=nf, S=S))
+            st1s = [_sc_stage1_x(e, g, **kw, use_hist=hist_on, ovf_cap=cp,
+                                 xim=xim.to(e["x"].device))
+                    for e, g, cp in zip(envs_s, grids_s, caps)]
         else:
-            st1 = _sc_stage1(env_s, grid_s, n_groups, **kw, **hkw)
-    all_zero, dge = st1["all_zero"], st1["disp_gene_est"]
+            st1s = [_sc_stage1(e, g, n_groups, **kw, use_hist=hist_on,
+                               ovf_cap=cp)
+                    for e, g, cp in zip(envs_s, grids_s, caps)]
+    all_zero, dge, base_mean_s = (gat([st[k] for st in st1s]) for k in (
+        "all_zero", "disp_gene_est", "base_mean"))
 
     with profiling.stage("sc.trendPrior", genes=G):
         disp_fit, coefs, var_log_disp, disp_prior_var, host = \
-            _sc_trend_and_prior(st1["base_mean"], dge, all_zero, S, p,
+            _sc_trend_and_prior(base_mean_s, dge, all_zero, S, p,
                                 min_disp, fit_type)
         disp_outlier = torch.log(dge) > torch.log(disp_fit) \
             + 2.0 * torch.sqrt(var_log_disp)
@@ -1070,17 +1105,21 @@ def fused_sc_results(counts, cells=None, size_factors=None, n_groups=None,
             out["ql_df0"] = shrink["ql_df0"]
     if fit_type != "glmGamPoi":
         with profiling.stage("sc.MAP", genes=G):
-            disp_map = _sc_stage_map(
-                env_s, grid_s, st1["beta_mu"] if use_x else st1["q"],
-                all_zero, dge, disp_fit, disp_prior_var, **kw, **hkw,
+            disp_map = gat([_sc_stage_map(
+                e, g, st["beta_mu"] if use_x else st["q"], st["all_zero"],
+                st["disp_gene_est"], dfit, disp_prior_var.to(dfit.device),
+                **kw, use_hist=hist_on, ovf_cap=cp,
                 make_lp=_make_lp_dlp_x if use_x else _make_lp_dlp)
+                for e, g, st, dfit, cp in zip(envs_s, grids_s, st1s,
+                                              mesh.split(disp_fit), caps)])
     dispersion = torch.where(disp_outlier, dge, disp_map)
     # into the call's dtype
-    st1 = {k: v.to(dtype) if v.is_floating_point() else v
-           for k, v in st1.items()}
+    st1s = [{k: v.to(dtype) if v.is_floating_point() else v
+             for k, v in st.items()} for st in st1s]
     dge, disp_fit, disp_map, dispersion = (
         v.to(dtype) for v in (dge, disp_fit, disp_map, dispersion))
-    base_mean, base_var = st1["base_mean"], st1["base_var"]
+    base_mean, base_var, dgi = (gat([st[k] for st in st1s]) for k in (
+        "base_mean", "base_var", "disp_gene_iter"))
 
     # ---- GLM fits ----
     lrt = test == "LRT"
@@ -1093,18 +1132,25 @@ def fused_sc_results(counts, cells=None, size_factors=None, n_groups=None,
     red_closed = lrt and (not use_x or reduced_design is None)
     gkw = dict(maxit=maxit, min_mu=min_mu)
     with profiling.stage("sc.GLM", genes=G):
-        beta0 = st1["beta0"] if use_x else _group_beta0(st1["logq"])
-        glm = _sc_stage_glm(env, beta0, all_zero, fit_alpha, base_mean,
-                            ll_alpha_full=dispersion, ll_alpha_red=fit_alpha,
-                            with_reduced=red_closed, with_loglik=lrt, **gkw)
-        if lrt and not red_closed:
-            env_r = dict(_setup(counts, on_dev(reduced_design), sf, chunk,
-                                dtype), nf=env["nf"])
-            glm_r = _sc_stage_glm(env_r, _sc_qr_init_x(env_r), all_zero,
-                                  fit_alpha, base_mean,
-                                  ll_alpha_full=dispersion, with_loglik=True,
-                                  **gkw)
-            glm = dict(glm, ll_reduced=glm_r["ll_full"])
+        glms = []
+        for e, st, fa, dsp in zip(envs, st1s, mesh.split(fit_alpha),
+                                  mesh.split(dispersion)):
+            beta0 = st["beta0"] if use_x else _group_beta0(st["logq"])
+            glm = _sc_stage_glm(e, beta0, st["all_zero"], fa,
+                                st["base_mean"], ll_alpha_full=dsp,
+                                ll_alpha_red=fa, with_reduced=red_closed,
+                                with_loglik=lrt, **gkw)
+            if lrt and not red_closed:
+                d = e["x"].device
+                env_r = dict(_setup(e["counts"], on_dev(reduced_design, d=d),
+                                    e["sf"], chunk, dtype), nf=e["nf"])
+                glm_r = _sc_stage_glm(env_r, _sc_qr_init_x(env_r),
+                                      st["all_zero"], fa, st["base_mean"],
+                                      ll_alpha_full=dsp, with_loglik=True,
+                                      **gkw)
+                glm = dict(glm, ll_reduced=glm_r["ll_full"])
+            glms.append(glm)
+        glm = {k: gat([g[k] for g in glms]) for k in glms[0]}
 
     with profiling.stage("sc.testTail", genes=G):
         beta, beta_var = glm["beta"], glm["beta_var"]
@@ -1175,7 +1221,7 @@ def fused_sc_results(counts, cells=None, size_factors=None, n_groups=None,
             lfcSE=nanmask(se_log2[:, -1]), stat=stat_last, pvalue=p_last,
             padj=padj, betaIter=glm["beta_iter"],
             betaConv=glm["beta_iter"] < maxit,
-            dispGeneIter=nanmask(st1["disp_gene_iter"].to(dtype)),
+            dispGeneIter=nanmask(dgi.to(dtype)),
             deviance=nanmask(glm["deviance"]))
         if lrt:
             out["llFull"] = nanmask(glm["ll_full"])
@@ -1185,7 +1231,7 @@ def fused_sc_results(counts, cells=None, size_factors=None, n_groups=None,
         res = {k: v.cpu().numpy() if torch.is_tensor(v) else v
                for k, v in out.items()}
     if info is not None:
-        info.update(chunk=chunk, n_chunks=len(env["bounds"]),
+        info.update(chunk=chunk, n_chunks=len(envs[0]["bounds"]),
                     use_hist=hist_on, hist_overflow_genes=n_ovf,
                     ovf_cap=ovf_cap)
     return res
@@ -1193,14 +1239,16 @@ def fused_sc_results(counts, cells=None, size_factors=None, n_groups=None,
 
 def fused_sc_pipeline(counts, cells, size_factors, grid, n_groups, maxit=100,
                       min_disp_pow=-8, min_mu=1e-6, chunk=DEFAULT_CHUNK,
-                      device=None, dtype=torch.float64):
+                      device=None, dtype=torch.float64, mesh=None):
     """The parametric Wald single-cell pipeline (device tensors keyed like
     the bulk fused pipeline): stage 1, the gamma trend and MAD prior, the
     MAP search (these in SEARCH_DTYPE, as in fused_sc_results), the IRLS
-    and the Wald test with plain BH (in `dtype`)."""
+    and the Wald test with plain BH (in `dtype`).  `mesh`: a GeneMesh, as
+    in fused_sc_results."""
     from ..engine import resolve_device
 
-    dev = resolve_device(device)
+    dev = resolve_device(device, mesh)
+    mesh = as_mesh(mesh) or GeneMesh([dev])
     G, S = counts.shape
     p = n_groups
     min_disp = 10.0 ** min_disp_pow
@@ -1208,32 +1256,46 @@ def fused_sc_pipeline(counts, cells, size_factors, grid, n_groups, maxit=100,
     cells = torch.as_tensor(np.asarray(cells)).to(device=dev,
                                                   dtype=torch.int64)
     sf_h = np.asarray(size_factors, np.float64)
+    blocks = list(zip(mesh.split(counts), mesh.shards(G)))
 
-    def make_env(dt):
-        return _setup(counts, _group_design(cells, n_groups, dt),
-                      torch.as_tensor(sf_h).to(device=dev, dtype=dt), chunk,
-                      dt, cells=cells)
+    def gat(parts):
+        return mesh.gather(parts, G)
+
+    def make_env(dt, c, d):
+        cd = cells.to(d)
+        return _setup(c, _group_design(cd, n_groups, dt),
+                      torch.as_tensor(sf_h).to(device=d, dtype=dt), chunk,
+                      dt, cells=cd)
 
     sdt = SEARCH_DTYPE
-    env = make_env(dtype)
-    env_s = env if sdt == dtype else make_env(sdt)
-    grid_s = torch.as_tensor(np.asarray(grid, np.float64)).to(device=dev,
-                                                              dtype=sdt)
+    envs = [make_env(dtype, c, d) for c, (_, _, d) in blocks]
+    envs_s = envs if sdt == dtype else [make_env(sdt, c, d)
+                                        for c, (_, _, d) in blocks]
+    grids_s = [torch.as_tensor(np.asarray(grid, np.float64)).to(
+        device=d, dtype=sdt) for _, (_, _, d) in blocks]
     kw = dict(maxit=maxit, min_disp=min_disp, min_mu=min_mu)
-    st1 = _sc_stage1(env_s, grid_s, n_groups, **kw)
-    all_zero, dge = st1["all_zero"], st1["disp_gene_est"]
+    st1s = [_sc_stage1(e, g, n_groups, **kw) for e, g in zip(envs_s, grids_s)]
+    all_zero, dge, bm_s = (gat([st[k] for st in st1s]) for k in (
+        "all_zero", "disp_gene_est", "base_mean"))
     disp_fit, coefs, var_log_disp, disp_prior_var, _ = _sc_trend_and_prior(
-        st1["base_mean"], dge, all_zero, S, p, min_disp, "parametric")
-    disp_map = _sc_stage_map(env_s, grid_s, st1["q"], all_zero, dge,
-                             disp_fit, disp_prior_var, **kw)
+        bm_s, dge, all_zero, S, p, min_disp, "parametric")
+    disp_map = gat([_sc_stage_map(e, g, st["q"], st["all_zero"],
+                                  st["disp_gene_est"], dfit,
+                                  disp_prior_var.to(dfit.device), **kw)
+                    for e, g, st, dfit in zip(envs_s, grids_s, st1s,
+                                              mesh.split(disp_fit))])
     disp_outlier = torch.log(dge) > torch.log(disp_fit) \
         + 2.0 * torch.sqrt(var_log_disp)
     dispersion = torch.where(disp_outlier, dge, disp_map)
-    base_mean, base_var, dge, disp_fit, disp_map, dispersion = (
-        v.to(dtype) for v in (st1["base_mean"], st1["base_var"], dge,
-                              disp_fit, disp_map, dispersion))
-    glm = _sc_stage_glm(env, _group_beta0(st1["logq"].to(dtype)), all_zero,
-                        dispersion, base_mean, maxit, min_mu)
+    base_mean, base_var = (gat([st[k] for st in st1s]).to(dtype)
+                           for k in ("base_mean", "base_var"))
+    dge, disp_fit, disp_map, dispersion = (
+        v.to(dtype) for v in (dge, disp_fit, disp_map, dispersion))
+    glms = [_sc_stage_glm(e, _group_beta0(st["logq"].to(dtype)),
+                          st["all_zero"], dsp, st["base_mean"].to(dtype),
+                          maxit, min_mu)
+            for e, st, dsp in zip(envs, st1s, mesh.split(dispersion))]
+    glm = {k: gat([g[k] for g in glms]) for k in glms[0]}
     beta_log2 = LOG2E * glm["beta"]
     se_log2 = LOG2E * torch.sqrt(torch.clamp(glm["beta_var"], min=0.0))
     stat = beta_log2 / se_log2

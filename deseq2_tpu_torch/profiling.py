@@ -2,9 +2,10 @@
 
 Every orchestration stage records into a registry when profiling is on
 (``enable()`` or the environment variable DESEQ2_TPU_PROFILE=1).  CUDA
-work is asynchronous, so a stage synchronizes the card before it reads
-the clock at either end: the time it records is the stage's device work,
-not the time to enqueue it.
+work is asynchronous, so a stage synchronizes the cards before it reads
+the clock at either end (every card the process holds memory on: a gene
+mesh's too): the time it records is the stage's device work, not the time
+to enqueue it.
 
 Usage::
 
@@ -53,9 +54,14 @@ def records():
 
 
 def _sync():
+    """Wait for every card this process holds memory on, so that a stage
+    of a gene-mesh run ends when its last device does."""
     import torch
     if torch.cuda.is_available() and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
+        cur = torch.cuda.current_device()
+        for i in range(torch.cuda.device_count()):
+            if i == cur or torch.cuda.memory_reserved(i):
+                torch.cuda.synchronize(i)
 
 
 @contextlib.contextmanager

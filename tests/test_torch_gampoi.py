@@ -346,11 +346,37 @@ def test_weights_raise_as_jax():
         tdt.deseq(t, test="LRT", reduced="~ 1", fit_type="glmGamPoi", **CPU)
 
 
-def test_mesh_raises_naming_item_11():
-    _, t = _pair(60, 8, 3)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tdt.deseq(t, test="LRT", reduced="~ 1", fit_type="glmGamPoi",
-                  mesh=object(), **CPU)
+@pytest.mark.parametrize("engine", ["auto", "host"])
+def test_glmgampoi_deseq_on_mesh_matches_single_and_jax(engine):
+    """The public glmGamPoi LRT over an 8-shard gene mesh of CPU devices
+    (tests/test_torch_sharding.py) at 300 genes, which 8 does not divide:
+    the streamed route ("auto": every block streams its rows) and the
+    host engine (its K1/K2/K3 calls sharded) give the single-device fit's
+    columns and results at rtol 1e-8 (atol 1e-10), and the JAX package's
+    by _cmp_fits."""
+    from deseq2_tpu_torch.parallel import gene_mesh
+    data, kw = CASES["group"]
+    j, t = _pair(**data)
+    assert t.n_genes % 8
+    run = dict(test="LRT", fit_type="glmGamPoi",
+               engine=None if engine == "auto" else "host", **kw, **CPU)
+    tf = tdt.deseq(t, mesh=gene_mesh(devices=["cpu"] * 8), **run)
+    one = tdt.deseq(t, **run)
+    assert tf.attrs["engine"] == one.attrs["engine"] == (
+        "fused-sc" if engine == "auto" else "host")
+    for k in one.row_data:
+        np.testing.assert_allclose(
+            np.asarray(tf.row_data[k], float),
+            np.asarray(one.row_data[k], float), rtol=1e-8, atol=1e-10,
+            equal_nan=True, err_msg=k)
+    tr, r1 = tdt.results(tf), tdt.results(one)
+    for c in r1.column_names:
+        np.testing.assert_allclose(np.asarray(tr[c], float),
+                                   np.asarray(r1[c], float), rtol=1e-8,
+                                   atol=1e-10, equal_nan=True, err_msg=c)
+    jf = jdt.deseq(j, test="LRT", fit_type="glmGamPoi",
+                   engine="fused" if engine == "auto" else "host", **kw)
+    _cmp_fits(tf, jf, tr, jdt.results(jf))
 
 
 # ---------------------------------------------------------------------------

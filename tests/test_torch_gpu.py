@@ -641,3 +641,63 @@ def test_sc_float32_card_gate(cuda, design):
                               use_hist=True, **run)
     r = checks.sc_gate(card, cpu)
     assert r["ok"], r
+
+
+@pytest.mark.parametrize("engine", ["fused", "host"])
+def test_mesh_on_card_matches_single(cuda, engine):
+    """deseq(mesh=...) + results() in float64 over 4 shards on cuda:0, and
+    over cuda:0 and cuda:1 where a second card exists, against the
+    single-device call on the same card: per-gene columns at rtol 1e-8
+    (tests/test_sharding.py's limits); every shard's device launches
+    K1 and K2."""
+    import deseq2_tpu_torch as dt
+    from deseq2_tpu_torch.parallel import gene_mesh
+    dds = dt.make_example_dataset(n=501, m=12, beta_sd=1.0, seed=1)
+    one = dt.deseq(dds, engine=engine)
+    r1 = dt.results(one)
+    meshes = [gene_mesh(devices=[cuda] * 4)]
+    if torch.cuda.device_count() > 1:
+        meshes.append(gene_mesh(2))
+    for mesh in meshes:
+        for f in (fit_beta, fit_disp_line_search):
+            f.launches_by_device = {}
+        fit = dt.deseq(dds, engine=engine, mesh=mesh)
+        for f in (fit_beta, fit_disp_line_search):
+            assert all(f.launches_by_device.get(str(d))
+                       for d in mesh.devices), (f.__name__,
+                                                f.launches_by_device)
+        assert fit.assays["mu"].tensor.device == cuda
+        res = dt.results(fit)
+        for col in ("dispersion", "dispGeneEst"):
+            np.testing.assert_allclose(
+                np.asarray(fit.row_data[col], float),
+                np.asarray(one.row_data[col], float), rtol=1e-8,
+                atol=1e-10, equal_nan=True, err_msg=f"{mesh} {col}")
+        for col in r1.column_names:
+            np.testing.assert_allclose(
+                np.asarray(res[col], float), np.asarray(r1[col], float),
+                rtol=1e-8, atol=1e-10, equal_nan=True,
+                err_msg=f"{mesh} {col}")
+
+
+def test_row_forms_are_row_invariant_on_card(cuda):
+    """parallel/fused.py's per-gene products on the card (rowdot, rowcomb,
+    the refit's MIN_ROWS): a block of at least MIN_ROWS rows gets the
+    whole call's rows bit for bit, and the forms equal the products to
+    rounding."""
+    from deseq2_tpu_torch.parallel import fused
+    rng = np.random.default_rng(2)
+    for dt in (torch.float32, torch.float64):
+        a = torch.as_tensor(rng.random((2048, 1024)), dtype=dt, device=cuda)
+        x = torch.as_tensor(rng.random((1024, 3)), dtype=dt, device=cuda)
+        rtol = 1e-5 if dt == torch.float32 else 1e-12
+        np.testing.assert_allclose(fused.rowdot(a, x).cpu(), (a @ x).cpu(),
+                                   rtol=rtol)
+        np.testing.assert_allclose(fused.rowcomb(a[:, :3], x).cpu(),
+                                   (a[:, :3] @ x.T).cpu(), rtol=rtol)
+        n = fused.MIN_ROWS
+        for lo, hi in ((0, n), (7, 7 + n), (100, 1124), (1024, 2048)):
+            assert torch.equal(fused.rowdot(a[lo:hi], x),
+                               fused.rowdot(a, x)[lo:hi])
+            assert torch.equal(fused.rowcomb(a[lo:hi, :3], x),
+                               fused.rowcomb(a[:, :3], x)[lo:hi])

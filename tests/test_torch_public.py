@@ -117,22 +117,6 @@ def test_deseq_without_card_raises(monkeypatch):
         tdt.deseq(_port_dataset(counts, labels))
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(fit_type="glmGamPoi", test="LRT", reduced="~ 1", mesh=object()),
-    dict(mesh=object())])
-def test_unported_options_raise(kwargs):
-    """What the port still refuses: a device mesh (item 11), also on the
-    streamed glmGamPoi route.  glmGamPoi itself runs since ROADMAP item 8
-    (tests/test_torch_gampoi.py, tests/test_torch_sc.py); the LRT, local
-    trend and use_t cases that stood here run (test_lrt_public,
-    test_trend_fit_types_public, test_use_t_public), and so do
-    engine="host", sf_type="poscounts" and betaPrior with the standard
-    matrix, on the host engine (tests/test_torch_host.py)."""
-    counts, labels, _ = _arrays(n=50)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tdt.deseq(_port_dataset(counts, labels), device="cpu", **kwargs)
-
-
 def _public_vs_jax(counts, labels, x, deseq_kw, ref_kw, prep=None):
     """Port deseq(device="cpu") + results() against JAX fused_results on
     the same arrays: the five results columns and padj."""

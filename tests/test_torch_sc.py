@@ -310,11 +310,22 @@ def test_straggler_cascade_matches_jax(case):
     test_sc_mixed_dense_budget_exact's counts (three groups); the
     covariate case adds (G,S) normalization factors.
 
-    Iteration counts are equal but for two group genes (4558, 5644) whose
-    line search ends on a step gaining within rounding of its 1e-6
-    tolerance: there the chunk width alone moves the count in either
-    package (12 / 13 / 17 at chunks of 7 / 64 / 200 in the JAX package),
-    and their estimates agree at 1e-8."""
+    Iteration counts are equal but for a few group genes whose line search
+    ends on a step gaining within rounding of its 1e-6 tolerance, so that
+    rounding decides the count: the chunk width alone moves it in either
+    package.  On one x86 CPU four genes differed at the default chunk (one
+    chunk of 200 samples); their JAX / port counts at chunks of 7, 64 and
+    200: gene 2773 12 / 18 / 14 and 12 / 12 / 12, gene 4119 12 / 12 / 13
+    and 12 / 12 / 12, gene 4558 12 / 13 / 12 and 13 / 12 / 14, gene 5644
+    13 / 17 / 13 and 13 / 12 / 12; their estimates agreed to 8.1e-9,
+    2.8e-8, 7.4e-9 and 2.3e-8 relative.  The JAX package's own count is
+    not steady from run to run: gene 5644 read 13 there at the default
+    chunk, and 17 / 17 / 13 at chunks of 200 / 64 / 7 in another run,
+    where the port read 12 / 12 / 13.  So a gene may
+    differ only where its count also moves between the default chunk and
+    chunks of 64 or 7 in one of the packages, at most 0.1% of the genes
+    may, and their estimates are held to the tolerance every other gene
+    meets (_cmp_disp)."""
     if case == "group":
         rng = np.random.default_rng(11)
         G, S = 6000, 200
@@ -337,9 +348,19 @@ def test_straggler_cascade_matches_jax(case):
     it_o, it_j = o.pop("dispGeneIter"), np.asarray(j.pop("dispGeneIter"))
     _cmp_outputs(o, j)
     off = np.where(it_o != it_j)[0]
-    assert list(off) == ([4558, 5644] if case == "group" else []), off
-    np.testing.assert_allclose(o["dispGeneEst"][off],
-                               np.asarray(j["dispGeneEst"])[off], rtol=1e-8)
+    if case == "group":
+        moved = np.zeros(G, bool)
+        for chunk in (64, 7):
+            moved |= np.asarray(jsc.fused_sc_results(
+                counts, chunk=chunk, **kw)["dispGeneIter"]) != it_j
+            moved |= tsc.fused_sc_results(
+                counts, chunk=chunk, **kw, **CPU)["dispGeneIter"] != it_o
+        assert moved[off].all(), off[~moved[off]]
+        assert len(off) <= G // 1000, off
+    else:
+        assert list(off) == [], off
+    _cmp_disp(o["dispGeneEst"][off], np.asarray(j["dispGeneEst"])[off],
+              "dispGeneEst")
 
 
 def test_chunk_widths_agree():
@@ -454,11 +475,77 @@ def test_loc_median_fit_dev_matches_host():
         tg.loc_median_fit(x, y))
 
 
-def test_mesh_raises_naming_item_11():
-    counts = np.ones((4, 6), np.int32)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tsc.fused_sc_results(counts, cells=np.arange(6) % 2, n_groups=2,
-                             size_factors=np.ones(6), mesh=object(), **CPU)
+def _cmp_single(o, ref, name):
+    """A mesh run's columns against the single-device run's: rtol 1e-8,
+    atol 1e-10, equal NaN patterns (tests/test_sharding.py's limits)."""
+    assert set(o) == set(ref), name
+    for k, v in ref.items():
+        if v is None:
+            assert o[k] is None, (name, k)
+        elif np.ndim(v):
+            np.testing.assert_allclose(np.asarray(o[k], float),
+                                       np.asarray(v, float), rtol=1e-8,
+                                       atol=1e-10, equal_nan=True,
+                                       err_msg=f"{name} {k}")
+        else:
+            assert float(o[k]) == pytest.approx(float(v), rel=1e-8,
+                                                nan_ok=True), (name, k)
+
+
+@pytest.mark.parametrize("case", ["group_ql", "covariate_nf", "group_hist"])
+def test_mesh_matches_single_and_jax(case, hist_fixture):
+    """fused_sc_results over an 8-shard gene mesh of CPU devices (the
+    tests' stand-in for several cards, tests/test_torch_sharding.py) at a
+    gene count 8 does not divide: every column equals the single-device
+    run's (_cmp_single), and the JAX package's single-device outputs
+    (_cmp_outputs).  The group QL and covariate cases are
+    test_results_group_matches_jax's and
+    test_results_covariate_matches_jax's fixtures; group_hist runs the
+    histogram path with its overflow redo (hist_fixture, 397 genes) in
+    each block, against the port's single-device run only."""
+    from deseq2_tpu_torch.parallel import gene_mesh
+    mesh = gene_mesh(devices=["cpu"] * 8)
+    if case == "group_ql":
+        (n, m, seed), kw = RESULTS_CASES["group_ql"]
+        counts, cells, sf = _group_args(_example(n, m, seed))
+        kw = dict(kw, cells=cells, size_factors=sf, n_groups=2)
+    elif case == "covariate_nf":
+        dds = _example(220, 20, 19, batch=True)
+        counts = np.asarray(dds.counts)
+        kw = dict(size_factors=np.ones(20), design=dds.model_matrix()[0],
+                  reduced_design=dds.model_matrix("~ batch")[0],
+                  norm_factors=_nf(counts.shape), chunk=7, test="LRT",
+                  fit_type="glmGamPoi")
+    else:
+        counts, cells, _, _ = hist_fixture
+        counts = counts[:397]
+        kw = dict(cells=cells, n_groups=2, size_factors=np.ones(300),
+                  test="LRT", fit_type="glmGamPoi", use_hist=True)
+    assert counts.shape[0] % 8
+    info = {}
+    o = tsc.fused_sc_results(counts, mesh=mesh, info=info, **kw, **CPU)
+    _cmp_single(o, tsc.fused_sc_results(counts, **kw, **CPU), case)
+    if case == "group_hist":
+        assert info["use_hist"] and info["hist_overflow_genes"] >= 10
+        return
+    _cmp_outputs(o, jsc.fused_sc_results(counts, **kw))
+
+
+def test_sc_pipeline_mesh_matches_single():
+    """fused_sc_pipeline (the parametric Wald chain, device tensors) over
+    an 8-shard CPU mesh equals its single-device run on pipeline_pair's
+    inputs (300 genes), which test_pipeline_matches_jax holds to the JAX
+    package's."""
+    from deseq2_tpu_torch.parallel import gene_mesh
+    dds = jdt.estimate_size_factors(
+        jdt.make_example_dataset(n=300, m=20, beta_sd=1.0, seed=21))
+    cells = np.asarray(dds.col_data["condition"].codes, np.int32)
+    grid = np.linspace(np.log(1e-8), np.log(20.0), 20)
+    args = (np.asarray(dds.counts), cells, dds.size_factors, grid)
+    kw = dict(n_groups=2, min_mu=0.5, chunk=7, **CPU)
+    o = tsc.fused_sc_pipeline(*args, mesh=gene_mesh(devices=["cpu"] * 8),
+                              **kw)
+    _cmp_single(_np(o), _np(tsc.fused_sc_pipeline(*args, **kw)), "pipeline")
 
 
 def test_counts_must_be_integers():
