@@ -9,7 +9,8 @@ Phases; any failure exits non-zero and no phase's failure is caught:
 2. build the three CUDA kernels from deseq2_tpu_torch/csrc (one nvcc per
    source, started together) and print ptxas' registers / shared memory /
    spills per library, and for the p = 2 instantiations of K1, K2 and K3
-   their registers, spills and resident warps per SM.
+   and their wide kernels (8 < p <= 16, one build) their registers,
+   spills and resident warps per SM.
 3. hold each kernel, unweighted and weighted, against its plain PyTorch
    version on the card, in float32 and float64, for p = 1, 2, 3, at S = 24
    and S = 3000 with a ragged gene count (weighted: forced Cox-Reid column
@@ -20,7 +21,12 @@ Phases; any failure exits non-zero and no phase's failure is caught:
    (K1) or printed (K2, K3)), and every launch twice, bit-identical.
    K1 also at the betaPrior refit's expanded design (checks.EXPANDED: p =
    3 and 4 at S = 1,024 and p = 4 at S = 24, the prior's ridge), float32
-   held to the float64 fit off the design's null direction.
+   held to the float64 fit off the design's null direction.  The wide
+   kernels at p = 9, 10, 12, 16 (checks.WIDE_P), checks.SHAPES, every
+   mode, both dtypes, every launch twice (float32: K1 held to the float64
+   fit, a K2/K3 reading past TOL held to the plain version's spread over
+   permutations, checks.within_plain_spread); no plain version may run on
+   the card there.
 4. the main path at full width: 60,000 genes x 1,024 samples, ~ condition,
    public deseq() + results() in float32 (a cold and a warm call; the
    launch counters are zeroed just before the warm call and read just
@@ -72,15 +78,28 @@ Phases; any failure exits non-zero and no phase's failure is caught:
    at 0.5 (K2w and K3w in that mode), these three with maxit_disp = 10,
    so that the grid fallback
    (K3) runs: in float64 the full line search converges on every gene;
-   a 10-level factor (p = 10) at 6,000 x 1,024 through "auto"
-   and lfc_shrink(type="normal") on it, which take the wrappers' p > 8
-   route.  Then the gates on the 2,048 x 1,024 gate slice (the host
+   then the gates on the 2,048 x 1,024 gate slice (the host
    engine on the card against the fused engine on the card and against
    the host engine on the CPU: Jaccard >= 0.995, zero flips, |dLFC| <
-   0.01), K2 and K3 in the new modes checked and timed at the main path's
-   shapes in float64 (rows of the JSON line), and the p > 8 route's K1
-   timed at 60,000 x 1,024, p = 10.  Phase 3 also checks K2 and K3 in
-   those modes against their plain versions, gated.
+   0.01), and K2 and K3 in the new modes checked and timed at the main
+   path's shapes in float64 (rows of the JSON line).  Phase 3 also checks
+   K2 and K3 in those modes against their plain versions, gated.  Then
+   the paired designs ~ subject + condition (samples round-robin over the
+   subjects, the condition alternating within each subject) at 60,000 x
+   1,024: p = 10 (9 subjects) in float32 and float64 on the fused route
+   and in float64 through engine="host", p = 16 (15 subjects) in float64,
+   each cold, warm (counters zeroed just before it and read just after;
+   seconds, genes/s, peak device memory) and once more with the stage
+   timers on; fails if a plain version ran on the card or the wide K1 or
+   K2 did not; lfc_shrink(type="normal") on the p = 10 float64 fit (wide
+   K1).  Their gates on 2,048 x 1,024 paired slices: float32 card vs
+   float64 CPU by bench.py's gates, and the float64 calls' columns on the
+   card against the CPU at rtol 1e-6 (1e-4 on the genes whose dispersion
+   search took another number of steps, at most 0.5% of them).  Then K1,
+   K2 and K3 at p = 10 (the wide kernels) on the inputs the pipeline
+   hands them at 60,000 x 1,024, float64 and float32, checked and timed
+   (the kernels line's *_wide_f64 and *_wide_f32 rows, each with the
+   launches of the p = 10 fused call of its dtype).
 9. the transforms at 60,000 x 1,024 on the main path's counts, each
    public call warm (after a first call), timed once to its payload on the
    card (counters zeroed just before it and read just after; peak device
@@ -111,8 +130,9 @@ Phases; any failure exits non-zero and no phase's failure is caught:
       device memory, the chunk, the histogram overflow count, the stage
       table) and once more under
       torch.profiler (the device's busy share);
-   b. the same for the covariate design [1, batch, condition] against
-      [1, batch];
+   b. the covariate design [1, batch, condition] against [1, batch],
+      warm (first call; its cold and profiled calls were cut for the
+      script's time limit);
    c. the parametric Wald call (the MAP search), warm;
    d. the public route: dataset_from_matrix of those counts (timed apart),
       deseq(test="LRT", reduced="~ 1", fit_type="glmGamPoi") + results(),
@@ -140,8 +160,9 @@ Phases; any failure exits non-zero and no phase's failure is caught:
 11. the gene mesh at full width (ROADMAP item 11): the mesh is the visible
    cards, up to 4, or 4 shards on cuda:0 on a one-card machine (printed).
    a. the main path ~ condition at 60,000 x 1,024 through deseq(mesh=...)
-      + results() in float32 and float64, and the host engine
-      (engine="host", float64), each against the single-device call on the
+      + results() in float32 and float64, the host engine
+      (engine="host", float64), and the paired design at p = 10 (float64,
+      the wide kernels), each against the single-device call on the
       same inputs: warm seconds of both, peak device memory per card,
       launches per kernel and per device (K1 and K2 on every mesh card,
       K3 in float32), each card's busy share in a profiled call; float64
@@ -202,15 +223,16 @@ def ptxas_summary(text):
 def kernel_resources():
     """Registers, spill bytes and resident warps per SM (the occupancy
     calculator at the main path's S) of the p = 2 instantiations of K1, K2
-    and K3."""
+    and K3, and of their wide kernels (p = 10; 8 < p <= 16 share one
+    build)."""
     import ctypes
     import re
 
     from deseq2_tpu_torch.ops import build
     out = {}
     # warps per block: kWarpBlock / 32 (common.cuh), kGridWarps (disp_grid.cu)
-    # (the trailing query argument: K1's p = 2 design flag, K2's and K3's
-    # use_cr = 1, the default instantiations)
+    # (the trailing query argument: K1's (S,) factor-row flag, K2's and
+    # K3's use_cr = 1, the default instantiations)
     for name, sym, query, extra, warps in (
             ("disp_ls", "ls_kernel", "ls_blocks_per_sm", (1,), 4),
             ("irls", "irls_kernel", "irls_blocks_per_sm", (1,), 4),
@@ -218,17 +240,21 @@ def kernel_resources():
         funcs = build.ptxas_resources(name)
         fn = build.bind(build.load(name), query,
                         [ctypes.c_int] * (4 + len(extra)))
+        wide_sym = sym.replace("_kernel", "_wide_kernel")
         for t, dname in (("f", "float32"), ("d", "float64")):
             for w in (0, 1):
-                hit = [v for k, v in funcs.items()
-                       if re.search(rf"{sym}I{t}Li2ELb{w}E(Lb1E)?E", k)]
-                regs, spill = hit[0] if len(hit) == 1 else (-1, -1)
-                blocks = fn(int(t == "d"), w, 2, S_MAIN, *extra)
-                key = f"{name}{'_w' if w else ''} {dname}"
-                out[key] = dict(registers=regs, spill_bytes=spill,
-                                warps_per_sm=warps * blocks)
-                log(f"  {key} p=2: {regs} registers, {spill} spill bytes, "
-                    f"{warps * blocks} resident warps per SM at S={S_MAIN}")
+                for p, pat, tag in (
+                        (2, rf"{sym}I{t}Li2ELb{w}E(Lb1E)?E", ""),
+                        (10, rf"{wide_sym}I{t}Lb{w}E(Lb1E)?E", "_wide")):
+                    hit = [v for k, v in funcs.items() if re.search(pat, k)]
+                    regs, spill = hit[0] if len(hit) == 1 else (-1, -1)
+                    blocks = fn(int(t == "d"), w, p, S_MAIN, *extra)
+                    key = f"{name}{'_w' if w else ''}{tag} {dname}"
+                    out[key] = dict(registers=regs, spill_bytes=spill,
+                                    warps_per_sm=warps * blocks)
+                    log(f"  {key} p={p}: {regs} registers, {spill} spill "
+                        f"bytes, {warps * blocks} resident warps per SM at "
+                        f"S={S_MAIN}")
     return out
 
 
@@ -380,36 +406,103 @@ def check_kernels(torch, dev, modes=(False, True)):
                     failed.append(f"{case} irls")
                 worst["irls_expanded" + sfx] = max(
                     worst["irls_expanded" + sfx], r1["max_abs_err"])
-    # K1's wide kernel (P = 16, the design padded) at p = 10 and 12
-    for weighted in modes:
-        for dname in ("float32", "float64"):
-            dt = getattr(torch, dname)
-            for (S, G), p in ((sg, pp) for sg in checks.SHAPES
-                              for pp in (10, 12)):
-                raw = checks.solver_inputs(G, S, p, 10 * p + S,
-                                           weighted=weighted)
-                d = checks.as_tensors(raw, dt, dev)
-                k1 = checks.run_irls(fit_beta, d)
-                rep = checks.differing_outputs(k1, checks.run_irls(fit_beta,
-                                                                   d))
-                pl1 = checks.run_irls(irls.fit_beta_plain, d)
-                if dname == "float32":
-                    r1 = checks.check_irls_f64(
-                        k1, pl1, checks.run_irls(irls.fit_beta_plain,
-                                                 checks.as_tensors(
-                                                     raw, torch.float64,
-                                                     dev)))
-                else:
-                    r1 = checks.check_irls(k1, pl1)
-                torch.cuda.synchronize()
-                case = f"{dname} wide p={p} S={S} G={G} weighted={weighted}"
-                log(f"  {case} irls: {fmt(r1)} repeat_differs={rep}")
-                if not r1["ok"] or rep:
-                    failed.append(f"{case} irls")
+    check_wide_kernels(torch, dev, worst, failed)
     check_kernel_modes(torch, dev, worst, failed)
     if failed:
         raise SystemExit(f"kernel checks failed: {failed}")
     return worst
+
+
+def check_wide_kernels(torch, dev, worst, failed):
+    """The wide kernels (8 < p <= 16, csrc's *_wide_kernel) against their
+    plain versions at checks.SHAPES for p in checks.WIDE_P, in every mode
+    of checks.WIDE_MODES (K1 in the default two), float32 and float64,
+    every launch twice and bit-identical.  float64 is gated under
+    checks.TOL.  In float32, K1 is held to the float64 fit
+    (checks.check_irls_f64), and a K2 or K3 reading that fails
+    checks.TOL is held to the plain version's own spread over
+    permutations of the samples and of the design's columns
+    (checks.within_plain_spread), which rounding alone moves past TOL at
+    S = 24 (`python -m deseq2_tpu_torch.ops.studies edges 20 wide`).
+    Fills worst[<kernel>_wide_f32 / _f64] for the kernels line's wide
+    rows."""
+    from deseq2_tpu_torch.ops import checks, disp, irls
+    from deseq2_tpu_torch.ops.cuda_grid import fit_disp_grid
+    from deseq2_tpu_torch.ops.cuda_irls import fit_beta
+    from deseq2_tpu_torch.ops.cuda_ls import fit_disp_line_search
+
+    for k in ("irls_wide", "disp_ls_wide", "disp_grid_wide"):
+        for dsfx in ("_f32", "_f64"):
+            worst[k + dsfx] = 0.0
+    n0 = {k: read_counts()[k] for k in ("irls_plain", "disp_ls_plain",
+                                        "disp_grid_plain")}
+    for weighted, mode in checks.WIDE_MODES:
+        for dname in ("float32", "float64"):
+            dt = getattr(torch, dname)
+            f32 = dname == "float32"
+            dsfx = "_f32" if f32 else "_f64"
+            for (S, G), p in ((sg, pp) for sg in checks.SHAPES
+                              for pp in checks.WIDE_P):
+                raw = checks.solver_inputs(G, S, p,
+                                           checks.seed_of(p, S, mode),
+                                           weighted=weighted)
+                d = checks.with_mode(checks.as_tensors(raw, dt, dev), mode)
+                case = (f"{dname} wide p={p} S={S} G={G} weighted={weighted}"
+                        + (f" {k_label(mode, weighted)}" if mode else ""))
+                if mode is None:
+                    k1 = checks.run_irls(fit_beta, d)
+                    rep = checks.differing_outputs(
+                        k1, checks.run_irls(fit_beta, d))
+                    pl1 = checks.run_irls(irls.fit_beta_plain, d)
+                    r1 = checks.check_irls_f64(k1, pl1, checks.run_irls(
+                        irls.fit_beta_plain, checks.as_tensors(
+                            raw, torch.float64, dev))) if f32 else \
+                        checks.check_irls(k1, pl1)
+                    torch.cuda.synchronize()
+                    log(f"  {case} irls: {fmt(r1)} repeat_differs={rep}")
+                    if not r1["ok"] or rep:
+                        failed.append(f"{case} irls")
+                    worst["irls_wide" + dsfx] = max(
+                        worst["irls_wide" + dsfx], r1["max_abs_err"])
+                for use_prior in (False, True):
+                    k2 = checks.run_ls(fit_disp_line_search, d, use_prior)
+                    rep2 = checks.differing_outputs(
+                        k2, checks.run_ls(fit_disp_line_search, d, use_prior))
+                    p2 = checks.run_ls(disp.fit_disp_line_search_plain, d,
+                                       use_prior)
+                    ref2 = checks.line_search_reference(d, use_prior) \
+                        if f32 else None
+                    r2 = checks.check_ls(k2, p2, d, use_prior, ref=ref2)
+                    k3 = checks.run_grid(fit_disp_grid, d, use_prior)
+                    rep3 = checks.differing_outputs(
+                        {"log_alpha": k3},
+                        {"log_alpha": checks.run_grid(fit_disp_grid, d,
+                                                      use_prior)})
+                    p3 = checks.run_grid(disp.fit_disp_grid_plain, d,
+                                         use_prior)
+                    ref3 = checks.grid_reference(d, use_prior) \
+                        if f32 else None
+                    r3 = checks.check_grid(k3, p3, d, use_prior, ref=ref3)
+                    torch.cuda.synchronize()
+                    for name, kind, r, pl, ref, rp in (
+                            ("disp_ls", "ls", r2, p2, ref2, rep2),
+                            ("disp_grid", "grid", r3, p3, ref3, rep3)):
+                        spread = f32 and not r["ok"]
+                        if spread:
+                            r = checks.within_plain_spread(
+                                kind, r, pl, d, use_prior, ref)
+                        log(f"  {case} prior={use_prior} {name}: {fmt(r)} "
+                            f"repeat_differs={rp}" + (
+                                " (past TOL: held to the plain version's "
+                                "permutation spread)" if spread else ""))
+                        if not r["ok"] or rp:
+                            failed.append(f"{case} prior={use_prior} {name}")
+                        worst[name + "_wide" + dsfx] = max(
+                            worst[name + "_wide" + dsfx], r["max_abs_err"])
+    moved = {k: read_counts()[k] - v for k, v in n0.items()}
+    log(f"  wide checks: plain-route launches {moved}")
+    if any(moved.values()):
+        failed.append(f"wide checks ran a plain version on the card: {moved}")
 
 
 def check_second_card(torch):
@@ -521,23 +614,21 @@ def k_label(mode, weighted):
 # main path
 # ---------------------------------------------------------------------------
 
+# K2's and K3's counts per mode (ops/cuda_ls.py:mode_counter), each with
+# a _wide twin for the wide kernels (8 < p <= 16)
+_MODE_KEYS = {"": "launches", "_w": "launches_weighted",
+              "_w_thr": "launches_threshold", "_nocr": "launches_nocr",
+              "_w_nocr": "launches_weighted_nocr"}
 COUNTERS = {"irls": ("fit_beta", "launches"),
             "irls_w": ("fit_beta", "launches_weighted"),
             "irls_wide": ("fit_beta", "launches_wide"),
-            "irls_plain": ("fit_beta", "launches_plain"),
-            "disp_ls": ("fit_disp_line_search", "launches"),
-            "disp_ls_w": ("fit_disp_line_search", "launches_weighted"),
-            "disp_ls_w_thr": ("fit_disp_line_search", "launches_threshold"),
-            "disp_ls_nocr": ("fit_disp_line_search", "launches_nocr"),
-            "disp_ls_w_nocr": ("fit_disp_line_search",
-                               "launches_weighted_nocr"),
-            "disp_ls_plain": ("fit_disp_line_search", "launches_plain"),
-            "disp_grid": ("fit_disp_grid", "launches"),
-            "disp_grid_w": ("fit_disp_grid", "launches_weighted"),
-            "disp_grid_w_thr": ("fit_disp_grid", "launches_threshold"),
-            "disp_grid_nocr": ("fit_disp_grid", "launches_nocr"),
-            "disp_grid_w_nocr": ("fit_disp_grid", "launches_weighted_nocr"),
-            "disp_grid_plain": ("fit_disp_grid", "launches_plain")}
+            "irls_plain": ("fit_beta", "launches_plain")}
+for _k, _fn in (("disp_ls", "fit_disp_line_search"),
+                ("disp_grid", "fit_disp_grid")):
+    for _sfx, _attr in _MODE_KEYS.items():
+        COUNTERS[_k + _sfx] = (_fn, _attr)
+        COUNTERS[_k + _sfx + "_wide"] = (_fn, _attr + "_wide")
+    COUNTERS[_k + "_plain"] = (_fn, "launches_plain")
 
 
 def _wrappers():
@@ -578,14 +669,14 @@ def three_level_labels(s):
 
 def public_run(torch, counts, dtype_name, sf=None, device="cuda",
                design="~ condition", weights=None, nf=None, labels=None,
-               results_kw=None, **deseq_kw):
+               subjects=None, results_kw=None, **deseq_kw):
     """bench.py's _public_run through the port: build the dataset from
     the matrix, deseq(), results().  `design` "~ batch + condition" adds a
     two-level batch alternating over the samples; `weights` and `nf` are
     set as the weights assay and the normalization factors; `labels` the
-    condition (default A on the first half, B on the second);
-    `results_kw` goes to results().  The outer steps are profiling stages
-    (no-ops unless profiling is on)."""
+    condition (default A on the first half, B on the second), `subjects`
+    a subject column; `results_kw` goes to results().  The outer steps
+    are profiling stages (no-ops unless profiling is on)."""
     import deseq2_tpu_torch as dt
     from deseq2_tpu_torch import profiling
     g, s = counts.shape
@@ -593,6 +684,8 @@ def public_run(torch, counts, dtype_name, sf=None, device="cuda",
                 if labels is None else labels}
     if "batch" in design:
         col_data["batch"] = np.tile(["1", "2"], s // 2 + 1)[:s]
+    if subjects is not None:
+        col_data["subject"] = subjects
     with profiling.stage("smoke.datasetFromMatrix", genes=g):
         dds = dt.dataset_from_matrix(
             counts, col_data, design,
@@ -1150,30 +1243,39 @@ def bound(bytes_, ops, dname):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_timings(torch, dev, launches, worst, weighted=False):
+def kernel_timings(torch, dev, launches, worst, weighted=False,
+                   dname="float32", x_np=None):
     """Each kernel at the main path's shapes (float32, 60,000 x 1,024,
     ~ condition), on the inputs the pipeline hands it, built by the
     pipeline's own stages: held against its plain version and the float64
     reference with the limits of phase 3 (a failure exits), then timed.
     `weighted`: the weighted modes at the weighted path's inputs (the
     gene-wise search and grid at the max-1 weights floored at 1e-6, the
-    IRLS at the max-1 weights), `launches` that path's counters."""
+    IRLS at the max-1 weights), `launches` that path's counters.  With a
+    design `x_np` of more than 8 columns (phase 8's paired design) the
+    wide kernels in `dname`, rows named <kernel>_wide_f64 / _f32: K1 held
+    to the float64 fit in float32, as phase 3 holds it."""
     from deseq2_tpu_torch.ops import checks, disp, irls
     from deseq2_tpu_torch.ops.cuda_grid import fit_disp_grid
     from deseq2_tpu_torch.ops.cuda_irls import fit_beta
     from deseq2_tpu_torch.ops.cuda_ls import fit_disp_line_search
 
-    dname, dt = "float32", torch.float32
-    counts, x_np = make_inputs(G_MAIN, S_MAIN)
+    dt = getattr(torch, dname)
+    counts, x_main = make_inputs(G_MAIN, S_MAIN)
+    x_np = x_main if x_np is None else x_np
     pin = checks.pipeline_inputs(
         counts, x_np, dt, dev,
         weights=_main_variant_inputs()[0] if weighted else None)
     y_s, mu_s, x, la0 = pin["y"], pin["mu"], pin["x"], pin["la0"]
     w_ge, w_n, grid = pin["w_ge"], pin["w_n"], pin["grid"]
-    G, S, P = G_MAIN, S_MAIN, 2
-    it = 4   # itemsize
+    G, S, P = G_MAIN, S_MAIN, x_np.shape[1]
+    it = 4 if dname == "float32" else 8   # itemsize
+    f32 = dname == "float32"
     nw = int(weighted)   # weight rows read
-    sfx = "_w" if weighted else ""
+    wide = P > 8
+    # launch and worst-reading keys, and the row names' suffix
+    sfx = "_wide" if wide else "_w" if weighted else ""
+    rsfx = sfx + ("_f32" if f32 else "_f64") if wide else sfx
     rows, failed = [], []
 
     # K2: the gene-wise line search
@@ -1184,14 +1286,16 @@ def kernel_timings(torch, dev, launches, worst, weighted=False):
     if weighted:
         d2["w"] = w_ge
     ref2 = checks.line_search_reference(d2, False, prior_var=1.0,
-                                        min_log_alpha=pin["min_la"])
-    r2 = checks.check_ls(k2, p2, d2, False, prior_var=1.0, ref=ref2)
-    log(f"  disp_ls{sfx}: {fmt(r2)}")
+                                        min_log_alpha=pin["min_la"]) \
+        if f32 else p2
+    r2 = checks.check_ls(k2, p2, d2, False, prior_var=1.0,
+                         ref=ref2 if f32 else None)
+    log(f"  disp_ls{rsfx}: {fmt(r2)}")
     lk = checks.lp_at(k2["log_alpha"], d2, False, 1.0)
     lpl = checks.lp_at(p2["log_alpha"], d2, False, 1.0)
     rel = (lpl - lk) / lpl.abs().clamp(min=1.0)
     i = int(rel.argmax())
-    log(f"  disp_ls{sfx}: over all genes the largest shortfall below the "
+    log(f"  disp_ls{rsfx}: over all genes the largest shortfall below the "
         f"plain solution is {rel[i].item():.3g} of |lp| (gene {i}: |lp| "
         f"{lpl[i].abs().item():.4g}, iter kernel {int(k2['iter'][i])} / "
         f"plain {int(p2['iter'][i])} / reference {int(ref2['iter'][i])}, "
@@ -1199,7 +1303,7 @@ def kernel_timings(torch, dev, launches, worst, weighted=False):
         f"{p2['log_alpha'][i].item():.4f} / "
         f"{ref2['log_alpha'][i].item():.4f})")
     if not r2["ok"]:
-        failed.append("disp_ls" + sfx)
+        failed.append("disp_ls" + rsfx)
     ms2 = time_ms(torch, lambda: fit_disp_line_search(*ls_args,
                                                       weights=w_ge), 3)
     pms2 = time_ms(torch, lambda: disp.fit_disp_line_search_plain(
@@ -1210,15 +1314,15 @@ def kernel_timings(torch, dev, launches, worst, weighted=False):
                                        + ops_ls_point(P)), dname)
     b2_old, _ = bound(ls_bytes, evals * S * (ops_ls(P, False) + 2 * nw),
                       dname)
-    rows.append(dict(name="disp_ls" + sfx, route="cuda",
+    rows.append(dict(name="disp_ls" + rsfx, route="cuda",
                      source="deseq2_tpu_torch/csrc/disp_ls.cu",
                      replaces="deseq2_tpu/ops/pallas_ls.py:409",
                      launches=launches["disp_ls" + sfx],
-                     max_abs_err=max(worst["disp_ls" + sfx],
+                     max_abs_err=max(worst["disp_ls" + rsfx],
                                      r2["max_abs_err"]),
                      ms=ms2, plain_ms=pms2, bound_ms=b2, bound_by=by2,
                      library_ms=None))
-    log(f"  disp_ls{sfx}: {evals / G:.1f} evaluations/gene; bound "
+    log(f"  disp_ls{rsfx}: {evals / G:.1f} evaluations/gene; bound "
         f"{b2:.3f} ms ({b2_old:.3f} ms by the earlier count, which "
         f"charged the trial point's constants to every sample)")
 
@@ -1238,10 +1342,11 @@ def kernel_timings(torch, dev, launches, worst, weighted=False):
     if weighted:
         d3["w"] = gw
     r3 = checks.check_grid(k3, p3, d3, False, prior_var=1.0,
-                           ref=checks.grid_reference(d3, False, 1.0))
-    log(f"  disp_grid{sfx}: {fmt(r3)}")
+                           ref=checks.grid_reference(d3, False, 1.0)
+                           if f32 else None)
+    log(f"  disp_grid{rsfx}: {fmt(r3)}")
     if not r3["ok"]:
-        failed.append("disp_grid" + sfx)
+        failed.append("disp_grid" + rsfx)
     ms3 = time_ms(torch, lambda: fit_disp_grid(*g_args, weights=gw), 3)
     pms3 = time_ms(torch, lambda: disp.fit_disp_grid_plain(
         *g_args, weights=gw), 1)
@@ -1250,25 +1355,35 @@ def kernel_timings(torch, dev, launches, worst, weighted=False):
     b3, by3 = bound(g_bytes, evals * (S * (ops_grid(P) + nw)
                                       + ops_grid_point(P)), dname)
     b3_old, _ = bound(g_bytes, evals * S * (ops_grid(P, False) + nw), dname)
-    rows.append(dict(name="disp_grid" + sfx, route="cuda",
-                     source="deseq2_tpu_torch/csrc/disp_grid.cu",
-                     replaces="deseq2_tpu/ops/pallas_disp.py:244",
-                     launches=launches["disp_grid" + sfx],
-                     max_abs_err=max(worst["disp_grid" + sfx],
-                                     r3["max_abs_err"]),
-                     ms=ms3, plain_ms=pms3, bound_ms=b3, bound_by=by3,
-                     library_ms=None))
-    log(f"  disp_grid{sfx}: {n_need} genes need the grid at this shape "
+    grid_row = dict(name="disp_grid" + rsfx, route="cuda",
+                    source="deseq2_tpu_torch/csrc/disp_grid.cu",
+                    replaces="deseq2_tpu/ops/pallas_disp.py:244",
+                    launches=launches["disp_grid" + sfx],
+                    max_abs_err=max(worst["disp_grid" + rsfx],
+                                    r3["max_abs_err"]),
+                    ms=ms3, plain_ms=pms3, bound_ms=b3, bound_by=by3,
+                    library_ms=None)
+    # a wide row only where the paired path launched the kernel (in float64
+    # the line search converges on every gene at this width)
+    if not wide or grid_row["launches"]:
+        rows.append(grid_row)
+    log(f"  disp_grid{rsfx}: {n_need} genes need the grid at this shape "
         f"(timed on {Gn}); bound {b3:.4f} ms ({b3_old:.4f} ms by the earlier "
         f"count, which charged the point's constants to every sample)")
 
     # K1: the final ridge IRLS at the gene-wise dispersions
     i_args = checks.irls_start(pin, k2["log_alpha"])
     k1 = fit_beta(*i_args, weights=w_n)
-    r1 = checks.check_irls(k1, irls.fit_beta_plain(*i_args, weights=w_n))
-    log(f"  irls{sfx}: {fmt(r1)}")
+    pl1 = irls.fit_beta_plain(*i_args, weights=w_n)
+    if wide and f32:
+        r1 = checks.check_irls_f64(k1, pl1, irls.fit_beta_plain(
+            *(a.double() for a in i_args),
+            weights=None if w_n is None else w_n.double()))
+    else:
+        r1 = checks.check_irls(k1, pl1)
+    log(f"  irls{rsfx}: {fmt(r1)}")
     if not r1["ok"]:
-        failed.append("irls" + sfx)
+        failed.append("irls" + rsfx)
     ms1 = time_ms(torch, lambda: fit_beta(*i_args, weights=w_n), 3)
     pms1 = time_ms(torch, lambda: irls.fit_beta_plain(*i_args, weights=w_n),
                    1)
@@ -1278,14 +1393,15 @@ def kernel_timings(torch, dev, launches, worst, weighted=False):
                           + 2 * G),
                     S * (G * (o["init"] + o["post"] + 2 * nw)
                          + sweeps * (o["sweep"] + 2 * nw)), dname)
-    rows.append(dict(name="irls" + sfx, route="cuda",
+    rows.append(dict(name="irls" + rsfx, route="cuda",
                      source="deseq2_tpu_torch/csrc/irls.cu",
                      replaces="deseq2_tpu/ops/pallas_irls.py:360",
                      launches=launches["irls" + sfx],
-                     max_abs_err=max(worst["irls" + sfx], r1["max_abs_err"]),
+                     max_abs_err=max(worst["irls" + rsfx],
+                                     r1["max_abs_err"]),
                      ms=ms1, plain_ms=pms1, bound_ms=b1, bound_by=by1,
                      library_ms=None))
-    log(f"  irls{sfx}: {sweeps / G:.1f} sweeps/gene")
+    log(f"  irls{rsfx}: {sweeps / G:.1f} sweeps/gene")
     for r in rows:
         log(f"  {r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.1f} ms, "
             f"bound {r['bound_ms']:.3f} ms by {r['bound_by']}), "
@@ -1375,9 +1491,6 @@ def expanded_k1_timing(torch, dev, fit, launches, worst):
 # phase 8: the host-exact engine
 # ---------------------------------------------------------------------------
 
-G_WIDE = 6000   # the p = 10 call's genes (the plain route's width, cut)
-
-
 def host_call(torch, name, counts, need, device="cuda", **kw):
     """One float64 deseq() + results() call through the host engine (or
     "auto"), with the launch counters zeroed just before it and read just
@@ -1424,10 +1537,8 @@ def host_phase(torch):
     the weighted path with 1% of the rows' weights rank-deficient through
     "auto" (weightsFail); the configuration's useCR = FALSE (unweighted
     and weighted), and the weighted Cox-Reid row cut at 0.5, all with
-    maxit_disp = 10 (so the grid fallback runs); then a 10-level factor
-    (p = 10) at
-    6,000 x 1,024 through "auto" and lfc_shrink(type="normal").  Each
-    call's counters and stage table; the modes' kernel launches gated."""
+    maxit_disp = 10 (so the grid fallback runs).  Each call's counters and
+    stage table; the modes' kernel launches gated."""
     import deseq2_tpu_torch as dt
     counts, _ = make_inputs(G_MAIN, S_MAIN)
     w, _ = _main_variant_inputs()
@@ -1478,26 +1589,6 @@ def host_phase(torch):
         counts, ("disp_ls_w_thr", "disp_grid_w_thr", "irls_w"),
         engine="host", weights=w,
         config=dt.DESeqConfig(weight_threshold=0.5, maxit_disp=10))
-    # p = 10: a 10-level factor at 6,000 genes
-    labels = np.array([f"L{j % 10}" for j in range(S_MAIN)])
-    wide, _ = make_inputs(G_WIDE, S_MAIN)
-    out["p10"], _, pfit = host_call(
-        torch, f"p = 10 at {G_WIDE} x {S_MAIN}, 'auto'", wide,
-        ("irls_wide", "disp_ls_plain"), labels=labels)
-    zero_counts()
-    t0 = time.perf_counter()
-    shr = dt.lfc_shrink(pfit, type="normal", contrast=("condition", "L9",
-                                                        "L0"))
-    torch.cuda.synchronize()
-    out["p10"]["normal_shrink_s"] = time.perf_counter() - t0
-    out["p10"]["normal_shrink_launches"] = read_counts()["irls_wide"]
-    lfc = np.asarray(shr["log2FoldChange"])
-    log(f"  p = 10 lfc_shrink(normal): {out['p10']['normal_shrink_s']:.3f} "
-        f"s, wide K1 launches {out['p10']['normal_shrink_launches']}, "
-        f"finite {np.isfinite(lfc).mean():.4f}")
-    if not out["p10"]["normal_shrink_launches"] \
-            or np.isfinite(lfc).mean() <= 0.95:
-        raise SystemExit("p = 10 normal shrinkage did not run its wide fit")
     return out
 
 
@@ -1621,59 +1712,223 @@ def mode_timings(torch, dev, launches, worst):
     return rows
 
 
-def wide_route_timing(torch, dev, launches, worst):
-    """K1 at p = 10, 60,000 x 1,024, float64 (the host engine's dtype) and
-    float32: the wrappers' route for 8 < p <= 16, the P = 16 kernel on the
-    design padded with zero columns, held against the plain version on the
-    card (float64 under phase 3's limits; float32 against the float64 fit,
-    check_irls_f64, as the rounding-bound float32 readings at p >= 5 are)
-    and timed beside it and its bound.  Returns the float64 kernels row
-    (`launches`: phase 8's wide K1 launches) and the float32 numbers."""
-    from deseq2_tpu_torch.ops import checks, irls
-    from deseq2_tpu_torch.ops.cuda_irls import P_WIDE, fit_beta
+# ---------------------------------------------------------------------------
+# phase 8: paired designs ~ subject + condition (8 < p <= 16)
+# ---------------------------------------------------------------------------
 
-    G, S, P = G_MAIN, S_MAIN, 10
-    raw = checks.solver_inputs(G, S, P, 11)
-    ref64 = None
-    rows, other, failed = [], {}, []
-    for dname in ("float64", "float32"):
-        d = checks.as_tensors(raw, getattr(torch, dname), dev)
-        n0 = fit_beta.launches_wide
-        k1 = checks.run_irls(fit_beta, d)
-        pl = checks.run_irls(irls.fit_beta_plain, d)
-        if ref64 is None:
-            ref64 = pl
-            r = checks.check_irls(k1, pl)
-        else:
-            r = checks.check_irls_f64(k1, pl, ref64)
-        ms = time_ms(torch, lambda: checks.run_irls(fit_beta, d), 3)
-        pms = time_ms(torch, lambda: checks.run_irls(irls.fit_beta_plain,
-                                                      d), 1)
-        sweeps = float(k1["iter"].double().sum())
-        o = ops_irls(P)
-        it = 8 if dname == "float64" else 4
-        b, by = bound(it * (3 * G * S + S * P + G * (1 + 3 * P) + 2 * G),
-                      S * (G * (o["init"] + o["post"])
-                           + sweeps * o["sweep"]), dname)
-        log(f"  K1 p = {P} (P = {P_WIDE} kernel, padded) {dname}: {fmt(r)}; "
-            f"{ms:.2f} ms (plain version on the card {pms:.1f} ms, bound "
-            f"{b:.3f} ms by {by}), {sweeps / G:.2f} sweeps/gene, wide "
-            f"launches {fit_beta.launches_wide - n0}")
-        if not r["ok"]:
-            failed.append(f"irls_wide {dname}")
-        if dname == "float64":
-            rows.append(dict(
-                name="irls_wide_f64", route="cuda",
-                source="deseq2_tpu_torch/csrc/irls.cu",
-                replaces="deseq2_tpu/ops/pallas_irls.py:360",
-                launches=launches, max_abs_err=r["max_abs_err"], ms=ms,
-                plain_ms=pms, bound_ms=b, bound_by=by, library_ms=None))
-        else:
-            other = dict(ms=ms, plain_ms=pms, bound_ms=b, bound_by=by,
-                         max_abs_err=r["max_abs_err"])
+# design width -> subjects of the paired design (checks.paired_design)
+PAIRED = {10: 9, 16: 15}
+# the paired gates' float64 columns, card against CPU (rtol, atol of the
+# CPU tests)
+PAIRED_COLUMNS = ("baseMean", "log2FoldChange", "lfcSE", "stat", "pvalue",
+                  "padj", "dispGeneEst", "dispFit", "dispersion")
+PAIRED_RTOL, PAIRED_ATOL = 1e-6, 1e-9
+# the genes whose dispersion search ended at another step
+# (paired_columns_close), and the largest share of the genes that may be
+# among them (10 of the gates' 2,048)
+PAIRED_STEP_RTOL = 1e-4
+PAIRED_STEP_SHARE = 0.005
+
+
+def paired_run(torch, counts, dname, p, **kw):
+    """public_run on the paired design with p columns."""
+    from deseq2_tpu_torch.ops import checks
+    subj, cond = checks.paired_design(counts.shape[1], PAIRED[p])
+    return public_run(torch, counts, dname, design="~ subject + condition",
+                      labels=cond, subjects=subj, **kw)
+
+
+def paired_x(S, p):
+    """The paired design's model matrix [1, subject 1.., condition B]."""
+    from deseq2_tpu_torch.ops import checks
+    _, cond = checks.paired_design(S, PAIRED[p])
+    codes = np.arange(S) % PAIRED[p]
+    return np.column_stack([np.ones(S)]
+                           + [(codes == k).astype(float)
+                              for k in range(1, PAIRED[p])]
+                           + [(cond == "B").astype(float)])
+
+
+def paired_call(torch, name, dname, p, **kw):
+    """One paired-design deseq() + results() at 60,000 x 1,024: cold, warm
+    with the counters zeroed just before it and read just after (seconds,
+    genes/s, peak device memory, launches), then once more with the stage
+    timers on (they synchronize the card at each stage's ends) for the
+    stage table.  Fails if a plain version ran on the card, if the wide
+    K1 or K2 did not, or if the output is malformed.  Returns the record
+    and the warm call's fit."""
+    from deseq2_tpu_torch import profiling
+    counts, _ = make_inputs(G_MAIN, S_MAIN)
+    t0 = time.perf_counter()
+    paired_run(torch, counts, dname, p, **kw)
+    cold = time.perf_counter() - t0
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, fit = paired_run(torch, counts, dname, p, **kw)
+    warm = time.perf_counter() - t0
+    counts_all = read_counts()
+    launches = {k: v for k, v in counts_all.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    profiling.reset()
+    profiling.enable()
+    paired_run(torch, counts, dname, p, **kw)
+    profiling.disable()
+    stat, padj = np.asarray(res["stat"]), np.asarray(res["padj"])
+    width = len(fit.attrs["modelMatrixNames"])
+    log(f"  {name}: cold {cold:.3f} s, warm {warm:.3f} s = "
+        f"{G_MAIN / warm:,.0f} genes/s, engine {fit.attrs.get('engine')}, "
+        f"p = {width}, peak device memory {peak:.2f} GiB, finite stat "
+        f"{np.isfinite(stat).mean():.4f}, launches {launches}")
+    log(f"  {name} stage timings (a third call, timers on):")
+    for line in profiling.report().splitlines():
+        log(f"    {line}")
+    plain = [k for k in launches if k.endswith("_plain")]
+    missing = [k for k in ("irls_wide", "disp_ls_wide") if not launches.get(k)]
+    if plain or missing:
+        raise SystemExit(f"{name}: plain versions on the card {plain}, wide "
+                         f"kernels never launched {missing}")
+    if width != p or stat.shape != (G_MAIN,) \
+            or np.isfinite(stat).mean() <= 0.95 \
+            or np.isfinite(padj).mean() <= 0.5:
+        raise SystemExit(f"{name}: output malformed")
+    return dict(cold_s=cold, warm_s=warm, genes_per_s=G_MAIN / warm,
+                peak_gib=peak, launches=counts_all,
+                engine=fit.attrs.get("engine")), fit
+
+
+def paired_phase(torch):
+    """The paired designs ~ subject + condition at 60,000 x 1,024
+    (bench.py's counts, seed 0): p = 10 in float32 and float64 on the
+    fused route and in float64 through engine="host", p = 16 in float64 on
+    the fused route (paired_call); then lfc_shrink(type="normal") on the p
+    = 10 float64 fit, which refits on the wide K1."""
+    import deseq2_tpu_torch as dt
+    out, fits = {}, {}
+    for key, dname, p, kw in (
+            ("p10 float32", "float32", 10, {}),
+            ("p10 float64", "float64", 10, {}),
+            ("p10 float64 host", "float64", 10, dict(engine="host")),
+            ("p16 float64", "float64", 16, {})):
+        out[key], fits[key] = paired_call(
+            torch, f"~ subject + condition, {key}", dname, p, **kw)
+    zero_counts()
+    t0 = time.perf_counter()
+    shr = dt.lfc_shrink(fits["p10 float64"], type="normal",
+                        contrast=("condition", "B", "A"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in read_counts().items() if v}
+    lfc = np.asarray(shr["log2FoldChange"])
+    out["p10 normal shrinkage"] = dict(wall_s=wall, launches=launches)
+    log(f"  p = 10 lfc_shrink(normal): {wall:.3f} s, launches {launches}, "
+        f"finite {np.isfinite(lfc).mean():.4f}")
+    if not launches.get("irls_wide") or np.isfinite(lfc).mean() <= 0.95 \
+            or any(k.endswith("_plain") for k in launches):
+        raise SystemExit("p = 10 normal shrinkage did not run its wide fit")
+    return out
+
+
+def paired_columns_close(card, cpu):
+    """A float64 paired call on the card against the same call on the CPU
+    (public_run's (results, fit) pairs), on the genes whose betaConv is
+    true on both: PAIRED_COLUMNS at PAIRED_RTOL / PAIRED_ATOL where the
+    gene-wise and MAP dispersion searches took the same number of steps on
+    both, and at PAIRED_STEP_RTOL where one stopped at another step.  The
+    line search stops on an lp change below its tolerance, and the
+    kernels' sums differ from the plain version's in the last bits (phase
+    3 holds K2 to the plain log posterior at 1e-9, not to its step count),
+    so a decision at that threshold can flip and end a search one step
+    away (a few genes in 2,048; PERF.md section 6); more than
+    PAIRED_STEP_SHARE of the genes there is a failure (paired_gates).
+    Returns the largest relative difference, the columns off, the genes
+    left out (betaConv false), the genes held at the step tolerance and,
+    for each group, the largest |difference| / (atol + rtol |CPU value|)
+    over the columns (at most 1 passes)."""
+    (cr, cf), (pr, pf) = card, cpu
+    keep = np.asarray(cf.row_data["betaConv"], bool) \
+        & np.asarray(pf.row_data["betaConv"], bool)
+    same = np.ones_like(keep)
+    for c in ("dispGeneIter", "dispIter"):
+        a, b = (np.asarray(f.row_data[c], float) for f in (cf, pf))
+        same &= (a == b) | (np.isnan(a) & np.isnan(b))
+    worst, bad, ratio = 0.0, [], {"same_steps": 0.0, "other_steps": 0.0}
+    for c in PAIRED_COLUMNS:
+        src = (cr, pr) if c in cr.column_names else (cf.row_data, pf.row_data)
+        g, w = (np.asarray(v[c], float) for v in src)
+        fin = keep & np.isfinite(g) & np.isfinite(w)
+        if fin.any():
+            worst = max(worst, float(np.max(np.abs(g[fin] - w[fin])
+                                            / np.maximum(np.abs(w[fin]),
+                                                         1e-300))))
+        for rows, rtol, grp in ((keep & same, PAIRED_RTOL, "same_steps"),
+                                (keep & ~same, PAIRED_STEP_RTOL,
+                                 "other_steps")):
+            if not np.allclose(g[rows], w[rows], rtol=rtol, atol=PAIRED_ATOL,
+                               equal_nan=True):
+                bad.append(c)
+            both = rows & np.isfinite(g) & np.isfinite(w)
+            if both.any():
+                ratio[grp] = max(ratio[grp], float(np.max(
+                    np.abs(g[both] - w[both])
+                    / (PAIRED_ATOL + rtol * np.abs(w[both])))))
+    return (worst, bad, int((~keep).sum()), int((keep & ~same).sum()),
+            ratio)
+
+
+def paired_gates(torch):
+    """On 2,048 x 1,024 slices of the paired designs
+    (checks.paired_gate_counts, seed 0): the p = 10 fused call in float32
+    on the card against float64 on the CPU by bench.py's gates (Jaccard >=
+    0.995, zero confident flips, |dLFC| < 0.01), and the float64 calls on
+    the card (p = 10 fused and host engine, p = 16 fused) against the same
+    calls on the CPU (paired_columns_close; at most PAIRED_STEP_SHARE of
+    the genes may have taken another number of dispersion steps)."""
+    from deseq2_tpu_torch.ops import checks
+    out, failed = {}, []
+    for p, engines in ((10, (None, "host")), (16, (None,))):
+        sub, subj, cond = checks.paired_gate_counts(G_GATE, S_MAIN,
+                                                    PAIRED[p], 0)
+
+        def run(dname, **kw):
+            return public_run(torch, sub, dname,
+                              design="~ subject + condition", labels=cond,
+                              subjects=subj, **kw)
+
+        for engine in engines:
+            kw = {} if engine is None else dict(engine=engine)
+            key = f"p{p} {engine or 'fused'}"
+            t0 = time.perf_counter()
+            cpu = run("float64", device="cpu", **kw)
+            cpu_s = time.perf_counter() - t0
+            card = run("float64", **kw)
+            worst, bad, left, step, ratio = paired_columns_close(card, cpu)
+            step_limit = int(PAIRED_STEP_SHARE * G_GATE)
+            out[key] = dict(max_rel=worst, off=bad, betaconv_false=left,
+                            other_step=step, other_step_limit=step_limit,
+                            limit_ratio=ratio)
+            log(f"  {key} float64, card vs CPU ({cpu_s:.1f} s): largest "
+                f"relative difference {worst:.3g}, off: {bad}, genes with "
+                f"betaConv false {left}, genes whose dispersion search "
+                f"took another number of steps {step} of at most "
+                f"{step_limit} (held at rtol {PAIRED_STEP_RTOL:g}, the rest "
+                f"at {PAIRED_RTOL:g}); largest difference over its limit "
+                f"{json.dumps(ratio)}")
+            failed += [f"{key} {c}" for c in bad]
+            if step > step_limit:
+                failed.append(f"{key}: {step} genes took another number of "
+                              f"dispersion steps, more than {step_limit}")
+            if p == 10 and engine is None:
+                r32, _ = run("float32")
+                gate, ok = gate_compare(r32, cpu[0])
+                out[key]["gate_f32"] = gate
+                log(f"  {key} float32 card vs float64 CPU, bench.py's "
+                    f"gates: {json.dumps(gate)}")
+                failed += [f"{key} float32 {k}" for k in
+                           ("jaccard", "flips", "lfc") if not ok[k]]
     if failed:
-        raise SystemExit(f"wide K1 checks failed: {failed}")
-    return rows, other
+        raise SystemExit(f"paired-design gates failed: {failed}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1998,7 +2253,7 @@ def sc_call(torch, name, counts, profiled=False, **kw):
 
 def sc_phase(torch):
     """Phase 10a-d: the group QL call (cold, warm, profiled), the
-    covariate QL call ~ batch + condition against ~ batch (the same), the
+    covariate QL call ~ batch + condition against ~ batch (warm), the
     parametric Wald call (warm), and the public route: a dataset of the
     same counts, deseq(test="LRT", reduced="~ 1", fit_type="glmGamPoi") +
     results(), which must take the streamed route (engine "fused-sc")."""
@@ -2012,6 +2267,11 @@ def sc_phase(torch):
              "covariate_ql": dict(design=design, reduced_design=design[:, :2],
                                   test="LRT", fit_type="glmGamPoi")}
     for key, kw in calls.items():
+        if key == "covariate_ql":
+            # warm only: the script's time limit (the group call reads
+            # the cold call and the busy share)
+            out[key] = sc_call(torch, f"{key} warm", counts, **kw)
+            continue
         t0 = time.perf_counter()
         sc_call(torch, f"{key} cold", counts, **kw)
         cold = time.perf_counter() - t0
@@ -2362,8 +2622,9 @@ def same_as_single(got, want, name):
 def mesh_phase(torch):
     """Phase 11a-c: the main path ~ condition at 60,000 x 1,024 through
     deseq(mesh=...) + results() in float32 and float64, the host engine in
-    float64, and group QL at 30,000 x 50,000 through fused_sc_results(
-    mesh=...), each against the single-device call on the same inputs."""
+    float64, the paired p = 10 design in float64, and group QL at 30,000 x
+    50,000 through fused_sc_results(mesh=...), each against the
+    single-device call on the same inputs."""
     from deseq2_tpu_torch.ops import checks
     from deseq2_tpu_torch.parallel import gene_mesh
     from deseq2_tpu_torch.parallel.sc import fused_sc_results
@@ -2373,17 +2634,26 @@ def mesh_phase(torch):
     counts, _ = make_inputs(G_MAIN, S_MAIN)
     out = dict(mesh=what, shards=len(devs))
     failed = []
-    for dname, engine in (("float32", None), ("float64", None),
-                          ("float64", "host")):
-        key = f"{dname}{'' if engine is None else ' host engine'}"
+    for dname, engine, paired in (("float32", None, False),
+                                  ("float64", None, False),
+                                  ("float64", "host", False),
+                                  ("float64", None, True)):
+        key = (f"{dname}{'' if engine is None else ' host engine'}"
+               + (" paired p = 10" if paired else ""))
         kw = {} if engine is None else dict(engine=engine)
-        res1, fit1 = public_run(torch, counts, dname, **kw)
+
+        def run(**more):
+            if paired:
+                return paired_run(torch, counts, dname, 10, **kw, **more)
+            return public_run(torch, counts, dname, **kw, **more)
+
+        res1, fit1 = run()
         t0 = time.perf_counter()
-        public_run(torch, counts, dname, **kw)
+        run()
         single_s = time.perf_counter() - t0
         r, (res, fit) = mesh_timed(
             torch, f"deseq(mesh) + results() {key}", devs,
-            lambda: public_run(torch, counts, dname, mesh=mesh, **kw))
+            lambda: run(mesh=mesh))
         r["single_wall_s"] = single_s
         log(f"  single-device call {key}: warm {single_s:.3f} s")
         need_launches(r, devs, ("fit_beta", "fit_disp_line_search"), key)
@@ -2627,10 +2897,15 @@ def main():
     for key in ("no_cr", "no_cr_weighted", "threshold"):
         mode_launches.update(host_out[key]["launches"])
     rows += mode_timings(torch, dev, mode_launches, worst)
-    wide_rows, host_out["irls_wide_f32"] = wide_route_timing(
-        torch, dev, host_out["p10"]["launches"].get("irls_wide", 0)
-        + host_out["p10"]["normal_shrink_launches"], worst)
-    rows += wide_rows
+    host_out["paired"] = paired_phase(torch)
+    host_out["paired"]["gates"] = paired_gates(torch)
+    for dname in ("float64", "float32"):
+        # the wide rows stand for the p = 10 fused call of their dtype and
+        # carry its warm call's launches (the other paired calls' launches
+        # are on their own log lines)
+        rows += kernel_timings(torch, dev,
+                               host_out["paired"][f"p10 {dname}"]["launches"],
+                               worst, dname=dname, x_np=paired_x(S_MAIN, 10))
     done("8")
 
     phase("9", f"[9] transforms at {G_MAIN} x {S_MAIN}")

@@ -1,11 +1,14 @@
 // Device helpers shared by the three per-gene solver kernels
 // (irls.cu, disp_ls.cu, disp_grid.cu): warp reductions, the NB special
 // functions with their float32 large-c series branches, unrolled p x p
-// Cholesky routines for p = 1..8, and the weighted Cox-Reid masks.
+// Cholesky routines for p = 1..8, the weighted Cox-Reid masks, and the
+// wide kernels' tile pass and shared-memory algebra for 8 < p <= 16 (the
+// last section).
 //
-// One layout: a warp's lanes stride over a gene's samples, warp_allsum
-// leaves the sums on every lane, and every lane runs the same p x p
-// algebra on the same values, so no barrier or broadcast follows a sum.
+// One layout for p <= 8: a warp's lanes stride over a gene's samples,
+// warp_allsum leaves the sums on every lane, and every lane runs the same
+// p x p algebra on the same values, so no barrier or broadcast follows a
+// sum.
 // K1 and K2 (irls.cu, disp_ls.cu) give each persistent warp its next gene
 // from a per-launch counter (next_gene); K3 (disp_grid.cu) gives each
 // block one gene and each of its warps some of the gene's grid points.
@@ -413,26 +416,362 @@ inline int persistent_blocks(K kernel, size_t smem, int G, int* err) {
   return per_sm * sms < need ? per_sm * sms : need;
 }
 
+// ---------------------------------------------------------------------------
+// Wide designs, kPNarrow < p <= kPWide (the *_wide kernels of irls.cu,
+// disp_ls.cu and disp_grid.cu)
+// ---------------------------------------------------------------------------
+//
+// The templated kernels above keep a gene's p x p system in every lane's
+// registers; at P = 16 that spilled (PERF.md section 6).  The wide kernels
+// take p at run time and keep no p x p matrix in any thread:
+// - a warp walks its gene's samples in tiles of kTile = 32, one sample a
+//   lane.  Each lane computes its sample's weight and likelihood terms and
+//   writes its design row x_s and u_s = w_s x_s into the warp's shared
+//   tile buffers, column k of a tile at k * kTileStride;
+// - the warp then adds the tile's outer products to a p x p gram whose
+//   entries the lanes own (gram_map, gram_add): each lane owns a 4 x 4
+//   block of the upper triangle in one of several groups, and the groups
+//   take turns over the tile's samples; after the last tile the groups'
+//   partial blocks are added in group order (gram_reduce).  Every entry is
+//   summed in one fixed order, so two launches give the same bits and a
+//   gene's result does not depend on the genes beside it;
+// - the p x p algebra (Cholesky, solve, inverse, log determinant) runs on
+//   matrices in the warp's shared memory, lanes owning rows or columns
+//   (warp_cholesky, warp_chol_solve, warp_chol_inverse).
+
+// the templated kernels' widest design and the wide kernels'
+constexpr int kPNarrow = 8;
+constexpr int kPWide = 16;
+// samples per tile (one per lane), a tile column's stride (33: the lanes'
+// column-major writes and the gram's reads fall in distinct banks), the
+// values of one tile buffer, and of one p x p matrix (row stride kPWide)
+constexpr int kTile = 32;
+constexpr int kTileStride = kTile + 1;
+constexpr int kTileVals = kPWide * kTileStride;
+constexpr int kMat = kPWide * kPWide;
+
+// Opt a kernel in to `smem` bytes of dynamic shared memory (needed past
+// 48 KB); returns the CUDA error.
+template <typename K>
+inline int allow_smem(K kernel, size_t smem) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// The gram's block map (gram_map): the p columns fall into nbr =
+// ceil(p / 4) blocks of 4, whose nb = nbr (nbr + 1) / 2 upper blocks (row
+// block <= column block) the lanes share out: lane l owns block l % nb in
+// group l / nb, and the ng = 32 / nb groups take every ng-th sample of a
+// tile (9-12 columns: 6 blocks in 5 groups; 13-16: 10 blocks in 3 groups;
+// the lanes past ng nb idle).  Only the upper blocks of the p columns are
+// summed, and each group sums its samples in increasing order.
+struct GramMap {
+  int nb, ng, grp, r0, c0;   // the map, this lane's group and block
+  bool active, diag;         // a lane of a group; a diagonal block
+};
+
+__device__ __forceinline__ GramMap gram_map(int p) {
+  GramMap m;
+  const int nbr = (p + 3) >> 2;
+  m.nb = nbr * (nbr + 1) / 2;
+  m.ng = 32 / m.nb;
+  const int l = lane_id();
+  m.grp = l / m.nb;
+  m.active = m.grp < m.ng;
+  int b = l - m.grp * m.nb, rq = 0;
+  while (b >= nbr - rq) {
+    b -= nbr - rq;
+    ++rq;
+  }
+  m.r0 = rq * 4;
+  m.c0 = (rq + b) * 4;
+  m.diag = b == 0;
+  return m;
+}
+
+// A lane's share of a gram over the tiles: its 4 x 4 block.
+template <typename T>
+struct GramBlock {
+  T a[4][4];
+};
+
+template <typename T>
+__device__ __forceinline__ void gram_zero(GramBlock<T>& g) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) g.a[i][j] = T(0);
+  }
+}
+
+// One sample t of a tile into the lane's blocks (gram_add).
+template <typename T, bool D2, bool Rz>
+__device__ __forceinline__ void gram_add_one(const GramMap& m,
+                                             GramBlock<T>& g1,
+                                             GramBlock<T>& g2, T (&rz)[4],
+                                             const T* u, const T* v,
+                                             const T* z, int t) {
+  T ur[4], vc[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    ur[i] = u[(m.r0 + i) * kTileStride + t];
+    vc[i] = v[(m.c0 + i) * kTileStride + t];
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) g1.a[i][j] += ur[i] * vc[j];
+  }
+  if constexpr (D2) {
+    T uc[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) uc[j] = u[(m.c0 + j) * kTileStride + t];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) g2.a[i][j] += ur[i] * uc[j];
+    }
+  }
+  if constexpr (Rz) {
+    // a diagonal block's rows of X'Wz (v = x, so vc holds x at its rows)
+    if (m.diag) {
+      const T zt = z[t];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) rz[j] += zt * vc[j];
+    }
+  }
+}
+
+// Add a tile's first n samples to the lane's blocks (its group's samples
+// t = group, group + ng, ..., in that order): g1 += u_t v_t'; with D2, g2
+// += u_t u_t' (K2's derivative gram); with Rz, rz += z_t v_t at a diagonal
+// block's rows (K1's X'Wz).  u and v are tile buffers; z one value per
+// sample.  Two samples an iteration, so that the second's loads overlap
+// the first's multiply-adds.
+template <typename T, bool D2, bool Rz>
+__device__ __forceinline__ void gram_add(const GramMap& m, GramBlock<T>& g1,
+                                         GramBlock<T>& g2, T (&rz)[4],
+                                         const T* u, const T* v, const T* z,
+                                         int n) {
+  if (!m.active) return;
+  int t = m.grp;
+  for (; t + m.ng < n; t += 2 * m.ng) {
+    gram_add_one<T, D2, Rz>(m, g1, g2, rz, u, v, z, t);
+    gram_add_one<T, D2, Rz>(m, g1, g2, rz, u, v, z, t + m.ng);
+  }
+  if (t < n) gram_add_one<T, D2, Rz>(m, g1, g2, rz, u, v, z, t);
+}
+
+// Sum the groups' partial blocks (N values a lane: a block's 16, or K1's
+// 4 X'Wz entries) into group 0's lanes, in group order, through the
+// warp's shared scratch `red` (32 N values, slot e of lane l at e * 32 +
+// l).  Ends with a __syncwarp.
+template <typename T, int N>
+__device__ __forceinline__ void gram_reduce(const GramMap& m, T* vals,
+                                            T* red) {
+  const int l = lane_id();
+  __syncwarp();
+  if (m.active) {
+#pragma unroll
+    for (int e = 0; e < N; ++e) red[e * 32 + l] = vals[e];
+  }
+  __syncwarp();
+  if (m.grp == 0) {
+    for (int k = 1; k < m.ng; ++k) {
+#pragma unroll
+      for (int e = 0; e < N; ++e) vals[e] += red[e * 32 + k * m.nb + l];
+    }
+  }
+  __syncwarp();
+}
+
+template <typename T>
+__device__ __forceinline__ void gram_reduce(const GramMap& m, GramBlock<T>& g,
+                                            T* red) {
+  gram_reduce<T, 16>(m, &g.a[0][0], red);
+}
+
+// Write the reduced gram's p x p entries into M (row stride kPWide), both
+// triangles from group 0's upper blocks, each times the column-mask bits
+// cm of its row and column (~0u: no mask), as cr_apply_mask does: with
+// unit_diag a dropped column gets 1 on the diagonal; `diag`, when given
+// (K1's ridge), is added to the diagonal.  Ends with a __syncwarp.
+template <typename T>
+__device__ __forceinline__ void gram_store(const GramMap& m,
+                                           const GramBlock<T>& g, T* M, int p,
+                                           unsigned cm, bool unit_diag,
+                                           const T* diag) {
+  if (m.grp == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = m.r0 + i, c = m.c0 + j;
+        if (r <= c && c < p) {
+          const T cr = (cm >> r) & 1u ? T(1) : T(0);
+          const T cc = (cm >> c) & 1u ? T(1) : T(0);
+          T v = g.a[i][j] * (cr * cc);
+          if (r == c) {
+            if (unit_diag) v += T(1) - cr;
+            if (diag != nullptr) v += diag[r];
+          }
+          M[r * kPWide + c] = v;
+          M[c * kPWide + r] = v;
+        }
+      }
+    }
+  }
+  __syncwarp();
+}
+
+// In-place lower Cholesky factor of the p x p SPD matrix a (row stride
+// kPWide, both triangles or the lower one given) in the warp's shared
+// memory, lane i owning row i: on return a's lower triangle holds L.  The
+// pivot is floored at 1e-30 as in cholesky<T, P>, and each entry is
+// reduced in the same order (a_ij - L_i0 L_j0 - L_i1 L_j1 - ...).  With
+// LogDet returns log det(a) on every lane (0 otherwise).  Every lane of
+// the warp calls it.
+template <typename T, bool LogDet>
+__device__ __forceinline__ T warp_cholesky(T* a, int p) {
+  const int i = lane_id();
+  T logdet = T(0);
+  for (int j = 0; j < p; ++j) {
+    const T s = a[j * kPWide + j];
+    const T d = d_sqrt(s > T(1e-30) ? s : T(1e-30));
+    if (LogDet) logdet += T(2) * d_log(d);
+    __syncwarp();
+    T lij = T(0);
+    if (i == j) {
+      a[j * kPWide + j] = d;
+    } else if (i > j && i < p) {
+      lij = a[i * kPWide + j] / d;
+      a[i * kPWide + j] = lij;
+    }
+    __syncwarp();
+    if (i > j && i < p) {
+      for (int k = j + 1; k <= i; ++k)
+        a[i * kPWide + k] -= lij * a[k * kPWide + j];
+    }
+    __syncwarp();
+  }
+  return logdet;
+}
+
+// x = a^-1 r given warp_cholesky's factor L of a: lane k < p holds r_k on
+// entry and x_k on return (the other lanes' values are meaningless).
+template <typename T>
+__device__ __forceinline__ T warp_chol_solve(const T* L, int p, T r) {
+  const int k = lane_id();
+  for (int i = 0; i < p; ++i) {
+    const T wi = __shfl_sync(kFullMask, r, i) / L[i * kPWide + i];
+    if (k == i) {
+      r = wi;
+    } else if (k > i && k < p) {
+      r -= L[k * kPWide + i] * wi;
+    }
+  }
+  for (int i = p - 1; i >= 0; --i) {
+    const T xi = __shfl_sync(kFullMask, r, i) / L[i * kPWide + i];
+    if (k == i) {
+      r = xi;
+    } else if (k < i) {
+      r -= L[i * kPWide + k] * xi;
+    }
+  }
+  return r;
+}
+
+// a^-1 = L^-T L^-1 given warp_cholesky's factor L: lane j computes column
+// j of L^-1 into li, as chol_inverse computes it, then the lanes share out
+// the entries of a^-1, written to both triangles of `out` (which may be
+// L's own buffer).  Ends with a __syncwarp.
+template <typename T>
+__device__ __forceinline__ void warp_chol_inverse(const T* L, T* li, T* out,
+                                                  int p) {
+  const int j = lane_id();
+  if (j < p) {
+    li[j * kPWide + j] = T(1) / L[j * kPWide + j];
+    for (int i = j + 1; i < p; ++i) {
+      T s = T(0);
+      for (int k = j; k < i; ++k) s += L[i * kPWide + k] * li[k * kPWide + j];
+      li[i * kPWide + j] = -s * (T(1) / L[i * kPWide + i]);
+    }
+  }
+  __syncwarp();
+  const int nt = p * (p + 1) / 2;
+  for (int e = lane_id(); e < nt; e += 32) {
+    int r = 0;
+    while ((r + 1) * (r + 2) / 2 <= e) ++r;
+    const int c = e - r * (r + 1) / 2;  // c <= r
+    T s = T(0);
+    for (int k = r; k < p; ++k) s += li[k * kPWide + r] * li[k * kPWide + c];
+    out[r * kPWide + c] = s;
+    out[c * kPWide + r] = s;
+  }
+  __syncwarp();
+}
+
+// sum_ij a_ij b_ji over p x p matrices in the warp's shared memory, on
+// every lane (lanes share out the entries in a fixed order, then
+// warp_allsum).
+template <typename T>
+__device__ __forceinline__ T warp_trace_product(const T* a, const T* b,
+                                                int p) {
+  T t[1] = {T(0)};
+  for (int e = lane_id(); e < p * p; e += 32) {
+    const int i = e / p, j = e - (e / p) * p;
+    t[0] += a[i * kPWide + j] * b[j * kPWide + i];
+  }
+  warp_allsum<T, 1>(t);
+  return t[0];
+}
+
+// The largest of the lanes' values, on every lane.
+template <typename T>
+__device__ __forceinline__ T warp_max(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const T u = __shfl_xor_sync(kFullMask, v, o);
+    v = u > v ? u : v;
+  }
+  return v;
+}
+
+// The wide kernels read the design transposed, xt (p x S): a warp's lanes
+// then read column k of consecutive samples in one coalesced access.
+
+// warp_cr_col_mask at a run-time p: column k stays when some kept row has
+// x_k != 0, as the plain version's make_cr_masks decides.
+template <typename T>
+__device__ __forceinline__ unsigned warp_cr_col_mask_wide(const T* wr,
+                                                          const T* xt, int S,
+                                                          int p, T thr) {
+  unsigned cm = 0u;
+  for (int s = lane_id(); s < S; s += 32) {
+    if (cr_keeps(wr[s], thr)) {
+      for (int k = 0; k < p; ++k)
+        cm |= __ldg(xt + (size_t)k * S + s) != T(0) ? (1u << k) : 0u;
+    }
+  }
+  return __reduce_or_sync(kFullMask, cm);
+}
+
+// Lane l writes its sample's design row x_s and w x_s into column-major
+// tile buffers (slot l of each column).
+template <typename T>
+__device__ __forceinline__ void tile_put(T* xb, T* ub, const T* xt, int S,
+                                         int s, int p, T w) {
+  const int l = lane_id();
+  for (int k = 0; k < p; ++k) {
+    const T v = __ldg(xt + (size_t)k * S + s);
+    xb[k * kTileStride + l] = v;
+    ub[k * kTileStride + l] = w * v;
+  }
+}
+
 }  // namespace dk
 
-// A wide build compiles one more width with -DDK_WIDE_P=n (and, with
-// -DDK_WIDE_ONLY, that width alone); the kernels' own builds define
-// neither.
-#ifdef DK_WIDE_P
-#define DK_WIDE_CASE(...) \
-  case DK_WIDE_P: { constexpr int P = DK_WIDE_P; __VA_ARGS__; } break;
-#else
-#define DK_WIDE_CASE(...)
-#endif
-
-#ifdef DK_WIDE_ONLY
-#define DK_DISPATCH_P(p, ...)        \
-  switch (p) {                       \
-    DK_WIDE_CASE(__VA_ARGS__)        \
-    default: return (int)cudaErrorInvalidValue; \
-  }
-#else
-// Dispatch a templated launch on the runtime design width p = 1..8.
+// Dispatch a templated launch on the run-time design width p = 1..8.
 #define DK_DISPATCH_P(p, ...) \
   switch (p) {                 \
     case 1: { constexpr int P = 1; __VA_ARGS__; } break; \
@@ -443,7 +782,5 @@ inline int persistent_blocks(K kernel, size_t smem, int G, int* err) {
     case 6: { constexpr int P = 6; __VA_ARGS__; } break; \
     case 7: { constexpr int P = 7; __VA_ARGS__; } break; \
     case 8: { constexpr int P = 8; __VA_ARGS__; } break; \
-    DK_WIDE_CASE(__VA_ARGS__)                             \
     default: return (int)cudaErrorInvalidValue;   \
   }
-#endif

@@ -48,6 +48,12 @@
 // is the likelihood terms (and the prior) alone, and no p x p matrix is
 // accumulated.  The default instantiations (UseCR true) keep the code of a
 // kernel without this mode.
+//
+// Designs wider than 8 columns (8 < p <= 16, grid_wide_kernel, p a launch
+// argument, every mode above): the same grid, stages and first-maximum
+// rule; each warp evaluates its points with the wide tile pass of
+// common.cuh (the line search's, disp_ls.cu) and the log determinant of
+// the Cox-Reid matrix factored in the warp's shared memory.
 #include "common.cuh"
 
 namespace {
@@ -205,14 +211,176 @@ int launch_p(const T* y, const T* mu, const T* w, const T* x, const T* grid,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// 8 < p <= kPWide
+// ---------------------------------------------------------------------------
+
+// shared values per warp: the tile buffers of x and w x; after a point's
+// last tile the Cox-Reid matrix takes the x buffer's room
+constexpr int kWideWarpVals = 2 * kTileVals;
+
+// log_post at a run-time p: x the design transposed (p x S), wv the warp's
+// shared values.
+template <typename T, bool UseW, bool UseCR>
+__device__ __forceinline__ T log_post_wide(const T* yr, const T* mr,
+                                           const T* wr, unsigned cm, T thr,
+                                           const T* x, int S, int p, T la,
+                                           T pm, T prior_var, int use_prior,
+                                           T* wv) {
+  const int lane = lane_id();
+  const GramMap gm = gram_map(p);
+  const T alpha = d_exp(la);
+  const LgConst<T> k = lg_const(T(1) / alpha);
+  T acc[1] = {T(0)};
+  GramBlock<T> gb, unused;
+  T rz[4];
+  if constexpr (UseCR) gram_zero(gb);
+  T* xb = wv;
+  T* ub = wv + kTileVals;
+  __syncwarp();
+  for (int base = 0; base < S; base += kTile) {
+    const int s = base + lane;
+    if (s < S) {
+      const T yv = yr[s];
+      const T m = mr[s];
+      const T mua = m * alpha;
+      const T r = T(1) / (T(1) + mua);
+      acc[0] +=
+          wscale<UseW>(lg_diff(yv, k) - (yv + k.c) * d_log1p(mua), wr, s);
+      if constexpr (UseCR) {
+        T w = m * r;
+        if constexpr (UseW) {
+          if (!cr_keeps(wr[s], thr)) w = T(0);
+        }
+        tile_put(xb, ub, x, S, s, p, w);
+      }
+    }
+    if constexpr (UseCR) {
+      const int n = S - base < kTile ? S - base : kTile;
+      __syncwarp();
+      gram_add<T, false, false>(gm, gb, unused, rz, ub, xb,
+                                static_cast<const T*>(nullptr), n);
+      __syncwarp();
+    }
+  }
+  warp_allsum<T, 1>(acc);
+  T lp = acc[0];
+  if constexpr (UseCR) {
+    gram_reduce(gm, gb, wv);   // the tile buffer is its scratch
+    gram_store(gm, gb, wv, p, cm, true, static_cast<const T*>(nullptr));
+    lp = acc[0] - T(0.5) * warp_cholesky<T, true>(wv, p);
+  }
+  if (use_prior) lp -= T(0.5) * (la - pm) * (la - pm) / prior_var;
+  return lp;
+}
+
+// grid_kernel at a run-time p, each warp with its own shared values
+template <typename T, bool UseW, bool UseCR>
+__global__ void __launch_bounds__(32 * kGridWarps)
+    grid_wide_kernel(const T* __restrict__ y, const T* __restrict__ mu,
+                     const T* __restrict__ x, const T* __restrict__ grid,
+                     const T* __restrict__ prior_mean, int S, int p, int n,
+                     T prior_var, int use_prior, T* __restrict__ out,
+                     const T* __restrict__ wts, T thr) {
+  __shared__ T cand_lp[2][kGridWarps];
+  __shared__ int cand_j[2][kGridWarps];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+
+  const int g = blockIdx.x;
+  const int warp = threadIdx.x >> 5;
+  const T* yr = y + (size_t)g * S;
+  const T* mr = mu + (size_t)g * S;
+  const T* wr = UseW ? wts + (size_t)g * S : nullptr;
+  T* wv = reinterpret_cast<T*>(smem_raw) +
+          (UseCR ? (size_t)warp * kWideWarpVals : 0);
+  unsigned cm = ~0u;
+  if constexpr (UseW && UseCR) cm = warp_cr_col_mask_wide<T>(wr, x, S, p, thr);
+  const T pm = prior_mean[g];
+
+  auto stage_max = [&](auto point, int st) {
+    T best_lp = -INFINITY;
+    int best_j = -1;
+    for (int j = warp; j < n; j += kGridWarps) {
+      const T lp = log_post_wide<T, UseW, UseCR>(yr, mr, wr, cm, thr, x, S,
+                                                 p, point(j), pm, prior_var,
+                                                 use_prior, wv);
+      if (lp > best_lp) {
+        best_lp = lp;
+        best_j = j;
+      }
+    }
+    if (lane_id() == 0) {
+      cand_lp[st][warp] = best_lp;
+      cand_j[st][warp] = best_j;
+    }
+  };
+
+  stage_max([&](int j) { return grid[j]; }, 0);
+  __syncthreads();
+  const int jc = first_max(cand_lp[0], cand_j[0]);
+  const T a_hat = jc < 0 ? T(0) : grid[jc];
+  const T delta = grid[1] - grid[0];
+  const T lo = a_hat - delta;
+  const T span = T(2) * delta;
+  const double step = 1.0 / (double)(n - 1);
+  auto fine = [&](int j) { return lo + mul_rn(span, (T)((double)j * step)); };
+
+  stage_max(fine, 1);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int jf = first_max(cand_lp[1], cand_j[1]);
+    out[g] = jf < 0 ? T(0) : fine(jf);
+  }
+}
+
+// dynamic shared memory of a wide launch (none without the Cox-Reid term)
+template <typename T>
+inline size_t wide_smem(bool use_cr) {
+  return use_cr ? (size_t)kGridWarps * kWideWarpVals * sizeof(T) : 0;
+}
+
+template <typename T, bool UseW, bool UseCR>
+int launch_wide(const T* y, const T* mu, const T* w, const T* x, const T* grid,
+                const T* pm, int G, int S, int p, int n, T prior_var,
+                int use_prior, T thr, T* out, cudaStream_t st) {
+  const size_t smem = wide_smem<T>(UseCR);
+  auto kernel = grid_wide_kernel<T, UseW, UseCR>;
+  const int err = allow_smem(kernel, smem);
+  if (err) return err;
+  kernel<<<G, 32 * kGridWarps, smem, st>>>(y, mu, x, grid, pm, S, p, n,
+                                           prior_var, use_prior, out, w, thr);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool UseW, bool UseCR>
+int occupancy_wide() {
+  const size_t smem = wide_smem<T>(UseCR);
+  auto kernel = grid_wide_kernel<T, UseW, UseCR>;
+  int err = allow_smem(kernel, smem);
+  const int n = err ? 0 : blocks_per_sm(kernel, smem, &err, 32 * kGridWarps);
+  return err ? -1 : n;
+}
+
 // w == nullptr selects the unweighted instantiations, use_cr == 0 the ones
-// without the Cox-Reid term
+// without the Cox-Reid term, 8 < p <= 16 the wide kernel
 template <typename T>
 int launch(const T* y, const T* mu, const T* w, const T* x, const T* grid,
            const T* pm, int G, int S, int p, int n, T prior_var,
            int use_prior, int use_cr, T thr, T* out, void* stream) {
   if (n < 2) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (p > kPNarrow && p <= kPWide) {
+#define DK_GRID_WIDE(W, CR)                                                 \
+  return launch_wide<T, W, CR>(y, mu, w, x, grid, pm, G, S, p, n, prior_var, \
+                               use_prior, thr, out, st)
+    if (w != nullptr) {
+      if (use_cr) DK_GRID_WIDE(true, true);
+      DK_GRID_WIDE(true, false);
+    }
+    if (use_cr) DK_GRID_WIDE(false, true);
+    DK_GRID_WIDE(false, false);
+#undef DK_GRID_WIDE
+  }
 #define DK_GRID_LAUNCH(W, CR)                                              \
   DK_DISPATCH_P(p, return launch_p<T, P, W, CR>(y, mu, w, x, grid, pm, G, \
                                                 S, n, prior_var, use_prior,\
@@ -250,6 +418,14 @@ int occupancy(int p, int S) {
 
 template <typename T>
 int occupancy_mode(int weighted, int use_cr, int p, int S) {
+  if (p > kPNarrow && p <= kPWide) {
+    if (weighted) {
+      return use_cr ? occupancy_wide<T, true, true>()
+                    : occupancy_wide<T, true, false>();
+    }
+    return use_cr ? occupancy_wide<T, false, true>()
+                  : occupancy_wide<T, false, false>();
+  }
   if (weighted) {
     return use_cr ? occupancy<T, true, true>(p, S)
                   : occupancy<T, true, false>(p, S);

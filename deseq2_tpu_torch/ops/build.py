@@ -26,9 +26,6 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build"
 KERNELS = ("irls", "disp_ls", "disp_grid")
-# K1's wide library: csrc/irls.cu at P = 16 alone (ops/cuda_irls.py serves
-# 8 < p <= 16 from it), built beside the three
-WIDE = ("-DDK_WIDE_P=16", "-DDK_WIDE_ONLY")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,33 +41,31 @@ def _nvcc():
     return path
 
 
-def _digest(name, defines=()):
+def _digest(name):
     h = hashlib.sha256()
     for f in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
         h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS + tuple(defines)).encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:12]
 
 
-def so_path(name, defines=()):
-    """The library of csrc/<name>.cu; `defines` (-D flags, for a study
-    build) give it another name."""
-    tag = "".join("-" + d.lstrip("-D").replace("=", "") for d in defines)
-    return BUILD_DIR / f"lib{name}{tag}-{_digest(name, defines)}.so"
+def so_path(name):
+    """The library of csrc/<name>.cu."""
+    return BUILD_DIR / f"lib{name}-{_digest(name)}.so"
 
 
-def log_path(name, defines=()):
+def log_path(name):
     """nvcc's output for the library (the -Xptxas -v resource report)."""
-    return so_path(name, defines).with_suffix(".log")
+    return so_path(name).with_suffix(".log")
 
 
-def ptxas_resources(name, defines=()):
+def ptxas_resources(name):
     """{kernel symbol: (registers, spill bytes)} of a kernel library, from
     nvcc's -Xptxas -v report (built first if needed)."""
     import re
-    load(name, defines)
+    load(name)
     out = {}
-    for part in log_path(name, defines).read_text().split(
+    for part in log_path(name).read_text().split(
             "Compiling entry function '")[1:]:
         regs = re.search(r"Used (\d+) registers", part)
         spill = re.findall(r"(\d+) bytes spill (?:stores|loads)", part)
@@ -79,17 +74,16 @@ def ptxas_resources(name, defines=()):
     return out
 
 
-def _start(name, defines=()):
+def _start(name):
     """Start nvcc for one source unless its library is already built.
     Returns (process, temporary output path) or None."""
-    out = so_path(name, defines)
+    out = so_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp),
-           str(CSRC / f"{name}.cu")]
-    log = open(log_path(name, defines), "w")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    log = open(log_path(name), "w")
     try:
         proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
     finally:
@@ -97,52 +91,46 @@ def _start(name, defines=()):
     return proc, tmp
 
 
-def _finish(name, started, defines=()):
+def _finish(name, started):
     if started is None:
         return
     proc, tmp = started
     rc = proc.wait()
     if rc != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu (exit {rc}):\n"
-                           + log_path(name, defines).read_text()[-4000:])
-    os.replace(tmp, so_path(name, defines))
+                           + log_path(name).read_text()[-4000:])
+    os.replace(tmp, so_path(name))
 
 
 def build_all(names=KERNELS):
-    """Build every named kernel library (and K1's wide one with "irls"),
-    one nvcc process per library, all started together.  Returns
-    {name: nvcc output}, the wide library as "irls_wide"."""
-    libs = {n: (n, ()) for n in names}
-    if "irls" in names:
-        libs["irls_wide"] = ("irls", WIDE)
+    """Build every named kernel library, one nvcc process per library, all
+    started together.  Returns {name: nvcc output}."""
     with _lock:
-        started = {k: _start(*v) for k, v in libs.items()}
+        started = {n: _start(n) for n in names}
         try:
-            for k, (n, d) in libs.items():
-                _finish(n, started[k], d)
+            for n in names:
+                _finish(n, started[n])
         finally:
             for s in started.values():
                 if s is not None and s[0].poll() is None:
                     s[0].kill()
                     s[0].wait()
-    return {k: log_path(*v).read_text() if log_path(*v).exists() else ""
-            for k, v in libs.items()}
+    return {n: log_path(n).read_text() if log_path(n).exists() else ""
+            for n in names}
 
 
-def load(name, defines=()):
-    """ctypes handle of a kernel library, built first if needed;
-    `defines`: a study build's -D flags."""
-    key = (name, tuple(defines))
-    lib = _libs.get(key)
+def load(name):
+    """ctypes handle of a kernel library, built first if needed."""
+    lib = _libs.get(name)
     if lib is not None:
         return lib
     with _lock:
-        _finish(name, _start(name, defines), defines)
+        _finish(name, _start(name))
     with _lock:
-        lib = _libs.get(key)
+        lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(so_path(name, defines)))
-            _libs[key] = lib
+            lib = ctypes.CDLL(str(so_path(name)))
+            _libs[name] = lib
     return lib
 
 

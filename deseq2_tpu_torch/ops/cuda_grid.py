@@ -4,13 +4,14 @@ csrc/disp_grid.cu.
 Replaces deseq2_tpu/ops/pallas_disp.py:fit_disp_grid_pallas, in its modes
 (`use_cr=False`: without the Cox-Reid term), and extends it with a weighted
 mode (`weights`, with the Cox-Reid row cut `weight_threshold`; the JAX
-pipeline runs its weighted grid on the XLA core).  A CUDA tensor with
-1 <= p <= 8 launches the hand-written kernel (or raises); p > 8 runs the
-plain version on the card (the JAX package's XLA core for p > 8); a CPU
-tensor runs the plain version, ops/disp.py:fit_disp_grid_plain.  The route
-is chosen from the tensor's device and p alone, before any launch.  The
-counts are cuda_ls.py's, one per mode (cuda_ls.COUNTERS), and
-``launches_by_device``.  Under ops/placement.py:use_gene_mesh the call
+pipeline runs its weighted grid on the XLA core).  A CUDA tensor launches
+a hand-written kernel (or raises): the templated one for 1 <= p <= 8, the
+wide one (disp_grid.cu's grid_wide_kernel) for 8 < p <= 16; p > 16 runs
+the plain version on the card (the JAX package's XLA core for p > 8); a
+CPU tensor runs the plain version, ops/disp.py:fit_disp_grid_plain.  The
+route is chosen from the tensor's device and p alone, before any launch.
+The counts are cuda_ls.py's, one per mode and width (cuda_ls.COUNTERS),
+and ``launches_by_device``.  Under ops/placement.py:use_gene_mesh the call
 runs shard by shard over the mesh.
 """
 
@@ -21,7 +22,7 @@ import ctypes
 import torch
 
 from . import build
-from .cuda_ls import COUNTERS, P_MAX, mode_counter
+from .cuda_ls import COUNTERS, P_MAX, P_WIDE, mode_counter
 from .disp import CR_WEIGHT_THRESHOLD, fit_disp_grid_plain
 from .placement import active_gene_mesh, place_gene_axis
 
@@ -52,7 +53,7 @@ def fit_disp_grid(y, x, mu, disp_grid, prior_mean, prior_var,
     G, S = mu.shape
     p = x.shape[1]
     n = disp_grid.shape[0]
-    if p > P_MAX:
+    if p > P_WIDE:
         fit_disp_grid.launches_plain += 1
         return fit_disp_grid_plain(y, x.to(mu.device), mu,
                                    disp_grid.to(mu.device), prior_mean,
@@ -67,8 +68,9 @@ def fit_disp_grid(y, x, mu, disp_grid, prior_mean, prior_var,
     def prep(t):
         return t.to(device=dev, dtype=dtype).contiguous()
 
-    y_, mu_, x_, grid_, pm_ = (prep(t) for t in (y, mu, x, disp_grid,
-                                                prior_mean))
+    # the wide kernel reads the design transposed (p x S)
+    y_, mu_, x_, grid_, pm_ = (prep(t) for t in (
+        y, mu, x.t() if p > P_MAX else x, disp_grid, prior_mean))
     w_ = None if weights is None else prep(weights)
     out = torch.empty(G, dtype=dtype, device=dev)
     if G == 0:
@@ -86,7 +88,7 @@ def fit_disp_grid(y, x, mu, disp_grid, prior_mean, prior_var,
                  build.ptr(out), build.stream_of(mu_))
     build.check(err, "disp_grid")
     build.count_launch(fit_disp_grid,
-                       mode_counter(w_, use_cr, weight_threshold), dev)
+                       mode_counter(w_, use_cr, weight_threshold, p), dev)
     return out
 
 

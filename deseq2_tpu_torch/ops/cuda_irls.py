@@ -2,23 +2,19 @@
 
 Replaces deseq2_tpu/ops/pallas_irls.py:fit_beta_pallas, both modes:
 `weights` selects the kernel's weighted instantiation.  A CUDA tensor
-launches a hand-written kernel (or raises): the P = p instantiation for
-1 <= p <= 8, the P = 16 one (irls.cu built with -DDK_WIDE_P=16, its own
-library) for 8 < p <= 16, the design padded with zero columns under a
-unit ridge, which leaves the first p coefficients' arithmetic exactly as
-it is (the padded coefficients solve to 0); p > 16 runs the plain version
-on the card, the counterpart of the XLA core the JAX package runs for p >
-8 (pallas_irls.py:274).  P = 16 at p = 10 was faster than the plain
-version on the card (PERF.md section 6).  A CPU tensor runs the plain
-version, ops/irls.py:fit_beta_plain.  The route is chosen from the
-tensor's device and p alone, before any launch.  ``fit_beta.launches``
-counts the unweighted P <= 8 kernels' launches,
-``fit_beta.launches_weighted`` the weighted ones', ``fit_beta.launches_wide``
-the P = 16 kernel's (either mode) and ``fit_beta.launches_plain`` the
-p > 16 route's; ``fit_beta.launches_by_device`` counts the kernels'
-launches per device.  Under ops/placement.py:use_gene_mesh the call runs
-shard by shard over the mesh (the gene-axis inputs split, the outputs
-gathered onto y's device).
+launches a hand-written kernel (or raises): the P = p instantiation for 1
+<= p <= 8, the wide kernel (p a launch argument, irls.cu's
+irls_wide_kernel) for 8 < p <= 16; p > 16 runs the plain version on the
+card, the counterpart of the XLA core the JAX package runs for p > 8
+(pallas_irls.py:274).  A CPU tensor runs the plain version,
+ops/irls.py:fit_beta_plain.  The route is chosen from the tensor's device
+and p alone, before any launch.  ``fit_beta.launches`` counts the
+unweighted P <= 8 kernels' launches, ``fit_beta.launches_weighted`` the
+weighted ones', ``fit_beta.launches_wide`` the wide kernel's (either mode)
+and ``fit_beta.launches_plain`` the p > 16 route's;
+``fit_beta.launches_by_device`` counts the kernels' launches per device.
+Under ops/placement.py:use_gene_mesh the call runs shard by shard over the
+mesh (the gene-axis inputs split, the outputs gathered onto y's device).
 """
 
 from __future__ import annotations
@@ -28,12 +24,9 @@ import ctypes
 import torch
 
 from . import build
-from .cuda_ls import P_MAX
+from .cuda_ls import P_MAX, P_WIDE
 from .irls import fit_beta_plain
 from .placement import active_gene_mesh, place_gene_axis
-
-# the wide instantiation's width (build.WIDE)
-P_WIDE = 16
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -62,18 +55,6 @@ def fit_beta(y, x, nf, alpha, beta_init, ridge, tol=1e-8, maxit=100,
         return fit_beta_plain(y, x.to(y.device), nf, alpha, beta_init, ridge,
                               tol=tol, maxit=maxit, min_mu=min_mu,
                               weights=weights)
-    if P_MAX < p < P_WIDE:
-        pad = P_WIDE - p
-        dev = y.device
-        out = fit_beta(
-            y, torch.cat([x.to(dev), x.new_zeros(S, pad, device=dev)], 1),
-            nf, alpha,
-            torch.cat([beta_init, beta_init.new_zeros(G, pad)], 1),
-            torch.cat([ridge.to(dev), ridge.new_ones(pad, device=dev)]),
-            tol=tol, maxit=maxit, min_mu=min_mu, weights=weights)
-        out["beta"] = out["beta"][:, :p].contiguous()
-        out["beta_var"] = out["beta_var"][:, :p].contiguous()
-        return out
     if p < 1:
         raise ValueError(f"fit_beta kernel takes p >= 1 columns, got {p}")
     if nf.shape not in ((S,), (G, S)):
@@ -86,8 +67,9 @@ def fit_beta(y, x, nf, alpha, beta_init, ridge, tol=1e-8, maxit=100,
         t = t.to(device=dev, dtype=dtype).contiguous()
         return t
 
-    y_, x_, nf_, a_, b0_, r_ = (prep(t) for t in (y, x, nf, alpha,
-                                                 beta_init, ridge))
+    # the wide kernel reads the design transposed (p x S)
+    y_, x_, nf_, a_, b0_, r_ = (prep(t) for t in (
+        y, x.t() if p > P_MAX else x, nf, alpha, beta_init, ridge))
     w_ = None if weights is None else prep(weights)
     out = dict(
         beta=torch.empty((G, p), dtype=dtype, device=dev),
@@ -100,7 +82,7 @@ def fit_beta(y, x, nf, alpha, beta_init, ridge, tol=1e-8, maxit=100,
         return out
     f64 = dtype == torch.float64
     scal = ctypes.c_double if f64 else ctypes.c_float
-    lib = build.load("irls", build.WIDE if p == P_WIDE else ())
+    lib = build.load("irls")
     fn = build.bind(lib, "irls_launch_f64" if f64 else "irls_launch_f32",
                     [_P, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, scal, _I,
                      scal] + [_P] * 8)
@@ -115,7 +97,7 @@ def fit_beta(y, x, nf, alpha, beta_init, ridge, tol=1e-8, maxit=100,
                  build.ptr(out["mu"]), build.ptr(out["hat_diag"]),
                  build.ptr(counter), build.stream_of(y_))
     build.check(err, "irls")
-    build.count_launch(fit_beta, "launches_wide" if p == P_WIDE
+    build.count_launch(fit_beta, "launches_wide" if p > P_MAX
                        else "launches" if w_ is None
                        else "launches_weighted", dev)
     return out

@@ -3,20 +3,23 @@
 Replaces deseq2_tpu/ops/pallas_ls.py:fit_disp_line_search_pallas, in all
 its modes: `weights` selects the kernel's weighted instantiations,
 `use_cr=False` the ones without the Cox-Reid term, and `weight_threshold`
-is the weighted Cox-Reid term's row cut.  A CUDA tensor with 1 <= p <= 8
-launches the hand-written kernel (or raises); p > 8 runs the plain version
-on the card, the counterpart of the XLA core the JAX package runs for
-p > 8 outside any Pallas kernel (its _use_pallas_* gates); a CPU tensor
-runs the plain version, ops/disp.py:fit_disp_line_search_plain.  The route
-is chosen from the tensor's device and p alone, before any launch.
+is the weighted Cox-Reid term's row cut.  A CUDA tensor launches a
+hand-written kernel (or raises): the templated one for 1 <= p <= 8, the
+wide one (p a launch argument, disp_ls.cu's ls_wide_kernel) for 8 < p <=
+16; p > 16 runs the plain version on the card, the counterpart of the XLA
+core the JAX package runs for p > 8 outside any Pallas kernel (its
+_use_pallas_* gates); a CPU tensor runs the plain version,
+ops/disp.py:fit_disp_line_search_plain.  The route is chosen from the
+tensor's device and p alone, before any launch.
 
 Each launch adds one to exactly one count: ``launches`` (unweighted),
 ``launches_weighted`` (weighted, threshold 1e-2), ``launches_threshold``
 (weighted, another threshold), ``launches_nocr`` and
-``launches_weighted_nocr`` (without the Cox-Reid term), and
-``launches_plain`` (p > 8 on the card, the plain version);
-``launches_by_device`` counts the kernel's launches per device.  Under
-ops/placement.py:use_gene_mesh the call runs shard by shard over the mesh.
+``launches_weighted_nocr`` (without the Cox-Reid term), each with a
+``_wide`` twin for the wide kernel, and ``launches_plain`` (p > 16 on the
+card, the plain version); ``launches_by_device`` counts the kernels'
+launches per device.  Under ops/placement.py:use_gene_mesh the call runs
+shard by shard over the mesh.
 """
 
 from __future__ import annotations
@@ -30,19 +33,25 @@ from .disp import CR_WEIGHT_THRESHOLD, fit_disp_line_search_plain
 from .placement import active_gene_mesh, place_gene_axis
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# the widest design the kernels take; wider ones run the plain version
+# the widest design the templated kernels take, and the wide kernels';
+# wider ones run the plain version
 P_MAX = 8
+P_WIDE = 16
 
 
-def mode_counter(weights, use_cr, weight_threshold):
-    """The name of the count a launch in this mode adds to."""
+def mode_counter(weights, use_cr, weight_threshold, p=1):
+    """The name of the count a launch in this mode, at design width p,
+    adds to."""
     if not use_cr:
-        return "launches_nocr" if weights is None else \
+        name = "launches_nocr" if weights is None else \
             "launches_weighted_nocr"
-    if weights is None:
-        return "launches"
-    return "launches_weighted" if weight_threshold == CR_WEIGHT_THRESHOLD \
-        else "launches_threshold"
+    elif weights is None:
+        name = "launches"
+    else:
+        name = "launches_weighted" \
+            if weight_threshold == CR_WEIGHT_THRESHOLD \
+            else "launches_threshold"
+    return name + "_wide" if p > P_MAX else name
 
 
 def fit_disp_line_search(y, x, mu, log_alpha_init, prior_mean, prior_var,
@@ -74,7 +83,7 @@ def fit_disp_line_search(y, x, mu, log_alpha_init, prior_mean, prior_var,
                         f"{dtype}")
     G, S = mu.shape
     p = x.shape[1]
-    if p > P_MAX:
+    if p > P_WIDE:
         fit_disp_line_search.launches_plain += 1
         return fit_disp_line_search_plain(
             y, x.to(mu.device), mu, log_alpha_init, prior_mean, prior_var,
@@ -88,8 +97,9 @@ def fit_disp_line_search(y, x, mu, log_alpha_init, prior_mean, prior_var,
     def prep(t):
         return t.to(device=dev, dtype=dtype).contiguous()
 
-    y_, mu_, x_, la0_, pm_ = (prep(t) for t in (y, mu, x, log_alpha_init,
-                                               prior_mean))
+    # the wide kernel reads the design transposed (p x S)
+    y_, mu_, x_, la0_, pm_ = (prep(t) for t in (
+        y, mu, x.t() if p > P_MAX else x, log_alpha_init, prior_mean))
     w_ = None if weights is None else prep(weights)
     names = ("log_alpha", "initial_lp", "initial_dlp", "last_lp",
              "last_dlp", "last_change")
@@ -118,12 +128,13 @@ def fit_disp_line_search(y, x, mu, log_alpha_init, prior_mean, prior_var,
                  build.ptr(counter), build.stream_of(mu_))
     build.check(err, "disp_ls")
     build.count_launch(fit_disp_line_search,
-                       mode_counter(w_, use_cr, weight_threshold), dev)
+                       mode_counter(w_, use_cr, weight_threshold, p), dev)
     return out
 
 
-COUNTERS = ("launches", "launches_weighted", "launches_threshold",
-            "launches_nocr", "launches_weighted_nocr", "launches_plain")
+MODES = ("launches", "launches_weighted", "launches_threshold",
+         "launches_nocr", "launches_weighted_nocr")
+COUNTERS = MODES + tuple(m + "_wide" for m in MODES) + ("launches_plain",)
 for _c in COUNTERS:
     setattr(fit_disp_line_search, _c, 0)
 fit_disp_line_search.launches_by_device = {}

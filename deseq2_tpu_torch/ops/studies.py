@@ -4,7 +4,7 @@ ROADMAP.md:
     python -m deseq2_tpu_torch.ops.studies eigvalsh
     python -m deseq2_tpu_torch.ops.studies ls [N_SEEDS]
     python -m deseq2_tpu_torch.ops.studies kernels PARENT_ROOT [REPS]
-    python -m deseq2_tpu_torch.ops.studies edges [N_PERM]
+    python -m deseq2_tpu_torch.ops.studies edges [N_PERM [wide]]
     python -m deseq2_tpu_torch.ops.studies expanded
     python -m deseq2_tpu_torch.ops.studies mainpath PARENT_ROOT [CALLS]
     python -m deseq2_tpu_torch.ops.studies wide [REPS]
@@ -50,7 +50,16 @@ plain version and the plain version on the same inputs with the samples
 permuted (so only the summation order differs), N_PERM permutations
 (default 5), K1, K2 and K3 both modes: how far the readings move when
 nothing but rounding does.  A reading that fails in any permutation is
-rounding-bound (checks.ROUNDING_BOUND).
+rounding-bound (checks.ROUNDING_BOUND).  `edges N_PERM wide`: the same at
+the wide kernels' checks (SHAPES' S = 24 row, p in checks.WIDE_P, every
+mode of checks.WIDE_MODES), each permutation also permuting the design's
+columns, so that the p x p algebra's elimination order moves as the
+kernels' own order moves it, and on a card one more run of the plain
+version on the host against the card's (other special functions and
+summation orders, as the kernels have their own): how far rounding alone
+moves the readings that checks.within_plain_spread holds a wide kernel
+to, where it fails checks.TOL (at S = 3,000 no reading failed in 5 sample
+permutations, on the card or the CPU, PERF.md section 6).
 
 `batch_rows` (the card, or the CPU): whether the first (and last) N rows
 of a per-gene quantity come out bit for bit as the same rows of the whole
@@ -97,15 +106,14 @@ and this checkout (parent, change, change, parent): each turn makes a
 cold call, then CALLS warm calls (default 5), and the study prints every
 warm call's genes/s and each checkout's median.
 
-`wide`: K1 at p = 10, 60,000 x 1,024 (checks.solver_inputs), float64 and
-float32: the plain version on the card, the wrapper's route (the P = 16
-library, ops/cuda_irls.py), and study builds of csrc/irls.cu with one more
-width (-DDK_WIDE_P=10: the exact width; -DDK_WIDE_P=16: a width that serves p =
-9..16, the design padded with zero columns under the same ridge, which
-leaves the first p coefficients' arithmetic as it is): each build's
-registers and spills, each route's median of REPS launches (default 3)
-after a warm-up, and each build's largest beta difference from the plain
-route on the genes both take as converged.
+`wide`: the wide kernels (8 < p <= 16, csrc's *_wide_kernel): their
+registers and spill bytes (ptxas), then K1 and K2 (with the prior) at p =
+10 and 16, 60,000 x 1,024 (checks.solver_inputs, seed 11), float64 and
+float32: the median of REPS launches (default 3) after a warm-up, beside
+the plain version on the card, and K1's largest beta difference from the
+plain version on the genes both take as converged.  (Before the wide
+kernels this study timed builds of the templated K1 at P = 10 and 16, the
+yardstick in PERF.md section 6.)
 
 `rlog` (the card if there is one, else the CPU): rlog's arrow IRLS
 (transforms.py:rlog_arrow_irls) on the inputs a blind rlog hands it
@@ -264,16 +272,24 @@ def ls_study(dev, n_seeds):
               f"kernel {ks}, plain {ps}")
 
 
-def edges_study(dev, n_perm):
+def edges_study(dev, n_perm, wide=False):
     from .disp import fit_disp_grid_plain, fit_disp_line_search_plain
     from .irls import fit_beta_plain
     perm_rng = torch.Generator().manual_seed(1)
-    cases = [(S, G, p) for S, G in checks.SHAPES if S < 1000
-             for p in (2, 3)] + list(checks.EDGES)
+    if wide:
+        cases = [(S, G, p) for S, G in checks.SHAPES if S < 1000
+                 for p in checks.WIDE_P]
+        modes = checks.WIDE_MODES
+    else:
+        cases = [(S, G, p) for S, G in checks.SHAPES if S < 1000
+                 for p in (2, 3)] + list(checks.EDGES)
+        modes = ((False, None), (True, None))
     for S, G, p in cases:
-        for weighted in (False, True):
-            raw = checks.solver_inputs(G, S, p, 10 * p + S, weighted=weighted)
-            d = checks.as_tensors(raw, torch.float32, dev)
+        for weighted, mode in modes:
+            raw = checks.solver_inputs(G, S, p, checks.seed_of(p, S, mode),
+                                       weighted=weighted)
+            d = checks.with_mode(checks.as_tensors(raw, torch.float32, dev),
+                                 mode)
             base1 = checks.run_irls(fit_beta_plain, d)
             base2 = {u: checks.run_ls(fit_disp_line_search_plain, d, u)
                      for u in (False, True)}
@@ -283,19 +299,47 @@ def edges_study(dev, n_perm):
                      for u in (False, True)}
             ref3 = {u: checks.grid_reference(d, u) for u in (False, True)}
             fails = {"irls": 0, False: 0, True: 0, "grid": [0, 0]}
-            line = f"S={S} G={G} p={p} weighted={weighted}:"
-            for i in range(n_perm):
-                perm = torch.randperm(S, generator=perm_rng).to(dev)
-                dp = {k: v[:, perm] if k in ("y", "mu", "w") else v
-                      for k, v in d.items()}
-                dp["x"] = d["x"][perm]
-                r1 = checks.check_irls(checks.run_irls(fit_beta_plain, dp),
-                                       base1)
+            line = f"S={S} G={G} p={p} weighted={weighted} mode={mode}:"
+
+            def on(dev_, fn, dp, *a):
+                # fn on device dev_, its outputs back on dev
+                out = fn({k: v.to(dev_) if torch.is_tensor(v) else v
+                          for k, v in dp.items()}, *a)
+                if torch.is_tensor(out):
+                    return out.to(dev)
+                return {k: v.to(dev) for k, v in out.items()}
+
+            # the variants: sample permutations (wide: and column
+            # permutations) on this device, and for wide designs on a card
+            # the plain version on the host too (its own special functions
+            # and summation orders, as the kernels have theirs)
+            variants = list(range(n_perm))
+            if wide and dev.type == "cuda":
+                variants.append("cpu")
+            for i in variants:
+                run_dev = torch.device("cpu") if i == "cpu" else dev
+                dp, cols = dict(d), None
+                if i != "cpu":
+                    perm = torch.randperm(S, generator=perm_rng).to(dev)
+                    dp = {k: v[:, perm] if k in ("y", "mu", "w") else v
+                          for k, v in d.items()}
+                    dp["x"] = d["x"][perm]
+                    if wide:
+                        # the columns too: the p x p algebra's elimination
+                        # order changes, the posterior and the fit do not
+                        cols = torch.randperm(p, generator=perm_rng).to(dev)
+                        dp["x"], dp["b0"] = dp["x"][:, cols], d["b0"][:, cols]
+                k1 = on(run_dev, lambda dd: checks.run_irls(fit_beta_plain,
+                                                            dd), dp)
+                if cols is not None:
+                    k1["beta"] = k1["beta"][:, torch.argsort(cols)]
+                r1 = checks.check_irls(k1, base1)
                 fails["irls"] += not r1["ok"]
                 line += f" [{i}] irls beta_rel {r1['beta_rel']:.3g}"
                 for u in (False, True):
-                    r2 = checks.check_ls(
-                        checks.run_ls(fit_disp_line_search_plain, dp, u),
+                    r2 = checks.check_ls(on(
+                        run_dev, lambda dd: checks.run_ls(
+                            fit_disp_line_search_plain, dd, u), dp),
                         base2[u], d, u, ref=ref2[u])
                     fails[u] += not r2["ok"]
                     line += (f"; ls prior={u} agree {r2['agree']:.3f} max "
@@ -303,15 +347,16 @@ def edges_study(dev, n_perm):
                              f"{r2['short_plain_max']:.3g} mean "
                              f"{r2['short_kernel_mean']:.3g}/"
                              f"{r2['short_plain_mean']:.3g}")
-                    r3 = checks.check_grid(
-                        checks.run_grid(fit_disp_grid_plain, dp, u),
+                    r3 = checks.check_grid(on(
+                        run_dev, lambda dd: checks.run_grid(
+                            fit_disp_grid_plain, dd, u), dp),
                         base3[u], d, u, ref=ref3[u])
                     fails["grid"][u] += not r3["ok"]
                     line += (f"; grid prior={u} short "
                              f"{r3['short_kernel']:.3g}/"
                              f"{r3['short_plain']:.3g} sep_same "
                              f"{r3['sep_same_kernel']:.3f} of {r3['n_sep']}")
-            print(f"{line}\n  failed in {n_perm} permutations: irls "
+            print(f"{line}\n  failed in {len(variants)} variants: irls "
                   f"{fails['irls']}, ls prior=False {fails[False]}, "
                   f"ls prior=True {fails[True]}, grid prior=False "
                   f"{fails['grid'][0]}, grid prior=True {fails['grid'][1]}",
@@ -598,15 +643,23 @@ def kernels_study(dev, parent_root, reps):
 
 
 def wide_study(dev, reps):
-    """The p > 8 route against study builds of K1 with a wider P."""
-    import ctypes
+    """The wide kernels (8 < p <= 16) against their plain versions."""
+    import re
 
     from . import build
     from .cuda_irls import fit_beta
+    from .cuda_ls import fit_disp_line_search
+    from .disp import fit_disp_line_search_plain
     from .irls import fit_beta_plain
 
-    G, S, p = 60000, 1024, 10
-    raw = checks.solver_inputs(G, S, p, 11)
+    for name in ("irls", "disp_ls", "disp_grid"):
+        for sym, (regs, spill) in sorted(build.ptxas_resources(name).items()):
+            m = re.search(r"([a-z]+_wide_kernel)I(\w)Lb(\d)E(Lb(\d)E)?E", sym)
+            if m:
+                t = "float" if m.group(2) == "f" else "double"
+                print(f"{m.group(1)} {t} weighted={m.group(3)} use_cr="
+                      f"{m.group(5) or '-'}: {regs} registers, {spill} spill "
+                      f"bytes", flush=True)
 
     def median_ms(fn):
         fn()
@@ -622,64 +675,31 @@ def wide_study(dev, reps):
             ts.append(a.elapsed_time(b))
         return sorted(ts)[len(ts) // 2]
 
-    for dname in ("float64", "float32"):
-        dt = getattr(torch, dname)
-        d = checks.as_tensors(raw, dt, dev)
-        args = (d["y"], d["x"], torch.ones(S, dtype=dt, device=dev),
-                d["alpha"], d["b0"], checks.ridge_for(p, dt, dev))
-        ref = fit_beta_plain(*args)
-        ms = median_ms(lambda: fit_beta_plain(*args))
-        print(f"{dname} p={p} plain version on the card: {ms:.2f} ms",
-              flush=True)
-        n0 = fit_beta.launches_wide
-        ms_w = median_ms(lambda: fit_beta(*args))
-        print(f"{dname} p={p} the wrapper's route: {ms_w:.2f} ms, "
-              f"launches_wide +{fit_beta.launches_wide - n0}", flush=True)
-        for P in (10, 16):
-            defines = (f"-DDK_WIDE_P={P}",)
-            lib = build.load("irls", defines)
-            res = {k: v for k, v in build.ptxas_resources(
-                "irls", defines).items() if f"Li{P}E" in k}
-            f64 = dname == "float64"
-            scal = ctypes.c_double if f64 else ctypes.c_float
-            fn = build.bind(lib, "irls_launch_f64" if f64 else
-                            "irls_launch_f32",
-                            [ctypes.c_void_p] * 2 + [ctypes.c_longlong]
-                            + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                            + [scal, ctypes.c_int, scal]
-                            + [ctypes.c_void_p] * 8)
-            pad = P - p
-            x = torch.cat([d["x"], torch.zeros(S, pad, dtype=dt,
-                                                device=dev)], 1).contiguous()
-            b0 = torch.cat([d["b0"], torch.zeros(G, pad, dtype=dt,
-                                                 device=dev)], 1).contiguous()
-            ridge = checks.ridge_for(P, dt, dev)
-            y, nf, al = args[0].contiguous(), args[2], args[3].contiguous()
-            out = dict(beta=torch.empty(G, P, dtype=dt, device=dev),
-                       beta_var=torch.empty(G, P, dtype=dt, device=dev),
-                       deviance=torch.empty(G, dtype=dt, device=dev),
-                       iter=torch.empty(G, dtype=torch.int32, device=dev),
-                       mu=torch.empty(G, S, dtype=dt, device=dev),
-                       hat=torch.empty(G, S, dtype=dt, device=dev))
-
-            def launch():
-                counter = torch.zeros(1, dtype=torch.int32, device=dev)
-                err = fn(build.ptr(y), build.ptr(nf), 0, build.ptr(None),
-                         build.ptr(al), build.ptr(b0), build.ptr(ridge),
-                         build.ptr(x), G, S, P, 1e-8, 100, 0.5,
-                         *(build.ptr(out[k]) for k in (
-                             "beta", "beta_var", "deviance", "iter", "mu",
-                             "hat")),
-                         build.ptr(counter), build.stream_of(y))
-                build.check(err, "irls (study build)")
-
-            ms_p = median_ms(launch)
-            conv = (out["iter"] < 100) & (ref["iter"] < 100)
-            diff = (out["beta"][:, :p] - ref["beta"]).abs()[conv].max()
-            print(f"{dname} p={p} K1 built with P={P}: {ms_p:.2f} ms, "
-                  f"registers/spill bytes {res}, converged "
-                  f"{int(conv.sum())}/{G}, max |beta - plain| "
-                  f"{diff.item():.3g}", flush=True)
+    G, S = 60000, 1024
+    for p in (10, 16):
+        raw = checks.solver_inputs(G, S, p, 11)
+        for dname in ("float64", "float32"):
+            d = checks.as_tensors(raw, getattr(torch, dname), dev)
+            k1 = checks.run_irls(fit_beta, d)
+            ref = checks.run_irls(fit_beta_plain, d)
+            conv = (k1["iter"] < 100) & (ref["iter"] < 100)
+            diff = (k1["beta"] - ref["beta"]).abs()[conv].max().item()
+            ms = median_ms(lambda: checks.run_irls(fit_beta, d))
+            pms = median_ms(lambda: checks.run_irls(fit_beta_plain, d))
+            print(f"{dname} p={p} K1: wide kernel {ms:.2f} ms, plain version "
+                  f"on the card {pms:.2f} ms, sweeps/gene "
+                  f"{k1['iter'].double().mean().item():.2f}, converged "
+                  f"{int(conv.sum())}/{G}, max |beta - plain| {diff:.3g}",
+                  flush=True)
+            k2 = checks.run_ls(fit_disp_line_search, d, True)
+            ms = median_ms(lambda: checks.run_ls(fit_disp_line_search, d,
+                                                 True))
+            pms = median_ms(lambda: checks.run_ls(fit_disp_line_search_plain,
+                                                  d, True))
+            evals = (k2["iter"].double() + 1).mean().item()
+            print(f"{dname} p={p} K2 (prior): wide kernel {ms:.2f} ms, plain "
+                  f"version on the card {pms:.2f} ms, {evals:.2f} "
+                  f"evaluations/gene", flush=True)
 
 
 def rlog_study(dev, n_seeds):
@@ -826,7 +846,7 @@ if __name__ == "__main__":
                    else torch.device("cpu"))
         if sys.argv[1] == "edges":
             edges_study(any_dev, int(sys.argv[2]) if len(sys.argv) > 2
-                        else 5)
+                        else 5, wide=sys.argv[3:4] == ["wide"])
         elif sys.argv[1] == "rlog":
             rlog_study(any_dev, int(sys.argv[2]) if len(sys.argv) > 2
                        else 4)

@@ -1015,10 +1015,11 @@ def fused_wald_pipeline(counts, x, size_factors, grid, maxit=100,
 
     # ---- onto the first device: the results tail ----
     cols = {k: gat([c[k] for c in cols_b]) for k in cols_b[0]}
+    # (max_cooks is None where no cell has 3 replicates, max_cooks_dev)
     tail = {k: gat([b[k] for b in blk]) for k in (
         "replace", "base_mean", "base_var", "all_zero", "cooks",
         "max_cooks", "replaceCounts", "replaceCooks", "zz", "unmask")
-        if k in blk[0]}
+        if blk[0].get(k) is not None}
     replace, base_mean, base_var, all_zero = (
         tail[k] for k in ("replace", "base_mean", "base_var", "all_zero"))
     cooks, max_cooks = tail.get("cooks"), tail.get("max_cooks")
@@ -1132,7 +1133,8 @@ def fused_wald_pipeline(counts, x, size_factors, grid, maxit=100,
         filterCutoffs=cutoffs)
     if cooks is not None:
         out["cooks"] = cooks
-        out["maxCooks"] = nanmask(max_cooks)
+        out["maxCooks"] = (torch.full((G,), nan, dtype=dtype, device=dev)
+                           if max_cooks is None else nanmask(max_cooks))
     return out
 
 

@@ -65,6 +65,39 @@ def test_grid_check(case, use_prior):
     assert not checks.check_grid(coarse, pl, d, use_prior, ref=ref)["ok"]
 
 
+@pytest.mark.parametrize("kind", ["ls", "grid"])
+@pytest.mark.parametrize("p,weighted,mode", [(10, False, None),
+                                             (16, True, "thr")])
+def test_within_plain_spread(kind, p, weighted, mode):
+    """The wide float32 readings' rule at S = 24: the plain version on
+    another order of the samples and columns (a kernel that differs only
+    in rounding) is within the plain version's permutation spread; a log
+    alpha moved by 0.02 on every gene (K2), or onto the next fine-grid
+    point on 5% of the genes (K3), is not."""
+    raw = checks.solver_inputs(333, 24, p, checks.seed_of(p, 24, mode),
+                               weighted=weighted)
+    d = checks.with_mode(checks.as_tensors(raw, F32, "cpu"), mode)
+    other = checks.permuted(d, torch.Generator().manual_seed(7))
+    noise = torch.randn(333, generator=torch.Generator().manual_seed(0))
+    if kind == "ls":
+        pl = checks.run_ls(disp.fit_disp_line_search_plain, d, True)
+        ref = checks.line_search_reference(d, True)
+        good = checks.run_ls(disp.fit_disp_line_search_plain, other, True)
+        bad = dict(pl, log_alpha=pl["log_alpha"] + 0.02 * noise)
+        read = checks.check_ls
+    else:
+        pl = checks.run_grid(disp.fit_disp_grid_plain, d, True)
+        ref = checks.grid_reference(d, True)
+        good = checks.run_grid(disp.fit_disp_grid_plain, other, True)
+        step = 2.0 * (d["grid"][1] - d["grid"][0]).item() / 19
+        bad = pl + step * (noise.abs() > 1.96).to(F32)
+        read = checks.check_grid
+    for k, ok in ((good, True), (bad, False)):
+        r = checks.within_plain_spread(kind, read(k, pl, d, True, ref=ref),
+                                       pl, d, True, ref)
+        assert r["ok"] == ok, r
+
+
 def test_float64_checks_hold_trajectories():
     d = _data(24, 333, 2, torch.float64)
     pl = _ls(d, True)

@@ -15,8 +15,10 @@ alone fails (checks.ROUNDING_BOUND) hold K1 to the float64 fit and leave
 K2's and K3's out, and twice on the same inputs, where its outputs must be
 the same bit for bit.  K2 and K3 also run in their other modes (without
 the Cox-Reid term; the weighted row cut at 0.5), the wrappers' p > 8
-route is held to the CPU, and the host engine's deseq(engine="host") on
-the card to the same call with device="cpu".  K1 at the quasi-likelihood
+routes (the wide kernels for p <= 16, the plain version past 16) are held
+to the CPU, a paired p = 10 call on a 2-block mesh to the single-device
+call, and the host engine's deseq(engine="host") on the card to the same
+call with device="cpu".  K1 at the quasi-likelihood
 fits' minmu = 1e-6 is held to its plain version, and the streamed
 single-cell path on the card to the CPU (float64) and to bench.py's
 single-cell gate (float32).
@@ -181,16 +183,16 @@ def test_kernels_repeatable(cuda, dt, weighted):
 
 
 def test_wrapper_refuses_unsupported(cuda):
-    """A dtype the kernels do not take raises; a design wider than 8
-    columns is no longer refused: K2 takes the p > 8 route (the plain
-    version on the card, counted in launches_plain)."""
+    """A dtype the kernels do not take raises; a design wider than 16
+    columns is not refused: K2 takes the p > 16 route (the plain version
+    on the card, counted in launches_plain)."""
     d = _inputs(8, 24, 2, 0, torch.float32, cuda)
     with pytest.raises(TypeError):
         fit_disp_grid(d["y"].half(), d["x"].half(), d["mu"].half(),
                       d["grid"].half(), d["pm"].half(), 1.0)
-    x9 = torch.ones(24, 9, device=cuda)
+    x17 = torch.ones(24, 17, device=cuda)
     n0 = fit_disp_line_search.launches_plain
-    out = fit_disp_line_search(d["y"], x9, d["mu"], d["la0"], d["pm"], 1.0,
+    out = fit_disp_line_search(d["y"], x17, d["mu"], d["la0"], d["pm"], 1.0,
                                MIN_LA)
     assert out["log_alpha"].is_cuda
     assert fit_disp_line_search.launches_plain == n0 + 1
@@ -236,45 +238,87 @@ def test_kernel_modes_match_plain(cuda, mode, case, use_prior):
     assert r3["ok"], r3
 
 
-@pytest.mark.parametrize("p", [10, 16, 17])
+@pytest.mark.parametrize("p", [9, 10, 16, 17])
 @pytest.mark.parametrize("weighted", [False, True])
 def test_wide_route_on_card_matches_cpu(cuda, weighted, p):
-    """Past p = 8 each wrapper takes its route by p: K1 the P = 16 kernel
-    on the zero-padded design for p <= 16 (launches_wide) and the plain
-    version on the card past 16 (launches_plain); K2 and K3 the plain
-    version on the card (launches_plain).  Each gives the CPU's result:
-    the same deviance and log alpha, and the same betas off the first ten
-    genes, whose weights put 1e-3 on half the samples (checks.
-    solver_inputs): their wide weighted designs are ill-conditioned
-    enough that the card's and the CPU's rounding moves a beta by ~4e-6
-    relative, and the deviance by ~1.3e-8 relative."""
+    """Past p = 8 each wrapper takes its route by p: for p <= 16 the wide
+    kernels (K1 counted in launches_wide, K2 and K3 in their mode's
+    _wide count), past 16 the plain version on the card
+    (launches_plain).  Each is held to the same wrapper on the CPU (its
+    plain version) with phase 3's float64 readings (checks.check_irls,
+    check_ls, check_grid), and output by output: K1's deviance and every
+    gene's K2 and K3 log alpha as before, and K1's beta, beta_var,
+    hat_diag and mu, on the genes converged on both, off the first ten
+    genes, whose weights put 1e-3 on half the samples
+    (checks.solver_inputs): their wide weighted designs are
+    ill-conditioned enough that the card's and the CPU's rounding moves a
+    beta by ~4e-6 relative, and the deviance by ~1.3e-8 relative."""
+    from deseq2_tpu_torch.ops.cuda_ls import mode_counter
     raw = checks.solver_inputs(64, 40, p, 5, weighted=weighted)
     card = checks.as_tensors(raw, torch.float64, cuda)
     cpu = checks.as_tensors(raw, torch.float64, torch.device("cpu"))
-    k1 = "launches_wide" if p <= 16 else "launches_plain"
-    before = [getattr(fit_beta, k1), fit_disp_line_search.launches_plain,
-              fit_disp_grid.launches_plain]
-    outs = [(checks.run_irls(fit_beta, card), checks.run_irls(fit_beta, cpu)),
-            (checks.run_ls(fit_disp_line_search, card, True),
-             checks.run_ls(fit_disp_line_search, cpu, True)),
-            ({"log_alpha": checks.run_grid(fit_disp_grid, card, True)},
-             {"log_alpha": checks.run_grid(fit_disp_grid, cpu, True)})]
-    torch.cuda.synchronize()
-    assert [getattr(fit_beta, k1), fit_disp_line_search.launches_plain,
-            fit_disp_grid.launches_plain] == [v + 1 for v in before]
+    w = card.get("w")
+    names = ["launches_wide" if p <= 16 else "launches_plain"]
+    names += [mode_counter(w, True, checks.CR_WEIGHT_THRESHOLD, p)
+              if p <= 16 else "launches_plain"] * 2
+    fns = (fit_beta, fit_disp_line_search, fit_disp_grid)
+    before = [getattr(f, n) for f, n in zip(fns, names)]
+    k1 = {k: v.cpu() for k, v in checks.run_irls(fit_beta, card).items()}
+    k2 = {k: v.cpu() for k, v in checks.run_ls(fit_disp_line_search, card,
+                                               True).items()}
+    k3 = checks.run_grid(fit_disp_grid, card, True).cpu()
+    assert [getattr(f, n) for f, n in zip(fns, names)] == \
+        [v + 1 for v in before]
+    c1 = checks.run_irls(fit_beta, cpu)
+    c2 = checks.run_ls(fit_disp_line_search, cpu, True)
+    c3 = checks.run_grid(fit_disp_grid, cpu, True)
+    for r in (checks.check_irls(k1, c1), checks.check_ls(k2, c2, cpu, True),
+              checks.check_grid(k3, c3, cpu, True)):
+        assert r["ok"], r
     well = slice(10 if weighted else 0, None)
-    for a, b in outs:
-        for key, rows, tol in (("beta", well, 1e-6), ("deviance", well, 1e-9),
-                               ("deviance", slice(None), 1e-7),
-                               ("log_alpha", slice(None), 1e-6)):
-            if key in a:
-                conv = slice(None)
-                if key != "log_alpha":
-                    both = (a["iter"].cpu() < 100) & (b["iter"] < 100)
-                    conv = both[rows]
-                torch.testing.assert_close(a[key][rows].cpu()[conv],
-                                           b[key][rows][conv], rtol=tol,
-                                           atol=1e-8, equal_nan=True)
+    conv = (k1["iter"] < 100) & (c1["iter"] < 100)
+    for key, rows, tol in (("beta", well, 1e-6), ("deviance", well, 1e-9),
+                           ("deviance", slice(None), 1e-7),
+                           ("beta_var", well, 1e-6),
+                           ("hat_diag", well, 1e-6),
+                           ("mu", well, 1e-6)):
+        torch.testing.assert_close(k1[key][rows][conv[rows]],
+                                   c1[key][rows][conv[rows]], rtol=tol,
+                                   atol=1e-8, equal_nan=True, msg=key)
+    for a, b in ((k2["log_alpha"], c2["log_alpha"]), (k3, c3)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-8,
+                                   equal_nan=True)
+
+
+@pytest.mark.parametrize("engine", ["fused", "host"])
+def test_paired_mesh_on_card_matches_single(cuda, engine):
+    """The paired design ~ subject + condition at p = 10 (the wide
+    kernels) through deseq(mesh=...) + results() on a 2-block mesh of
+    cuda:0, in float64: every per-gene column and result equal to the
+    single-device call's bit for bit (each gene's kernel arithmetic does
+    not depend on the genes beside it), the wide K1 and K2 launched in
+    each block."""
+    import deseq2_tpu_torch as dt
+    from deseq2_tpu_torch.parallel import gene_mesh
+    counts, subj, cond = checks.paired_gate_counts(501, 40, 9, seed=3)
+    dds = dt.dataset_from_arrays(counts, {"subject": subj,
+                                          "condition": cond},
+                                 "~ subject + condition")
+    one = dt.deseq(dds, engine=engine)
+    r1 = dt.results(one)
+    n0 = (fit_beta.launches_wide, fit_disp_line_search.launches_wide)
+    fit = dt.deseq(dds, engine=engine, mesh=gene_mesh(devices=[cuda] * 2))
+    assert fit_beta.launches_wide - n0[0] >= 2
+    assert fit_disp_line_search.launches_wide - n0[1] >= 2
+    res = dt.results(fit)
+    for col in ("dispGeneEst", "dispersion", "betaIter"):
+        np.testing.assert_array_equal(np.asarray(fit.row_data[col], float),
+                                      np.asarray(one.row_data[col], float),
+                                      err_msg=col)
+    for col in r1.column_names:
+        np.testing.assert_array_equal(np.asarray(res[col], float),
+                                      np.asarray(r1[col], float),
+                                      err_msg=col)
 
 
 HOST_CASES = {

@@ -572,19 +572,30 @@ def test_plain_grid_modes_match_xla(use_cr, thr, weighted, use_prior):
 
 def test_wrappers_route_by_device_and_p():
     """On the CPU every wrapper runs its plain version whatever p (no
-    counter moves); at p = 10 the host and fused engines give the JAX
-    host engine's table (test_host_results_match_jax[p10])."""
+    counter moves), at p = 10, 12 and 16 (the wide kernels' widths on a
+    card); at p = 10 the host and fused engines give the JAX host
+    engine's table (test_host_results_match_jax[p10])."""
     from deseq2_tpu_torch.ops.cuda_grid import fit_disp_grid
     from deseq2_tpu_torch.ops.cuda_irls import fit_beta
     from deseq2_tpu_torch.ops.cuda_ls import fit_disp_line_search
+    from deseq2_tpu_torch.ops.irls import fit_beta_plain
     before = [dict(vars(f)) for f in (fit_beta, fit_disp_line_search,
                                       fit_disp_grid)]
-    y, x, mu, la0, _, grid = _sim(G=40, S=30, p=10, seed=2)
-    pm = np.zeros(len(y))
-    a = fit_disp_line_search(*_t(y, x, mu, la0, pm), 1.0, -20.0)
-    b = tdisp.fit_disp_line_search_plain(*_t(y, x, mu, la0, pm), 1.0, -20.0)
-    assert torch.equal(a["log_alpha"], b["log_alpha"])
-    fit_disp_grid(*_t(y, x, mu, grid, pm), 1.0)
+    for p in (10, 12, 16):
+        y, x, mu, la0, _, grid = _sim(G=40, S=30, p=p, seed=2)
+        pm = np.zeros(len(y))
+        a = fit_disp_line_search(*_t(y, x, mu, la0, pm), 1.0, -20.0)
+        b = tdisp.fit_disp_line_search_plain(*_t(y, x, mu, la0, pm), 1.0,
+                                             -20.0)
+        assert torch.equal(a["log_alpha"], b["log_alpha"])
+        assert torch.equal(fit_disp_grid(*_t(y, x, mu, grid, pm), 1.0),
+                           tdisp.fit_disp_grid_plain(*_t(y, x, mu, grid, pm),
+                                                     1.0))
+        b0 = np.zeros((len(y), p))
+        b0[:, 0] = np.log(y.mean(axis=1) + 0.5)
+        k1 = _t(y, x, np.ones(y.shape[1]), np.exp(la0), b0,
+                np.full(p, 1e-6))
+        assert torch.equal(fit_beta(*k1)["beta"], fit_beta_plain(*k1)["beta"])
     assert [dict(vars(f)) for f in (fit_beta, fit_disp_line_search,
                                     fit_disp_grid)] == before
     jf, tf, jr, tr, _ = run_pair("p10")
