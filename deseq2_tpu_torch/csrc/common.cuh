@@ -1,9 +1,9 @@
 // Device helpers shared by the three per-gene solver kernels
 // (irls.cu, disp_ls.cu, disp_grid.cu): warp reductions, the NB special
 // functions with their float32 large-c series branches, unrolled p x p
-// Cholesky routines for p = 1..8, the weighted Cox-Reid masks, and the
-// wide kernels' tile pass and shared-memory algebra for 8 < p <= 16 (the
-// last section).
+// Cholesky routines for p = 1..8, the weighted Cox-Reid masks, the wide
+// kernels' tile pass and shared-memory algebra for 8 < p <= 16, and the
+// block kernels' for 16 < p <= 64 (the last two sections).
 //
 // One layout for p <= 8: a warp's lanes stride over a gene's samples,
 // warp_allsum leaves the sums on every lane, and every lane runs the same
@@ -767,6 +767,448 @@ __device__ __forceinline__ void tile_put(T* xb, T* ub, const T* xt, int S,
     xb[k * kTileStride + l] = v;
     ub[k * kTileStride + l] = w * v;
   }
+}
+
+// ---------------------------------------------------------------------------
+// Block-per-gene designs, kPWide < p <= kPBlock (the *_block kernels of
+// irls.cu, disp_ls.cu and disp_grid.cu)
+// ---------------------------------------------------------------------------
+//
+// Past 16 columns a warp's share of shared memory cannot hold a gene's
+// p x p matrices (one float64 64 x 64 matrix is 32 KB), and the wide
+// kernels' map (4 x 4 upper blocks over 32 lanes) holds at most 28
+// columns.  The block kernels give each gene a thread block of
+// kBlockThreads threads:
+// - the block walks its gene's samples in tiles of tw = 32 k samples (k
+//   warps, block_tile picks k from p and the type), one sample a thread:
+//   each thread computes its sample's terms and writes x_s and w x_s into
+//   the block's column-major tile buffers (column stride tw + 1);
+// - the block's threads own the 4 x 4 upper blocks of the p x p gram
+//   (block_gram_map: at p = 64 its 136 blocks, one a thread; at fewer
+//   columns the threads form groups that take turns over a tile's
+//   samples), and after the last tile the groups' partial blocks are
+//   added in group order (block_gram_reduce).  Every entry is summed in
+//   one fixed order, so two launches give the same bits and a gene's
+//   result does not depend on the genes beside it;
+// - the p x p algebra (Cholesky, solve, inverse, log determinant) runs on
+//   matrices of row stride p in the block's dynamic shared memory, with a
+//   __syncthreads between columns (block_cholesky, block_chol_solve,
+//   block_chol_inverse), each entry reduced in the wide kernels' order;
+// - the gene's sums are reduced by warp butterflies and then over the
+//   warps in warp order (block_allsum), on every thread, so the solver
+//   control runs on the same values in every thread.
+// The weighted Cox-Reid column mask is a 64-bit set of kept columns.
+
+// the block kernels' widest design: the gram's 4 x 4 upper blocks at p =
+// 64, 136 of them, are at most one a thread, and a block's two float64
+// matrices (64 KB) and tile buffers fit the SM's shared memory beside a
+// second block's (block_tile).  ops/cuda_ls.py's P_BLOCK mirrors it.
+constexpr int kPBlock = 64;
+constexpr int kBlockThreads = 256;
+constexpr int kBlockWarpsN = kBlockThreads / 32;
+// shared memory a block's layout may take: half the SM's 227 KB, so that
+// two blocks can be resident.  A study build may set another
+// (-DDK_BLOCK_SMEM_TARGET=232448: one block an SM, wider tiles), and may
+// let the block launches take designs from DK_BLOCK_MIN_P + 1 columns
+// (`python -m deseq2_tpu_torch.ops.studies variant`); the library's own
+// build sets neither.
+#ifndef DK_BLOCK_SMEM_TARGET
+#define DK_BLOCK_SMEM_TARGET 116224
+#endif
+#ifndef DK_BLOCK_MIN_P
+#define DK_BLOCK_MIN_P kPWide
+#endif
+constexpr size_t kBlockSmemTarget = DK_BLOCK_SMEM_TARGET;
+constexpr int kBlockMinP = DK_BLOCK_MIN_P;
+// the block's small values, in values of T: two p-vectors (K1's
+// coefficients and right-hand side), then the block sums' scratch (4 sums
+// a warp) at kBlockRed, then the slots of the gene index and the 64-bit
+// column mask at kBlockSlots (an even offset: 8-byte aligned in float)
+constexpr int kBlockRed = 2 * kPBlock;
+constexpr int kBlockSlots = kBlockRed + 4 * kBlockWarpsN;
+constexpr int kBlockVecVals = kBlockSlots + 4;
+
+// The gram's block map over the block (gram_map's over a warp): nbr =
+// ceil(p / 4) row blocks, nb = nbr (nbr + 1) / 2 upper blocks, ng =
+// kBlockThreads / nb groups; thread t owns block t % nb in group t / nb.
+__host__ __device__ inline int block_gram_blocks(int p) {
+  const int nbr = (p + 3) >> 2;
+  return nbr * (nbr + 1) / 2;
+}
+
+__host__ __device__ inline int block_gram_groups(int p) {
+  return kBlockThreads / block_gram_blocks(p);
+}
+
+__device__ __forceinline__ GramMap block_gram_map(int p) {
+  GramMap m;
+  const int nbr = (p + 3) >> 2;
+  m.nb = block_gram_blocks(p);
+  m.ng = kBlockThreads / m.nb;
+  const int t = threadIdx.x;
+  m.grp = t / m.nb;
+  m.active = m.grp < m.ng;
+  int b = t - m.grp * m.nb, rq = 0;
+  while (b >= nbr - rq) {
+    b -= nbr - rq;
+    ++rq;
+  }
+  m.r0 = rq * 4;
+  m.c0 = (rq + b) * 4;
+  m.diag = b == 0;
+  return m;
+}
+
+// The shared-memory layout of a block kernel's launch, in values of T:
+// nmat p x p matrices (row stride p), the vectors, then the tile buffers
+// x (pr x ts), w x (pr x ts) and one value a sample (K1's w z), which the
+// groups' partial blocks reuse as their scratch between passes (so the
+// region is at least (ng - 1) nb 16 values).  pr = p rounded up to the
+// gram's blocks of 4: the last blocks read rows past p, whose products
+// land only in entries past p, which are never stored.
+struct BlockLayout {
+  int p, pr, tw, ts;
+  size_t mat, vec, tile, vals;
+};
+
+__host__ __device__ inline BlockLayout block_layout(int p, int tw, int nmat,
+                                                    bool tiles) {
+  BlockLayout l;
+  l.p = p;
+  l.pr = (p + 3) & ~3;
+  l.tw = tw;
+  l.ts = tw + 1;
+  // an even number of values, so that the vectors' 64-bit slot stays
+  // 8-byte aligned in float
+  l.mat = ((size_t)p * p + 1) / 2 * 2;
+  l.vec = kBlockVecVals;
+  const size_t scratch =
+      (size_t)(block_gram_groups(p) - 1) * block_gram_blocks(p) * 16;
+  const size_t buf = 2 * (size_t)l.pr * l.ts + l.ts;
+  l.tile = tiles ? (buf > scratch ? buf : scratch) : 0;
+  l.vals = nmat * l.mat + l.vec + l.tile;
+  return l;
+}
+
+// The tile width of a block kernel at p with nmat matrices: the most
+// warps' samples (up to the block's) whose layout stays within
+// kBlockSmemTarget.  It depends on p, the type and the kernel alone, never
+// on the gene count, so that a gene's sums run in the same order in any
+// launch.
+template <typename T>
+inline int block_tile(int p, int nmat, bool tiles) {
+  int tw = kBlockThreads;
+  while (tw > 32 &&
+         block_layout(p, tw, nmat, tiles).vals * sizeof(T) > kBlockSmemTarget)
+    tw -= 32;
+  return tw;
+}
+
+// The block's next gene from the launch's work counter (one atomic per
+// gene), on every thread; slot is a shared int.
+__device__ __forceinline__ int block_next_gene(int* counter, int* slot) {
+  __syncthreads();
+  if (threadIdx.x == 0) *slot = atomicAdd(counter, 1);
+  __syncthreads();
+  return *slot;
+}
+
+// Sum N per-thread values over the block, in a fixed order (each warp's
+// butterfly, then the warps' totals in warp order), leaving the totals on
+// every thread.  red: N kBlockWarpsN values of shared scratch.
+template <typename T, int N>
+__device__ __forceinline__ void block_allsum(T (&v)[N], T* red) {
+  warp_allsum<T, N>(v);
+  const int w = threadIdx.x >> 5;
+  if (lane_id() == 0) {
+#pragma unroll
+    for (int e = 0; e < N; ++e) red[e * kBlockWarpsN + w] = v[e];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    T s = T(0);
+    for (int k = 0; k < kBlockWarpsN; ++k) s += red[e * kBlockWarpsN + k];
+    v[e] = s;
+  }
+  __syncthreads();
+}
+
+// The largest of the threads' values, on every thread.
+template <typename T>
+__device__ __forceinline__ T block_max(T v, T* red) {
+  v = warp_max(v);
+  if (lane_id() == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = red[0];
+  for (int k = 1; k < kBlockWarpsN; ++k) v = red[k] > v ? red[k] : v;
+  __syncthreads();
+  return v;
+}
+
+// Add a tile's first n samples to the thread's blocks, as gram_add does
+// over a warp (ts the tile buffers' column stride).
+template <typename T, bool D2, bool Rz>
+__device__ __forceinline__ void block_gram_add(const GramMap& m,
+                                               GramBlock<T>& g1,
+                                               GramBlock<T>& g2, T (&rz)[4],
+                                               const T* u, const T* v,
+                                               const T* z, int ts, int n) {
+  if (!m.active) return;
+  for (int t = m.grp; t < n; t += m.ng) {
+    T ur[4], vc[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      ur[i] = u[(m.r0 + i) * ts + t];
+      vc[i] = v[(m.c0 + i) * ts + t];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) g1.a[i][j] += ur[i] * vc[j];
+    }
+    if constexpr (D2) {
+      T uc[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) uc[j] = u[(m.c0 + j) * ts + t];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) g2.a[i][j] += ur[i] * uc[j];
+      }
+    }
+    if constexpr (Rz) {
+      if (m.diag) {
+        const T zt = z[t];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) rz[j] += zt * vc[j];
+      }
+    }
+  }
+}
+
+// Sum the groups' partial values (N a thread) into group 0's threads, in
+// group order, through the block's shared scratch `red` ((ng - 1) nb N
+// values).  Every thread of the block calls it; it ends with a
+// __syncthreads.
+template <typename T, int N>
+__device__ __forceinline__ void block_gram_reduce(const GramMap& m, T* vals,
+                                                  T* red) {
+  __syncthreads();
+  if (m.active && m.grp > 0) {
+    const int slot = (m.grp - 1) * m.nb + (threadIdx.x - m.grp * m.nb);
+#pragma unroll
+    for (int e = 0; e < N; ++e) red[(size_t)slot * N + e] = vals[e];
+  }
+  __syncthreads();
+  if (m.grp == 0) {
+    for (int k = 1; k < m.ng; ++k) {
+      const int slot = (k - 1) * m.nb + threadIdx.x;
+#pragma unroll
+      for (int e = 0; e < N; ++e) vals[e] += red[(size_t)slot * N + e];
+    }
+  }
+  __syncthreads();
+}
+
+template <typename T>
+__device__ __forceinline__ void block_gram_reduce(const GramMap& m,
+                                                  GramBlock<T>& g, T* red) {
+  block_gram_reduce<T, 16>(m, &g.a[0][0], red);
+}
+
+// Write the reduced gram into M (row stride p), as gram_store does, with
+// the 64-bit column mask cm.  Ends with a __syncthreads.
+template <typename T>
+__device__ __forceinline__ void block_gram_store(const GramMap& m,
+                                                 const GramBlock<T>& g, T* M,
+                                                 int p,
+                                                 unsigned long long cm,
+                                                 bool unit_diag,
+                                                 const T* diag) {
+  if (m.grp == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = m.r0 + i, c = m.c0 + j;
+        if (r <= c && c < p) {
+          const T cr = (cm >> r) & 1ull ? T(1) : T(0);
+          const T cc = (cm >> c) & 1ull ? T(1) : T(0);
+          T v = g.a[i][j] * (cr * cc);
+          if (r == c) {
+            if (unit_diag) v += T(1) - cr;
+            if (diag != nullptr) v += diag[r];
+          }
+          M[r * p + c] = v;
+          M[c * p + r] = v;
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// In-place lower Cholesky factor of the p x p SPD matrix a (row stride p)
+// in the block's shared memory: warp_cholesky's steps, pivot floor and
+// order of reduction, with the rows below a column's pivot and the
+// trailing entries shared out over the block.  With LogDet returns log
+// det(a) on every thread (0 otherwise).  Every thread of the block calls
+// it; it ends with a __syncthreads.
+template <typename T, bool LogDet>
+__device__ __forceinline__ T block_cholesky(T* a, int p) {
+  const int t = threadIdx.x;
+  T logdet = T(0);
+  __syncthreads();
+  for (int j = 0; j < p; ++j) {
+    const T s = a[j * p + j];
+    const T d = d_sqrt(s > T(1e-30) ? s : T(1e-30));
+    if (LogDet) logdet += T(2) * d_log(d);
+    __syncthreads();
+    for (int i = j + 1 + t; i < p; i += kBlockThreads) a[i * p + j] /= d;
+    if (t == 0) a[j * p + j] = d;
+    __syncthreads();
+    // the trailing lower triangle, rows i > j, columns j < k <= i
+    const int m = p - j - 1;
+    for (int e = t; e < m * m; e += kBlockThreads) {
+      const int i = j + 1 + e / m, k = j + 1 + e % m;
+      if (k <= i) a[i * p + k] -= a[i * p + j] * a[k * p + j];
+    }
+    __syncthreads();
+  }
+  return logdet;
+}
+
+// x = a^-1 r given block_cholesky's factor L of a: r (p values of shared
+// memory) holds the right-hand side on entry and x on return, with
+// warp_chol_solve's order of reduction; warp 0 computes it.  Every thread
+// of the block calls it; it ends with a __syncthreads.
+template <typename T>
+__device__ __forceinline__ void block_chol_solve(const T* L, int p, T* r) {
+  if (threadIdx.x < 32) {
+    const int lane = lane_id();
+    for (int i = 0; i < p; ++i) {
+      __syncwarp();
+      const T wi = r[i] / L[i * p + i];
+      __syncwarp();
+      for (int k = i + 1 + lane; k < p; k += 32) r[k] -= L[k * p + i] * wi;
+      if (lane == 0) r[i] = wi;
+    }
+    for (int i = p - 1; i >= 0; --i) {
+      __syncwarp();
+      const T xi = r[i] / L[i * p + i];
+      __syncwarp();
+      for (int k = lane; k < i; k += 32) r[k] -= L[i * p + k] * xi;
+      if (lane == 0) r[i] = xi;
+    }
+  }
+  __syncthreads();
+}
+
+// a^-1 = L^-T L^-1 given block_cholesky's factor L: thread j < p computes
+// column j of L^-1 into li, as warp_chol_inverse does, then the threads
+// share out the entries of a^-1, written to both triangles of `out` (which
+// may be L's own buffer).  Every thread of the block calls it; it ends
+// with a __syncthreads.
+template <typename T>
+__device__ __forceinline__ void block_chol_inverse(const T* L, T* li, T* out,
+                                                   int p) {
+  const int j = threadIdx.x;
+  if (j < p) {
+    li[j * p + j] = T(1) / L[j * p + j];
+    for (int i = j + 1; i < p; ++i) {
+      T s = T(0);
+      for (int k = j; k < i; ++k) s += L[i * p + k] * li[k * p + j];
+      li[i * p + j] = -s * (T(1) / L[i * p + i]);
+    }
+  }
+  __syncthreads();
+  const int nt = p * (p + 1) / 2;
+  for (int e = threadIdx.x; e < nt; e += kBlockThreads) {
+    int r = 0;
+    while ((r + 1) * (r + 2) / 2 <= e) ++r;
+    const int c = e - r * (r + 1) / 2;  // c <= r
+    T s = T(0);
+    for (int k = r; k < p; ++k) s += li[k * p + r] * li[k * p + c];
+    out[r * p + c] = s;
+    out[c * p + r] = s;
+  }
+  __syncthreads();
+}
+
+// sum_ij a_ij b_ji over p x p matrices (row stride p) in the block's
+// shared memory, on every thread (the threads share out the entries in a
+// fixed order, then block_allsum).
+template <typename T>
+__device__ __forceinline__ T block_trace_product(const T* a, const T* b,
+                                                 int p, T* red) {
+  T t[1] = {T(0)};
+  for (int e = threadIdx.x; e < p * p; e += kBlockThreads) {
+    const int i = e / p, j = e - (e / p) * p;
+    t[0] += a[i * p + j] * b[j * p + i];
+  }
+  block_allsum<T, 1>(t, red);
+  return t[0];
+}
+
+// The weighted Cox-Reid column mask at p <= 64 columns, a 64-bit word on
+// every thread: column k stays when some kept row has x_k != 0
+// (ops/disp.py:make_cr_masks); xt is the design transposed (p x S).
+template <typename T>
+__device__ __forceinline__ unsigned long long block_cr_col_mask(
+    const T* wr, const T* xt, int S, int p, T thr, unsigned long long* slot) {
+  unsigned long long cm = 0ull;
+  for (int s = threadIdx.x; s < S; s += kBlockThreads) {
+    if (cr_keeps(wr[s], thr)) {
+      for (int k = 0; k < p; ++k)
+        cm |= __ldg(xt + (size_t)k * S + s) != T(0) ? (1ull << k) : 0ull;
+    }
+  }
+  const unsigned lo = __reduce_or_sync(kFullMask, (unsigned)cm);
+  const unsigned hi = __reduce_or_sync(kFullMask, (unsigned)(cm >> 32));
+  __syncthreads();
+  if (threadIdx.x == 0) *slot = 0ull;
+  __syncthreads();
+  if (lane_id() == 0)
+    atomicOr(slot, ((unsigned long long)hi << 32) | (unsigned long long)lo);
+  __syncthreads();
+  cm = *slot;
+  __syncthreads();
+  return cm;
+}
+
+// Thread t < tw writes its sample's design row x_s and w x_s into the
+// block's column-major tile buffers (slot t of each column, stride ts).
+template <typename T>
+__device__ __forceinline__ void block_tile_put(T* xb, T* ub, const T* xt,
+                                               int S, int s, int p, int ts,
+                                               T w) {
+  const int t = threadIdx.x;
+  for (int k = 0; k < p; ++k) {
+    const T v = __ldg(xt + (size_t)k * S + s);
+    xb[k * ts + t] = v;
+    ub[k * ts + t] = w * v;
+  }
+}
+
+// Resident blocks per SM of a block kernel with `smem` bytes of dynamic
+// shared memory, and the persistent launch's block count: as many as fit
+// on the card at once, no more than the genes.  Returns 0 and sets *err
+// on a refusal.
+template <typename K>
+inline int persistent_gene_blocks(K kernel, size_t smem, int G, int* err) {
+  const int per_sm = blocks_per_sm(kernel, smem, err, kBlockThreads);
+  if (*err) return 0;
+  int dev = 0, sms = 0;
+  if ((*err = (int)cudaGetDevice(&dev))) return 0;
+  if ((*err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                          dev)))
+    return 0;
+  if (per_sm < 1) {
+    *err = (int)cudaErrorInvalidConfiguration;
+    return 0;
+  }
+  return per_sm * sms < G ? per_sm * sms : G;
 }
 
 }  // namespace dk

@@ -1,0 +1,335 @@
+// K2 for designs of kPWide < p <= kPBlock columns (16 < p <= 64): the
+// dispersion line search with a thread block per gene (fitDisp contract,
+// disp_ls.cu's).
+//
+// Replaces the TPU kernel deseq2_tpu/ops/pallas_ls.py:
+// fit_disp_line_search_pallas (_ls_kernel) past 16 columns, where the JAX
+// package runs its XLA core (pallas_ls.py:320-335, the `p > 8` gate).  The
+// log posterior, its derivative, the Armijo step control and its stopping
+// rules (the float32-only stall exit included), the prior, the weighted
+// mode with its row cut, and the mode without the Cox-Reid term are
+// ls_wide_kernel's (disp_ls.cu).  The weighted Cox-Reid column mask is a
+// 64-bit word (block_cr_col_mask), decided as ops/disp.py:make_cr_masks
+// decides it.
+//
+// What bounds it on the H100: past 16 columns, the grams.  Each trial
+// point sums b = X'WX and X'W^2X, p (p + 1) multiply-adds a sample (4,160
+// at p = 64), against the per-sample lgamma, digamma, log1p and
+// reciprocal (~150 operations); then b is factored, inverted and traced
+// against db (~p^3 / 2).  The design (common.cuh's block section):
+// persistent blocks of 256 threads, each taking its next gene from the
+// launch's counter (one atomic per gene), every thread running the same
+// step control on the same block-wide sums; a trial point walks the
+// samples in tiles of up to 256 (one sample a thread), the threads own
+// the grams' 4 x 4 upper blocks and reduce them in group order, and the
+// p x p algebra runs in the block's shared memory.  Every sum runs in one
+// fixed order: two launches give the same bits, and a gene's result does
+// not depend on its neighbours.  Without the Cox-Reid term a block only
+// sums the likelihood terms.
+#include "common.cuh"
+
+namespace {
+
+using namespace dk;
+
+constexpr double kArmijo = 1.0e-4;
+
+// the block kernel's p x p matrices (with the Cox-Reid term): b (then its
+// factor and inverse) and b's factor inverse (then db)
+constexpr int kBlockMats = 2;
+
+// lp_dlp at a run-time p over a thread block (common.cuh's block
+// section): x the design transposed (p x S); mats, red and tile the
+// block's shared matrices, block sums' scratch and tile buffers.
+template <typename T, bool UseW, bool UseCR>
+__device__ __forceinline__ void lp_dlp_block(const GramMap& gm, const T* yr,
+                                             const T* mr, const T* wr,
+                                             unsigned long long cm, T thr,
+                                             const T* x, int S,
+                                             const BlockLayout& lay, T la,
+                                             T pm, T prior_var, int use_prior,
+                                             T* mats, T* red, T* tile, T& lp,
+                                             T& dlp) {
+  const int t = threadIdx.x;
+  const int p = lay.p, tw = lay.tw, ts = lay.ts;
+  const T alpha = d_exp(la);
+  const NbConst<T> k = nb_const(T(1) / alpha);
+  T acc[2] = {T(0), T(0)};
+  GramBlock<T> gb, gd;
+  T rz[4];
+  if constexpr (UseCR) {
+    gram_zero(gb);
+    gram_zero(gd);
+  }
+  T* xb = tile;
+  T* ub = tile + (size_t)lay.pr * ts;
+  for (int base = 0; base < S; base += tw) {
+    const int s = base + t;
+    if constexpr (UseCR) __syncthreads();
+    if (t < tw && s < S) {
+      const T yv = yr[s];
+      const T m = mr[s];
+      const T mua = m * alpha;
+      const T l1p = d_log1p(mua);
+      const T r = T(1) / (T(1) + mua);
+      T lgd, dgd;
+      nb_diffs(yv, k, lgd, dgd);
+      acc[0] += wscale<UseW>(lgd - (yv + k.c) * l1p, wr, s);
+      acc[1] += wscale<UseW>(l1p - mua * r + yv * alpha * r - dgd, wr, s);
+      if constexpr (UseCR) {
+        T w = m * r;
+        if constexpr (UseW) {
+          if (!cr_keeps(wr[s], thr)) w = T(0);
+        }
+        block_tile_put(xb, ub, x, S, s, p, ts, w);
+      }
+    }
+    if constexpr (UseCR) {
+      const int n = S - base < tw ? S - base : tw;
+      __syncthreads();
+      block_gram_add<T, true, false>(gm, gb, gd, rz, ub, xb,
+                                     static_cast<const T*>(nullptr), ts, n);
+    }
+  }
+  block_allsum<T, 2>(acc, red);
+  if constexpr (UseCR) {
+    T* bm = mats;
+    T* dm = mats + lay.mat;
+    // the tile buffers are the reductions' scratch
+    block_gram_reduce(gm, gb, tile);
+    block_gram_reduce(gm, gd, tile);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) gd.a[i][j] = -gd.a[i][j];
+    }
+    block_gram_store(gm, gb, bm, p, cm, true, static_cast<const T*>(nullptr));
+    const T logdet = block_cholesky<T, true>(bm, p);
+    block_chol_inverse(bm, dm, bm, p);
+    block_gram_store(gm, gd, dm, p, cm, false, static_cast<const T*>(nullptr));
+    const T tr = block_trace_product(bm, dm, p, red);
+    lp = acc[0] - T(0.5) * logdet;
+    dlp = (acc[1] / (alpha * alpha) - T(0.5) * tr) * alpha;
+  } else {
+    lp = acc[0];
+    dlp = (acc[1] / (alpha * alpha)) * alpha;
+  }
+  if (use_prior) {
+    lp -= T(0.5) * (la - pm) * (la - pm) / prior_var;
+    dlp -= (la - pm) / prior_var;
+  }
+}
+
+// ls_wide_kernel with a thread block per gene
+template <typename T, bool UseW, bool UseCR>
+__global__ void __launch_bounds__(kBlockThreads)
+    ls_block_kernel(const T* __restrict__ y, const T* __restrict__ mu,
+                    const T* __restrict__ wts, const T* __restrict__ x,
+                    const T* __restrict__ la0,
+                    const T* __restrict__ prior_mean, int G, int S, int p,
+                    int tw, T prior_var, T kappa_0, T tol, T min_la,
+                    int maxit, int use_prior, T* __restrict__ out_la,
+                    T* __restrict__ out_lp0, T* __restrict__ out_dlp0,
+                    T* __restrict__ out_lp, T* __restrict__ out_dlp,
+                    T* __restrict__ out_change, int* __restrict__ out_iter,
+                    int* __restrict__ out_accept, int* __restrict__ counter,
+                    T thr) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const BlockLayout lay =
+      block_layout(p, tw, UseCR ? kBlockMats : 0, UseCR);
+  T* mats = sm;
+  T* vec = sm + (UseCR ? kBlockMats * lay.mat : 0);
+  T* red = vec + kBlockRed;
+  int* slot = reinterpret_cast<int*>(vec + kBlockSlots);
+  unsigned long long* mslot =
+      reinterpret_cast<unsigned long long*>(vec + kBlockSlots + 2);
+  T* tile = vec + lay.vec;
+  const GramMap gm = block_gram_map(p);
+  const T eps = Eps<T>::value;
+
+  for (;;) {
+    const int g = block_next_gene(counter, slot);
+    if (g >= G) break;
+    const T* yr = y + (size_t)g * S;
+    const T* mr = mu + (size_t)g * S;
+    const T* wr = UseW ? wts + (size_t)g * S : nullptr;
+    unsigned long long cm = ~0ull;
+    if constexpr (UseW && UseCR)
+      cm = block_cr_col_mask<T>(wr, x, S, p, thr, mslot);
+    const T pm = prior_mean[g];
+    const T a0 = la0[g];
+    T lp0, dlp0;
+    lp_dlp_block<T, UseW, UseCR>(gm, yr, mr, wr, cm, thr, x, S, lay, a0, pm,
+                                 prior_var, use_prior, mats, red, tile, lp0,
+                                 dlp0);
+
+    // control state: the same values on every thread (ls_kernel's)
+    const T tol_eff =
+        tol > d_abs(lp0) * T(50) * eps ? tol : d_abs(lp0) * T(50) * eps;
+    T a = a0, kappa = kappa_0, lp = lp0, dlp = dlp0, change = T(-1);
+    int iters = 0, iter_accept = 0;
+    for (int it = 0; it < maxit; ++it) {
+      ++iters;
+      const T a_propose = a + kappa * dlp;
+      if (a_propose < T(-30)) kappa = (T(-30) - a) / dlp;
+      if (a_propose > T(10)) kappa = (T(10) - a) / dlp;
+      const T a_new = a + kappa * dlp;
+      T lp_new, dlp_next;
+      lp_dlp_block<T, UseW, UseCR>(gm, yr, mr, wr, cm, thr, x, S, lay,
+                                   a_new, pm, prior_var, use_prior, mats, red,
+                                   tile, lp_new, dlp_next);
+      const bool accept = -lp_new <= -lp - kappa * T(kArmijo) * dlp * dlp;
+      if (accept) ++iter_accept;
+      const T change_new = lp_new - lp;
+      const bool conv = change_new < tol_eff;
+      const bool under = a_new < min_la;
+      if (accept) {
+        a = a_new;
+        change = change_new;
+        if (conv || !under) lp = lp_new;
+      }
+      const bool stalled =
+          is_f32<T>() && !accept && kappa * dlp * dlp < tol_eff;
+      const bool cont_accept = accept && !conv && !under;
+      if (cont_accept) {
+        dlp = dlp_next;
+        T kn = kappa * T(1.1);
+        kn = kn < kappa_0 ? kn : kappa_0;
+        if (iter_accept % 5 == 0) kn = kn / T(2);
+        kappa = kn;
+      } else if (!accept) {
+        kappa = kappa / T(2);
+      }
+      if ((accept && (conv || under)) || stalled) break;
+    }
+    if (threadIdx.x == 0) {
+      out_la[g] = a;
+      out_lp0[g] = lp0;
+      out_dlp0[g] = dlp0;
+      out_lp[g] = lp;
+      out_dlp[g] = dlp;
+      out_change[g] = change;
+      out_iter[g] = iters;
+      out_accept[g] = iter_accept;
+    }
+  }
+}
+
+// dynamic shared memory and tile width of a block launch (the vectors
+// alone without the Cox-Reid term)
+template <typename T>
+inline size_t block_smem(int p, bool use_cr, int* tw) {
+  const int nmat = use_cr ? kBlockMats : 0;
+  *tw = use_cr ? block_tile<T>(p, nmat, true) : kBlockThreads;
+  return block_layout(p, *tw, nmat, use_cr).vals * sizeof(T);
+}
+
+template <typename T, bool UseW, bool UseCR>
+int launch_block(const T* y, const T* mu, const T* w, const T* x,
+                 const T* la0, const T* pm, int G, int S, int p, T prior_var,
+                 T kappa_0, T tol, T min_la, int maxit, int use_prior,
+                 T* out_la, T* out_lp0, T* out_dlp0, T* out_lp, T* out_dlp,
+                 T* out_change, int* out_iter, int* out_accept, int* counter,
+                 T thr, cudaStream_t st) {
+  int tw = 0;
+  const size_t smem = block_smem<T>(p, UseCR, &tw);
+  auto kernel = ls_block_kernel<T, UseW, UseCR>;
+  int err = allow_smem(kernel, smem);
+  if (err) return err;
+  const int blocks = persistent_gene_blocks(kernel, smem, G, &err);
+  if (err) return err;
+  kernel<<<blocks, kBlockThreads, smem, st>>>(
+      y, mu, w, x, la0, pm, G, S, p, tw, prior_var, kappa_0, tol, min_la,
+      maxit, use_prior, out_la, out_lp0, out_dlp0, out_lp, out_dlp,
+      out_change, out_iter, out_accept, counter, thr);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool UseW, bool UseCR>
+int occupancy_block(int p) {
+  int tw = 0;
+  const size_t smem = block_smem<T>(p, UseCR, &tw);
+  auto kernel = ls_block_kernel<T, UseW, UseCR>;
+  int err = allow_smem(kernel, smem);
+  const int n = err ? 0 : blocks_per_sm(kernel, smem, &err, kBlockThreads);
+  return err ? -1 : n;
+}
+
+// w == nullptr selects the unweighted instantiations, use_cr == 0 the ones
+// without the Cox-Reid term; `counter` is one zeroed int of device memory
+// (the blocks' gene counter)
+template <typename T>
+int launch(const T* y, const T* mu, const T* w, const T* x, const T* la0,
+           const T* pm, int G, int S, int p, T prior_var, T kappa_0, T tol,
+           T min_la, int maxit, int use_prior, int use_cr, T thr, T* out_la,
+           T* out_lp0, T* out_dlp0, T* out_lp, T* out_dlp, T* out_change,
+           int* out_iter, int* out_accept, int* counter, void* stream) {
+  if (p <= kBlockMinP || p > kPBlock) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define DK_LS_BLOCK(W, CR)                                                    \
+  return launch_block<T, W, CR>(y, mu, w, x, la0, pm, G, S, p, prior_var,    \
+                                kappa_0, tol, min_la, maxit, use_prior,      \
+                                out_la, out_lp0, out_dlp0, out_lp, out_dlp,  \
+                                out_change, out_iter, out_accept, counter,   \
+                                thr, st)
+  if (w != nullptr) {
+    if (use_cr) DK_LS_BLOCK(true, true);
+    DK_LS_BLOCK(true, false);
+  }
+  if (use_cr) DK_LS_BLOCK(false, true);
+  DK_LS_BLOCK(false, false);
+#undef DK_LS_BLOCK
+}
+
+template <typename T>
+int occupancy_mode(int weighted, int use_cr, int p) {
+  if (p <= kBlockMinP || p > kPBlock) return -1;
+  if (weighted) {
+    return use_cr ? occupancy_block<T, true, true>(p)
+                  : occupancy_block<T, true, false>(p);
+  }
+  return use_cr ? occupancy_block<T, false, true>(p)
+                : occupancy_block<T, false, false>(p);
+}
+
+}  // namespace
+
+extern "C" {
+
+// resident blocks per SM of the instantiation a launch would take (-1 on
+// a refusal or an unsupported p)
+int ls_block_blocks_per_sm(int f64, int weighted, int p, int use_cr) {
+  return f64 ? occupancy_mode<double>(weighted, use_cr, p)
+             : occupancy_mode<float>(weighted, use_cr, p);
+}
+
+int ls_block_launch_f32(const float* y, const float* mu, const float* w,
+                        const float* x, const float* la0, const float* pm,
+                        int G, int S, int p, float prior_var, float kappa_0,
+                        float tol, float min_la, int maxit, int use_prior,
+                        int use_cr, float thr, float* out_la, float* out_lp0,
+                        float* out_dlp0, float* out_lp, float* out_dlp,
+                        float* out_change, int* out_iter, int* out_accept,
+                        int* counter, void* stream) {
+  return launch<float>(y, mu, w, x, la0, pm, G, S, p, prior_var, kappa_0, tol,
+                       min_la, maxit, use_prior, use_cr, thr, out_la, out_lp0,
+                       out_dlp0, out_lp, out_dlp, out_change, out_iter,
+                       out_accept, counter, stream);
+}
+
+int ls_block_launch_f64(const double* y, const double* mu, const double* w,
+                        const double* x, const double* la0, const double* pm,
+                        int G, int S, int p, double prior_var, double kappa_0,
+                        double tol, double min_la, int maxit, int use_prior,
+                        int use_cr, double thr, double* out_la,
+                        double* out_lp0, double* out_dlp0, double* out_lp,
+                        double* out_dlp, double* out_change, int* out_iter,
+                        int* out_accept, int* counter, void* stream) {
+  return launch<double>(y, mu, w, x, la0, pm, G, S, p, prior_var, kappa_0,
+                        tol, min_la, maxit, use_prior, use_cr, thr, out_la,
+                        out_lp0, out_dlp0, out_lp, out_dlp, out_change,
+                        out_iter, out_accept, counter, stream);
+}
+
+}  // extern "C"

@@ -9,7 +9,7 @@ device pointers and the CUDA stream and return ``cudaGetLastError()``.
 
 Nothing here runs at import: the first launch of a kernel builds it, and
 ``build_all()`` starts one nvcc per source at once (the smoke script calls
-it first so the three builds overlap).
+it first so the builds overlap).
 """
 
 from __future__ import annotations
@@ -25,7 +25,10 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build"
-KERNELS = ("irls", "disp_ls", "disp_grid")
+# K1, K2, K3 (p <= 16), and their block kernels (16 < p <= 64) in sources
+# of their own, so that the six libraries build side by side
+KERNELS = ("irls", "disp_ls", "disp_grid", "irls_block", "disp_ls_block",
+           "disp_grid_block")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -34,7 +34,8 @@ The weighted modes are held by the same readings and limits, on inputs
 with observation weights (`solver_inputs(..., weighted=True)`): max-1 rows
 in [0.2, 1], and for p >= 2 the treated samples of the first ten genes
 below the Cox-Reid threshold, so that their treatment column drops out of
-the Cox-Reid term.  Every reading below takes d["w"] when it is there.
+the Cox-Reid term (past 32 columns also the last column of the next ten
+genes).  Every reading below takes d["w"] when it is there.
 
 chip_smoke.py prints the kernel's and the plain version's readings side by
 side; the limits leave a margin over both.
@@ -86,6 +87,14 @@ ROUNDING_BOUND = {("irls", 24, 5, False, None), ("irls", 24, 5, True, None),
 WIDE_P = (9, 10, 12, 16)
 WIDE_MODES = ((False, None), (True, None), (False, "nocr"), (True, "nocr"),
               (True, "thr"))
+# the block kernels' checks (16 < p <= 64): the widths, the (S, G) shapes
+# (a design of p >= S columns has no full rank, which deseq() refuses, so
+# a width is checked only below S), the modes (unweighted, weighted,
+# without the Cox-Reid term), and the (S, G, p) of the repeat checks
+BLOCK_P = (17, 33, 64)
+BLOCK_SHAPES = ((24, 333), (1024, 131), (3000, 301))
+BLOCK_MODES = ((False, None), (True, None), (False, "nocr"))
+BLOCK_REPEAT = ((120, 64, 17), (1024, 64, 33), (400, 64, 64))
 
 # The wide kernels' float32 K2 and K3 readings that fail TOL are held
 # instead to the plain float32 version's own spread (within_plain_spread):
@@ -97,6 +106,21 @@ WIDE_MODES = ((False, None), (True, None), (False, "nocr"), (True, "nocr"),
 # of five permutations in all 24 Cox-Reid cases at S = 24).
 SPREAD_PERMS = 5
 SPREAD_AGREE_MARGIN = 0.05
+# A float32 line search stops on an accepted step whose lp gain falls below
+# its tolerance max(tol, 50 eps |lp0|).  Where the step's gain lies within
+# float32's rounding of that gain of the tolerance, rounding decides the
+# stop: a kernel's special functions and sums differ from the plain
+# version's in their last bits, which permuting the plain version's inputs
+# does not reproduce (the block K2 at p = 17, S = 24, weighted, with the
+# prior stopped one gene five iterations before the plain version, 1.02 lp
+# units short; every other reading of that case sat inside the spread).
+# The plain float32 version stops so on its own (4 of 333 genes at p = 10,
+# S = 24: plain_edge_stops, its gain within EDGE_ULPS float32 units of |lp|
+# of the tolerance).  A K2 reading that fails the spread rule on all genes
+# is taken once more with the kernel's stops that rounding decides
+# (edge_stops, found from the plain version and float64 alone) read apart,
+# when they are no more than the plain runs' own such stops.
+EDGE_ULPS = 2.0
 
 TOL = {
     "float32": dict(beta=5e-3, same_conv=0.95, ls_agree=0.9, ls_max_x=4.0,
@@ -120,8 +144,12 @@ def solver_inputs(G, S, p, seed, weighted=False):
     x = np.column_stack([np.ones(S)]
                         + [rng.permutation(np.arange(S) % 2).astype(float)
                            for _ in range(p - 1)])
+    # past 16 columns the effects shrink, x'beta's spread over the
+    # indicators to sd 1 (wide random designs with unit effects leave a
+    # third of the genes' IRLS at maxit)
+    sd = 1.0 if p <= 16 else float(np.sqrt(2.0 / (p - 1)))
     beta = np.column_stack([rng.normal(3.0, 1.0, G)]
-                           + [rng.normal(0.0, 1.0, G) for _ in range(p - 1)])
+                           + [rng.normal(0.0, sd, G) for _ in range(p - 1)])
     mu = np.exp(beta @ x.T)
     alpha = np.clip(4.0 / mu[:, 0] + 0.1, 0.05, 5.0)
     size = 1.0 / alpha[:, None]
@@ -137,6 +165,10 @@ def solver_inputs(G, S, p, seed, weighted=False):
         w /= w.max(axis=1, keepdims=True)
         if p >= 2:
             w[:10][:, x[:, 1] > 0] = 1e-3      # below the 1e-2 threshold
+        if p > 32:
+            # the last column drops out of the next ten genes' Cox-Reid
+            # term: a bit past the first 32 of the block kernels' mask
+            w[10:20][:, x[:, p - 1] > 0] = 1e-3
         out["w"] = w
     return out
 
@@ -376,11 +408,12 @@ def run_irls(fn, d, maxit=100, min_mu=0.5):
               weights=d.get("w"))
 
 
-def run_ls(fn, d, use_prior, prior_var=PRIOR_VAR, min_log_alpha=MIN_LA):
+def run_ls(fn, d, use_prior, prior_var=PRIOR_VAR, min_log_alpha=MIN_LA,
+           maxit=100):
     """fn (the K2 wrapper or its plain version) on d's inputs."""
     return fn(d["y"], d["x"], d["mu"], d["la0"], d["pm"], prior_var,
-              min_log_alpha, use_prior=use_prior, weights=d.get("w"),
-              **mode_kw(d))
+              min_log_alpha, maxit=maxit, use_prior=use_prior,
+              weights=d.get("w"), **mode_kw(d))
 
 
 def run_grid(fn, d, use_prior, prior_var=PRIOR_VAR):
@@ -635,15 +668,102 @@ def permuted(d, gen):
     return out
 
 
+def plain_spread(kind, pl, d, use_prior, ref, prior_var=PRIOR_VAR,
+                 n_perm=SPREAD_PERMS, min_log_alpha=MIN_LA):
+    """The plain version's readings against pl on n_perm permutations of d
+    (`permuted`, a fixed seed), read as a kernel's would be: check_ls
+    ("ls", K2) or check_grid ("grid", K3).  within_plain_spread's
+    yardstick, which depends on pl and d alone, so that several readings
+    against one plain result can share it.  K2 runs at `min_log_alpha`
+    (the kernel's)."""
+    gen = torch.Generator().manual_seed(1)
+    spread = []
+    for _ in range(n_perm):
+        dp = permuted(d, gen)
+        if kind == "ls":
+            v = run_ls(fit_disp_line_search_plain, dp, use_prior, prior_var,
+                       min_log_alpha)
+            spread.append(dict(check_ls(v, pl, d, use_prior, prior_var,
+                                        ref=ref),
+                               n_edge_plain=int(plain_edge_stops(v).sum())))
+        else:
+            v = run_grid(fit_disp_grid_plain, dp, use_prior, prior_var)
+            spread.append(check_grid(v, pl, d, use_prior, prior_var,
+                                     ref=ref))
+    return spread
+
+
+def plain_edge_stops(res, tol=1e-6):
+    """(G,) bool: the genes whose plain float32 line search (its output
+    dict res, run at tolerance `tol`) stopped on an accepted step whose lp
+    gain, its own last_change, lies within EDGE_ULPS float32 units of |lp|
+    of its stopping tolerance max(tol, 50 eps |lp0|).  The plain version's
+    own count of the stops that rounding decides on its inputs."""
+    eps = torch.finfo(torch.float32).eps
+    tol_eff = torch.clamp(res["initial_lp"].double().abs() * 50.0 * eps,
+                          min=tol)
+    gain = res["last_change"].double()
+    ulp = eps * res["last_lp"].double().abs().clamp(min=1.0)
+    return (gain >= 0) & ((gain - tol_eff).abs() <= EDGE_ULPS * ulp)
+
+
+def edge_stops(k, pl, d, use_prior, prior_var=PRIOR_VAR,
+               min_log_alpha=MIN_LA, tol=1e-6, maxit=100):
+    """(G,) bool: the genes where the float32 line search k (K2's output on
+    d) ended more than 1e-3 in log alpha from the plain result pl on a stop
+    that rounding decides, found without k's own lp numbers.  For a gene
+    that k stopped after n < maxit iterations, before the plain version's
+    own end, the plain float32 version on d is cut after n - 1 and after n
+    iterations (per-gene caps): its n-th iteration must be an accepted
+    step from a_prev that lands on k's log alpha (within 1e-3).  That step's gain is evaluated in float64, g = lp_at(k) -
+    lp_at(a_prev), and the stop is rounding's when |g - tol64| (tol64 =
+    max(tol, 50 eps |lp_at(la0)|)) is at most the larger of EDGE_ULPS
+    float32 units of |lp| and the plain float32 version's own error on the
+    same gain, |its gain - g|."""
+    eps = torch.finfo(torch.float32).eps
+    la = k["log_alpha"]
+    # a stop on the plain path ends before the plain version does
+    cand = (((la.double() - pl["log_alpha"].double()).abs() > 1e-3)
+            & (k["iter"] > 1) & (k["iter"] < maxit)
+            & (k["iter"] < pl["iter"]))
+    edge = torch.zeros_like(cand)
+    idx = torch.nonzero(cand).squeeze(1)
+    if idx.numel() == 0:
+        return edge
+    n = k["iter"][idx]
+    di = _genes(d, idx)
+    # each gene's own cut (per-gene maxit caps of the plain version)
+    r0, r1 = (run_ls(fit_disp_line_search_plain, di, use_prior, prior_var,
+                     min_log_alpha, maxit=m) for m in (n - 1, n))
+    lands = ((r1["iter"] == n) & (r1["iter_accept"] > r0["iter_accept"])
+             & ((r1["log_alpha"].double() - la[idx].double()).abs()
+                <= 1e-3))
+    l1 = lp_at(la[idx], di, use_prior, prior_var)
+    g = l1 - lp_at(r0["log_alpha"], di, use_prior, prior_var)
+    tol64 = torch.clamp(lp_at(di["la0"], di, use_prior, prior_var).abs()
+                        * 50.0 * eps, min=tol)
+    scale = torch.maximum(EDGE_ULPS * eps * l1.abs().clamp(min=1.0),
+                          (r1["last_change"].double() - g).abs())
+    edge[idx] = lands & ((g - tol64).abs() <= scale)
+    return edge
+
+
+def _genes(d, keep):
+    """d with its per-gene entries restricted to the rows `keep`."""
+    return {k: v[keep] if k in ("y", "mu", "w", "pm", "la0") else v
+            for k, v in d.items()}
+
+
 def within_plain_spread(kind, r, pl, d, use_prior, ref, prior_var=PRIOR_VAR,
-                        n_perm=SPREAD_PERMS):
+                        n_perm=SPREAD_PERMS, spread=None,
+                        min_log_alpha=MIN_LA, k=None, edge=None):
     """A float32 K2 ("ls", check_ls) or K3 ("grid", check_grid) reading r
     of a kernel against the plain result pl that failed TOL, held instead
     to the plain version's own spread: the plain version rerun on n_perm
     permutations of d (`permuted`, a fixed seed), each read against pl as
     the kernel was.  The kernel's log posterior shortfall below the
     float64 reference `ref` is then gated against the largest shortfall of
-    the plain runs (pl and the permutations):
+    the plain runs (pl and the permutations, plain_spread):
 
     - K2: its largest and mean shortfall within TOL's factors ls_max_x and
       ls_mean_x of the plain runs' largest ones, plus eps times the mean
@@ -652,23 +772,47 @@ def within_plain_spread(kind, r, pl, d, use_prior, ref, prior_var=PRIOR_VAR,
       gates it) the share of genes whose log alpha agrees with pl to 1e-3
       at most SPREAD_AGREE_MARGIN below the permutations' lowest;
     - K3: its shortfall at most grid_short units above the plain runs'
-      largest, and on the separated genes no fewer picks on the
-      reference's point than TOL's grid_sep_same or the plain runs'
-      lowest share.
+      largest, and its share of separated genes on the float64
+      reference's point no lower than TOL's grid_sep_same or the plain
+      runs' lowest share.
 
+    `spread`, when given, is plain_spread's result for the same pl and d.
+    With K2's kernel result `k` (and its edge_stops, `edge`, when already
+    read), the reading carries n_edge, the kernel's stops that rounding
+    decides, and n_edge_limit, the most of the plain runs' own
+    (plain_edge_stops on pl and on each permutation).  A K2 reading that
+    still fails is taken once more with those n_edge genes read apart, when
+    there are some and no more than n_edge_limit: the readings (r and the
+    spread) on the other genes decide, and read_apart counts those genes
+    (0 where the reading was not taken again).
     Returns r with the spread readings added and "ok" recomputed."""
+    if spread is None:
+        spread = plain_spread(kind, pl, d, use_prior, ref, prior_var, n_perm,
+                              min_log_alpha)
+    r = _spread_reading(kind, r, pl, d, spread)
+    if kind != "ls" or k is None:
+        return r
+    if edge is None:
+        edge = edge_stops(k, pl, d, use_prior, prior_var, min_log_alpha)
+    n_edge = int(edge.sum())
+    limit = max([int(plain_edge_stops(pl).sum())]
+                + [s["n_edge_plain"] for s in spread])
+    if r["ok"] or n_edge == 0 or n_edge > limit:
+        return dict(r, n_edge=n_edge, n_edge_limit=limit, read_apart=0)
+    keep = ~edge
+    k, pl, ref = ({key: v[keep] for key, v in res.items()}
+                  for res in (k, pl, ref))
+    d = _genes(d, keep)
+    r = _spread_reading(kind, check_ls(k, pl, d, use_prior, prior_var,
+                                       ref=ref), pl, d,
+                        plain_spread(kind, pl, d, use_prior, ref, prior_var,
+                                     n_perm, min_log_alpha))
+    return dict(r, n_edge=n_edge, n_edge_limit=limit, read_apart=n_edge)
+
+
+def _spread_reading(kind, r, pl, d, spread):
+    """within_plain_spread's rule on all of d's genes."""
     t = TOL["float32"]
-    gen = torch.Generator().manual_seed(1)
-    spread = []
-    for _ in range(n_perm):
-        dp = permuted(d, gen)
-        if kind == "ls":
-            v = run_ls(fit_disp_line_search_plain, dp, use_prior, prior_var)
-            spread.append(check_ls(v, pl, d, use_prior, prior_var, ref=ref))
-        else:
-            v = run_grid(fit_disp_grid_plain, dp, use_prior, prior_var)
-            spread.append(check_grid(v, pl, d, use_prior, prior_var,
-                                     ref=ref))
     r = dict(r)
     if kind == "ls":
         r["spread_short_max"] = max([r["short_plain_max"]]

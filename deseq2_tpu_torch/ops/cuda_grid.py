@@ -6,9 +6,10 @@ Replaces deseq2_tpu/ops/pallas_disp.py:fit_disp_grid_pallas, in its modes
 mode (`weights`, with the Cox-Reid row cut `weight_threshold`; the JAX
 pipeline runs its weighted grid on the XLA core).  A CUDA tensor launches
 a hand-written kernel (or raises): the templated one for 1 <= p <= 8, the
-wide one (disp_grid.cu's grid_wide_kernel) for 8 < p <= 16; p > 16 runs
-the plain version on the card (the JAX package's XLA core for p > 8); a
-CPU tensor runs the plain version, ops/disp.py:fit_disp_grid_plain.  The
+wide one (disp_grid.cu's grid_wide_kernel) for 8 < p <= 16, the block one
+(disp_grid_block.cu's grid_block_kernel) for 16 < p <= 64 (the JAX
+package's XLA core for p > 8); p > 64 runs the plain version on the card;
+a CPU tensor runs the plain version, ops/disp.py:fit_disp_grid_plain.  The
 route is chosen from the tensor's device and p alone, before any launch.
 The counts are cuda_ls.py's, one per mode and width (cuda_ls.COUNTERS),
 and ``launches_by_device``.  Under ops/placement.py:use_gene_mesh the call
@@ -22,7 +23,7 @@ import ctypes
 import torch
 
 from . import build
-from .cuda_ls import COUNTERS, P_MAX, P_WIDE, mode_counter
+from .cuda_ls import COUNTERS, P_BLOCK, P_MAX, P_WIDE, mode_counter
 from .disp import CR_WEIGHT_THRESHOLD, fit_disp_grid_plain
 from .placement import active_gene_mesh, place_gene_axis
 
@@ -53,7 +54,7 @@ def fit_disp_grid(y, x, mu, disp_grid, prior_mean, prior_var,
     G, S = mu.shape
     p = x.shape[1]
     n = disp_grid.shape[0]
-    if p > P_WIDE:
+    if p > P_BLOCK:
         fit_disp_grid.launches_plain += 1
         return fit_disp_grid_plain(y, x.to(mu.device), mu,
                                    disp_grid.to(mu.device), prior_mean,
@@ -68,7 +69,7 @@ def fit_disp_grid(y, x, mu, disp_grid, prior_mean, prior_var,
     def prep(t):
         return t.to(device=dev, dtype=dtype).contiguous()
 
-    # the wide kernel reads the design transposed (p x S)
+    # the wide and block kernels read the design transposed (p x S)
     y_, mu_, x_, grid_, pm_ = (prep(t) for t in (
         y, mu, x.t() if p > P_MAX else x, disp_grid, prior_mean))
     w_ = None if weights is None else prep(weights)
@@ -77,8 +78,11 @@ def fit_disp_grid(y, x, mu, disp_grid, prior_mean, prior_var,
         return out
     f64 = dtype == torch.float64
     scal = ctypes.c_double if f64 else ctypes.c_float
-    lib = build.load("disp_grid")
-    fn = build.bind(lib, "grid_launch_f64" if f64 else "grid_launch_f32",
+    # the block kernels live in a library of their own (disp_grid_block.cu)
+    lib, sym = ("disp_grid_block", "grid_block") if p > P_WIDE \
+        else ("disp_grid", "grid")
+    fn = build.bind(build.load(lib),
+                    f"{sym}_launch_f64" if f64 else f"{sym}_launch_f32",
                     [_P] * 6 + [_I] * 4 + [scal, _I, _I, scal, _P, _P])
     with torch.cuda.device(dev):
         err = fn(build.ptr(y_), build.ptr(mu_), build.ptr(w_),
@@ -86,7 +90,7 @@ def fit_disp_grid(y, x, mu, disp_grid, prior_mean, prior_var,
                  float(prior_var), int(bool(use_prior)),
                  int(bool(use_cr)), float(weight_threshold),
                  build.ptr(out), build.stream_of(mu_))
-    build.check(err, "disp_grid")
+    build.check(err, lib)
     build.count_launch(fit_disp_grid,
                        mode_counter(w_, use_cr, weight_threshold, p), dev)
     return out

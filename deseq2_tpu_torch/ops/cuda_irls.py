@@ -4,14 +4,16 @@ Replaces deseq2_tpu/ops/pallas_irls.py:fit_beta_pallas, both modes:
 `weights` selects the kernel's weighted instantiation.  A CUDA tensor
 launches a hand-written kernel (or raises): the P = p instantiation for 1
 <= p <= 8, the wide kernel (p a launch argument, irls.cu's
-irls_wide_kernel) for 8 < p <= 16; p > 16 runs the plain version on the
-card, the counterpart of the XLA core the JAX package runs for p > 8
-(pallas_irls.py:274).  A CPU tensor runs the plain version,
-ops/irls.py:fit_beta_plain.  The route is chosen from the tensor's device
+irls_wide_kernel) for 8 < p <= 16, the block kernel (a thread block per
+gene, irls_block.cu's irls_block_kernel) for 16 < p <= 64; these are the
+counterparts of the XLA core the JAX package runs for p > 8
+(pallas_irls.py:274).  p > 64 runs the plain version on the card.  A CPU
+tensor runs the plain version, ops/irls.py:fit_beta_plain.  The route is chosen from the tensor's device
 and p alone, before any launch.  ``fit_beta.launches`` counts the
 unweighted P <= 8 kernels' launches, ``fit_beta.launches_weighted`` the
-weighted ones', ``fit_beta.launches_wide`` the wide kernel's (either mode)
-and ``fit_beta.launches_plain`` the p > 16 route's;
+weighted ones', ``fit_beta.launches_wide`` the wide kernel's and
+``fit_beta.launches_block`` the block kernel's (either mode), and
+``fit_beta.launches_plain`` the p > 64 route's;
 ``fit_beta.launches_by_device`` counts the kernels' launches per device.
 Under ops/placement.py:use_gene_mesh the call runs shard by shard over the
 mesh (the gene-axis inputs split, the outputs gathered onto y's device).
@@ -24,7 +26,7 @@ import ctypes
 import torch
 
 from . import build
-from .cuda_ls import P_MAX, P_WIDE
+from .cuda_ls import P_BLOCK, P_MAX, P_WIDE, width_suffix
 from .irls import fit_beta_plain
 from .placement import active_gene_mesh, place_gene_axis
 
@@ -50,7 +52,7 @@ def fit_beta(y, x, nf, alpha, beta_init, ridge, tol=1e-8, maxit=100,
         raise TypeError(f"fit_beta kernel takes float32/float64, not {dtype}")
     G, S = y.shape
     p = x.shape[1]
-    if p > P_WIDE:
+    if p > P_BLOCK:
         fit_beta.launches_plain += 1
         return fit_beta_plain(y, x.to(y.device), nf, alpha, beta_init, ridge,
                               tol=tol, maxit=maxit, min_mu=min_mu,
@@ -67,7 +69,7 @@ def fit_beta(y, x, nf, alpha, beta_init, ridge, tol=1e-8, maxit=100,
         t = t.to(device=dev, dtype=dtype).contiguous()
         return t
 
-    # the wide kernel reads the design transposed (p x S)
+    # the wide and block kernels read the design transposed (p x S)
     y_, x_, nf_, a_, b0_, r_ = (prep(t) for t in (
         y, x.t() if p > P_MAX else x, nf, alpha, beta_init, ridge))
     w_ = None if weights is None else prep(weights)
@@ -82,8 +84,10 @@ def fit_beta(y, x, nf, alpha, beta_init, ridge, tol=1e-8, maxit=100,
         return out
     f64 = dtype == torch.float64
     scal = ctypes.c_double if f64 else ctypes.c_float
-    lib = build.load("irls")
-    fn = build.bind(lib, "irls_launch_f64" if f64 else "irls_launch_f32",
+    # the block kernel lives in a library of its own (irls_block.cu)
+    name = "irls_block" if p > P_WIDE else "irls"
+    fn = build.bind(build.load(name),
+                    f"{name}_launch_f64" if f64 else f"{name}_launch_f32",
                     [_P, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, scal, _I,
                      scal] + [_P] * 8)
     counter = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -96,8 +100,8 @@ def fit_beta(y, x, nf, alpha, beta_init, ridge, tol=1e-8, maxit=100,
                  build.ptr(out["deviance"]), build.ptr(out["iter"]),
                  build.ptr(out["mu"]), build.ptr(out["hat_diag"]),
                  build.ptr(counter), build.stream_of(y_))
-    build.check(err, "irls")
-    build.count_launch(fit_beta, "launches_wide" if p > P_MAX
+    build.check(err, name)
+    build.count_launch(fit_beta, "launches" + width_suffix(p) if p > P_MAX
                        else "launches" if w_ is None
                        else "launches_weighted", dev)
     return out
@@ -106,5 +110,6 @@ def fit_beta(y, x, nf, alpha, beta_init, ridge, tol=1e-8, maxit=100,
 fit_beta.launches = 0
 fit_beta.launches_weighted = 0
 fit_beta.launches_wide = 0
+fit_beta.launches_block = 0
 fit_beta.launches_plain = 0
 fit_beta.launches_by_device = {}

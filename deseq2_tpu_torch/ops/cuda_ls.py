@@ -6,20 +6,23 @@ its modes: `weights` selects the kernel's weighted instantiations,
 is the weighted Cox-Reid term's row cut.  A CUDA tensor launches a
 hand-written kernel (or raises): the templated one for 1 <= p <= 8, the
 wide one (p a launch argument, disp_ls.cu's ls_wide_kernel) for 8 < p <=
-16; p > 16 runs the plain version on the card, the counterpart of the XLA
-core the JAX package runs for p > 8 outside any Pallas kernel (its
-_use_pallas_* gates); a CPU tensor runs the plain version,
-ops/disp.py:fit_disp_line_search_plain.  The route is chosen from the
-tensor's device and p alone, before any launch.
+16, the block one (a thread block per gene, disp_ls_block.cu's
+ls_block_kernel) for 16 < p <= 64 (P_BLOCK); these are the counterparts
+of the XLA core the JAX package runs for p > 8 outside any Pallas kernel
+(its _use_pallas_* gates).  p >
+64 runs the plain version on the card; a CPU tensor runs the plain
+version, ops/disp.py:fit_disp_line_search_plain.  The route is chosen from
+the tensor's device and p alone, before any launch.
 
 Each launch adds one to exactly one count: ``launches`` (unweighted),
 ``launches_weighted`` (weighted, threshold 1e-2), ``launches_threshold``
 (weighted, another threshold), ``launches_nocr`` and
 ``launches_weighted_nocr`` (without the Cox-Reid term), each with a
-``_wide`` twin for the wide kernel, and ``launches_plain`` (p > 16 on the
-card, the plain version); ``launches_by_device`` counts the kernels'
-launches per device.  Under ops/placement.py:use_gene_mesh the call runs
-shard by shard over the mesh.
+``_wide`` twin for the wide kernel and a ``_block`` twin for the block
+kernel, and ``launches_plain`` (p > 64 on the card, the plain version);
+``launches_by_device`` counts the kernels' launches per device.  Under
+ops/placement.py:use_gene_mesh the call runs shard by shard over the
+mesh.
 """
 
 from __future__ import annotations
@@ -33,10 +36,12 @@ from .disp import CR_WEIGHT_THRESHOLD, fit_disp_line_search_plain
 from .placement import active_gene_mesh, place_gene_axis
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# the widest design the templated kernels take, and the wide kernels';
-# wider ones run the plain version
+# the widest design the templated kernels take, the wide kernels' and the
+# block kernels' (csrc/common.cuh: kPNarrow, kPWide, kPBlock); wider ones
+# run the plain version
 P_MAX = 8
 P_WIDE = 16
+P_BLOCK = 64
 
 
 def mode_counter(weights, use_cr, weight_threshold, p=1):
@@ -51,7 +56,14 @@ def mode_counter(weights, use_cr, weight_threshold, p=1):
         name = "launches_weighted" \
             if weight_threshold == CR_WEIGHT_THRESHOLD \
             else "launches_threshold"
-    return name + "_wide" if p > P_MAX else name
+    return name + width_suffix(p)
+
+
+def width_suffix(p):
+    """The count suffix of a launch at design width p: "" for the
+    templated kernels, "_wide" and "_block" for the wide and block
+    ones."""
+    return "" if p <= P_MAX else "_wide" if p <= P_WIDE else "_block"
 
 
 def fit_disp_line_search(y, x, mu, log_alpha_init, prior_mean, prior_var,
@@ -83,7 +95,7 @@ def fit_disp_line_search(y, x, mu, log_alpha_init, prior_mean, prior_var,
                         f"{dtype}")
     G, S = mu.shape
     p = x.shape[1]
-    if p > P_WIDE:
+    if p > P_BLOCK:
         fit_disp_line_search.launches_plain += 1
         return fit_disp_line_search_plain(
             y, x.to(mu.device), mu, log_alpha_init, prior_mean, prior_var,
@@ -97,7 +109,7 @@ def fit_disp_line_search(y, x, mu, log_alpha_init, prior_mean, prior_var,
     def prep(t):
         return t.to(device=dev, dtype=dtype).contiguous()
 
-    # the wide kernel reads the design transposed (p x S)
+    # the wide and block kernels read the design transposed (p x S)
     y_, mu_, x_, la0_, pm_ = (prep(t) for t in (
         y, mu, x.t() if p > P_MAX else x, log_alpha_init, prior_mean))
     w_ = None if weights is None else prep(weights)
@@ -110,8 +122,11 @@ def fit_disp_line_search(y, x, mu, log_alpha_init, prior_mean, prior_var,
         return out
     f64 = dtype == torch.float64
     scal = ctypes.c_double if f64 else ctypes.c_float
-    lib = build.load("disp_ls")
-    fn = build.bind(lib, "ls_launch_f64" if f64 else "ls_launch_f32",
+    # the block kernels live in a library of their own (disp_ls_block.cu)
+    lib, sym = ("disp_ls_block", "ls_block") if p > P_WIDE \
+        else ("disp_ls", "ls")
+    fn = build.bind(build.load(lib),
+                    f"{sym}_launch_f64" if f64 else f"{sym}_launch_f32",
                     [_P] * 6 + [_I, _I, _I] + [scal] * 4 + [_I, _I, _I,
                                                             scal]
                     + [_P] * 10)
@@ -126,7 +141,7 @@ def fit_disp_line_search(y, x, mu, log_alpha_init, prior_mean, prior_var,
                  *(build.ptr(out[k]) for k in names),
                  build.ptr(out["iter"]), build.ptr(out["iter_accept"]),
                  build.ptr(counter), build.stream_of(mu_))
-    build.check(err, "disp_ls")
+    build.check(err, lib)
     build.count_launch(fit_disp_line_search,
                        mode_counter(w_, use_cr, weight_threshold, p), dev)
     return out
@@ -134,7 +149,8 @@ def fit_disp_line_search(y, x, mu, log_alpha_init, prior_mean, prior_var,
 
 MODES = ("launches", "launches_weighted", "launches_threshold",
          "launches_nocr", "launches_weighted_nocr")
-COUNTERS = MODES + tuple(m + "_wide" for m in MODES) + ("launches_plain",)
+COUNTERS = MODES + tuple(m + sfx for sfx in ("_wide", "_block")
+                         for m in MODES) + ("launches_plain",)
 for _c in COUNTERS:
     setattr(fit_disp_line_search, _c, 0)
 fit_disp_line_search.launches_by_device = {}

@@ -134,6 +134,8 @@ def fit_disp_line_search_plain(y, x, mu, log_alpha_init, prior_mean,
                                weight_threshold=CR_WEIGHT_THRESHOLD):
     """Batched Armijo backtracking ascent on log(alpha) (cpp:163-277).
 
+    maxit is an int, or a (G,) integer tensor of per-gene caps (each gene
+    stops after its own count, as a run at that int maxit would).
     Returns dict(log_alpha, iter, iter_accept, last_change, initial_lp,
     initial_dlp, last_lp, last_dlp); the dtype is mu's."""
     G = y.shape[0]
@@ -169,7 +171,11 @@ def fit_disp_line_search_plain(y, x, mu, log_alpha_init, prior_mean,
     change = torch.full((G,), -1.0, dtype=dtype, device=dev)
     done = torch.zeros(G, dtype=torch.bool, device=dev)
 
-    for _ in range(maxit):
+    caps = maxit.to(dev) if torch.is_tensor(maxit) else None
+    if caps is not None:
+        done |= caps <= 0
+    steps = maxit if caps is None else int(caps.max()) if G else 0
+    for _ in range(steps):
         idx = torch.nonzero(~done).squeeze(1)
         if idx.numel() == 0:
             break
@@ -204,7 +210,8 @@ def fit_disp_line_search_plain(y, x, mu, log_alpha_init, prior_mean,
                                  torch.where(~accept, k_i / 2.0, k_i))
         a[idx] = a_i
         iter_accept[idx] = acc_i
-        done[idx] = newly_done
+        done[idx] = newly_done if caps is None \
+            else newly_done | (iters[idx] >= caps[idx])
     return dict(log_alpha=a, iter=iters, iter_accept=iter_accept,
                 last_change=change, initial_lp=lp0, initial_dlp=dlp0,
                 last_lp=lp, last_dlp=dlp)

@@ -1,6 +1,7 @@
 """Compare the machine code (SASS) of the kernels' default
 instantiations, unweighted and weighted, between two checkouts of the
-repository:
+repository (the templated kernels for p = 1..8 and the wide kernels for 8
+< p <= 16):
 
     python -m deseq2_tpu_torch.ops.sass_compare OLD_ROOT NEW_ROOT [KERNEL ...]
 
@@ -26,10 +27,11 @@ import subprocess
 import sys
 from pathlib import Path
 
-from .build import KERNELS, NVCC_FLAGS, _nvcc
+from .build import NVCC_FLAGS, _nvcc
 
 SYMBOL = {"irls": "irls_kernel", "disp_ls": "ls_kernel",
           "disp_grid": "grid_kernel"}
+KERNELS = tuple(SYMBOL)
 
 
 def _cuobjdump():
@@ -67,9 +69,11 @@ def functions(cubin):
 
 def _pick(funcs, sym, t, p, w=0):
     """The <t, p> instantiation of kernel `sym` in its default mode,
-    unweighted (w=0) or weighted (w=1), or None."""
-    hits = [n for n in funcs
-            if re.search(rf"{sym}I{t}Li{p}ELb{w}E(Lb1E)?E", n)]
+    unweighted (w=0) or weighted (w=1), or None; p "wide" picks the wide
+    kernel (p a launch argument)."""
+    pat = (rf"{sym.replace('_kernel', '_wide_kernel')}I{t}Lb{w}E(Lb1E)?E"
+           if p == "wide" else rf"{sym}I{t}Li{p}ELb{w}E(Lb1E)?E")
+    hits = [n for n in funcs if re.search(pat, n)]
     return funcs[hits[0]] if len(hits) == 1 else None
 
 
@@ -85,7 +89,7 @@ def compare(old_root, new_root, kernels=KERNELS):
         old, new = (functions(out / f"{tag}_{k}.cubin")
                     for tag in ("old", "new"))
         for t, dname in (("f", "float"), ("d", "double")):
-            for p in range(1, 9):
+            for p in (*range(1, 9), "wide"):
                 for w, wname in ((0, "unweighted"), (1, "weighted")):
                     a, b = (_pick(f, SYMBOL[k], t, p, w) for f in (old, new))
                     if a is None or b is None:

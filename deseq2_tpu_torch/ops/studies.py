@@ -8,6 +8,10 @@ ROADMAP.md:
     python -m deseq2_tpu_torch.ops.studies expanded
     python -m deseq2_tpu_torch.ops.studies mainpath PARENT_ROOT [CALLS]
     python -m deseq2_tpu_torch.ops.studies wide [REPS]
+    python -m deseq2_tpu_torch.ops.studies block [REPS]
+    python -m deseq2_tpu_torch.ops.studies crossover [REPS]
+    python -m deseq2_tpu_torch.ops.studies variant smem|minp [REPS]
+    python -m deseq2_tpu_torch.ops.studies paired PARENT_ROOT [P [CALLS]]
     python -m deseq2_tpu_torch.ops.studies rlog [N_SEEDS]
     python -m deseq2_tpu_torch.ops.studies sc [G S]
     python -m deseq2_tpu_torch.ops.studies batch_rows
@@ -28,6 +32,22 @@ how many genes end more than one lp unit below the other version (kernel
 below plain, plain below kernel, and of the first within the first ten
 genes, whose treated samples carry weights below the Cox-Reid threshold),
 and the gene where the kernel ends furthest below the plain version.
+
+`crossover`: K1, K2 (gene-wise) and K3 (4,096 genes) on the card against
+their plain versions at 8,192 x 1,024 on ops/checks.py's inputs, p = 10
+and 16 (the wide kernels) and 17 to 64 (the block kernels), float64 and
+float32: the median of REPS launches each, the plain version's time over
+the kernel's, and the p past which the plain version is faster.
+`variant smem` builds the block kernels with one block an SM
+(-DDK_BLOCK_SMEM_TARGET=232448: tiles up to 4x wider past 48 columns)
+and times them at p = 48, 56, 64; `variant minp` builds them to take
+designs past 8 columns (-DDK_BLOCK_MIN_P=8), routes p = 10 and 16 to them
+and times them there (against `crossover`'s wide rows), each also read
+against the plain version (largest |beta| and |log alpha| difference).
+`paired`: the public paired deseq() + results() (~ subject + condition,
+p = P, default 64, float64, 60,000 x 1,024 of the main path's counts)
+timed in fresh processes in PARENT_ROOT's checkout and this one, in turns
+parent, change, change, parent (a cold call, then CALLS warm ones).
 
 `kernels`: K1 (csrc/irls.cu), K2 (csrc/disp_ls.cu) and K3
 (csrc/disp_grid.cu, on the genes whose float32 line search did not
@@ -114,6 +134,14 @@ the plain version on the card, and K1's largest beta difference from the
 plain version on the genes both take as converged.  (Before the wide
 kernels this study timed builds of the templated K1 at P = 10 and 16, the
 yardstick in PERF.md section 6.)
+
+`block`: the block kernels (16 < p <= 64, csrc/*_block.cu): their
+registers and spill bytes, then at p = 25 and 64, 16,384 x 1,024
+(checks.solver_inputs, seed 11), float64 and float32, K2 (per trial point
+and gene) and K3 (per grid point and gene, on 4,096 genes) with and
+without the Cox-Reid term on the same inputs, the median of REPS launches
+(default 3): the grams' and their algebra's share of a point's time, the
+per-sample terms' the rest.
 
 `rlog` (the card if there is one, else the CPU): rlog's arrow IRLS
 (transforms.py:rlog_arrow_irls) on the inputs a blind rlog hands it
@@ -702,6 +730,208 @@ def wide_study(dev, reps):
                   f"evaluations/gene", flush=True)
 
 
+def block_study(dev, reps):
+    """The block kernels (16 < p <= 64): registers and spills, then at p =
+    25 and 64, 16,384 x 1,024, float64 and float32, the time of one trial
+    point a gene (K2) and of one grid point a gene (K3) with and without
+    the Cox-Reid term on the same inputs.  Without the term a block sums
+    only the per-sample likelihood terms; with it it also sums the grams
+    and factors them, so the difference is their share (the per-sample
+    versus gram split)."""
+    import re
+
+    from . import build
+    from .cuda_grid import fit_disp_grid
+    from .cuda_ls import fit_disp_line_search
+
+    for name in ("irls_block", "disp_ls_block", "disp_grid_block"):
+        for sym, (regs, spill) in sorted(build.ptxas_resources(name).items()):
+            m = re.search(r"([a-z]+_block_kernel)I(\w)Lb(\d)E(Lb(\d)E)?E",
+                          sym)
+            if m:
+                t = "float" if m.group(2) == "f" else "double"
+                print(f"{m.group(1)} {t} weighted={m.group(3)} use_cr="
+                      f"{m.group(5) or '-'}: {regs} registers, {spill} spill "
+                      f"bytes", flush=True)
+
+    def median_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            ts.append(a.elapsed_time(b))
+        return sorted(ts)[len(ts) // 2]
+
+    G, S = 16384, 1024
+    for p in (25, 64):
+        raw = checks.solver_inputs(G, S, p, 11)
+        for dname in ("float64", "float32"):
+            d = checks.as_tensors(raw, getattr(torch, dname), dev)
+            per = {}
+            for use_cr in (True, False):
+                dm = dict(d, use_cr=use_cr)
+                k2 = checks.run_ls(fit_disp_line_search, dm, False)
+                evals = float((k2["iter"].double() + 1).sum())
+                ms2 = median_ms(lambda: checks.run_ls(fit_disp_line_search,
+                                                      dm, False))
+                g3 = {k: v[:4096] if k in ("y", "mu", "pm") else v
+                      for k, v in dm.items()}
+                ms3 = median_ms(lambda: checks.run_grid(fit_disp_grid, g3,
+                                                        False))
+                per[use_cr] = (ms2 / evals * 1e6, ms3 / (4096 * 40) * 1e6)
+                print(f"{dname} p={p} use_cr={use_cr}: K2 {ms2:.2f} ms, "
+                      f"{evals / G:.2f} trial points a gene, "
+                      f"{per[use_cr][0]:.2f} ns a trial point and gene; K3 "
+                      f"(4,096 genes) {ms3:.2f} ms, {per[use_cr][1]:.2f} ns a "
+                      f"grid point and gene", flush=True)
+            for i, k in ((0, "K2"), (1, "K3")):
+                share = 1.0 - per[False][i] / per[True][i]
+                print(f"{dname} p={p} {k}: the grams and their algebra take "
+                      f"{share:.3f} of a point's time, the per-sample terms "
+                      f"{1.0 - share:.3f}", flush=True)
+
+
+def _median_ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        ts.append(a.elapsed_time(b))
+    return sorted(ts)[len(ts) // 2]
+
+
+def _width_times(dev, widths, reps, plain=True):
+    """K1, K2 (gene-wise) and K3 at each p of `widths`, float64 and
+    float32, 8,192 x 1,024 (K3 4,096 genes): {(dtype, p, kernel): (ms,
+    plain ms or None)}, and each kernel's largest difference from the
+    plain version printed beside it."""
+    from .cuda_grid import fit_disp_grid
+    from .cuda_irls import fit_beta
+    from .cuda_ls import fit_disp_line_search
+    from .disp import fit_disp_grid_plain, fit_disp_line_search_plain
+    from .irls import fit_beta_plain
+
+    G, S, out = 8192, 1024, {}
+    for dname in ("float64", "float32"):
+        for p in widths:
+            d = checks.as_tensors(checks.solver_inputs(G, S, p, 11),
+                                  getattr(torch, dname), dev)
+            g3 = {k: v[:4096] if k in ("y", "mu", "pm") else v
+                  for k, v in d.items()}
+            for name, kern, ref, run, dd, key in (
+                    ("K1", fit_beta, fit_beta_plain, checks.run_irls, d,
+                     "beta"),
+                    ("K2", fit_disp_line_search, fit_disp_line_search_plain,
+                     lambda f, x: checks.run_ls(f, x, False), d,
+                     "log_alpha"),
+                    ("K3", fit_disp_grid, fit_disp_grid_plain,
+                     lambda f, x: checks.run_grid(f, x, False), g3, None)):
+                a, b = run(kern, dd), run(ref, dd)
+                a, b = (a, b) if key is None else (a[key], b[key])
+                diff = (a.double() - b.double()).abs().max().item()
+                ms = _median_ms(lambda: run(kern, dd), reps)
+                pms = _median_ms(lambda: run(ref, dd), reps) if plain \
+                    else None
+                out[(dname, p, name)] = (ms, pms)
+                print(f"{dname} p={p} {name}: kernel {ms:.2f} ms"
+                      + (f", plain {pms:.2f} ms, plain/kernel "
+                         f"{pms / ms:.2f}" if plain else "")
+                      + f", max |diff| {diff:.3g}", flush=True)
+    return out
+
+
+def crossover_study(dev, reps):
+    """The block kernels against their plain versions from 17 to 64
+    columns (and the wide kernels at 10 and 16): the crossover p."""
+    widths = (10, 16, 17, 24, 32, 40, 48, 56, 64)
+    t = _width_times(dev, widths, reps)
+    for dname in ("float64", "float32"):
+        for name in ("K1", "K2", "K3"):
+            slower = [p for p in widths if p > 16
+                      and t[(dname, p, name)][1] < t[(dname, p, name)][0]]
+            print(f"{dname} {name}: the plain version is faster from p = "
+                  f"{min(slower) if slower else 'none'} (of {widths[2:]})",
+                  flush=True)
+
+
+def variant_study(dev, which, reps):
+    """The block kernels built as a study variant (see the module's
+    docstring) and timed; run in a process of its own, since the flags
+    name another build of every library the process loads."""
+    from . import build, cuda_irls, cuda_ls, cuda_grid
+    if which == "smem":
+        build.NVCC_FLAGS = build.NVCC_FLAGS + (
+            "-DDK_BLOCK_SMEM_TARGET=232448",)
+        widths = (48, 56, 64)
+    else:
+        build.NVCC_FLAGS = build.NVCC_FLAGS + ("-DDK_BLOCK_MIN_P=8",)
+        for mod in (cuda_irls, cuda_ls, cuda_grid):
+            mod.P_WIDE = 8
+        widths = (10, 16)
+    build.build_all(("irls_block", "disp_ls_block", "disp_grid_block"))
+    print(f"variant {which}: {' '.join(build.NVCC_FLAGS[-1:])}", flush=True)
+    _width_times(dev, widths, reps, plain=False)
+
+
+def _time_paired(counts_path, subjects, dtype, calls):
+    """One turn of the paired study: a cold call, then `calls` warm calls
+    of deseq() + results() on ~ subject + condition (sample j in subject
+    j % subjects, the condition alternating within each subject); prints
+    their wall seconds as one JSON line."""
+    import json
+    import time
+    import numpy as np
+    import torch
+    import deseq2_tpu_torch as dt
+    counts = np.load(counts_path)
+    j = np.arange(counts.shape[1])
+    col_data = {"subject": np.array([f"s{v}" for v in j % subjects]),
+                "condition": np.where((j // subjects) % 2 == 0, "A", "B")}
+
+    def call():
+        dds = dt.dataset_from_matrix(counts, col_data,
+                                     "~ subject + condition",
+                                     config=dt.DESeqConfig(dtype=dtype))
+        dt.results(dt.deseq(dds))
+        torch.cuda.synchronize()
+
+    call()
+    out = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        call()
+        out.append(time.perf_counter() - t0)
+    print(json.dumps(out))
+
+
+def paired_study(parent_root, p, calls):
+    """The paired float64 call at p columns in both checkouts."""
+    import numpy as np
+    change_root = Path(__file__).resolve().parents[2]
+    counts, _ = checks.bench_counts(60000, 1024)
+    path = change_root / "build" / "study_main_counts.npy"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.save(path, counts)
+    for tag, root in (("parent", parent_root), ("change", change_root),
+                      ("change", change_root), ("parent", parent_root)):
+        secs = _run_turn(_time_paired, (str(path), p - 1, "float64", calls),
+                         root)
+        print(f"turn {tag}: paired p = {p} float64 warm seconds "
+              + ", ".join(f"{t:.3f}" for t in secs), flush=True)
+
+
 def rlog_study(dev, n_seeds):
     import deseq2_tpu_torch as dt
     from ..engine import LOG2E, device_counts
@@ -866,6 +1096,17 @@ if __name__ == "__main__":
                        int(sys.argv[3]) if len(sys.argv) > 3 else 5)
     elif sys.argv[1] == "wide":
         wide_study(dev, int(sys.argv[2]) if len(sys.argv) > 2 else 3)
+    elif sys.argv[1] == "block":
+        block_study(dev, int(sys.argv[2]) if len(sys.argv) > 2 else 3)
+    elif sys.argv[1] == "crossover":
+        crossover_study(dev, int(sys.argv[2]) if len(sys.argv) > 2 else 3)
+    elif sys.argv[1] == "variant":
+        variant_study(dev, sys.argv[2],
+                      int(sys.argv[3]) if len(sys.argv) > 3 else 3)
+    elif sys.argv[1] == "paired":
+        paired_study(Path(sys.argv[2]).resolve(),
+                     int(sys.argv[3]) if len(sys.argv) > 3 else 64,
+                     int(sys.argv[4]) if len(sys.argv) > 4 else 1)
     elif sys.argv[1] == "sc":
         sc_study(dev, *[int(a) for a in sys.argv[2:5]])
     elif sys.argv[1] == "scpaths":

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from deseq2_tpu_torch.ops import checks, disp, irls
+from torch_threads import one_torch_thread  # noqa: F401
 
 F32 = torch.float32
 CASES = [(24, 333, 2), (3000, 17, 3)]
@@ -92,9 +93,12 @@ def test_within_plain_spread(kind, p, weighted, mode):
         step = 2.0 * (d["grid"][1] - d["grid"][0]).item() / 19
         bad = pl + step * (noise.abs() > 1.96).to(F32)
         read = checks.check_grid
+    # the permutations' readings depend on pl and d alone: one yardstick
+    # for both readings
+    spread = checks.plain_spread(kind, pl, d, True, ref)
     for k, ok in ((good, True), (bad, False)):
         r = checks.within_plain_spread(kind, read(k, pl, d, True, ref=ref),
-                                       pl, d, True, ref)
+                                       pl, d, True, ref, spread=spread)
         assert r["ok"] == ok, r
 
 
@@ -161,3 +165,79 @@ def test_check_irls_min_mu_reads_zero_rows_against_float64():
     z = checks.check_irls_min_mu(dict(pl, beta=ref["beta"].float()), pl,
                                  ref, d64)
     assert abs(z["zero_rows_dev_excess_kernel"]) < 1e-6
+
+
+def test_edge_stops_read_apart():
+    """The spread rule's knife edge (checks.edge_stops): a float32 line
+    search that stops one gene early, on the plain version's own path at a
+    step whose float64 gain lies within rounding of the tolerance, is read
+    apart (n_edge 1, within the plain runs' own count) and then passes; the
+    same gene stopped one accepted step earlier, on a gain well over the
+    tolerance (a search that quits early for another cause), or off the
+    plain path, is not read apart, and fails.  The inputs are the block checks' at p = 17, S = 24,
+    weighted, with the prior."""
+    raw = checks.solver_inputs(333, 24, 17, checks.seed_of(17, 24),
+                               weighted=True)
+    d = checks.as_tensors(raw, F32, "cpu")
+    plain = disp.fit_disp_line_search_plain
+    pl = checks.run_ls(plain, d, True)
+    ref = checks.line_search_reference(d, True)
+    # the plain path cut after n iterations; its knife-edge steps as
+    # edge_stops reads them, the one furthest short of the reference first
+    cuts = {n: checks.run_ls(plain, d, True, maxit=n) for n in range(1, 12)}
+    eps = torch.finfo(F32).eps
+    tol64 = (checks.lp_at(d["la0"], d, True).abs() * 50 * eps).clamp(min=1e-6)
+    lref = checks.lp_at(ref["log_alpha"], d, True)
+    found = []
+    for n in range(2, 12):
+        c0, c1 = cuts[n - 1], cuts[n]
+        l1 = checks.lp_at(c1["log_alpha"], d, True)
+        g = l1 - checks.lp_at(c0["log_alpha"], d, True)
+        scale = torch.maximum(checks.EDGE_ULPS * eps * l1.abs().clamp(min=1),
+                              (c1["last_change"].double() - g).abs())
+        edge = ((c1["iter"] == n) & (c1["iter_accept"] > c0["iter_accept"])
+                & (pl["iter"] > n + 1)
+                & ((c1["log_alpha"] - pl["log_alpha"]).abs() > 1e-3)
+                & ((g - tol64).abs() <= scale))
+        found += [(lref[i] - l1[i], i, n) for i in edge.nonzero()[:, 0]]
+    assert found
+    _, i, n = max(found)
+    spread = checks.plain_spread("ls", pl, d, True, ref)
+    earlier = max((m for m in range(2, n)
+                   if cuts[m]["iter_accept"][i] > cuts[m - 1]["iter_accept"][i]
+                   and (cuts[m]["log_alpha"][i] - pl["log_alpha"][i]).abs()
+                   > 1e-3), default=1)
+    # last, the knife-edge step's iteration count at a log alpha 2e-3 off
+    # the plain path: not a stop of that path
+    for m, ok, off in ((n, True, 0.0), (earlier, False, 0.0),
+                       (n, False, 2e-3)):
+        k = {key: v.clone() for key, v in pl.items()}
+        for key in k:
+            k[key][i] = cuts[m][key][i]
+        k["log_alpha"][i] += off
+        read = checks.check_ls(k, pl, d, True, ref=ref)
+        alone = checks.within_plain_spread("ls", read, pl, d, True, ref,
+                                           spread=spread)
+        assert not alone["ok"], alone       # the spread alone fails it
+        r = checks.within_plain_spread("ls", read, pl, d, True, ref,
+                                       spread=spread, k=k)
+        assert r["n_edge"] == int(ok) <= r["n_edge_limit"], (m, r)
+        assert r["ok"] == ok and r["read_apart"] == int(ok), (m, r)
+
+
+def test_line_search_per_gene_caps():
+    """The plain line search's per-gene maxit caps (checks.edge_stops cuts
+    each gene's search at its own count): every gene ends as a run at its
+    cap as an int maxit leaves it, bit for bit."""
+    d = checks.as_tensors(checks.solver_inputs(120, 24, 17, 3,
+                                               weighted=True), F32, "cpu")
+    caps = torch.randint(1, 9, (120,),
+                         generator=torch.Generator().manual_seed(0))
+    plain = disp.fit_disp_line_search_plain
+    r = checks.run_ls(plain, d, True, maxit=caps)
+    for m in caps.unique().tolist():
+        sel = caps == m
+        assert not checks.differing_outputs(
+            {k: v[sel] for k, v in r.items()},
+            {k: v[sel] for k, v in checks.run_ls(plain, d, True,
+                                                 maxit=m).items()})

@@ -19,6 +19,7 @@ import deseq2_tpu_torch as tdt
 from deseq2_tpu.parallel import fused as jfused
 from deseq2_tpu_torch.results import DESeqResults, _device_filtering
 from deseq2_tpu_torch.parallel import fused as tfused
+from torch_threads import one_torch_thread  # noqa: F401
 
 COLS = ("baseMean", "log2FoldChange", "lfcSE", "stat", "pvalue", "padj")
 

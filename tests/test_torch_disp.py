@@ -21,6 +21,7 @@ from deseq2_tpu.ops.pallas_ls import fit_disp_line_search_pallas
 from deseq2_tpu_torch.ops import disp as tdisp
 from deseq2_tpu_torch.ops.cuda_grid import fit_disp_grid
 from deseq2_tpu_torch.ops.cuda_ls import fit_disp_line_search
+from torch_threads import one_torch_thread  # noqa: F401
 
 MIN_LA = float(np.log(1e-9))
 

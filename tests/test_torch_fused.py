@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import deseq2_tpu as jdt
 from deseq2_tpu.parallel import fused as jfused
 from deseq2_tpu_torch.parallel import fused as tfused
+from torch_threads import one_torch_thread  # noqa: F401
 
 # solver iteration counts are compared where the gene-wise dispersion is
 # off its floor: a gene whose posterior is flat toward alpha -> 0 runs to

@@ -30,6 +30,7 @@ import deseq2_tpu as jdt
 from deseq2_tpu.parallel import fused as jfused
 from deseq2_tpu_torch.ops import disp as tdisp
 from deseq2_tpu_torch.parallel import fused as tfused
+from torch_threads import one_torch_thread  # noqa: F401
 
 ITER_KEYS = ("dispGeneIter", "dispIter", "betaIter", "betaIterReduced")
 

@@ -20,20 +20,10 @@ import deseq2_tpu as jdt
 import deseq2_tpu_torch as tdt
 from deseq2_tpu import gampoi as jg
 from deseq2_tpu_torch import gampoi as tg
+from torch_threads import one_torch_thread  # noqa: F401
 
 FLOOR = 1e-7
 CPU = dict(device="cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this module's torch calls: the streamed
-    solvers launch many small ops, and with the suite's workers sharing
-    the cores each multi-threaded op waits on descheduled threads."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cmp(got, want, name, rtol=1e-6, atol=1e-9, skip=None):

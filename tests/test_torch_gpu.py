@@ -15,8 +15,8 @@ alone fails (checks.ROUNDING_BOUND) hold K1 to the float64 fit and leave
 K2's and K3's out, and twice on the same inputs, where its outputs must be
 the same bit for bit.  K2 and K3 also run in their other modes (without
 the Cox-Reid term; the weighted row cut at 0.5), the wrappers' p > 8
-routes (the wide kernels for p <= 16, the plain version past 16) are held
-to the CPU, a paired p = 10 call on a 2-block mesh to the single-device
+routes (the wide kernels for p <= 16, the block kernels for p <= 64) are
+held to the CPU, a paired p = 10 call on a 2-block mesh to the single-device
 call, and the host engine's deseq(engine="host") on the card to the same
 call with device="cpu".  K1 at the quasi-likelihood
 fits' minmu = 1e-6 is held to its plain version, and the streamed
@@ -144,21 +144,29 @@ def test_grid_kernel_matches_plain(cuda, case, use_prior):
     assert r["ok"], r
 
 
+def _all_counts(fn):
+    return {k: v for k, v in vars(fn).items() if k.startswith("launches")
+            and k != "launches_by_device"}
+
+
 @pytest.mark.parametrize("weighted", [False, True])
 def test_empty_call_not_counted(cuda, weighted):
-    """A call with no genes launches no kernel, and no counter moves."""
-    d = _inputs(8, 24, 2, 0, torch.float64, cuda, weighted)
-    e = {k: v if k in ("x", "grid") else v[:0] for k, v in d.items()}
-    calls = ((fit_beta, lambda: checks.run_irls(fit_beta, e)),
-             (fit_disp_line_search,
-              lambda: checks.run_ls(fit_disp_line_search, e, True)),
-             (fit_disp_grid,
-              lambda: {"log_alpha": checks.run_grid(fit_disp_grid, e, True)}))
-    for fn, call in calls:
-        n0 = _counter(fn, weighted)
-        out = call()
-        assert all(len(v) == 0 for v in out.values()), fn.__name__
-        assert _counter(fn, weighted) == n0, fn.__name__
+    """A call with no genes launches no kernel, and no counter moves: the
+    templated kernels (p = 2) and the block kernels (p = 33)."""
+    for p, S in ((2, 24), (33, 99)):
+        d = _inputs(8, S, p, 0, torch.float64, cuda, weighted)
+        e = {k: v if k in ("x", "grid") else v[:0] for k, v in d.items()}
+        calls = ((fit_beta, lambda: checks.run_irls(fit_beta, e)),
+                 (fit_disp_line_search,
+                  lambda: checks.run_ls(fit_disp_line_search, e, True)),
+                 (fit_disp_grid,
+                  lambda: {"log_alpha": checks.run_grid(fit_disp_grid, e,
+                                                        True)}))
+        for fn, call in calls:
+            n0 = _all_counts(fn)
+            out = call()
+            assert all(len(v) == 0 for v in out.values()), fn.__name__
+            assert _all_counts(fn) == n0, (fn.__name__, p)
 
 
 @pytest.mark.parametrize("weighted", [False, True])
@@ -166,13 +174,14 @@ def test_empty_call_not_counted(cuda, weighted):
                          ids=["float32", "float64"])
 def test_kernels_repeatable(cuda, dt, weighted):
     """Two launches of K1, of K2 and of K3 on the same inputs give the
-    same outputs bit for bit (no atomics in any sum; which warp takes which
-    gene or grid point changes no result), at few, wrapping and many
-    samples."""
+    same outputs bit for bit (no atomics in any sum; which warp or block
+    takes which gene or grid point changes no result), at few, wrapping
+    and many samples, and on the block kernels (p = 17, 33, 64)."""
     def grid(d):
         return {"log_alpha": checks.run_grid(fit_disp_grid, d, True)}
 
-    for S, G, p in ((24, 333, 2),) + checks.EDGES[1::3] + ((3000, 301, 3),):
+    for S, G, p in ((24, 333, 2),) + checks.EDGES[1::3] + (
+            (3000, 301, 3),) + checks.BLOCK_REPEAT:
         d = _inputs(G, S, p, 10 * p + S, dt, cuda, weighted)
         pairs = [(checks.run_irls(fit_beta, d), checks.run_irls(fit_beta, d)),
                  (checks.run_ls(fit_disp_line_search, d, True),
@@ -183,17 +192,18 @@ def test_kernels_repeatable(cuda, dt, weighted):
 
 
 def test_wrapper_refuses_unsupported(cuda):
-    """A dtype the kernels do not take raises; a design wider than 16
-    columns is not refused: K2 takes the p > 16 route (the plain version
-    on the card, counted in launches_plain)."""
+    """A dtype the kernels do not take raises; a design wider than
+    P_BLOCK = 64 columns is not refused: K2 takes the p > 64 route (the
+    plain version on the card, counted in launches_plain)."""
+    from deseq2_tpu_torch.ops.cuda_ls import P_BLOCK
     d = _inputs(8, 24, 2, 0, torch.float32, cuda)
     with pytest.raises(TypeError):
         fit_disp_grid(d["y"].half(), d["x"].half(), d["mu"].half(),
                       d["grid"].half(), d["pm"].half(), 1.0)
-    x17 = torch.ones(24, 17, device=cuda)
+    x_wide = torch.ones(24, P_BLOCK + 1, device=cuda)
     n0 = fit_disp_line_search.launches_plain
-    out = fit_disp_line_search(d["y"], x17, d["mu"], d["la0"], d["pm"], 1.0,
-                               MIN_LA)
+    out = fit_disp_line_search(d["y"], x_wide, d["mu"], d["la0"], d["pm"],
+                               1.0, MIN_LA)
     assert out["log_alpha"].is_cuda
     assert fit_disp_line_search.launches_plain == n0 + 1
 
@@ -238,13 +248,14 @@ def test_kernel_modes_match_plain(cuda, mode, case, use_prior):
     assert r3["ok"], r3
 
 
-@pytest.mark.parametrize("p", [9, 10, 16, 17])
+@pytest.mark.parametrize("p", [9, 10, 16, 17, 33, 64])
 @pytest.mark.parametrize("weighted", [False, True])
 def test_wide_route_on_card_matches_cpu(cuda, weighted, p):
     """Past p = 8 each wrapper takes its route by p: for p <= 16 the wide
     kernels (K1 counted in launches_wide, K2 and K3 in their mode's
-    _wide count), past 16 the plain version on the card
-    (launches_plain).  Each is held to the same wrapper on the CPU (its
+    _wide count), for 16 < p <= 64 the block kernels (launches_block and
+    the modes' _block counts), at 40 samples, or 3 p past 16 columns.
+    Each is held to the same wrapper on the CPU (its
     plain version) with phase 3's float64 readings (checks.check_irls,
     check_ls, check_grid), and output by output: K1's deviance and every
     gene's K2 and K3 log alpha as before, and K1's beta, beta_var,
@@ -253,14 +264,14 @@ def test_wide_route_on_card_matches_cpu(cuda, weighted, p):
     (checks.solver_inputs): their wide weighted designs are
     ill-conditioned enough that the card's and the CPU's rounding moves a
     beta by ~4e-6 relative, and the deviance by ~1.3e-8 relative."""
-    from deseq2_tpu_torch.ops.cuda_ls import mode_counter
-    raw = checks.solver_inputs(64, 40, p, 5, weighted=weighted)
+    from deseq2_tpu_torch.ops.cuda_ls import mode_counter, width_suffix
+    raw = checks.solver_inputs(64, 40 if p <= 16 else 3 * p, p, 5,
+                               weighted=weighted)
     card = checks.as_tensors(raw, torch.float64, cuda)
     cpu = checks.as_tensors(raw, torch.float64, torch.device("cpu"))
     w = card.get("w")
-    names = ["launches_wide" if p <= 16 else "launches_plain"]
-    names += [mode_counter(w, True, checks.CR_WEIGHT_THRESHOLD, p)
-              if p <= 16 else "launches_plain"] * 2
+    names = ["launches" + width_suffix(p)]
+    names += [mode_counter(w, True, checks.CR_WEIGHT_THRESHOLD, p)] * 2
     fns = (fit_beta, fit_disp_line_search, fit_disp_grid)
     before = [getattr(f, n) for f, n in zip(fns, names)]
     k1 = {k: v.cpu() for k, v in checks.run_irls(fit_beta, card).items()}

@@ -19,6 +19,7 @@ import deseq2_tpu as jdt
 import deseq2_tpu.helper as jh
 import deseq2_tpu_torch as tdt
 import deseq2_tpu_torch.helper as th
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-6, 1e-9
 COLS = ("baseMean", "log2FoldChange", "lfcSE", "stat", "pvalue", "padj")

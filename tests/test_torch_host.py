@@ -39,6 +39,7 @@ from deseq2_tpu.ops.pallas_disp import fit_disp_grid_pallas
 from deseq2_tpu.ops.pallas_ls import fit_disp_line_search_pallas
 from deseq2_tpu_torch import dispersions as tdisp_mod
 from deseq2_tpu_torch.ops import disp as tdisp
+from torch_threads import one_torch_thread  # noqa: F401
 
 COLS = ("baseMean", "log2FoldChange", "lfcSE", "stat", "pvalue", "padj")
 DISP = ("dispGeneEst", "dispFit", "dispersion")

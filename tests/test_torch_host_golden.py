@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 import deseq2_tpu_torch as tdt
+from torch_threads import one_torch_thread  # noqa: F401
 
 HERE = os.path.join(os.path.dirname(__file__), "golden")
 RES_COLS = ("baseMean", "log2FoldChange", "lfcSE", "stat", "pvalue",

@@ -18,6 +18,7 @@ import torch
 import deseq2_tpu as jdt
 import deseq2_tpu_torch as tdt
 from deseq2_tpu_torch.engine import DeviceArray, LazyRowData
+from torch_threads import one_torch_thread  # noqa: F401
 
 PKGS = {"jax": jdt, "torch": tdt}
 KW = {"jax": {}, "torch": {"device": "cpu"}}

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 from deseq2_tpu.ops.irls import _fit_beta_core
 from deseq2_tpu.ops.pallas_irls import fit_beta_pallas
 from deseq2_tpu_torch.ops.cuda_irls import fit_beta
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _sim(G=300, S=24, p=2, seed=0):

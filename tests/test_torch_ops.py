@@ -20,6 +20,7 @@ from deseq2_tpu.ops import linalg as jlinalg
 from deseq2_tpu.ops import nb as jnb
 from deseq2_tpu_torch.ops import linalg as tlinalg
 from deseq2_tpu_torch.ops import nb as tnb
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def simulate(G=60, S=8, p=2, seed=0):

@@ -1,6 +1,7 @@
 """The paired design ~ subject + condition, the DESeq2 vignette's design
 for paired samples (p = subjects + 1: 10 and 16 here, past the templated
-kernels' 8 columns, on the wide kernels on a card), through the public
+kernels' 8 columns, on the wide kernels on a card, and 25, past 16, on the
+block kernels), through the public
 deseq() + results() on the CPU, the port's fused and host engines against
 deseq2_tpu's host engine.
 
@@ -16,12 +17,14 @@ import pytest
 import deseq2_tpu as jdt
 import deseq2_tpu_torch as tdt
 from deseq2_tpu_torch.ops import checks
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-6, 1e-9
 
-# the paired fixture: genes x samples, and p -> subjects
-PAIRED_SHAPE = (200, 40)
-SUBJECTS = {10: 9, 16: 15}
+# the paired fixtures: p -> (genes, samples) and subjects (three samples
+# a subject at p = 25)
+PAIRED_SHAPE = {10: (200, 40), 16: (200, 40), 25: (200, 72)}
+SUBJECTS = {10: 9, 16: 15, 25: 24}
 COLS = ("baseMean", "log2FoldChange", "lfcSE", "stat", "pvalue", "padj")
 DISP = ("dispGeneEst", "dispFit", "dispersion")
 _PAIRED = {}
@@ -31,7 +34,7 @@ def _paired(p):
     """deseq2_tpu's host engine and the port's fused and host engines on
     the paired counts, computed once per p."""
     if p not in _PAIRED:
-        G, S = PAIRED_SHAPE
+        G, S = PAIRED_SHAPE[p]
         counts, subj, cond = checks.paired_gate_counts(G, S, SUBJECTS[p],
                                                        seed=p)
         cd = {"subject": subj, "condition": cond}
@@ -48,9 +51,9 @@ def _paired(p):
 
 
 @pytest.mark.parametrize("engine", ["fused", "host"])
-@pytest.mark.parametrize("p", [10, 16])
+@pytest.mark.parametrize("p", [10, 16, 25])
 def test_paired_design_matches_jax(p, engine):
-    """deseq() + results() on ~ subject + condition, p = 10 and 16, the
+    """deseq() + results() on ~ subject + condition, p = 10, 16 and 25, the
     port's fused and host engines on the CPU against deseq2_tpu's host
     engine: the six results columns and the three dispersions at rtol 1e-6
     on the genes whose betaConv is true on both sides."""

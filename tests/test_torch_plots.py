@@ -17,6 +17,7 @@ import deseq2_tpu as jdt
 import deseq2_tpu.plots as jp
 import deseq2_tpu_torch as tdt
 import deseq2_tpu_torch.plots as tp
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-6, 1e-9
 

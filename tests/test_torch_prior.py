@@ -28,6 +28,7 @@ from deseq2_tpu_torch.parallel import fused as tfused
 from deseq2_tpu_torch.parallel import priordev as tprior
 from deseq2_tpu_torch.quantiles import \
     match_weighted_upper_quantile_for_variance
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _cmp(a, b, name, rtol=1e-6, atol=1e-9):

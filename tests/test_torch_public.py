@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import deseq2_tpu as jdt
 import deseq2_tpu_torch as tdt
 from deseq2_tpu.parallel import fused as jfused
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _cmp(a, b, name, rtol=1e-6, atol=1e-9):

@@ -27,6 +27,7 @@ from deseq2_tpu_torch.ops.placement import active_gene_mesh, use_gene_mesh
 from deseq2_tpu_torch.parallel import fused as tfused
 from deseq2_tpu_torch.parallel import gene_mesh, sc as tsc
 from deseq2_tpu_torch.parallel.sharding import GeneMesh, replicated
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = dict(device="cpu")
 

@@ -17,6 +17,7 @@ import pytest
 import deseq2_tpu as jdt
 import deseq2_tpu_torch as tdt
 from deseq2_tpu.shrink import lfc_shrink as jshrink
+from torch_threads import one_torch_thread  # noqa: F401
 
 COLS = ("baseMean", "log2FoldChange", "lfcSE", "stat", "pvalue", "padj")
 

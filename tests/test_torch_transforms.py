@@ -27,6 +27,7 @@ import deseq2_tpu as jdt
 import deseq2_tpu.transforms as jtf
 import deseq2_tpu_torch as tdt
 import deseq2_tpu_torch.transforms as ttf
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-6, 1e-9
 F32_VST, F32_RLOG = 1e-4, 1e-2

@@ -1,9 +1,14 @@
-"""Designs wider than 8 columns (8 < p <= 16) on the CPU: the plain K1, K2
-and K3 (deseq2_tpu_torch.ops.irls / ops.disp, which the wide kernels of
-csrc/*.cu are held to on the card) against the JAX package's XLA cores,
-the path it takes past 8 columns (pallas_irls.py:274, pallas_ls.py:329,
-pallas_disp.py:199), at p = 9, 12 and 16 (tests/test_torch_paired.py runs
-the public path on such designs).
+"""Designs wider than 8 columns on the CPU: the plain K1, K2 and K3
+(deseq2_tpu_torch.ops.irls / ops.disp, which the wide kernels (8 < p <=
+16) and the block kernels (16 < p <= 64) of csrc/*.cu are held to on the
+card) against the JAX package's XLA cores, the path it takes past 8
+columns (pallas_irls.py:274, pallas_ls.py:329, pallas_disp.py:199), at p
+= 9, 12 and 16 on 40 samples (120 genes) and p = 17, 33 and 64 on 3 p
+samples (60 genes)
+(tests/test_torch_paired.py runs the public path on such designs).  Past
+32 columns the weighted inputs also drop the last column from ten genes'
+Cox-Reid term, a column past the first 32 bits of the block kernels'
+column mask.
 
 float64 on both sides, inputs made with numpy from a seed
 (ops/checks.py:solver_inputs), at rtol 1e-6: K1 on the genes both fits
@@ -20,6 +25,7 @@ from deseq2_tpu.ops.irls import _fit_beta_core
 from deseq2_tpu_torch.ops import checks
 from deseq2_tpu_torch.ops import disp as tdisp
 from deseq2_tpu_torch.ops.irls import fit_beta_plain
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-6, 1e-9
 # (weighted, use_cr): unweighted, weighted with the Cox-Reid row cut (the
@@ -29,13 +35,20 @@ MODES = {"default": (False, True), "weighted": (True, True),
          "nocr": (False, False)}
 
 
+# the design widths: the wide kernels' and the block kernels'
+WIDTHS = [9, 12, 16, 17, 33, 64]
+
+
 def _inputs(p, mode):
-    raw = checks.solver_inputs(120, 40, p, 100 + p, weighted=MODES[mode][0])
+    # past 16 columns 60 genes on 3 p samples: the JAX cores' p x p batches
+    # dominate the cost there
+    G, S = (120, 40) if p <= 16 else (60, 3 * p)
+    raw = checks.solver_inputs(G, S, p, 100 + p, weighted=MODES[mode][0])
     return raw, raw.get("w")
 
 
 @pytest.mark.parametrize("mode", ["default", "weighted"])
-@pytest.mark.parametrize("p", [9, 12, 16])
+@pytest.mark.parametrize("p", WIDTHS)
 def test_plain_irls_wide_matches_xla(p, mode):
     """K1's plain version against _fit_beta_core: beta, its variance, the
     deviance and the hat diagonal at rtol 1e-6 on the genes both take as
@@ -64,7 +77,7 @@ def test_plain_irls_wide_matches_xla(p, mode):
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
-@pytest.mark.parametrize("p", [9, 12, 16])
+@pytest.mark.parametrize("p", WIDTHS)
 def test_plain_disp_wide_matches_xla(p, mode):
     """K2's and K3's plain versions against _fit_disp_line_search_core and
     _fit_disp_grid_core, with the prior: log alpha and the log posterior
@@ -97,3 +110,24 @@ def test_plain_disp_wide_matches_xla(p, mode):
         *j, pv, weights=None if w is None else jnp.asarray(w),
         use_weights=w is not None, **kw))
     np.testing.assert_allclose(g, gr, rtol=RTOL, atol=ATOL)
+
+
+def test_cr_column_mask_past_32_columns():
+    """The weighted Cox-Reid column mask at p = 40, past a 32-bit word (the
+    block kernels keep it in a 64-bit one, common.cuh:block_cr_col_mask,
+    and decide as make_cr_masks does: a column stays when some row above
+    the threshold has x != 0): the port's make_cr_masks drops the same
+    columns as the JAX package's, column 1 of the first ten genes and
+    column 39 of the next ten, and no other."""
+    raw = checks.solver_inputs(120, 120, 40, 140, weighted=True)
+    _, got = tdisp.make_cr_masks(torch.as_tensor(raw["x"]),
+                                 torch.as_tensor(raw["w"]))
+    _, want = jdisp.make_cr_masks(jnp.asarray(raw["x"]),
+                                  jnp.asarray(raw["w"]),
+                                  checks.CR_WEIGHT_THRESHOLD, True)
+    got, want = got.numpy(), np.asarray(want)
+    np.testing.assert_array_equal(got, want)
+    dropped = {g: list(np.where(~got[g])[0]) for g in range(len(got))
+               if not got[g].all()}
+    assert dropped == {**{g: [1] for g in range(10)},
+                       **{g: [39] for g in range(10, 20)}}
