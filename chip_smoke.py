@@ -12,7 +12,9 @@ Phases; any failure exits non-zero and no phase's failure is caught:
    registers / shared memory / spills per library, and for the p = 2
    instantiations of K1, K2 and K3, their wide kernels (8 < p <= 16, one
    build) and their block kernels (at p = 25 and 64) their registers,
-   spills and resident warps per SM.  While nvcc runs, the script computes
+   spills and resident warps per SM, and the block kernels' DMMA (FP64
+   tensor-core) instruction counts: the float64 K1 and K2 block kernels
+   must issue DMMA and spill nothing.  While nvcc runs, the script computes
    the float64 CPU references of phase 8's paired gates and phase 10's
    single-cell gates (they need no kernel; prefetch_cpu_references).
 3. hold each kernel, unweighted and weighted, against its plain PyTorch
@@ -34,7 +36,9 @@ Phases; any failure exits non-zero and no phase's failure is caught:
    (checks.BLOCK_P) at S = 24, 1,024 and 3,000 (checks.BLOCK_SHAPES; a
    width only below S), unweighted, weighted (past 32 columns a column
    beyond the first 32 bits of the Cox-Reid mask dropped) and without the
-   Cox-Reid term (checks.BLOCK_MODES).
+   Cox-Reid term (checks.BLOCK_MODES), and in float64 at the repeat shapes
+   (the widths of checks.BLOCK_REPEAT that checks.BLOCK_P lacks: p = 57, a
+   one-column last tile of the tensor-core gram), each launch twice.
 4. the main path at full width: 60,000 genes x 1,024 samples, ~ condition,
    public deseq() + results() in float32 (a cold and a warm call; the
    launch counters are zeroed just before the warm call and read just
@@ -112,8 +116,9 @@ Phases; any failure exits non-zero and no phase's failure is caught:
    (the wide kernels) in float64 and float32 (the kernels line's
    *_wide_f64 and *_wide_f32 rows, each with the launches of the p = 10
    fused call of its dtype), and the block kernels at p = 25 in float32
-   and p = 64 in float64 (rows *_block_p25_f32, *_block_p64_f64, with
-   the launches of that fused call).
+   and float64 and p = 64 in float64 (rows *_block_p25_f32,
+   *_block_p25_f64, *_block_p64_f64, with the launches of that fused
+   call).
 9. the transforms at 60,000 x 1,024 on the main path's counts, each
    public call warm (after a first call), timed to its payload on the
    card (counters zeroed just before it and read just after; peak device
@@ -203,8 +208,11 @@ Phases; any failure exits non-zero and no phase's failure is caught:
    With a second card phase 3 also holds K1-K3 against their plain
    versions on cuda:1.
 
-Each phase prints its seconds.  The last two lines are the card's
-nvidia-smi line and the JSON result line.
+Each phase prints its seconds, and the script its total.  The last
+three lines are the kernels line, the card's nvidia-smi line and the JSON
+result line.  A kernel's bound charges the grams' multiply-adds of a
+float64 row at the FP64 tensor cores' peak (GRAM_PEAK), the rest at the
+non-tensor peaks.
 """
 
 import functools
@@ -217,10 +225,14 @@ import numpy as np
 
 G_MAIN, S_MAIN = 60000, 1024
 G_GATE = 2048
-# the card's peak rates (NVIDIA data sheet, H100 SXM at 700 W): HBM bytes/s
-# and non-tensor-core float32 / float64 operations/s
+# the card's peak rates (NVIDIA data sheet, H100 SXM at 700 W): HBM bytes/s,
+# non-tensor-core float32 / float64 operations/s, and the FP64 tensor
+# cores' (mma.sync f64), which the bounds charge a float64 gram's
+# multiply-adds at; float32 grams stay off the tensor cores (TF32 would cut
+# X'WX's precision: deseq2_tpu/__init__.py)
 HBM_BPS = 3.35e12
-PEAK_OPS = {"float32": 67e12, "float64": 34e12}
+PEAK_OPS = {"float32": 67e12, "float64": 34e12, "float64 tensor": 67e12}
+GRAM_PEAK = {"float32": "float32", "float64": "float64 tensor"}
 
 
 def log(*a):
@@ -276,7 +288,11 @@ def kernel_resources():
                         f"bytes, {warps * blocks} resident warps per SM at "
                         f"S={S_MAIN}")
     # the block kernels (16 < p <= 64, csrc/*_block.cu; 8 warps a block,
-    # the layout and so the occupancy set by p): at p = 25 and 64
+    # the layout and so the occupancy set by p): at p = 25 and 64; the
+    # float64 K1 and K2 run their grams on the FP64 tensor cores (DMMA
+    # instructions in their machine code, counted by cuobjdump)
+    from deseq2_tpu_torch.ops import sass_compare
+    failed = []
     for name, sym, query, extra in (
             ("disp_ls_block", "ls_block_kernel", "ls_block_blocks_per_sm",
              (1,)),
@@ -285,6 +301,9 @@ def kernel_resources():
             ("disp_grid_block", "grid_block_kernel",
              "grid_block_blocks_per_sm", (1,))):
         funcs = build.ptxas_resources(name)
+        # (K3 runs no tensor-core gram: its machine code is not read)
+        sass = {} if name == "disp_grid_block" else \
+            sass_compare.functions(build.so_path(name))
         fn = build.bind(build.load(name), query,
                         [ctypes.c_int] * (3 + len(extra)))
         for t, dname in (("f", "float32"), ("d", "float64")):
@@ -292,13 +311,23 @@ def kernel_resources():
                 pat = rf"{sym}I{t}Lb{w}E(Lb1E)?E"
                 hit = [v for k, v in funcs.items() if re.search(pat, k)]
                 regs, spill = hit[0] if len(hit) == 1 else (-1, -1)
+                code = [v for k, v in sass.items() if re.search(pat, k)]
+                dmma = sum(bool(re.search(r"\bDMMA", i)) for i in code[0]) \
+                    if len(code) == 1 else "-"
+                if t == "d" and name != "disp_grid_block" \
+                        and (dmma in ("-", 0) or spill != 0):
+                    failed.append(f"{name} {dname} weighted={w}")
                 for p in (25, 64):
                     blocks = fn(int(t == "d"), w, p, *extra)
                     key = f"{name}{'_w' if w else ''} {dname} p={p}"
                     out[key] = dict(registers=regs, spill_bytes=spill,
-                                    warps_per_sm=8 * blocks)
+                                    warps_per_sm=8 * blocks, dmma=dmma)
                     log(f"  {key}: {regs} registers, {spill} spill bytes, "
-                        f"{8 * blocks} resident warps per SM")
+                        f"{8 * blocks} resident warps per SM, {dmma} DMMA "
+                        f"instructions")
+    if failed:
+        raise SystemExit(f"float64 block K1/K2 without DMMA or with spills: "
+                         f"{failed}")
     return out
 
 
@@ -564,6 +593,40 @@ def check_wide_kernels(torch, dev, worst, failed, route="wide"):
                             failed.append(f"{case} prior={use_prior} {name}")
                         key = f"{name}_{route}{dsfx}"
                         worst[key] = max(worst[key], r["max_abs_err"])
+    if route == "block":
+        # the repeat shapes at widths the checks above leave out
+        # (checks.BLOCK_REPEAT; p = 57 leaves a one-column last 8-column
+        # tile of the float64 tensor-core gram) in float64: each kernel
+        # twice, bit-identical, and against its plain version
+        for S, G, p in (r for r in checks.BLOCK_REPEAT
+                        if r[2] not in checks.BLOCK_P):
+            d = checks.as_tensors(checks.solver_inputs(
+                G, S, p, checks.seed_of(p, S)), torch.float64, dev)
+            k1 = checks.run_irls(fit_beta, d)
+            k2 = checks.run_ls(fit_disp_line_search, d, True)
+            k3 = checks.run_grid(fit_disp_grid, d, True)
+            rep = {"irls": checks.differing_outputs(
+                       k1, checks.run_irls(fit_beta, d)),
+                   "disp_ls": checks.differing_outputs(
+                       k2, checks.run_ls(fit_disp_line_search, d, True)),
+                   "disp_grid": checks.differing_outputs(
+                       {"log_alpha": k3},
+                       {"log_alpha": checks.run_grid(fit_disp_grid, d,
+                                                     True)})}
+            res = {"irls": checks.check_irls(
+                       k1, checks.run_irls(irls.fit_beta_plain, d)),
+                   "disp_ls": checks.check_ls(k2, checks.run_ls(
+                       disp.fit_disp_line_search_plain, d, True), d, True),
+                   "disp_grid": checks.check_grid(k3, checks.run_grid(
+                       disp.fit_disp_grid_plain, d, True), d, True)}
+            torch.cuda.synchronize()
+            for name, r in res.items():
+                log(f"  float64 block repeat p={p} S={S} G={G} {name}: "
+                    f"{fmt(r)} repeat_differs={rep[name]}")
+                if not r["ok"] or rep[name]:
+                    failed.append(f"float64 block repeat p={p} S={S} {name}")
+                key = f"{name}_block_f64"
+                worst[key] = max(worst[key], r["max_abs_err"])
     moved = {k: read_counts()[k] - v for k, v in n0.items()}
     log(f"  {route} checks: plain-route launches {moved}")
     if any(moved.values()):
@@ -1272,27 +1335,57 @@ def time_ms(torch, fn, reps, warm=True):
 # special-function calls each counted once, but a multiply-add twice, as
 # the peak rates count it (so the bound is a lower bound).  A gram's
 # packed upper triangle takes one multiply-add an entry on the
-# premultiplied u = w x (P multiplies a sample).
+# premultiplied u = w x (P multiplies a sample).  The grams' multiply-adds
+# (X'WX, X'Wz, X'W^2X, the hat diagonal's x' A x) are counted apart: the
+# card can run them on its tensor cores in float64 (GRAM_PEAK).
+class Ops:
+    """An operation count: the grams' multiply-adds (`gram`) and the rest
+    (`other`), added and scaled as a number is."""
+
+    def __init__(self, other, gram=0.0):
+        self.other, self.gram = other, gram
+
+    @staticmethod
+    def of(v):
+        return v if isinstance(v, Ops) else Ops(v)
+
+    def __add__(self, o):
+        o = Ops.of(o)
+        return Ops(self.other + o.other, self.gram + o.gram)
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        o = Ops.of(o)
+        return Ops(self.other - o.other, self.gram - o.gram)
+
+    def __mul__(self, k):
+        return Ops(self.other * k, self.gram * k)
+
+    __rmul__ = __mul__
+
+
 def ops_irls(P):
     """Per sample: the initial mu (init); a sweep: mu, the deviance term,
-    w and z (9 + 11), x'beta (2 P), X'WX (2 nt + P) and X'Wz (2 P); after
-    the fit: the final pass (3 + 2 P) and the hat diagonal x' A x on the
-    symmetric inverse (3 + 2 nt)."""
+    w and z (9 + 11), x'beta (2 P), X'WX (2 nt + P: the gram 2 nt) and
+    X'Wz (the gram's 2 P); after the fit: the final pass (3 + 2 P) and the
+    hat diagonal x' A x on the symmetric inverse (3 + the gram's 2 nt)."""
     nt = P * (P + 1) // 2
-    return dict(init=7 + 2 * P,
-                sweep=(9 + 2 * nt + P + 2 * P) + (11 + 2 * P),
-                post=(3 + 2 * P) + (3 + 2 * nt))
+    return dict(init=Ops(7 + 2 * P),
+                sweep=Ops(9 + P + 11 + 2 * P, 2 * nt + 2 * P),
+                post=Ops(3 + 2 * P + 3, 2 * nt))
 
 
 def ops_ls(P, shared_constants=True):
     """Per sample and trial point: the lgamma difference 5 (lgamma(y+c),
     y+c, y log c, two subtractions), digamma(y+c) 8 shifts x 3 + series 12
     and the subtraction of digamma(c), log1p/reciprocal/remaining terms 12,
-    w 1, two packed grams on u = w x (4 nt + P).  shared_constants=False
-    gives the earlier count, which charged lgamma(c), log(c) and digamma(c)
-    to every sample (7 + 72 + 12 + 3 + the grams)."""
-    grams = 4 * (P * (P + 1) // 2) + P
-    return (5 + 37 + 12 + 1 if shared_constants else 7 + 72 + 12 + 3) + grams
+    w 1, u = w x (P) and two packed grams on it (4 nt).
+    shared_constants=False gives the earlier count, which charged
+    lgamma(c), log(c) and digamma(c) to every sample (7 + 72 + 12 + 3 + the
+    grams)."""
+    return Ops((5 + 37 + 12 + 1 if shared_constants else 7 + 72 + 12 + 3)
+               + P, 4 * (P * (P + 1) // 2))
 
 
 def ops_ls_point(P):
@@ -1305,11 +1398,11 @@ def ops_ls_point(P):
 def ops_grid(P, shared_constants=True):
     """Per sample and grid point: the lgamma difference 5 (lgamma(y+c),
     y+c, y log c, two subtractions), the log1p term 4, the Cox-Reid weight
-    3 (1 + mu alpha, its reciprocal, mu r), a packed gram on u = w x
-    (2 nt + P).  shared_constants=False gives the earlier count, which
+    3 (1 + mu alpha, its reciprocal, mu r), u = w x (P) and a packed gram
+    on it (2 nt).  shared_constants=False gives the earlier count, which
     charged lgamma(c) and log(c) to every sample (7 + 4 + 3 + the gram)."""
-    return ((5 if shared_constants else 7) + 4 + 3
-            + 2 * (P * (P + 1) // 2) + P)
+    return Ops((5 if shared_constants else 7) + 4 + 3 + P,
+               2 * (P * (P + 1) // 2))
 
 
 def ops_grid_point(P):
@@ -1319,8 +1412,13 @@ def ops_grid_point(P):
 
 
 def bound(bytes_, ops, dname):
+    """The least milliseconds of `bytes_` moved and `ops` (a number or
+    Ops) in dtype dname, and which of the two sets it: the grams at
+    GRAM_PEAK, the rest at PEAK_OPS."""
+    ops = Ops.of(ops)
     t_bytes = bytes_ / HBM_BPS * 1e3
-    t_ops = ops / PEAK_OPS[dname] * 1e3
+    t_ops = (ops.other / PEAK_OPS[dname]
+             + ops.gram / PEAK_OPS[GRAM_PEAK[dname]]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1747,7 +1845,7 @@ def mode_timings(torch, dev, launches, worst):
         pms2 = time_ms(torch, lambda: disp.fit_disp_line_search_plain(
             *ls_args, weights=w_ge, **kw), 1)
         evals = float((k2["iter"].double() + 1).sum())
-        per_s = ops_ls(P) - (0 if cr else 4 * (P * (P + 1) // 2) + P + 1)
+        per_s = ops_ls(P) - (0 if cr else Ops(P + 1, 4 * (P * (P + 1) // 2)))
         per_pt = ops_ls_point(P) - (0 if cr else P ** 3)
         b2, by2 = bound(it * ((2 + nw) * G * S + S * P + 2 * G + 8 * G),
                         evals * (S * (per_s + 2 * nw) + per_pt), dname)
@@ -1771,7 +1869,8 @@ def mode_timings(torch, dev, launches, worst):
         pms3 = time_ms(torch, lambda: disp.fit_disp_grid_plain(
             *g_args, weights=gw, **kw), 1)
         Gn = len(need)
-        per_s3 = ops_grid(P) - (0 if cr else 3 + 2 * (P * (P + 1) // 2) + P)
+        per_s3 = ops_grid(P) - (0 if cr else Ops(3 + P,
+                                                 2 * (P * (P + 1) // 2)))
         per_pt3 = ops_grid_point(P) - (0 if cr else P * P)
         b3, by3 = bound(it * ((2 + nw) * Gn * S + S * P + 2 * Gn
                               + len(grid)),
@@ -3006,6 +3105,7 @@ def multiprocess_phase(torch):
 
 
 def main():
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3087,11 +3187,11 @@ def main():
     host_out["paired"] = paired_phase(torch)
     host_out["paired"]["gates"] = paired_gates(torch)
     for dname, p in (("float64", 10), ("float32", 10), ("float32", 25),
-                     ("float64", 64)):
+                     ("float64", 25), ("float64", 64)):
         # the wide rows stand for the p = 10 fused call of their dtype, the
-        # block rows for the p = 25 float32 and p = 64 float64 fused calls,
-        # each with that warm call's launches (the other paired calls'
-        # launches are on their own log lines)
+        # block rows for the p = 25 and p = 64 fused calls, each with that
+        # warm call's launches (the other paired calls' launches are on
+        # their own log lines)
         rows += kernel_timings(torch, dev,
                                host_out["paired"][f"p{p} {dname}"]["launches"],
                                worst, dname=dname, x_np=paired_x(S_MAIN, p))
@@ -3121,6 +3221,8 @@ def main():
     mesh_out["two_processes"] = multiprocess_phase(torch)
     done("11")
 
+    seconds["total"] = time.perf_counter() - t_start
+    log(f"chip_smoke.py: {seconds['total']:.1f} s in all")
     log(json.dumps({"main_path": {k: v for k, v in main_out.items()},
                     "gate": gate, "variant_gates": gates,
                     "prior_phase": prior_out, "host_phase": host_out,

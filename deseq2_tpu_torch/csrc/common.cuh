@@ -789,7 +789,9 @@ __device__ __forceinline__ void tile_put(T* xb, T* ub, const T* xt, int S,
 //   samples), and after the last tile the groups' partial blocks are
 //   added in group order (block_gram_reduce).  Every entry is summed in
 //   one fixed order, so two launches give the same bits and a gene's
-//   result does not depend on the genes beside it;
+//   result does not depend on the genes beside it.  K1 and K2 in float64
+//   take their grams to the FP64 tensor cores instead (the float64 gram
+//   section below; K3 and float32 keep these blocks);
 // - the p x p algebra (Cholesky, solve, inverse, log determinant) runs on
 //   matrices of row stride p in the block's dynamic shared memory, with a
 //   __syncthreads between columns (block_cholesky, block_chol_solve,
@@ -1189,6 +1191,360 @@ __device__ __forceinline__ void block_tile_put(T* xb, T* ub, const T* xt,
     xb[k * ts + t] = v;
     ub[k * ts + t] = w * v;
   }
+}
+
+// ---------------------------------------------------------------------------
+// The float64 block kernels' grams on the FP64 tensor cores (irls_block.cu,
+// disp_ls_block.cu; float32 keeps the 4 x 4 blocks above)
+// ---------------------------------------------------------------------------
+//
+// In float64 K1's and K2's grams are mma.sync m8n8k4 products (D = C + A B
+// over 8 x 8 x 4 tiles; lane l holds A[l / 4][l % 4], B[l % 4][l / 4] and
+// C[l / 4][2 (l % 4) + e], e = 0, 1):
+// - a kernel first computes every sample's terms, each thread some
+//   samples, and writes the weights w (and K1's working response z) to
+//   global scratch; then a pass walks the samples in tiles of tw
+//   (gram_mma_pass): the design's rows x_k by cp.async (pr x ts values, pr
+//   = 8 x the gram's column tiles; the rows past p and the last tile's
+//   samples past S are zero; K1's row p is z) and w (one row of ts after
+//   them).  ts = tw + 4 = 4 mod 16 values: a fragment's 8-byte loads at r
+//   ts + c (r < 4, c < 4 a half-warp) fall on 16 distinct slots of the
+//   banks.  No gram accumulator is live while the special functions run,
+//   which keeps the kernels at two blocks an SM without spills;
+// - a pass sums b = sum_s (w_s x_s) x_s' (K1's column p: X'Wz) or K2's
+//   second gram, sum_s (w_s x_s) (w_s x_s)', in a pass of its own: the
+//   upper 8 x 8 tiles (i <= j), row by row, are cut into kBlockWarpsN runs
+//   of consecutive tiles, one a warp (mma_run).  A warp keeps its run's
+//   accumulators in registers over the pass; at each k-step (4 samples)
+//   it loads one B fragment a tile (x's rows of column tile j) and takes
+//   A (w x of row tile i) from the run's first tile or, at a row's start,
+//   from the diagonal tile's B;
+// - every entry is summed by one warp over the k-steps in ascending
+//   order: two launches give the same bits, and a gene's result does not
+//   depend on the genes beside it.  The warps store their tiles into the
+//   shared matrices by block_gram_store's rules (gram_mma_store).
+
+// D = C + A B over one 8 x 8 x 4 float64 tile, C and D in c (sm_80 and
+// later)
+__device__ __forceinline__ void mma_f64(double (&c)[2], double a, double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, "
+      "{%3}, {%0, %1};\n"
+      : "+d"(c[0]), "+d"(c[1])
+      : "d"(a), "d"(b));
+}
+
+// Copy one value from global to shared memory without a register (8
+// bytes; zeros where !valid, reading nothing), and wait for the thread's
+// copies.  A __syncthreads after the wait shows every thread's copies.
+__device__ __forceinline__ void cp_async8(double* dst, const double* src,
+                                          bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The float64 block kernels' shared-memory layout (BlockLayout's fields):
+// nmat p x p matrices, the vectors, then the tile buffer of pr = 8 cols
+// design rows and `extra` rows more (the weights; K1's hat pass, the
+// warps' partial sums), each of ts = tw + 4 values, and at least min_tile
+// values (K1's second matrix after the fit).
+__host__ __device__ inline BlockLayout block_mma_layout(int p, int tw,
+                                                        int nmat, int cols,
+                                                        int extra,
+                                                        int min_tile) {
+  BlockLayout l;
+  l.p = p;
+  l.pr = 8 * cols;
+  l.tw = tw;
+  l.ts = tw + 4;
+  l.mat = (size_t)p * p;
+  l.vec = kBlockVecVals;
+  l.tile = (size_t)(l.pr + extra) * l.ts;
+  if (l.tile < (size_t)min_tile) l.tile = min_tile;
+  l.vals = nmat * l.mat + l.vec + l.tile;
+  return l;
+}
+
+// block_tile for block_mma_layout: the widest tile (a multiple of 32
+// samples, at most the block's) within kBlockSmemTarget, set by p and the
+// kernel alone.
+inline int block_mma_tile(int p, int nmat, int cols, int extra,
+                          int min_tile) {
+  int tw = kBlockThreads;
+  while (tw > 32 &&
+         block_mma_layout(p, tw, nmat, cols, extra, min_tile).vals *
+                 sizeof(double) >
+             kBlockSmemTarget)
+    tw -= 32;
+  return tw;
+}
+
+// Stage a tile's design rows into xb (row k at k ts): x_k of the tile's n
+// samples from `base`, zeros past n (up to tw) and in the rows p..pr-1,
+// but row zrow (K1's z, which its sample threads write; -1: none).  The
+// block's warps take rows in turn, lanes consecutive samples; the copies
+// land by cp_async_wait_all.
+__device__ __forceinline__ void mma_stage(double* xb, const double* x, int S,
+                                          int base, int n, int p, int pr,
+                                          int ts, int tw, int zrow) {
+  const int lane = lane_id();
+  for (int k = threadIdx.x >> 5; k < pr; k += kBlockWarpsN) {
+    if (k == zrow) continue;
+    const bool row = k < p;
+    const double* src = x + (size_t)(row ? k : 0) * S + base;
+    for (int c = lane; c < tw; c += 32) {
+      const bool valid = row && c < n;
+      cp_async8(xb + k * ts + c, valid ? src + c : x, valid);
+    }
+  }
+}
+
+// the most tiles in a warp's run (p = 64): K1's 44 (the 36 upper tiles and
+// the 8 of the column tile holding X'Wz) and K2's 36 over kBlockWarpsN
+// warps
+constexpr int kMmaRunK1 = 6;
+constexpr int kMmaRunK2 = 5;
+
+// A warp's run of the gram's tile list (i < nr, i <= j < nc, row by row):
+// its first tile and length, the lane's offsets of the first tile's A and
+// B rows, (8 i + l / 4) ts + l % 4 and (8 j + l / 4) ts + l % 4, the step
+// from a tile's B rows to the next column's (8 ts), and which tiles start
+// a row (their A and B rows are the row's diagonal tile's).  Set by p and
+// the layout alone.
+template <int N>
+struct MmaRun {
+  int i0, j0, n, nc;
+  int offa, offb, step;
+  unsigned rowstart;
+};
+
+template <int N>
+__device__ __forceinline__ MmaRun<N> mma_run(int nr, int nc, int ts) {
+  MmaRun<N> m;
+  const int w = threadIdx.x >> 5, lane = lane_id();
+  const int lo = (lane >> 2) * ts + (lane & 3);
+  int total = 0;
+  for (int i = 0; i < nr; ++i) total += nc - i;
+  const int per = total / kBlockWarpsN, more = total % kBlockWarpsN;
+  const int start = w * per + (w < more ? w : more);
+  m.n = per + (w < more ? 1 : 0);
+  m.nc = nc;
+  int i = 0, j = 0;
+  for (int k = 0; k < start; ++k) {
+    if (++j == nc) j = ++i;
+  }
+  m.i0 = i;
+  m.j0 = j;
+  m.step = 8 * ts;
+  m.offa = 8 * i * ts + lo;
+  m.offb = 8 * j * ts + lo;
+  m.rowstart = 0u;
+  for (int q = 1; q < N; ++q) {
+    if (++j == nc) j = ++i;
+    if (j == i) m.rowstart |= 1u << q;
+  }
+  return m;
+}
+
+// The warp's accumulators: a 8 x 8 tile's two values a lane, for each of
+// its run's tiles.
+template <int N>
+__device__ __forceinline__ void gram_mma_zero(double (&acc)[N][2]) {
+#pragma unroll
+  for (int q = 0; q < N; ++q) acc[q][0] = acc[q][1] = 0.0;
+}
+
+// Add a tile's first n samples to the warp's run: xb the tile's design
+// rows, wb its weights (the samples past n, up to a multiple of 4, are
+// zero); the gram is sum_s (w_s x_s) x_s', or with Sq sum_s (w_s x_s)
+// (w_s x_s)'.  The run's length L is a template argument (gram_mma_add
+// picks it), so that no mma.sync sits under a predicate.
+template <int L, int N, bool Sq>
+__device__ __forceinline__ void gram_mma_add_len(const MmaRun<N>& m,
+                                                 double (&acc)[N][2],
+                                                 const double* xb,
+                                                 const double* wb, int n) {
+  const int c = lane_id() & 3;
+  for (int k0 = 0; k0 < n; k0 += 4) {
+    const double wk = wb[k0 + c];
+    const double* xk = xb + k0;
+    int oa = m.offa, ob = m.offb;
+    double a = xk[oa] * wk;
+#pragma unroll
+    for (int q = 0; q < L; ++q) {
+      const bool rs = (m.rowstart >> q) & 1u;
+      if (q > 0) {
+        oa = rs ? oa + m.step : oa;
+        ob = rs ? oa : ob + m.step;
+      }
+      const double b = xk[ob];
+      if (rs) a = b * wk;
+      mma_f64(acc[q], a, Sq ? b * wk : b);
+    }
+  }
+}
+
+template <int N, bool Sq, int L = N>
+__device__ __forceinline__ void gram_mma_add(const MmaRun<N>& m,
+                                             double (&acc)[N][2],
+                                             const double* xb,
+                                             const double* wb, int n) {
+  if constexpr (L > 0) {
+    if (m.n == L)
+      gram_mma_add_len<L, N, Sq>(m, acc, xb, wb, n);
+    else
+      gram_mma_add<N, Sq, L - 1>(m, acc, xb, wb, n);
+  }
+}
+
+// One pass of a gene's samples through the gram: per tile, the design rows
+// by cp.async (mma_stage), the weights from wg (global, S values) and,
+// with zg, K1's working response from zg as row p; then the warp's run
+// (acc, zeroed first).  Every thread of the block calls it.
+template <int N, bool Sq>
+__device__ __forceinline__ void gram_mma_pass(const MmaRun<N>& m,
+                                              double (&acc)[N][2],
+                                              double* tile,
+                                              const BlockLayout& lay,
+                                              const double* x, int S,
+                                              const double* wg,
+                                              const double* zg) {
+  const int t = threadIdx.x, p = lay.p, tw = lay.tw, ts = lay.ts;
+  double* wb = tile + (size_t)lay.pr * ts;
+  double* zb = tile + (size_t)p * ts;
+  gram_mma_zero(acc);
+  for (int base = 0; base < S; base += tw) {
+    const int n = S - base < tw ? S - base : tw;
+    __syncthreads();
+    mma_stage(tile, x, S, base, n, p, lay.pr, ts, tw, zg ? p : -1);
+    if (t < tw) {
+      wb[t] = t < n ? wg[base + t] : 0.0;
+      if (zg) zb[t] = t < n ? zg[base + t] : 0.0;
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    gram_mma_add<N, Sq>(m, acc, tile, wb, n);
+  }
+}
+
+// Write the warps' runs (negated with neg) into M (row stride p) by
+// block_gram_store's rules: both triangles of the upper entries r <= c
+// < p, times the 64-bit column mask's bits, the unit diagonal of dropped
+// columns, the diagonal `diag`.  With rhs, the entries (r, p) of K1's
+// X'Wz column go to rhs[r].  Every thread of the block calls it; it ends
+// with a __syncthreads.
+template <int N>
+__device__ __forceinline__ void gram_mma_store(const MmaRun<N>& m,
+                                               const double (&acc)[N][2],
+                                               bool neg, double* M, int p,
+                                               unsigned long long cm,
+                                               bool unit_diag,
+                                               const double* diag,
+                                               double* rhs) {
+  const int lane = lane_id(), r8 = lane >> 2, c8 = 2 * (lane & 3);
+  int i = m.i0, j = m.j0;
+#pragma unroll
+  for (int q = 0; q < N; ++q) {
+    if (q < m.n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = 8 * i + r8, c = 8 * j + c8 + e;
+        const double g = neg ? -acc[q][e] : acc[q][e];
+        if (r <= c && c < p) {
+          const double cr = (cm >> r) & 1ull ? 1.0 : 0.0;
+          const double cc = (cm >> c) & 1ull ? 1.0 : 0.0;
+          double v = g * (cr * cc);
+          if (r == c) {
+            if (unit_diag) v += 1.0 - cr;
+            if (diag != nullptr) v += diag[r];
+          }
+          M[r * p + c] = v;
+          M[c * p + r] = v;
+        } else if (rhs != nullptr && c == p && r < p) {
+          rhs[r] = g;
+        }
+      }
+      if (++j == m.nc) j = ++i;
+    }
+  }
+  __syncthreads();
+}
+
+// block_cholesky's factor, with the same operations on every entry in
+// the same order (so the same bits), laid out for fewer cycles: the
+// trailing update's rows go to the warps and its columns to the lanes (no
+// index division, only the lower triangle visited), column j's scaled
+// values are kept in col (p values of shared scratch) so that the lanes
+// read them without bank conflicts, a[jj] is written in the update phase
+// (two barriers a column), and the factor's transpose fills the upper
+// triangle.  Then block_chol_solve's solution by warp 0 with r in its
+// registers (lane l: r_l and r_{l+32}), each step's value broadcast by
+// shuffle and multiplied by the pivot's reciprocal (computed first;
+// block_chol_solve divides), the forward steps reading L's columns as the
+// upper triangle's rows.  K1's float64 path (irls_block_mma).
+__device__ __forceinline__ void block_cholesky_rows(double* a, int p,
+                                                    double* col) {
+  const int lane = lane_id(), w = threadIdx.x >> 5;
+  __syncthreads();
+  for (int j = 0; j < p; ++j) {
+    const double s = a[j * p + j];
+    const double d = d_sqrt(s > 1e-30 ? s : 1e-30);
+    for (int i = j + 1 + threadIdx.x; i < p; i += kBlockThreads) {
+      const double l = a[i * p + j] / d;
+      a[i * p + j] = l;
+      a[j * p + i] = l;
+      col[i] = l;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) a[j * p + j] = d;
+    for (int i = j + 1 + w; i < p; i += kBlockWarpsN) {
+      const double lij = col[i];
+      for (int k = j + 1 + lane; k <= i; k += 32)
+        a[i * p + k] -= lij * col[k];
+    }
+    __syncthreads();
+  }
+}
+
+__device__ __forceinline__ void block_chol_solve_rows(const double* L, int p,
+                                                      double* r) {
+  if (threadIdx.x < 32) {
+    const int lane = lane_id();
+    const bool in0 = lane < p, in1 = lane + 32 < p;
+    double r0 = in0 ? r[lane] : 0.0, r1 = in1 ? r[lane + 32] : 0.0;
+    const double d0 = in0 ? 1.0 / L[lane * (p + 1)] : 0.0;
+    const double d1 = in1 ? 1.0 / L[(lane + 32) * (p + 1)] : 0.0;
+    // L w = r: w_i from its lane, then r_k -= L[k][i] w_i (the upper copy's
+    // row i)
+    for (int i = 0; i < p; ++i) {
+      const double wi =
+          __shfl_sync(kFullMask, i < 32 ? r0 * d0 : r1 * d1, i & 31);
+      const double* li = L + i * p;
+      if (lane == i) r0 = wi;
+      if (lane + 32 == i) r1 = wi;
+      if (lane > i && in0) r0 -= li[lane] * wi;
+      if (lane + 32 > i && in1) r1 -= li[lane + 32] * wi;
+    }
+    // L' x = w: x_i from its lane, then r_k -= L[i][k] x_i for k < i
+    for (int i = p - 1; i >= 0; --i) {
+      const double xi =
+          __shfl_sync(kFullMask, i < 32 ? r0 * d0 : r1 * d1, i & 31);
+      const double* li = L + i * p;
+      if (lane == i) r0 = xi;
+      if (lane + 32 == i) r1 = xi;
+      if (lane < i) r0 -= li[lane] * xi;
+      if (lane + 32 < i) r1 -= li[lane + 32] * xi;
+    }
+    if (in0) r[lane] = r0;
+    if (in1) r[lane + 32] = r1;
+  }
+  __syncthreads();
 }
 
 // Resident blocks per SM of a block kernel with `smem` bytes of dynamic

@@ -25,7 +25,12 @@
 // p x p algebra runs in the block's shared memory.  Every sum runs in one
 // fixed order: two launches give the same bits, and a gene's result does
 // not depend on its neighbours.  Without the Cox-Reid term a block only
-// sums the likelihood terms.
+// sums the likelihood terms.  In float64 with the Cox-Reid term
+// (lp_dlp_mma) the per-sample terms come first, the weights to a global
+// scratch row of the block's, and the two grams run on the FP64 tensor
+// cores in a pass each (common.cuh's float64 gram section: each warp's
+// run of 8 x 8 tiles in registers), the design tiles coming in by
+// cp.async.
 #include "common.cuh"
 
 namespace {
@@ -120,24 +125,120 @@ __device__ __forceinline__ void lp_dlp_block(const GramMap& gm, const T* yr,
   }
 }
 
-// ls_wide_kernel with a thread block per gene
+// K2's float64 layout with the Cox-Reid term: the design rows (p
+// columns), then the weights' row
+__host__ __device__ inline BlockLayout ls_mma_layout(int p, int tw) {
+  return block_mma_layout(p, tw, kBlockMats, (p + 7) >> 3, 1, 0);
+}
+
+// lp_dlp_block in float64 with the Cox-Reid term: b and X'W^2X on the
+// tensor cores (common.cuh's float64 gram section).  The block first sums
+// every sample's likelihood terms, each thread some samples, writing the
+// weights to wscr (the block's S values of global scratch); then b's
+// pass over the tiles (gram_mma_pass), its factor and inverse, then
+// X'W^2X's pass with the same warp runs.  So no gram accumulator is live
+// while the special functions run, and one gram's at a time.  The
+// per-sample terms, the column mask, the algebra and the prior are
+// lp_dlp_block's.
+template <bool UseW>
+__device__ __forceinline__ void lp_dlp_mma(const double* yr,
+                                           const double* mr,
+                                           const double* wr,
+                                           unsigned long long cm, double thr,
+                                           const double* x, int S,
+                                           const BlockLayout& lay, double la,
+                                           double pm, double prior_var,
+                                           int use_prior, double* mats,
+                                           double* red, double* tile,
+                                           double* wscr, double& lp,
+                                           double& dlp) {
+  using T = double;
+  const int p = lay.p;
+  const T alpha = d_exp(la);
+  T acc[2] = {T(0), T(0)};
+  {
+    const NbConst<T> k = nb_const(T(1) / alpha);
+    for (int s = threadIdx.x; s < S; s += kBlockThreads) {
+      const T yv = yr[s];
+      const T m = mr[s];
+      const T mua = m * alpha;
+      const T l1p = d_log1p(mua);
+      const T r = T(1) / (T(1) + mua);
+      T lgd, dgd;
+      nb_diffs(yv, k, lgd, dgd);
+      acc[0] += wscale<UseW>(lgd - (yv + k.c) * l1p, wr, s);
+      acc[1] += wscale<UseW>(l1p - mua * r + yv * alpha * r - dgd, wr, s);
+      T w = m * r;
+      if constexpr (UseW) {
+        if (!cr_keeps(wr[s], thr)) w = T(0);
+      }
+      wscr[s] = w;
+    }
+  }
+  block_allsum<T, 2>(acc, red);
+  const MmaRun<kMmaRunK2> run =
+      mma_run<kMmaRunK2>((p + 7) >> 3, lay.pr >> 3, lay.ts);
+  T g[kMmaRunK2][2];
+  T* bm = mats;
+  T* dm = mats + lay.mat;
+  gram_mma_pass<kMmaRunK2, false>(run, g, tile, lay, x, S, wscr,
+                                   nullptr);
+  gram_mma_store(run, g, false, bm, p, cm, true, nullptr, nullptr);
+  const T logdet = block_cholesky<T, true>(bm, p);
+  block_chol_inverse(bm, dm, bm, p);
+  gram_mma_pass<kMmaRunK2, true>(run, g, tile, lay, x, S, wscr,
+                                  nullptr);
+  gram_mma_store(run, g, true, dm, p, cm, false, nullptr, nullptr);
+  const T tr = block_trace_product(bm, dm, p, red);
+  lp = acc[0] - T(0.5) * logdet;
+  dlp = (acc[1] / (alpha * alpha) - T(0.5) * tr) * alpha;
+  if (use_prior) {
+    lp -= T(0.5) * (la - pm) * (la - pm) / prior_var;
+    dlp -= (la - pm) / prior_var;
+  }
+}
+
+// the launch's layout and its evaluation at a point: float64 with the
+// Cox-Reid term on the tensor cores, else lp_dlp_block
+template <typename T, bool UseCR>
+__host__ __device__ inline BlockLayout ls_layout(int p, int tw) {
+  if constexpr (!is_f32<T>() && UseCR) return ls_mma_layout(p, tw);
+  return block_layout(p, tw, UseCR ? kBlockMats : 0, UseCR);
+}
+
 template <typename T, bool UseW, bool UseCR>
-__global__ void __launch_bounds__(kBlockThreads)
-    ls_block_kernel(const T* __restrict__ y, const T* __restrict__ mu,
-                    const T* __restrict__ wts, const T* __restrict__ x,
-                    const T* __restrict__ la0,
-                    const T* __restrict__ prior_mean, int G, int S, int p,
-                    int tw, T prior_var, T kappa_0, T tol, T min_la,
-                    int maxit, int use_prior, T* __restrict__ out_la,
-                    T* __restrict__ out_lp0, T* __restrict__ out_dlp0,
-                    T* __restrict__ out_lp, T* __restrict__ out_dlp,
-                    T* __restrict__ out_change, int* __restrict__ out_iter,
-                    int* __restrict__ out_accept, int* __restrict__ counter,
-                    T thr) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  const BlockLayout lay =
-      block_layout(p, tw, UseCR ? kBlockMats : 0, UseCR);
+__device__ __forceinline__ void lp_dlp(const GramMap& gm, const T* yr,
+                                       const T* mr, const T* wr,
+                                       unsigned long long cm, T thr,
+                                       const T* x, int S,
+                                       const BlockLayout& lay, T la, T pm,
+                                       T prior_var, int use_prior, T* mats,
+                                       T* red, T* tile, T* wscr, T& lp,
+                                       T& dlp) {
+  if constexpr (!is_f32<T>() && UseCR) {
+    lp_dlp_mma<UseW>(yr, mr, wr, cm, thr, x, S, lay, la, pm, prior_var,
+                     use_prior, mats, red, tile, wscr, lp, dlp);
+  } else {
+    lp_dlp_block<T, UseW, UseCR>(gm, yr, mr, wr, cm, thr, x, S, lay, la, pm,
+                                 prior_var, use_prior, mats, red, tile, lp,
+                                 dlp);
+  }
+}
+
+// ls_wide_kernel with a thread block per gene, the kernels' body
+template <typename T, bool UseW, bool UseCR>
+__device__ __forceinline__ void ls_block_genes(
+    T* sm, const T* __restrict__ y, const T* __restrict__ mu,
+    const T* __restrict__ wts, const T* __restrict__ x,
+    const T* __restrict__ la0, const T* __restrict__ prior_mean, int G,
+    int S, int p, int tw, T prior_var, T kappa_0, T tol, T min_la, int maxit,
+    int use_prior, T* __restrict__ out_la, T* __restrict__ out_lp0,
+    T* __restrict__ out_dlp0, T* __restrict__ out_lp, T* __restrict__ out_dlp,
+    T* __restrict__ out_change, int* __restrict__ out_iter,
+    int* __restrict__ out_accept, int* __restrict__ counter, T thr,
+    T* __restrict__ scratch) {
+  const BlockLayout lay = ls_layout<T, UseCR>(p, tw);
+  T* wscr = scratch + (size_t)blockIdx.x * S;
   T* mats = sm;
   T* vec = sm + (UseCR ? kBlockMats * lay.mat : 0);
   T* red = vec + kBlockRed;
@@ -160,14 +261,23 @@ __global__ void __launch_bounds__(kBlockThreads)
     const T pm = prior_mean[g];
     const T a0 = la0[g];
     T lp0, dlp0;
-    lp_dlp_block<T, UseW, UseCR>(gm, yr, mr, wr, cm, thr, x, S, lay, a0, pm,
-                                 prior_var, use_prior, mats, red, tile, lp0,
-                                 dlp0);
+    lp_dlp<T, UseW, UseCR>(gm, yr, mr, wr, cm, thr, x, S, lay, a0, pm,
+                           prior_var, use_prior, mats, red, tile, wscr, lp0,
+                           dlp0);
 
     // control state: the same values on every thread (ls_kernel's)
     const T tol_eff =
         tol > d_abs(lp0) * T(50) * eps ? tol : d_abs(lp0) * T(50) * eps;
     T a = a0, kappa = kappa_0, lp = lp0, dlp = dlp0, change = T(-1);
+    // the tensor-core path writes the starting point's values now, so that
+    // they hold no registers through the search
+    constexpr bool kEarly = !is_f32<T>() && UseCR;
+    if constexpr (kEarly) {
+      if (threadIdx.x == 0) {
+        out_lp0[g] = lp0;
+        out_dlp0[g] = dlp0;
+      }
+    }
     int iters = 0, iter_accept = 0;
     for (int it = 0; it < maxit; ++it) {
       ++iters;
@@ -176,9 +286,9 @@ __global__ void __launch_bounds__(kBlockThreads)
       if (a_propose > T(10)) kappa = (T(10) - a) / dlp;
       const T a_new = a + kappa * dlp;
       T lp_new, dlp_next;
-      lp_dlp_block<T, UseW, UseCR>(gm, yr, mr, wr, cm, thr, x, S, lay,
-                                   a_new, pm, prior_var, use_prior, mats, red,
-                                   tile, lp_new, dlp_next);
+      lp_dlp<T, UseW, UseCR>(gm, yr, mr, wr, cm, thr, x, S, lay, a_new, pm,
+                             prior_var, use_prior, mats, red, tile, wscr,
+                             lp_new, dlp_next);
       const bool accept = -lp_new <= -lp - kappa * T(kArmijo) * dlp * dlp;
       if (accept) ++iter_accept;
       const T change_new = lp_new - lp;
@@ -205,8 +315,10 @@ __global__ void __launch_bounds__(kBlockThreads)
     }
     if (threadIdx.x == 0) {
       out_la[g] = a;
-      out_lp0[g] = lp0;
-      out_dlp0[g] = dlp0;
+      if constexpr (!kEarly) {
+        out_lp0[g] = lp0;
+        out_dlp0[g] = dlp0;
+      }
       out_lp[g] = lp;
       out_dlp[g] = dlp;
       out_change[g] = change;
@@ -216,10 +328,55 @@ __global__ void __launch_bounds__(kBlockThreads)
   }
 }
 
+#define DK_LS_BLOCK_PARAMS(T)                                                 \
+  const T *__restrict__ y, const T *__restrict__ mu,                          \
+      const T *__restrict__ wts, const T *__restrict__ x,                     \
+      const T *__restrict__ la0, const T *__restrict__ prior_mean, int G,     \
+      int S, int p, int tw, T prior_var, T kappa_0, T tol, T min_la,          \
+      int maxit, int use_prior, T *__restrict__ out_la,                       \
+      T *__restrict__ out_lp0, T *__restrict__ out_dlp0,                      \
+      T *__restrict__ out_lp, T *__restrict__ out_dlp,                        \
+      T *__restrict__ out_change, int *__restrict__ out_iter,                 \
+      int *__restrict__ out_accept, int *__restrict__ counter, T thr,       \
+      T *__restrict__ scratch
+#define DK_LS_BLOCK_BODY(T, W, CR)                                            \
+  extern __shared__ __align__(16) unsigned char smem_raw[];                   \
+  ls_block_genes<T, W, CR>(reinterpret_cast<T*>(smem_raw), y, mu, wts, x,     \
+                           la0, prior_mean, G, S, p, tw, prior_var, kappa_0,  \
+                           tol, min_la, maxit, use_prior, out_la, out_lp0,    \
+                           out_dlp0, out_lp, out_dlp, out_change, out_iter,   \
+                           out_accept, counter, thr, scratch);
+
+template <typename T, bool UseW, bool UseCR>
+__global__ void __launch_bounds__(kBlockThreads)
+    ls_block_kernel(DK_LS_BLOCK_PARAMS(T)) {
+  DK_LS_BLOCK_BODY(T, UseW, UseCR)
+}
+
+// The float64 instantiations with the Cox-Reid term take the tensor-core
+// path (lp_dlp_mma).
+template <>
+__global__ void __launch_bounds__(kBlockThreads)
+    ls_block_kernel<double, false, true>(DK_LS_BLOCK_PARAMS(double)) {
+  DK_LS_BLOCK_BODY(double, false, true)
+}
+
+template <>
+__global__ void __launch_bounds__(kBlockThreads)
+    ls_block_kernel<double, true, true>(DK_LS_BLOCK_PARAMS(double)) {
+  DK_LS_BLOCK_BODY(double, true, true)
+}
+#undef DK_LS_BLOCK_PARAMS
+#undef DK_LS_BLOCK_BODY
+
 // dynamic shared memory and tile width of a block launch (the vectors
 // alone without the Cox-Reid term)
 template <typename T>
 inline size_t block_smem(int p, bool use_cr, int* tw) {
+  if (!is_f32<T>() && use_cr) {
+    *tw = block_mma_tile(p, kBlockMats, (p + 7) >> 3, 1, 0);
+    return ls_mma_layout(p, *tw).vals * sizeof(T);
+  }
   const int nmat = use_cr ? kBlockMats : 0;
   *tw = use_cr ? block_tile<T>(p, nmat, true) : kBlockThreads;
   return block_layout(p, *tw, nmat, use_cr).vals * sizeof(T);
@@ -231,7 +388,7 @@ int launch_block(const T* y, const T* mu, const T* w, const T* x,
                  T kappa_0, T tol, T min_la, int maxit, int use_prior,
                  T* out_la, T* out_lp0, T* out_dlp0, T* out_lp, T* out_dlp,
                  T* out_change, int* out_iter, int* out_accept, int* counter,
-                 T thr, cudaStream_t st) {
+                 T thr, T* scratch, int scratch_rows, cudaStream_t st) {
   int tw = 0;
   const size_t smem = block_smem<T>(p, UseCR, &tw);
   auto kernel = ls_block_kernel<T, UseW, UseCR>;
@@ -239,11 +396,27 @@ int launch_block(const T* y, const T* mu, const T* w, const T* x,
   if (err) return err;
   const int blocks = persistent_gene_blocks(kernel, smem, G, &err);
   if (err) return err;
+  if (!is_f32<T>() && UseCR && blocks > scratch_rows)
+    return (int)cudaErrorInvalidValue;
   kernel<<<blocks, kBlockThreads, smem, st>>>(
       y, mu, w, x, la0, pm, G, S, p, tw, prior_var, kappa_0, tol, min_la,
       maxit, use_prior, out_la, out_lp0, out_dlp0, out_lp, out_dlp,
-      out_change, out_iter, out_accept, counter, thr);
+      out_change, out_iter, out_accept, counter, thr, scratch);
   return (int)cudaGetLastError();
+}
+
+// Rows of global scratch (S values each) a launch needs: one a resident
+// block in float64 with the Cox-Reid term (lp_dlp_mma's weights), else 0;
+// -1 on a refusal.
+template <typename T, bool UseW, bool UseCR>
+int scratch_rows_block(int p, int G) {
+  if (is_f32<T>() || !UseCR) return 0;
+  int tw = 0;
+  const size_t smem = block_smem<T>(p, UseCR, &tw);
+  auto kernel = ls_block_kernel<T, UseW, UseCR>;
+  int err = allow_smem(kernel, smem);
+  const int blocks = err ? 0 : persistent_gene_blocks(kernel, smem, G, &err);
+  return err ? -1 : blocks;
 }
 
 template <typename T, bool UseW, bool UseCR>
@@ -264,7 +437,8 @@ int launch(const T* y, const T* mu, const T* w, const T* x, const T* la0,
            const T* pm, int G, int S, int p, T prior_var, T kappa_0, T tol,
            T min_la, int maxit, int use_prior, int use_cr, T thr, T* out_la,
            T* out_lp0, T* out_dlp0, T* out_lp, T* out_dlp, T* out_change,
-           int* out_iter, int* out_accept, int* counter, void* stream) {
+           int* out_iter, int* out_accept, int* counter, T* scratch,
+           int scratch_rows, void* stream) {
   if (p <= kBlockMinP || p > kPBlock) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define DK_LS_BLOCK(W, CR)                                                    \
@@ -272,7 +446,7 @@ int launch(const T* y, const T* mu, const T* w, const T* x, const T* la0,
                                 kappa_0, tol, min_la, maxit, use_prior,      \
                                 out_la, out_lp0, out_dlp0, out_lp, out_dlp,  \
                                 out_change, out_iter, out_accept, counter,   \
-                                thr, st)
+                                thr, scratch, scratch_rows, st)
   if (w != nullptr) {
     if (use_cr) DK_LS_BLOCK(true, true);
     DK_LS_BLOCK(true, false);
@@ -293,6 +467,17 @@ int occupancy_mode(int weighted, int use_cr, int p) {
                 : occupancy_block<T, false, false>(p);
 }
 
+template <typename T>
+int scratch_rows_mode(int weighted, int use_cr, int p, int G) {
+  if (p <= kBlockMinP || p > kPBlock) return -1;
+  if (weighted) {
+    return use_cr ? scratch_rows_block<T, true, true>(p, G)
+                  : scratch_rows_block<T, true, false>(p, G);
+  }
+  return use_cr ? scratch_rows_block<T, false, true>(p, G)
+                : scratch_rows_block<T, false, false>(p, G);
+}
+
 }  // namespace
 
 extern "C" {
@@ -304,6 +489,14 @@ int ls_block_blocks_per_sm(int f64, int weighted, int p, int use_cr) {
              : occupancy_mode<float>(weighted, use_cr, p);
 }
 
+// rows of S values of global scratch the launch takes (`scratch`,
+// `scratch_rows`; 0 in float32 and without the Cox-Reid term, -1 on a
+// refusal)
+int ls_block_scratch_rows(int f64, int weighted, int p, int use_cr, int G) {
+  return f64 ? scratch_rows_mode<double>(weighted, use_cr, p, G)
+             : scratch_rows_mode<float>(weighted, use_cr, p, G);
+}
+
 int ls_block_launch_f32(const float* y, const float* mu, const float* w,
                         const float* x, const float* la0, const float* pm,
                         int G, int S, int p, float prior_var, float kappa_0,
@@ -311,11 +504,12 @@ int ls_block_launch_f32(const float* y, const float* mu, const float* w,
                         int use_cr, float thr, float* out_la, float* out_lp0,
                         float* out_dlp0, float* out_lp, float* out_dlp,
                         float* out_change, int* out_iter, int* out_accept,
-                        int* counter, void* stream) {
+                        int* counter, float* scratch, int scratch_rows,
+                        void* stream) {
   return launch<float>(y, mu, w, x, la0, pm, G, S, p, prior_var, kappa_0, tol,
                        min_la, maxit, use_prior, use_cr, thr, out_la, out_lp0,
                        out_dlp0, out_lp, out_dlp, out_change, out_iter,
-                       out_accept, counter, stream);
+                       out_accept, counter, scratch, scratch_rows, stream);
 }
 
 int ls_block_launch_f64(const double* y, const double* mu, const double* w,
@@ -325,11 +519,13 @@ int ls_block_launch_f64(const double* y, const double* mu, const double* w,
                         int use_cr, double thr, double* out_la,
                         double* out_lp0, double* out_dlp0, double* out_lp,
                         double* out_dlp, double* out_change, int* out_iter,
-                        int* out_accept, int* counter, void* stream) {
+                        int* out_accept, int* counter, double* scratch,
+                        int scratch_rows, void* stream) {
   return launch<double>(y, mu, w, x, la0, pm, G, S, p, prior_var, kappa_0,
                         tol, min_la, maxit, use_prior, use_cr, thr, out_la,
                         out_lp0, out_dlp0, out_lp, out_dlp, out_change,
-                        out_iter, out_accept, counter, stream);
+                        out_iter, out_accept, counter, scratch, scratch_rows,
+                        stream);
 }
 
 }  // extern "C"

@@ -90,11 +90,14 @@ WIDE_MODES = ((False, None), (True, None), (False, "nocr"), (True, "nocr"),
 # the block kernels' checks (16 < p <= 64): the widths, the (S, G) shapes
 # (a design of p >= S columns has no full rank, which deseq() refuses, so
 # a width is checked only below S), the modes (unweighted, weighted,
-# without the Cox-Reid term), and the (S, G, p) of the repeat checks
+# without the Cox-Reid term), and the (S, G, p) of the repeat checks (p =
+# 57: a one-column last 8-column tile of the float64 tensor-core gram, on
+# 600 samples a partial last tile of samples)
 BLOCK_P = (17, 33, 64)
 BLOCK_SHAPES = ((24, 333), (1024, 131), (3000, 301))
 BLOCK_MODES = ((False, None), (True, None), (False, "nocr"))
-BLOCK_REPEAT = ((120, 64, 17), (1024, 64, 33), (400, 64, 64))
+BLOCK_REPEAT = ((120, 64, 17), (1024, 64, 33), (400, 64, 64),
+                (600, 64, 57))
 
 # The wide kernels' float32 K2 and K3 readings that fail TOL are held
 # instead to the plain float32 version's own spread (within_plain_spread):

@@ -123,15 +123,27 @@ def fit_disp_line_search(y, x, mu, log_alpha_init, prior_mean, prior_var,
     f64 = dtype == torch.float64
     scal = ctypes.c_double if f64 else ctypes.c_float
     # the block kernels live in a library of their own (disp_ls_block.cu)
-    lib, sym = ("disp_ls_block", "ls_block") if p > P_WIDE \
-        else ("disp_ls", "ls")
+    # and take global scratch (float64 with the Cox-Reid term: a row of S
+    # weights for each resident block)
+    block = p > P_WIDE
+    lib, sym = ("disp_ls_block", "ls_block") if block else ("disp_ls", "ls")
     fn = build.bind(build.load(lib),
                     f"{sym}_launch_f64" if f64 else f"{sym}_launch_f32",
                     [_P] * 6 + [_I, _I, _I] + [scal] * 4 + [_I, _I, _I,
                                                             scal]
-                    + [_P] * 10)
+                    + [_P] * 9 + ([_P, _I] if block else []) + [_P])
     counter = torch.zeros(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
+        scratch = ()
+        if block:
+            rows = build.bind(build.load(lib), "ls_block_scratch_rows",
+                              [_I] * 5)(int(f64), int(w_ is not None), p,
+                                        int(bool(use_cr)), G)
+            if rows < 0:
+                raise RuntimeError(f"{lib} kernel refused p = {p}")
+            buf = torch.empty((rows, S), dtype=dtype, device=dev) \
+                if rows else None
+            scratch = (build.ptr(buf), rows)
         err = fn(build.ptr(y_), build.ptr(mu_), build.ptr(w_),
                  build.ptr(x_), build.ptr(la0_), build.ptr(pm_), G, S, p,
                  float(prior_var), float(kappa_0), float(tol),
@@ -140,7 +152,7 @@ def fit_disp_line_search(y, x, mu, log_alpha_init, prior_mean, prior_var,
                  float(weight_threshold),
                  *(build.ptr(out[k]) for k in names),
                  build.ptr(out["iter"]), build.ptr(out["iter_accept"]),
-                 build.ptr(counter), build.stream_of(mu_))
+                 build.ptr(counter), *scratch, build.stream_of(mu_))
     build.check(err, lib)
     build.count_launch(fit_disp_line_search,
                        mode_counter(w_, use_cr, weight_threshold, p), dev)

@@ -1,11 +1,13 @@
 """Compare the machine code (SASS) of the kernels' default
 instantiations, unweighted and weighted, between two checkouts of the
 repository (the templated kernels for p = 1..8 and the wide kernels for 8
-< p <= 16):
+< p <= 16, both dtypes; the block kernels for 16 < p <= 64 in float32,
+whose float64 instantiations of K1 and K2 run the tensor-core gram):
 
     python -m deseq2_tpu_torch.ops.sass_compare OLD_ROOT NEW_ROOT [KERNEL ...]
 
-KERNEL is irls, disp_ls or disp_grid (default: all three).  Each
+KERNEL is irls, disp_ls, disp_grid, irls_block, disp_ls_block or
+disp_grid_block (default: all six).  Each
 checkout's csrc/<kernel>.cu is compiled to a cubin
 with ops/build.py's nvcc flags (one nvcc per source, all started together)
 into NEW_ROOT/build/sass/, and disassembled with cuobjdump.  For every
@@ -30,7 +32,9 @@ from pathlib import Path
 from .build import NVCC_FLAGS, _nvcc
 
 SYMBOL = {"irls": "irls_kernel", "disp_ls": "ls_kernel",
-          "disp_grid": "grid_kernel"}
+          "disp_grid": "grid_kernel", "irls_block": "irls_block_kernel",
+          "disp_ls_block": "ls_block_kernel",
+          "disp_grid_block": "grid_block_kernel"}
 KERNELS = tuple(SYMBOL)
 
 
@@ -70,9 +74,10 @@ def functions(cubin):
 def _pick(funcs, sym, t, p, w=0):
     """The <t, p> instantiation of kernel `sym` in its default mode,
     unweighted (w=0) or weighted (w=1), or None; p "wide" picks the wide
-    kernel (p a launch argument)."""
+    kernel, p "block" a block kernel (p a launch argument of both)."""
     pat = (rf"{sym.replace('_kernel', '_wide_kernel')}I{t}Lb{w}E(Lb1E)?E"
-           if p == "wide" else rf"{sym}I{t}Li{p}ELb{w}E(Lb1E)?E")
+           if p == "wide" else rf"{sym}I{t}Lb{w}E(Lb1E)?E" if p == "block"
+           else rf"{sym}I{t}Li{p}ELb{w}E(Lb1E)?E")
     hits = [n for n in funcs if re.search(pat, n)]
     return funcs[hits[0]] if len(hits) == 1 else None
 
@@ -88,8 +93,11 @@ def compare(old_root, new_root, kernels=KERNELS):
     for k in kernels:
         old, new = (functions(out / f"{tag}_{k}.cubin")
                     for tag in ("old", "new"))
-        for t, dname in (("f", "float"), ("d", "double")):
-            for p in (*range(1, 9), "wide"):
+        block = k.endswith("_block")
+        dtypes = (("f", "float"),) if block else (("f", "float"),
+                                                  ("d", "double"))
+        for t, dname in dtypes:
+            for p in ("block",) if block else (*range(1, 9), "wide"):
                 for w, wname in ((0, "unweighted"), (1, "weighted")):
                     a, b = (_pick(f, SYMBOL[k], t, p, w) for f in (old, new))
                     if a is None or b is None:

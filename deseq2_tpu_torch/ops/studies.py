@@ -11,6 +11,7 @@ ROADMAP.md:
     python -m deseq2_tpu_torch.ops.studies block [REPS]
     python -m deseq2_tpu_torch.ops.studies crossover [REPS]
     python -m deseq2_tpu_torch.ops.studies variant smem|minp [REPS]
+    python -m deseq2_tpu_torch.ops.studies phases
     python -m deseq2_tpu_torch.ops.studies paired PARENT_ROOT [P [CALLS]]
     python -m deseq2_tpu_torch.ops.studies rlog [N_SEEDS]
     python -m deseq2_tpu_torch.ops.studies sc [G S]
@@ -44,6 +45,12 @@ and times them at p = 48, 56, 64; `variant minp` builds them to take
 designs past 8 columns (-DDK_BLOCK_MIN_P=8), routes p = 10 and 16 to them
 and times them there (against `crossover`'s wide rows), each also read
 against the plain version (largest |beta| and |log alpha| difference).
+`phases` (its own process) builds a copy of csrc with clock64 marks in
+the float64 block K1 and K2 and prints each phase's clocks a gene (K1) or
+trial point (K2) and its share, on the paired p = 64 and 25 pipeline
+inputs at 60,000 x 1,024 (the per-sample terms, the tiles' staging and
+tensor-core products, the Cholesky, the solve, the inverse, the sandwich,
+the hat diagonal).
 `paired`: the public paired deseq() + results() (~ subject + condition,
 p = P, default 64, float64, 60,000 x 1,024 of the main path's counts)
 timed in fresh processes in PARENT_ROOT's checkout and this one, in turns
@@ -885,6 +892,152 @@ def variant_study(dev, which, reps):
     _width_times(dev, widths, reps, plain=False)
 
 
+
+# phases_study's clock marks in the float64 block K1 (irls_block_mma) and
+# K2 (lp_dlp_mma): (anchor, the anchor with a timer before or after it);
+# DK_T0 starts a timer, DK_T(k, v) adds its clocks on thread 0 to slot k
+# and restarts it (each region ends at a barrier, so thread 0's clocks are
+# the block's)
+_PHASES = {
+    "irls_block.cu": [
+        ("  T dev[1] = {T(0)};\n  for (int s = threadIdx.x;",
+         "  DK_T0(c0)\n  T dev[1] = {T(0)};\n  for (int s = threadIdx.x;"),
+        ("  block_allsum<T, 1>(dev, red);\n  gram_mma_pass",
+         "  block_allsum<T, 1>(dev, red);\n  DK_T(0, c0)\n  gram_mma_pass"),
+        ("wg, zg);\n  return dev[0];",
+         "wg, zg);\n  __syncthreads();\n  DK_T(1, c0)\n  return dev[0];"),
+        ("      ++iters;\n", "      ++iters;\n      DK_T0(c1)\n"),
+        ("                     ridge, rhs);\n",
+         "                     ridge, rhs);\n      DK_T(2, c1)\n"),
+        ("      block_cholesky_rows(amat, p, tile);\n",
+         "      block_cholesky_rows(amat, p, tile);\n      DK_T(3, c1)\n"),
+        ("      block_chol_solve_rows(amat, p, rhs);\n",
+         "      block_chol_solve_rows(amat, p, rhs);\n      DK_T(4, c1)\n"),
+        ("    // post-fit: the sandwich from X'WX at the final mu\n",
+         "    // post-fit: the sandwich from X'WX at the final mu\n"
+         "    DK_T0(c2)\n"),
+        ("    block_cholesky_rows(amat, p, tile);\n"
+         "    block_chol_inverse(amat, m2, amat, p);\n",
+         "    block_cholesky_rows(amat, p, tile);\n    DK_T(5, c2)\n"
+         "    block_chol_inverse(amat, m2, amat, p);\n    DK_T(6, c2)\n"),
+        ("    hat_load(hat, amat, p);\n",
+         "    hat_load(hat, amat, p);\n    DK_T(7, c2)\n"),
+        ("    if (t == 0) {\n      dev_out[g] = dev;",
+         "    __syncthreads();\n    DK_T(8, c2)\n"
+         "    if (t == 0) {\n      dev_out[g] = dev;"),
+        ("      mu_g[s] = m;\n    }\n",
+         "      mu_g[s] = m;\n    }\n    __syncthreads();\n    DK_T(9, c2)\n"),
+        ("        hat_g[s] = hat_g[s] * (T(2) * q);\n      }\n    }\n",
+         "        hat_g[s] = hat_g[s] * (T(2) * q);\n      }\n    }\n"
+         "    __syncthreads();\n    DK_T(10, c2)\n"
+         "    if (t == 0) atomicAdd(&dk_clk[11], 1ull);\n"),
+    ],
+    "disp_ls_block.cu": [
+        ("  T acc[2] = {T(0), T(0)};\n  {\n",
+         "  DK_T0(c0)\n  T acc[2] = {T(0), T(0)};\n  {\n"),
+        ("  block_allsum<T, 2>(acc, red);\n  const MmaRun",
+         "  block_allsum<T, 2>(acc, red);\n  DK_T(12, c0)\n  const MmaRun"),
+        ("nullptr);\n  gram_mma_store(run, g, false,",
+         "nullptr);\n  __syncthreads();\n  DK_T(13, c0)\n"
+         "  gram_mma_store(run, g, false,"),
+        ("cm, true, nullptr, nullptr);\n"
+         "  const T logdet = block_cholesky<T, true>(bm, p);\n"
+         "  block_chol_inverse(bm, dm, bm, p);\n",
+         "cm, true, nullptr, nullptr);\n  DK_T(14, c0)\n"
+         "  const T logdet = block_cholesky<T, true>(bm, p);\n"
+         "  DK_T(15, c0)\n"
+         "  block_chol_inverse(bm, dm, bm, p);\n  DK_T(16, c0)\n"),
+        ("nullptr);\n  gram_mma_store(run, g, true,",
+         "nullptr);\n  __syncthreads();\n  DK_T(13, c0)\n"
+         "  gram_mma_store(run, g, true,"),
+        ("cm, false, nullptr, nullptr);\n"
+         "  const T tr = block_trace_product(bm, dm, p, red);\n",
+         "cm, false, nullptr, nullptr);\n"
+         "  const T tr = block_trace_product(bm, dm, p, red);\n"
+         "  DK_T(17, c0)\n"
+         "  if (threadIdx.x == 0) atomicAdd(&dk_clk[18], 1ull);\n"),
+    ],
+}
+
+_PHASE_NAMES = (
+    "K1 pass: per-sample terms", "K1 pass: tiles (x staging, mma)",
+    "K1 sweep: gram store", "K1 sweep: Cholesky", "K1 sweep: solve",
+    "K1 post-fit: store, Cholesky", "K1 post-fit: inverse",
+    "K1 post-fit: store, hat fragments", "K1 post-fit: sandwich",
+    "K1 hat: per-sample terms", "K1 hat: tiles (x staging, mma)",
+    "K1 genes", "K2 point: per-sample terms",
+    "K2 point: both grams' tiles (x staging, mma)", "K2 point: b store",
+    "K2 point: Cholesky", "K2 point: inverse", "K2 point: db store, trace",
+    "K2 points")
+
+
+def phases_study(dev):
+    """The float64 block K1 and K2 timed phase by phase: a copy of csrc
+    under build/ with clock64 marks (_PHASES) is built and run on the
+    paired p = 64 and p = 25 pipeline inputs at 60,000 x 1,024; prints
+    each phase's clocks a gene (K1) or a trial point (K2) and its share.
+    Run in a process of its own (it points ops/build.py at the copy)."""
+    import ctypes
+    import shutil
+
+    import chip_smoke as cs
+    from . import build
+    from .cuda_irls import fit_beta
+    from .cuda_ls import fit_disp_line_search
+    dst = build.BUILD_DIR / "phases_csrc"
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(build.CSRC, dst)
+    head = ("__device__ unsigned long long dk_clk[24];\n"
+            "#define DK_T0(v) long long v = clock64();\n"
+            "#define DK_T(k, v) { if (threadIdx.x == 0) atomicAdd(&dk_clk[k],"
+            " (unsigned long long)(clock64() - v)); v = clock64(); }\n")
+    tail = ("int dk_clk_read(unsigned long long* o) { return (int)"
+            "cudaMemcpyFromSymbol(o, dk_clk, sizeof(dk_clk)); }\n"
+            "int dk_clk_reset() { unsigned long long z[24] = {0}; return "
+            "(int)cudaMemcpyToSymbol(dk_clk, z, sizeof(z)); }\n")
+    for name, marks in _PHASES.items():
+        s = (dst / name).read_text()
+        s = s.replace("namespace {\n", head + "namespace {\n", 1)
+        for a, b in marks:
+            # the first match: the float64 path precedes the float32 one
+            assert a in s, (name, a)
+            s = s.replace(a, b, 1)
+        s = s.replace('extern "C" {\n', 'extern "C" {\n' + tail, 1)
+        (dst / name).write_text(s)
+    build.CSRC = dst
+    counts, _ = cs.make_inputs(cs.G_MAIN, cs.S_MAIN)
+    libs = ("irls_block", "disp_ls_block")
+    for p in (64, 25):
+        pin = checks.pipeline_inputs(counts, cs.paired_x(cs.S_MAIN, p),
+                                     torch.float64, dev)
+        ls_args = (pin["y"], pin["x"], pin["mu"], pin["la0"], pin["la0"],
+                   1.0, pin["min_la"])
+        k2 = fit_disp_line_search(*ls_args)
+        i_args = checks.irls_start(pin, k2["log_alpha"])
+        fit_beta(*i_args)
+        torch.cuda.synchronize()
+        for lib in libs:
+            build.bind(build.load(lib), "dk_clk_reset", [])()
+        fit_disp_line_search(*ls_args)
+        fit_beta(*i_args)
+        torch.cuda.synchronize()
+        clk = {}
+        for lib, k in zip(libs, ("K1", "K2")):
+            buf = (ctypes.c_ulonglong * 24)()
+            build.bind(build.load(lib), "dk_clk_read", [ctypes.c_void_p])(
+                ctypes.cast(buf, ctypes.c_void_p))
+            clk.update({n: buf[i] for i, n in enumerate(_PHASE_NAMES)
+                        if n.startswith(k)})
+        for k, unit in (("K1", "K1 genes"), ("K2", "K2 points")):
+            tot = sum(v for n, v in clk.items()
+                      if n.startswith(k) and n != unit)
+            print(f"p={p} {k}: {clk[unit]} {unit.split()[1]}", flush=True)
+            for n, v in clk.items():
+                if n.startswith(k) and n != unit:
+                    print(f"  {n}: {v / max(clk[unit], 1):,.0f} clocks a "
+                          f"{unit.split()[1][:-1]}, share {v / tot:.3f}",
+                          flush=True)
+
 def _time_paired(counts_path, subjects, dtype, calls):
     """One turn of the paired study: a cold call, then `calls` warm calls
     of deseq() + results() on ~ subject + condition (sample j in subject
@@ -1103,6 +1256,8 @@ if __name__ == "__main__":
     elif sys.argv[1] == "variant":
         variant_study(dev, sys.argv[2],
                       int(sys.argv[3]) if len(sys.argv) > 3 else 3)
+    elif sys.argv[1] == "phases":
+        phases_study(dev)
     elif sys.argv[1] == "paired":
         paired_study(Path(sys.argv[2]).resolve(),
                      int(sys.argv[3]) if len(sys.argv) > 3 else 64,

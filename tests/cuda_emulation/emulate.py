@@ -1,0 +1,180 @@
+"""Build the block kernels' CUDA sources for the host and run them there.
+
+`build(out_dir)` copies deseq2_tpu_torch/csrc/irls_block.cu and
+disp_ls_block.cu with common.cuh, replaces their inline PTX (mma.sync,
+cp.async) by cuda_runtime.h's emulation, their dynamic shared memory by
+the emulated launch's buffer and their kernel launches by
+emu::launch_kernel, and compiles each with g++ -std=c++20 and an address
+sanitizer into a shared library with the sources' own C interface.
+
+    python emulate.py LIB_DIR KERNEL P S G WEIGHTED
+
+(run under LD_PRELOAD of the sanitizer's runtime, as
+tests/test_torch_block_emulation.py does) holds the emulated float64 K1
+(KERNEL irls) or K2 (ls, with and without the prior) against the plain
+PyTorch version on ops/checks.py's inputs with phase 3's float64
+readings, runs each launch twice, and prints the readings as one JSON
+line.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+REPO = HERE.parents[1]
+CSRC = REPO / "deseq2_tpu_torch" / "csrc"
+LIBS = ("irls_block", "disp_ls_block")
+
+
+def _body(text, head, body):
+    """text with the braces of the function starting at `head` holding
+    `body` instead."""
+    i = text.index(head)
+    j = text.index("{", i)
+    depth = 0
+    for k in range(j, len(text)):
+        depth += {"{": 1, "}": -1}.get(text[k], 0)
+        if depth == 0:
+            return text[:j] + "{" + body + "}" + text[k + 1:]
+    raise ValueError(head)
+
+
+def build(out_dir):
+    """Patch and compile the two libraries into out_dir; returns
+    {name: path}."""
+    out = Path(out_dir)
+    common = (CSRC / "common.cuh").read_text()
+    common = _body(common, "void mma_f64(", " emu::mma(c, a, b); ")
+    common = _body(common, "void cp_async8(",
+                   " *dst = valid ? *src : 0.0; ")
+    common = _body(common, "void cp_async_wait_all(", " ")
+    (out / "common.cuh").write_text(common)
+    paths = {}
+    for name in LIBS:
+        src = (CSRC / f"{name}.cu").read_text()
+        src = src.replace(
+            "extern __shared__ __align__(16) unsigned char smem_raw[];",
+            "unsigned char* smem_raw = emu::smem;")
+        src = re.sub(r"kernel<<<blocks, kBlockThreads, smem, st>>>\(",
+                     "emu::launch_kernel(smem, kernel, ", src)
+        cpp = out / f"{name}.cpp"
+        cpp.write_text("#include <cuda_runtime.h>\n" + src)
+        paths[name] = out / f"lib{name}.so"
+        subprocess.run(
+            ["g++", "-std=c++20", "-O1", "-fsanitize=address",
+             "-fno-omit-frame-pointer", "-shared", "-fPIC", "-w", "-pthread",
+             "-I", str(out), "-I", str(HERE), "-o", str(paths[name]),
+             str(cpp)], check=True, capture_output=True, text=True)
+    return paths
+
+
+def _ptr(t):
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def run(lib_dir, kernel, p, S, G, weighted):
+    """The emulated kernel against the plain version (see the module's
+    docstring); returns the readings."""
+    import torch
+    sys.path.insert(0, str(REPO))
+    from deseq2_tpu_torch.ops import checks, disp, irls
+    torch.set_num_threads(1)
+    P, I, L, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+        ctypes.c_double
+    f64 = torch.float64
+    d = checks.as_tensors(checks.solver_inputs(G, S, p, 10 * p + S,
+                                               weighted=weighted),
+                          f64, torch.device("cpu"))
+    out = {}
+    if kernel == "irls":
+        lib = ctypes.CDLL(str(Path(lib_dir) / "libirls_block.so"))
+        fn = lib.irls_block_launch_f64
+        fn.argtypes = [P, P, L, P, P, P, P, P, I, I, I, D, I, D] + [P] * 8
+        fn.restype = I
+
+        def k1(y, x, nf, alpha, beta_init, ridge, tol=1e-8, maxit=100,
+               min_mu=0.5, weights=None):
+            c = [t.to(f64).contiguous() for t in
+                 (y, x.t(), nf, alpha, beta_init, ridge)]
+            w = None if weights is None else weights.to(f64).contiguous()
+            res = dict(beta=torch.empty(G, p, dtype=f64),
+                       beta_var=torch.empty(G, p, dtype=f64),
+                       deviance=torch.empty(G, dtype=f64),
+                       iter=torch.empty(G, dtype=torch.int32),
+                       mu=torch.empty(G, S, dtype=f64),
+                       hat_diag=torch.empty(G, S, dtype=f64))
+            counter = torch.zeros(1, dtype=torch.int32)
+            err = fn(_ptr(c[0]), _ptr(c[2]), 0, _ptr(w), _ptr(c[3]),
+                     _ptr(c[4]), _ptr(c[5]), _ptr(c[1]), G, S, p, tol,
+                     maxit, min_mu,
+                     *(_ptr(res[k]) for k in ("beta", "beta_var",
+                                              "deviance", "iter", "mu",
+                                              "hat_diag")),
+                     _ptr(counter), None)
+            assert err == 0, err
+            return res
+
+        a = checks.run_irls(k1, d)
+        pl = checks.run_irls(irls.fit_beta_plain, d)
+        r = checks.check_irls(a, pl)
+        conv = (a["iter"] < 100) & (pl["iter"] < 100)
+        rel = {k: float(((a[k] - pl[k]).abs() / (pl[k].abs() + 1e-8))
+                        [conv].max())
+               for k in ("deviance", "beta_var", "hat_diag", "mu")}
+        out["irls"] = dict(ok=r["ok"], beta_rel=r["beta_rel"], rel=rel,
+                           repeat_differs=checks.differing_outputs(
+                               a, checks.run_irls(k1, d)))
+    else:
+        lib = ctypes.CDLL(str(Path(lib_dir) / "libdisp_ls_block.so"))
+        fn = lib.ls_block_launch_f64
+        fn.argtypes = [P] * 6 + [I, I, I] + [D] * 4 + [I, I, I, D] + \
+            [P] * 9 + [P, I, P]
+        fn.restype = I
+        rows = lib.ls_block_scratch_rows
+        rows.argtypes = [I] * 5
+        rows.restype = I
+        names = ("log_alpha", "initial_lp", "initial_dlp", "last_lp",
+                 "last_dlp", "last_change")
+
+        def k2(y, x, mu, la0, pm, prior_var, min_la, kappa_0=1.0, tol=1e-6,
+               maxit=100, use_prior=False, weights=None, use_cr=True,
+               weight_threshold=checks.CR_WEIGHT_THRESHOLD):
+            c = [t.to(f64).contiguous() for t in (y, mu, x.t(), la0, pm)]
+            w = None if weights is None else weights.to(f64).contiguous()
+            res = {k: torch.empty(G, dtype=f64) for k in names}
+            res["iter"] = torch.empty(G, dtype=torch.int32)
+            res["iter_accept"] = torch.empty(G, dtype=torch.int32)
+            n = rows(1, int(w is not None), p, int(use_cr), G)
+            scratch = torch.full((max(n, 1), S), float("nan"), dtype=f64)
+            counter = torch.zeros(1, dtype=torch.int32)
+            err = fn(_ptr(c[0]), _ptr(c[1]), _ptr(w), _ptr(c[2]),
+                     _ptr(c[3]), _ptr(c[4]), G, S, p, float(prior_var),
+                     float(kappa_0), float(tol), float(min_la), maxit,
+                     int(use_prior), int(use_cr), float(weight_threshold),
+                     *(_ptr(res[k]) for k in names), _ptr(res["iter"]),
+                     _ptr(res["iter_accept"]), _ptr(counter),
+                     _ptr(scratch), n, None)
+            assert err == 0, err
+            return res
+
+        for use_prior in (False, True):
+            a = checks.run_ls(k2, d, use_prior)
+            r = checks.check_ls(a, checks.run_ls(
+                disp.fit_disp_line_search_plain, d, use_prior), d, use_prior)
+            out[f"ls prior={use_prior}"] = dict(
+                ok=r["ok"], lp_rel=r["lp_rel"], agree=r["agree"],
+                repeat_differs=checks.differing_outputs(
+                    a, checks.run_ls(k2, d, use_prior)))
+    return out
+
+
+if __name__ == "__main__":
+    lib_dir, kernel, p, S, G, weighted = sys.argv[1:7]
+    print(json.dumps(run(lib_dir, kernel, int(p), int(S), int(G),
+                         weighted == "1")))

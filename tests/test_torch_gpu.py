@@ -176,7 +176,7 @@ def test_kernels_repeatable(cuda, dt, weighted):
     """Two launches of K1, of K2 and of K3 on the same inputs give the
     same outputs bit for bit (no atomics in any sum; which warp or block
     takes which gene or grid point changes no result), at few, wrapping
-    and many samples, and on the block kernels (p = 17, 33, 64)."""
+    and many samples, and on the block kernels (p = 17, 33, 64, 57)."""
     def grid(d):
         return {"log_alpha": checks.run_grid(fit_disp_grid, d, True)}
 
@@ -248,7 +248,7 @@ def test_kernel_modes_match_plain(cuda, mode, case, use_prior):
     assert r3["ok"], r3
 
 
-@pytest.mark.parametrize("p", [9, 10, 16, 17, 33, 64])
+@pytest.mark.parametrize("p", [9, 10, 16, 17, 24, 33, 57, 64])
 @pytest.mark.parametrize("weighted", [False, True])
 def test_wide_route_on_card_matches_cpu(cuda, weighted, p):
     """Past p = 8 each wrapper takes its route by p: for p <= 16 the wide

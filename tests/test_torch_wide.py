@@ -3,8 +3,9 @@
 16) and the block kernels (16 < p <= 64) of csrc/*.cu are held to on the
 card) against the JAX package's XLA cores, the path it takes past 8
 columns (pallas_irls.py:274, pallas_ls.py:329, pallas_disp.py:199), at p
-= 9, 12 and 16 on 40 samples (120 genes) and p = 17, 33 and 64 on 3 p
-samples (60 genes)
+= 9, 12 and 16 on 40 samples (120 genes) and p = 17, 24, 33, 57 and 64
+on 4 p samples (60 genes; 24 fills its 8-column tiles, 57 leaves a
+one-column last tile on the float64 block kernels' tensor cores)
 (tests/test_torch_paired.py runs the public path on such designs).  Past
 32 columns the weighted inputs also drop the last column from ten genes'
 Cox-Reid term, a column past the first 32 bits of the block kernels'
@@ -35,14 +36,16 @@ MODES = {"default": (False, True), "weighted": (True, True),
          "nocr": (False, False)}
 
 
-# the design widths: the wide kernels' and the block kernels'
-WIDTHS = [9, 12, 16, 17, 33, 64]
+# the design widths: the wide kernels' and the block kernels' (24 and 57:
+# whole and one-column last 8-column tiles of the float64 tensor-core gram)
+WIDTHS = [9, 12, 16, 17, 24, 33, 57, 64]
 
 
 def _inputs(p, mode):
-    # past 16 columns 60 genes on 3 p samples: the JAX cores' p x p batches
-    # dominate the cost there
-    G, S = (120, 40) if p <= 16 else (60, 3 * p)
+    # past 16 columns 60 genes on 4 p samples: the JAX cores' p x p batches
+    # dominate the cost there, and on 3 p samples random indicator designs
+    # leave a quarter of the genes' fits unconverged (p = 57: 13 of 60)
+    G, S = (120, 40) if p <= 16 else (60, 4 * p)
     raw = checks.solver_inputs(G, S, p, 100 + p, weighted=MODES[mode][0])
     return raw, raw.get("w")
 
