@@ -14,7 +14,9 @@ Phases; any failure exits non-zero and no phase's failure is caught:
    build) and their block kernels (at p = 25 and 64) their registers,
    spills and resident warps per SM, and the block kernels' DMMA (FP64
    tensor-core) instruction counts: the float64 K1 and K2 block kernels
-   must issue DMMA and spill nothing.  While nvcc runs, the script computes
+   must issue DMMA and spill nothing, and so must the float64 wide K2
+   (ls_wide_kernel<double>, every mode printed: with the Cox-Reid term its
+   grams run on the FP64 tensor cores; none may spill).  While nvcc runs, the script computes
    the float64 CPU references of phase 8's paired gates and phase 10's
    single-cell gates (they need no kernel; prefetch_cpu_references).
 3. hold each kernel, unweighted and weighted, against its plain PyTorch
@@ -256,12 +258,16 @@ def kernel_resources():
     """Registers, spill bytes and resident warps per SM (the occupancy
     calculator at the main path's S) of the p = 2 instantiations of K1, K2
     and K3, of their wide kernels (p = 10; 8 < p <= 16 share one build),
-    and of their block kernels (p = 25 and 64)."""
+    and of their block kernels (p = 25 and 64).  Fails if a float64 wide
+    K2 instantiation spills or, with the Cox-Reid term, issues no DMMA
+    (its grams run on the FP64 tensor cores), or a float64 block K1/K2
+    instantiation does."""
     import ctypes
     import re
 
-    from deseq2_tpu_torch.ops import build
+    from deseq2_tpu_torch.ops import build, sass_compare
     out = {}
+    failed = []
     # warps per block: kWarpBlock / 32 (common.cuh), kGridWarps (disp_grid.cu)
     # (the trailing query argument: K1's (S,) factor-row flag, K2's and
     # K3's use_cr = 1, the default instantiations)
@@ -287,12 +293,33 @@ def kernel_resources():
                     log(f"  {key} p={p}: {regs} registers, {spill} spill "
                         f"bytes, {warps * blocks} resident warps per SM at "
                         f"S={S_MAIN}")
+    # the float64 wide K2 (ls_wide_kernel<double, W, CR>): every mode's
+    # registers, spills, resident warps and DMMA count; with the Cox-Reid
+    # term its grams run on the FP64 tensor cores
+    funcs = build.ptxas_resources("disp_ls")
+    sass = sass_compare.functions(build.so_path("disp_ls"))
+    fn = build.bind(build.load("disp_ls"), "ls_blocks_per_sm",
+                    [ctypes.c_int] * 5)
+    for w in (0, 1):
+        for cr in (1, 0):
+            pat = rf"ls_wide_kernelIdLb{w}ELb{cr}EE"
+            hit = [v for k, v in funcs.items() if re.search(pat, k)]
+            regs, spill = hit[0] if len(hit) == 1 else (-1, -1)
+            code = [v for k, v in sass.items() if re.search(pat, k)]
+            dmma = sum(bool(re.search(r"\bDMMA", i)) for i in code[0]) \
+                if len(code) == 1 else "-"
+            warps = 4 * fn(1, w, 10, S_MAIN, cr)
+            key = f"disp_ls{'_w' if w else ''}_wide float64 use_cr={cr}"
+            out[key] = dict(registers=regs, spill_bytes=spill,
+                            warps_per_sm=warps, dmma=dmma)
+            log(f"  {key} p=10: {regs} registers, {spill} spill bytes, "
+                f"{warps} resident warps per SM, {dmma} DMMA instructions")
+            if spill != 0 or (cr and dmma in ("-", 0)):
+                failed.append(key)
     # the block kernels (16 < p <= 64, csrc/*_block.cu; 8 warps a block,
     # the layout and so the occupancy set by p): at p = 25 and 64; the
     # float64 K1 and K2 run their grams on the FP64 tensor cores (DMMA
     # instructions in their machine code, counted by cuobjdump)
-    from deseq2_tpu_torch.ops import sass_compare
-    failed = []
     for name, sym, query, extra in (
             ("disp_ls_block", "ls_block_kernel", "ls_block_blocks_per_sm",
              (1,)),
@@ -326,8 +353,8 @@ def kernel_resources():
                         f"{8 * blocks} resident warps per SM, {dmma} DMMA "
                         f"instructions")
     if failed:
-        raise SystemExit(f"float64 block K1/K2 without DMMA or with spills: "
-                         f"{failed}")
+        raise SystemExit(f"float64 wide K2 or block K1/K2 without DMMA or "
+                         f"with spills: {failed}")
     return out
 
 
@@ -1932,12 +1959,7 @@ def paired_run(torch, counts, dname, p, **kw):
 def paired_x(S, p):
     """The paired design's model matrix [1, subject 1.., condition B]."""
     from deseq2_tpu_torch.ops import checks
-    _, cond = checks.paired_design(S, PAIRED[p])
-    codes = np.arange(S) % PAIRED[p]
-    return np.column_stack([np.ones(S)]
-                           + [(codes == k).astype(float)
-                              for k in range(1, PAIRED[p])]
-                           + [(cond == "B").astype(float)])
+    return checks.paired_matrix(S, PAIRED[p])
 
 
 def paired_call(torch, name, dname, p, profiled=True, **kw):

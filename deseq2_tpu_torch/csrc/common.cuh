@@ -317,6 +317,17 @@ constexpr size_t kBlockStageBytes = 16384;
 
 __device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
 
+// A barrier over the Warps warps that share the work: the block's, or one
+// warp's.
+template <int Warps>
+__device__ __forceinline__ void warps_sync() {
+  if constexpr (Warps == 1) {
+    __syncwarp();
+  } else {
+    __syncthreads();
+  }
+}
+
 // The warp's next gene from the launch's work counter (one atomic per
 // gene; the lanes get it by shuffle).  Which warp takes which gene does
 // not change any gene's result.
@@ -1153,6 +1164,191 @@ __device__ __forceinline__ T block_trace_product(const T* a, const T* b,
   return t[0];
 }
 
+// The float32 block K2's tiles (ls_block_kernel<float>; the other block
+// kernels keep the column-major tiles above), sample-major: sample
+// t's design row x_t and u_t = w_t x_t at t ld of two buffers, pr rows
+// (p rounded up to the gram's blocks of 4, zero past p).  ld = rows_ld(pr)
+// is a multiple of 4, so that a lane reads its 4 x 4 block's four rows or
+// columns of a sample in one 128-bit load (three a sample for its 32
+// multiply-adds, where the column-major tiles take twelve), and 4 mod 8,
+// so that eight consecutive samples' quads fall in distinct banks.
+__host__ __device__ constexpr int rows_ld(int pr) {
+  return pr % 8 ? pr : pr + 4;
+}
+
+// Slot t of the tile takes sample s: x_s and w x_s, four rows a 128-bit
+// store (xt the design transposed, p x S).
+__device__ __forceinline__ void rows_put(float* xb, float* ub, const float* xt,
+                                         int S, int s, int p, int pr, int ld,
+                                         int t, float w) {
+  for (int k = 0; k < pr; k += 4) {
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      v[e] = k + e < p ? __ldg(xt + (size_t)(k + e) * S + s) : 0.f;
+    *reinterpret_cast<float4*>(xb + t * ld + k) =
+        make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(ub + t * ld + k) =
+        make_float4(w * v[0], w * v[1], w * v[2], w * v[3]);
+  }
+}
+
+// block_gram_add<float, true, false> on sample-major tiles (u the tile of
+// w x, v of x): the thread's group adds its samples t = group, group +
+// ng, ... < n in that order to g1 (u_t v_t') and g2 (u_t u_t')
+// (block_gram_map's map).
+__device__ __forceinline__ void gram_add_rows(const GramMap& m,
+                                              GramBlock<float>& g1,
+                                              GramBlock<float>& g2,
+                                              const float* u, const float* v,
+                                              int ld, int n) {
+  if (!m.active) return;
+#pragma unroll 2
+  for (int t = m.grp; t < n; t += m.ng) {
+    const float4 a = *reinterpret_cast<const float4*>(u + t * ld + m.r0);
+    const float4 b = *reinterpret_cast<const float4*>(v + t * ld + m.c0);
+    const float4 c = *reinterpret_cast<const float4*>(u + t * ld + m.c0);
+    const float ur[4] = {a.x, a.y, a.z, a.w};
+    const float vc[4] = {b.x, b.y, b.z, b.w};
+    const float uc[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) g1.a[i][j] += ur[i] * vc[j];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) g2.a[i][j] += ur[i] * uc[j];
+    }
+  }
+}
+
+// The float32 block K2's p x p algebra (ls_block_kernel<float>, row stride
+// p <= 64): the same operations on every entry in the same order as
+// block_cholesky and block_chol_inverse (so the same bits), laid out for
+// fewer cycles: the factor on one warp (lane l owns rows l and l + 32),
+// one __syncwarp a column, against block_cholesky's three block barriers;
+// the inverse's sums with four loads in flight.
+
+// The lower Cholesky factor L of the p x p SPD matrix a (both triangles
+// given), written to a's lower triangle and its transpose to the upper
+// one, returning log det(a) on every lane.  Left-looking, a column at a
+// time: lane l computes entries i = j + l and j + l + 32 of column j as
+// a_ij - L_i0 L_j0 - L_i1 L_j1 - ... (the order in which block_cholesky's
+// updates reach a_ij), reading the earlier columns from the upper copy
+// (row k of L', consecutive lanes on consecutive values); the pivot comes
+// by shuffle.  Every lane of the warp calls it.
+template <typename T>
+__device__ __forceinline__ T warp_cholesky_ll(T* a, int p) {
+  const int lane = lane_id();
+  T logdet = T(0);
+  for (int j = 0; j < p; ++j) {
+    const int i0 = j + lane, i1 = i0 + 32;
+    T s0 = i0 < p ? a[j * p + i0] : T(1);
+    T s1 = i1 < p ? a[j * p + i1] : T(1);
+    const T* uj = a + j;
+    int k = 0;
+    for (; k + 4 <= j; k += 4) {
+      T lj[4], l0[4], l1[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        lj[e] = uj[(k + e) * p];
+        l0[e] = i0 < p ? a[(k + e) * p + i0] : T(0);
+        l1[e] = i1 < p ? a[(k + e) * p + i1] : T(0);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s0 -= l0[e] * lj[e];
+        s1 -= l1[e] * lj[e];
+      }
+    }
+    for (; k < j; ++k) {
+      const T lj = uj[k * p];
+      if (i0 < p) s0 -= a[k * p + i0] * lj;
+      if (i1 < p) s1 -= a[k * p + i1] * lj;
+    }
+    const T piv = __shfl_sync(kFullMask, s0, 0);
+    const T d = d_sqrt(piv > T(1e-30) ? piv : T(1e-30));
+    logdet += T(2) * d_log(d);
+    if (lane == 0) {
+      a[j * p + j] = d;
+    } else if (i0 < p) {
+      const T l = s0 / d;
+      a[j * p + i0] = l;
+      a[i0 * p + j] = l;
+    }
+    if (i1 < p) {
+      const T l = s1 / d;
+      a[j * p + i1] = l;
+      a[i1 * p + j] = l;
+    }
+    __syncwarp();
+  }
+  return logdet;
+}
+
+// sum_k a[k] b[k * ld] over k in [k0, k1), in increasing k, onto s (four
+// loads of each in flight)
+template <typename T>
+__device__ __forceinline__ T dot_ld(const T* a, const T* b, int ld, int k0,
+                                    int k1, T s) {
+  int k = k0;
+  for (; k + 4 <= k1; k += 4) {
+    T x[4], y[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      x[e] = a[k + e];
+      y[e] = b[(k + e) * ld];
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s += x[e] * y[e];
+  }
+  for (; k < k1; ++k) s += a[k] * b[k * ld];
+  return s;
+}
+
+// block_chol_inverse's a^-1 = L^-T L^-1 (thread j < p: column j of L^-1
+// into li; then the threads share out the entries of a^-1, written to
+// both triangles of `out`), each sum in its order, the loops with four
+// loads in flight.  Every thread of the block calls it; it ends with a
+// __syncthreads.
+template <typename T>
+__device__ __forceinline__ void block_chol_inverse_ld(const T* L, T* li,
+                                                      T* out, int p) {
+  const int j = threadIdx.x;
+  if (j < p) {
+    li[j * p + j] = T(1) / L[j * p + j];
+    for (int i = j + 1; i < p; ++i) {
+      const T s = dot_ld(L + i * p, li + j, p, j, i, T(0));
+      li[i * p + j] = -s * (T(1) / L[i * p + i]);
+    }
+  }
+  __syncthreads();
+  const int nt = p * (p + 1) / 2;
+  for (int e = threadIdx.x; e < nt; e += kBlockThreads) {
+    int r = 0;
+    while ((r + 1) * (r + 2) / 2 <= e) ++r;
+    const int c = e - r * (r + 1) / 2;  // c <= r
+    T s = T(0);
+    int k = r;
+    for (; k + 4 <= p; k += 4) {
+      T x[4], y[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        x[q] = li[(k + q) * p + r];
+        y[q] = li[(k + q) * p + c];
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) s += x[q] * y[q];
+    }
+    for (; k < p; ++k) s += li[k * p + r] * li[k * p + c];
+    out[r * p + c] = s;
+    out[c * p + r] = s;
+  }
+  __syncthreads();
+}
+
 // The weighted Cox-Reid column mask at p <= 64 columns, a 64-bit word on
 // every thread: column k stays when some kept row has x_k != 0
 // (ops/disp.py:make_cr_masks); xt is the design transposed (p x S).
@@ -1194,8 +1390,9 @@ __device__ __forceinline__ void block_tile_put(T* xb, T* ub, const T* xt,
 }
 
 // ---------------------------------------------------------------------------
-// The float64 block kernels' grams on the FP64 tensor cores (irls_block.cu,
-// disp_ls_block.cu; float32 keeps the 4 x 4 blocks above)
+// The float64 grams on the FP64 tensor cores (irls_block.cu,
+// disp_ls_block.cu, and disp_ls.cu's wide K2 on one warp; float32 keeps
+// the 4 x 4 blocks above)
 // ---------------------------------------------------------------------------
 //
 // In float64 K1's and K2's grams are mma.sync m8n8k4 products (D = C + A B
@@ -1249,6 +1446,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+
 // The float64 block kernels' shared-memory layout (BlockLayout's fields):
 // nmat p x p matrices, the vectors, then the tile buffer of pr = 8 cols
 // design rows and `extra` rows more (the weights; K1's hat pass, the
@@ -1288,13 +1486,15 @@ inline int block_mma_tile(int p, int nmat, int cols, int extra,
 // Stage a tile's design rows into xb (row k at k ts): x_k of the tile's n
 // samples from `base`, zeros past n (up to tw) and in the rows p..pr-1,
 // but row zrow (K1's z, which its sample threads write; -1: none).  The
-// block's warps take rows in turn, lanes consecutive samples; the copies
-// land by cp_async_wait_all.
+// Warps warps of the caller (the block's, or one: the wide kernel's warp
+// per gene) take rows in turn, lanes consecutive samples; the copies land
+// by cp_async_wait_all.
+template <int Warps = kBlockWarpsN>
 __device__ __forceinline__ void mma_stage(double* xb, const double* x, int S,
                                           int base, int n, int p, int pr,
                                           int ts, int tw, int zrow) {
   const int lane = lane_id();
-  for (int k = threadIdx.x >> 5; k < pr; k += kBlockWarpsN) {
+  for (int k = Warps == 1 ? 0 : threadIdx.x >> 5; k < pr; k += Warps) {
     if (k == zrow) continue;
     const bool row = k < p;
     const double* src = x + (size_t)(row ? k : 0) * S + base;
@@ -1307,16 +1507,18 @@ __device__ __forceinline__ void mma_stage(double* xb, const double* x, int S,
 
 // the most tiles in a warp's run (p = 64): K1's 44 (the 36 upper tiles and
 // the 8 of the column tile holding X'Wz) and K2's 36 over kBlockWarpsN
-// warps
+// warps; the wide K2's 3 (8 < p <= 16: two column tiles) on its one warp
 constexpr int kMmaRunK1 = 6;
 constexpr int kMmaRunK2 = 5;
+constexpr int kMmaRunWide = 3;
 
-// A warp's run of the gram's tile list (i < nr, i <= j < nc, row by row):
-// its first tile and length, the lane's offsets of the first tile's A and
-// B rows, (8 i + l / 4) ts + l % 4 and (8 j + l / 4) ts + l % 4, the step
-// from a tile's B rows to the next column's (8 ts), and which tiles start
-// a row (their A and B rows are the row's diagonal tile's).  Set by p and
-// the layout alone.
+// A warp's run of the gram's tile list (i < nr, i <= j < nc, row by row),
+// the list cut into Warps runs (the block's warps, or one warp's whole
+// list): its first tile and length, the lane's offsets of the first tile's
+// A and B rows, (8 i + l / 4) ts + l % 4 and (8 j + l / 4) ts + l % 4, the
+// step from a tile's B rows to the next column's (8 ts), and which tiles
+// start a row (their A and B rows are the row's diagonal tile's).  Set by
+// p and the layout alone.
 template <int N>
 struct MmaRun {
   int i0, j0, n, nc;
@@ -1324,14 +1526,14 @@ struct MmaRun {
   unsigned rowstart;
 };
 
-template <int N>
+template <int N, int Warps = kBlockWarpsN>
 __device__ __forceinline__ MmaRun<N> mma_run(int nr, int nc, int ts) {
   MmaRun<N> m;
-  const int w = threadIdx.x >> 5, lane = lane_id();
+  const int w = Warps == 1 ? 0 : threadIdx.x >> 5, lane = lane_id();
   const int lo = (lane >> 2) * ts + (lane & 3);
   int total = 0;
   for (int i = 0; i < nr; ++i) total += nc - i;
-  const int per = total / kBlockWarpsN, more = total % kBlockWarpsN;
+  const int per = total / Warps, more = total % Warps;
   const int start = w * per + (w < more ? w : more);
   m.n = per + (w < more ? 1 : 0);
   m.nc = nc;
@@ -1363,13 +1565,16 @@ __device__ __forceinline__ void gram_mma_zero(double (&acc)[N][2]) {
 // Add a tile's first n samples to the warp's run: xb the tile's design
 // rows, wb its weights (the samples past n, up to a multiple of 4, are
 // zero); the gram is sum_s (w_s x_s) x_s', or with Sq sum_s (w_s x_s)
-// (w_s x_s)'.  The run's length L is a template argument (gram_mma_add
-// picks it), so that no mma.sync sits under a predicate.
-template <int L, int N, bool Sq>
+// (w_s x_s)'.  With Both, acc takes the first and sq the second from the
+// same fragments (the wide K2's b and X'W^2X in one pass).  The run's
+// length L is a template argument (gram_mma_add picks it), so that no
+// mma.sync sits under a predicate.
+template <int L, int N, bool Sq, bool Both = false>
 __device__ __forceinline__ void gram_mma_add_len(const MmaRun<N>& m,
                                                  double (&acc)[N][2],
                                                  const double* xb,
-                                                 const double* wb, int n) {
+                                                 const double* wb, int n,
+                                                 double (*sq)[2] = nullptr) {
   const int c = lane_id() & 3;
   for (int k0 = 0; k0 < n; k0 += 4) {
     const double wk = wb[k0 + c];
@@ -1386,60 +1591,70 @@ __device__ __forceinline__ void gram_mma_add_len(const MmaRun<N>& m,
       const double b = xk[ob];
       if (rs) a = b * wk;
       mma_f64(acc[q], a, Sq ? b * wk : b);
+      if constexpr (Both) mma_f64(sq[q], a, b * wk);
     }
   }
 }
 
-template <int N, bool Sq, int L = N>
+template <int N, bool Sq, int L = N, bool Both = false>
 __device__ __forceinline__ void gram_mma_add(const MmaRun<N>& m,
                                              double (&acc)[N][2],
                                              const double* xb,
-                                             const double* wb, int n) {
+                                             const double* wb, int n,
+                                             double (*sq)[2] = nullptr) {
   if constexpr (L > 0) {
     if (m.n == L)
-      gram_mma_add_len<L, N, Sq>(m, acc, xb, wb, n);
+      gram_mma_add_len<L, N, Sq, Both>(m, acc, xb, wb, n, sq);
     else
-      gram_mma_add<N, Sq, L - 1>(m, acc, xb, wb, n);
+      gram_mma_add<N, Sq, L - 1, Both>(m, acc, xb, wb, n, sq);
   }
 }
 
 // One pass of a gene's samples through the gram: per tile, the design rows
 // by cp.async (mma_stage), the weights from wg (global, S values) and,
 // with zg, K1's working response from zg as row p; then the warp's run
-// (acc, zeroed first).  Every thread of the block calls it.
-template <int N, bool Sq>
+// (acc, zeroed first; with Both also sq, gram_mma_add_len's).  Every
+// thread of the Warps warps that share the tile calls it (the block's, or
+// the wide K2's one warp, whose tile is 32 samples: tw = 32).
+template <int N, bool Sq, int Warps = kBlockWarpsN, bool Both = false>
 __device__ __forceinline__ void gram_mma_pass(const MmaRun<N>& m,
                                               double (&acc)[N][2],
                                               double* tile,
                                               const BlockLayout& lay,
                                               const double* x, int S,
                                               const double* wg,
-                                              const double* zg) {
-  const int t = threadIdx.x, p = lay.p, tw = lay.tw, ts = lay.ts;
+                                              const double* zg,
+                                              double (*sq)[2] = nullptr) {
+  const int t = Warps == 1 ? lane_id() : (int)threadIdx.x, p = lay.p,
+            tw = lay.tw, ts = lay.ts;
   double* wb = tile + (size_t)lay.pr * ts;
   double* zb = tile + (size_t)p * ts;
   gram_mma_zero(acc);
+  if constexpr (Both) {
+#pragma unroll
+    for (int q = 0; q < N; ++q) sq[q][0] = sq[q][1] = 0.0;
+  }
   for (int base = 0; base < S; base += tw) {
     const int n = S - base < tw ? S - base : tw;
-    __syncthreads();
-    mma_stage(tile, x, S, base, n, p, lay.pr, ts, tw, zg ? p : -1);
+    warps_sync<Warps>();
+    mma_stage<Warps>(tile, x, S, base, n, p, lay.pr, ts, tw, zg ? p : -1);
     if (t < tw) {
       wb[t] = t < n ? wg[base + t] : 0.0;
       if (zg) zb[t] = t < n ? zg[base + t] : 0.0;
     }
     cp_async_wait_all();
-    __syncthreads();
-    gram_mma_add<N, Sq>(m, acc, tile, wb, n);
+    warps_sync<Warps>();
+    gram_mma_add<N, Sq, N, Both>(m, acc, tile, wb, n, sq);
   }
 }
 
-// Write the warps' runs (negated with neg) into M (row stride p) by
-// block_gram_store's rules: both triangles of the upper entries r <= c
-// < p, times the 64-bit column mask's bits, the unit diagonal of dropped
-// columns, the diagonal `diag`.  With rhs, the entries (r, p) of K1's
-// X'Wz column go to rhs[r].  Every thread of the block calls it; it ends
-// with a __syncthreads.
-template <int N>
+// Write the warps' runs (negated with neg) into M (row stride p, or Ld
+// when given: the wide kernels' kPWide) by block_gram_store's rules: both
+// triangles of the upper entries r <= c < p, times the 64-bit column
+// mask's bits, the unit diagonal of dropped columns, the diagonal `diag`.
+// With rhs, the entries (r, p) of K1's X'Wz column go to rhs[r].  Every
+// thread of the Warps warps calls it; it ends with their barrier.
+template <int N, int Warps = kBlockWarpsN, int Ld = 0>
 __device__ __forceinline__ void gram_mma_store(const MmaRun<N>& m,
                                                const double (&acc)[N][2],
                                                bool neg, double* M, int p,
@@ -1448,6 +1663,7 @@ __device__ __forceinline__ void gram_mma_store(const MmaRun<N>& m,
                                                const double* diag,
                                                double* rhs) {
   const int lane = lane_id(), r8 = lane >> 2, c8 = 2 * (lane & 3);
+  const int ld = Ld ? Ld : p;
   int i = m.i0, j = m.j0;
 #pragma unroll
   for (int q = 0; q < N; ++q) {
@@ -1464,8 +1680,8 @@ __device__ __forceinline__ void gram_mma_store(const MmaRun<N>& m,
             if (unit_diag) v += 1.0 - cr;
             if (diag != nullptr) v += diag[r];
           }
-          M[r * p + c] = v;
-          M[c * p + r] = v;
+          M[r * ld + c] = v;
+          M[c * ld + r] = v;
         } else if (rhs != nullptr && c == p && r < p) {
           rhs[r] = g;
         }
@@ -1473,7 +1689,7 @@ __device__ __forceinline__ void gram_mma_store(const MmaRun<N>& m,
       if (++j == m.nc) j = ++i;
     }
   }
-  __syncthreads();
+  warps_sync<Warps>();
 }
 
 // block_cholesky's factor, with the same operations on every entry in

@@ -57,13 +57,24 @@
 // argument, every mode above): the same contract and control, one warp per
 // gene from the same counter, but no lane holds the Cox-Reid matrices
 // (NV = 2 + 2 NT accumulators a lane would be 274 at p = 16).  Each trial
-// point walks the samples in tiles of 32 (common.cuh's wide section): a
-// lane computes its sample's likelihood terms and Cox-Reid weight w and
-// writes x_s and w x_s into the warp's tile buffers; the lanes add the
-// tile to b = X'WX and to X'W^2X (db's negation) in 4 x 4 blocks they
-// own; b is factored, inverted and traced against db in the warp's shared
-// memory.  The weighted column mask is a 32-bit set of kept columns, as
-// the plain version decides it (a kept row with x_k != 0).
+// point walks the samples in tiles of 32 (common.cuh's wide section): in
+// float32 a lane computes its sample's likelihood terms and Cox-Reid
+// weight w and writes x_s and w x_s into the warp's tile buffers, and the
+// lanes add the tile to b = X'WX and to X'W^2X (db's negation) in 4 x 4
+// blocks they own.  In float64 (lp_dlp_wide_mma) the warp first computes
+// every sample's terms, the weights w to a global scratch row of its own,
+// then walks 32-sample tiles staged by cp.async and sums both grams as
+// mma.sync m8n8k4 products on the FP64 tensor cores, the warp's run of the
+// three upper 8 x 8 tiles in registers (common.cuh's float64 gram section
+// on one warp), so that no accumulator is live across the special
+// functions (0 spill bytes).  What bounds a float64 trial point there
+// (`studies phases`, PERF.md section 6): the per-sample special functions
+// (0.54 of it before the tensor cores, 0.61 after), which no gram layout
+// reaches; at p = 10 the three tiles' products are 55 of 192 entries, so
+// the tensor cores only level the FFMA blocks' time.  b is factored,
+// inverted and traced against db in the warp's shared memory.
+// The weighted column mask is a 32-bit set of kept columns, as the plain
+// version decides it (a kept row with x_k != 0).
 #include "common.cuh"
 
 namespace {
@@ -242,10 +253,30 @@ int launch_p(const T* y, const T* mu, const T* w, const T* x, const T* la0,
 // 8 < p <= kPWide
 // ---------------------------------------------------------------------------
 
-// shared values per warp: the tile buffers of x and w x; after a trial
-// point's last tile b (then its inverse) and db take the x buffer's room
-// and b's factor inverse the other's
+// shared values per warp (float32 with the Cox-Reid term): the tile
+// buffers of x and w x; after a trial point's last tile b (then its
+// inverse) and db take the x buffer's room and b's factor inverse the
+// other's
 constexpr int kWideWarpVals = 2 * kTileVals;
+// in float64 with the Cox-Reid term (lp_dlp_wide_mma): the tile of the
+// design's 16 rows (zero past p) and the weights, 32 samples of ts = 36
+// values each, then b (then its inverse), db and b's factor inverse
+constexpr int kWideMmaTile = kTile;
+constexpr int kWideMmaVals = 3 * kMat;
+static_assert((kPWide + 1) * (kWideMmaTile + 4) <= kWideMmaVals,
+              "the tile fits the matrices' room");
+
+// the wide kernel's shared values per warp, and whether it takes the
+// tensor-core path (and a global scratch row of S weights per warp)
+template <typename T, bool UseCR>
+__host__ __device__ constexpr bool wide_mma() {
+  return !is_f32<T>() && UseCR;
+}
+
+template <typename T, bool UseCR>
+__host__ __device__ constexpr int wide_warp_vals() {
+  return wide_mma<T, UseCR>() ? kWideMmaVals : kWideWarpVals;
+}
 
 // lp_dlp at a run-time p: x the design transposed (p x S), wv the warp's
 // shared values.
@@ -327,8 +358,94 @@ __device__ __forceinline__ void lp_dlp_wide(const T* yr, const T* mr,
   }
 }
 
+// lp_dlp_wide in float64 with the Cox-Reid term: the grams on the FP64
+// tensor cores (common.cuh's float64 gram section on one warp).  The warp
+// first sums every sample's likelihood terms, each lane its samples (as
+// lp_dlp_wide sums them), writing the weights w to wscr (the warp's S
+// values of global scratch); then one pass over tiles of 32 samples
+// stages the design's rows (zero past p and past S) and the weights in
+// the warp's shared values and adds both grams, b = X'WX and X'W^2X, to
+// the warp's run of the three upper 8 x 8 tiles (12 accumulators a lane),
+// k-steps in ascending order.  So no accumulator is live while the special
+// functions run.  The column mask, the algebra and the prior are
+// lp_dlp_wide's.
+template <bool UseW>
+__device__ __forceinline__ void lp_dlp_wide_mma(
+    const double* yr, const double* mr, const double* wr, unsigned cm,
+    double thr, const double* x, int S, int p, double la, double pm,
+    double prior_var, int use_prior, double* wv, double* wscr, double& lp,
+    double& dlp) {
+  using T = double;
+  const T alpha = d_exp(la);
+  T acc[2] = {T(0), T(0)};
+  {
+    const NbConst<T> k = nb_const(T(1) / alpha);
+    for (int s = lane_id(); s < S; s += kTile) {
+      const T yv = yr[s];
+      const T m = mr[s];
+      const T mua = m * alpha;
+      const T l1p = d_log1p(mua);
+      const T r = T(1) / (T(1) + mua);
+      T lgd, dgd;
+      nb_diffs(yv, k, lgd, dgd);
+      acc[0] += wscale<UseW>(lgd - (yv + k.c) * l1p, wr, s);
+      acc[1] += wscale<UseW>(l1p - mua * r + yv * alpha * r - dgd, wr, s);
+      T w = m * r;
+      if constexpr (UseW) {
+        if (!cr_keeps(wr[s], thr)) w = T(0);
+      }
+      wscr[s] = w;
+    }
+  }
+  warp_allsum<T, 2>(acc);
+  const BlockLayout lay =
+      block_mma_layout(p, kWideMmaTile, 0, kPWide / 8, 1, 0);
+  const MmaRun<kMmaRunWide> run = mma_run<kMmaRunWide, 1>(2, 2, lay.ts);
+  T gb[kMmaRunWide][2], gd[kMmaRunWide][2];
+  gram_mma_pass<kMmaRunWide, false, 1, true>(run, gb, wv, lay, x, S, wscr,
+                                             nullptr, gd);
+  T* bm = wv;
+  T* dm = wv + kMat;
+  T* li = wv + 2 * kMat;
+  // every lane's last fragment loads are done before the matrices take
+  // the tile's room
+  __syncwarp();
+  gram_mma_store<kMmaRunWide, 1, kPWide>(run, gb, false, bm, p, cm, true,
+                                         nullptr, nullptr);
+  gram_mma_store<kMmaRunWide, 1, kPWide>(run, gd, true, dm, p, cm, false,
+                                         nullptr, nullptr);
+  const T logdet = warp_cholesky<T, true>(bm, p);
+  warp_chol_inverse(bm, li, bm, p);
+  const T tr = warp_trace_product(bm, dm, p);
+  lp = acc[0] - T(0.5) * logdet;
+  dlp = (acc[1] / (alpha * alpha) - T(0.5) * tr) * alpha;
+  if (use_prior) {
+    lp -= T(0.5) * (la - pm) * (la - pm) / prior_var;
+    dlp -= (la - pm) / prior_var;
+  }
+}
+
+// the wide evaluation at a point: float64 with the Cox-Reid term on the
+// tensor cores, else lp_dlp_wide
 template <typename T, bool UseW, bool UseCR>
-__global__ void __launch_bounds__(kWarpBlock)
+__device__ __forceinline__ void lp_dlp_wide_at(
+    const T* yr, const T* mr, const T* wr, unsigned cm, T thr, const T* x,
+    int S, int p, T la, T pm, T prior_var, int use_prior, T* wv, T* wscr,
+    T& lp, T& dlp) {
+  if constexpr (wide_mma<T, UseCR>()) {
+    lp_dlp_wide_mma<UseW>(yr, mr, wr, cm, thr, x, S, p, la, pm, prior_var,
+                          use_prior, wv, wscr, lp, dlp);
+  } else {
+    lp_dlp_wide<T, UseW, UseCR>(yr, mr, wr, cm, thr, x, S, p, la, pm,
+                                prior_var, use_prior, wv, lp, dlp);
+  }
+}
+
+// The minimum of one block an SM lets ptxas give the float64
+// instantiations the registers they need: without it they spilled 80-124
+// bytes (PERF.md section 6), with it none.
+template <typename T, bool UseW, bool UseCR>
+__global__ void __launch_bounds__(kWarpBlock, 1)
     ls_wide_kernel(const T* __restrict__ y, const T* __restrict__ mu,
                    const T* __restrict__ wts, const T* __restrict__ x,
                    const T* __restrict__ la0, const T* __restrict__ prior_mean,
@@ -338,10 +455,15 @@ __global__ void __launch_bounds__(kWarpBlock)
                    T* __restrict__ out_dlp0, T* __restrict__ out_lp,
                    T* __restrict__ out_dlp, T* __restrict__ out_change,
                    int* __restrict__ out_iter, int* __restrict__ out_accept,
-                   int* __restrict__ counter, T thr) {
+                   int* __restrict__ counter, T thr,
+                   T* __restrict__ scratch) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5;
   T* wv = reinterpret_cast<T*>(smem_raw) +
-          (UseCR ? (size_t)(threadIdx.x >> 5) * kWideWarpVals : 0);
+          (UseCR ? (size_t)warp * wide_warp_vals<T, UseCR>() : 0);
+  T* wscr = wide_mma<T, UseCR>()
+                ? scratch + ((size_t)blockIdx.x * kBlockWarps + warp) * S
+                : nullptr;
   const T eps = Eps<T>::value;
 
   for (;;) {
@@ -355,8 +477,9 @@ __global__ void __launch_bounds__(kWarpBlock)
     const T pm = prior_mean[g];
     const T a0 = la0[g];
     T lp0, dlp0;
-    lp_dlp_wide<T, UseW, UseCR>(yr, mr, wr, cm, thr, x, S, p, a0, pm,
-                                prior_var, use_prior, wv, lp0, dlp0);
+    lp_dlp_wide_at<T, UseW, UseCR>(yr, mr, wr, cm, thr, x, S, p, a0, pm,
+                                   prior_var, use_prior, wv, wscr, lp0,
+                                   dlp0);
 
     // control state: the same values on every lane (ls_kernel's)
     const T tol_eff =
@@ -370,8 +493,9 @@ __global__ void __launch_bounds__(kWarpBlock)
       if (a_propose > T(10)) kappa = (T(10) - a) / dlp;
       const T a_new = a + kappa * dlp;
       T lp_new, dlp_next;
-      lp_dlp_wide<T, UseW, UseCR>(yr, mr, wr, cm, thr, x, S, p, a_new, pm,
-                                  prior_var, use_prior, wv, lp_new, dlp_next);
+      lp_dlp_wide_at<T, UseW, UseCR>(yr, mr, wr, cm, thr, x, S, p, a_new,
+                                     pm, prior_var, use_prior, wv, wscr,
+                                     lp_new, dlp_next);
       const bool accept = -lp_new <= -lp - kappa * T(kArmijo) * dlp * dlp;
       if (accept) ++iter_accept;
       const T change_new = lp_new - lp;
@@ -410,9 +534,10 @@ __global__ void __launch_bounds__(kWarpBlock)
 }
 
 // dynamic shared memory of a wide launch (none without the Cox-Reid term)
-template <typename T>
-inline size_t wide_smem(bool use_cr) {
-  return use_cr ? (size_t)kBlockWarps * kWideWarpVals * sizeof(T) : 0;
+template <typename T, bool UseCR>
+inline size_t wide_smem() {
+  return UseCR ? (size_t)kBlockWarps * wide_warp_vals<T, UseCR>() * sizeof(T)
+               : 0;
 }
 
 template <typename T, bool UseW, bool UseCR>
@@ -421,23 +546,38 @@ int launch_wide(const T* y, const T* mu, const T* w, const T* x, const T* la0,
                 T tol, T min_la, int maxit, int use_prior, T* out_la,
                 T* out_lp0, T* out_dlp0, T* out_lp, T* out_dlp,
                 T* out_change, int* out_iter, int* out_accept, int* counter,
-                T thr, cudaStream_t st) {
-  const size_t smem = wide_smem<T>(UseCR);
+                T thr, T* scratch, int scratch_rows, cudaStream_t st) {
+  const size_t smem = wide_smem<T, UseCR>();
   auto kernel = ls_wide_kernel<T, UseW, UseCR>;
   int err = allow_smem(kernel, smem);
   if (err) return err;
   const int blocks = persistent_blocks(kernel, smem, G, &err);
   if (err) return err;
+  if (wide_mma<T, UseCR>() && blocks * kBlockWarps > scratch_rows)
+    return (int)cudaErrorInvalidValue;
   kernel<<<blocks, kWarpBlock, smem, st>>>(
       y, mu, w, x, la0, pm, G, S, p, prior_var, kappa_0, tol, min_la, maxit,
       use_prior, out_la, out_lp0, out_dlp0, out_lp, out_dlp, out_change,
-      out_iter, out_accept, counter, thr);
+      out_iter, out_accept, counter, thr, scratch);
   return (int)cudaGetLastError();
+}
+
+// Rows of global scratch (S values each) a wide launch needs: one a
+// resident warp on the tensor-core path (lp_dlp_wide_mma's weights), else
+// 0; -1 on a refusal.
+template <typename T, bool UseW, bool UseCR>
+int scratch_rows_wide(int G) {
+  if (!wide_mma<T, UseCR>()) return 0;
+  const size_t smem = wide_smem<T, UseCR>();
+  auto kernel = ls_wide_kernel<T, UseW, UseCR>;
+  int err = allow_smem(kernel, smem);
+  const int blocks = err ? 0 : persistent_blocks(kernel, smem, G, &err);
+  return err ? -1 : blocks * kBlockWarps;
 }
 
 template <typename T, bool UseW, bool UseCR>
 int occupancy_wide() {
-  const size_t smem = wide_smem<T>(UseCR);
+  const size_t smem = wide_smem<T, UseCR>();
   auto kernel = ls_wide_kernel<T, UseW, UseCR>;
   int err = allow_smem(kernel, smem);
   const int n = err ? 0 : blocks_per_sm(kernel, smem, &err);
@@ -446,20 +586,24 @@ int occupancy_wide() {
 
 // w == nullptr selects the unweighted instantiations, use_cr == 0 the ones
 // without the Cox-Reid term, 8 < p <= 16 the wide kernel; `counter` is one
-// zeroed int of device memory (the warps' gene counter)
+// zeroed int of device memory (the warps' gene counter); scratch holds
+// scratch_rows rows of S values (the wide kernel's tensor-core path, as
+// many as scratch_rows_mode says; else unread)
 template <typename T>
 int launch(const T* y, const T* mu, const T* w, const T* x, const T* la0,
            const T* pm, int G, int S, int p, T prior_var, T kappa_0, T tol,
            T min_la, int maxit, int use_prior, int use_cr, T thr, T* out_la,
            T* out_lp0, T* out_dlp0, T* out_lp, T* out_dlp, T* out_change,
-           int* out_iter, int* out_accept, int* counter, void* stream) {
+           int* out_iter, int* out_accept, int* counter, T* scratch,
+           int scratch_rows, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (p > kPNarrow && p <= kPWide) {
 #define DK_LS_WIDE(W, CR)                                                     \
   return launch_wide<T, W, CR>(y, mu, w, x, la0, pm, G, S, p, prior_var,     \
                                kappa_0, tol, min_la, maxit, use_prior, out_la, \
                                out_lp0, out_dlp0, out_lp, out_dlp, out_change, \
-                               out_iter, out_accept, counter, thr, st)
+                               out_iter, out_accept, counter, thr, scratch, \
+                               scratch_rows, st)
     if (w != nullptr) {
       if (use_cr) DK_LS_WIDE(true, true);
       DK_LS_WIDE(true, false);
@@ -505,6 +649,17 @@ int occupancy(int p, int S) {
 }
 
 template <typename T>
+int scratch_rows_mode(int weighted, int use_cr, int p, int G) {
+  if (p <= kPNarrow || p > kPWide) return 0;
+  if (weighted) {
+    return use_cr ? scratch_rows_wide<T, true, true>(G)
+                  : scratch_rows_wide<T, true, false>(G);
+  }
+  return use_cr ? scratch_rows_wide<T, false, true>(G)
+                : scratch_rows_wide<T, false, false>(G);
+}
+
+template <typename T>
 int occupancy_mode(int weighted, int use_cr, int p, int S) {
   if (p > kPNarrow && p <= kPWide) {
     if (weighted) {
@@ -531,6 +686,14 @@ int ls_blocks_per_sm(int f64, int weighted, int p, int S, int use_cr) {
              : occupancy_mode<float>(weighted, use_cr, p, S);
 }
 
+// rows of S values of global scratch the launch takes (`scratch`,
+// `scratch_rows`: the wide kernel's float64 path with the Cox-Reid term;
+// 0 otherwise, -1 on a refusal)
+int ls_scratch_rows(int f64, int weighted, int p, int use_cr, int G) {
+  return f64 ? scratch_rows_mode<double>(weighted, use_cr, p, G)
+             : scratch_rows_mode<float>(weighted, use_cr, p, G);
+}
+
 int ls_launch_f32(const float* y, const float* mu, const float* w,
                   const float* x, const float* la0, const float* pm, int G,
                   int S, int p, float prior_var, float kappa_0, float tol,
@@ -538,11 +701,11 @@ int ls_launch_f32(const float* y, const float* mu, const float* w,
                   float thr, float* out_la, float* out_lp0, float* out_dlp0,
                   float* out_lp, float* out_dlp, float* out_change,
                   int* out_iter, int* out_accept, int* counter,
-                  void* stream) {
+                  float* scratch, int scratch_rows, void* stream) {
   return launch<float>(y, mu, w, x, la0, pm, G, S, p, prior_var, kappa_0, tol,
                        min_la, maxit, use_prior, use_cr, thr, out_la, out_lp0,
                        out_dlp0, out_lp, out_dlp, out_change, out_iter,
-                       out_accept, counter, stream);
+                       out_accept, counter, scratch, scratch_rows, stream);
 }
 
 int ls_launch_f64(const double* y, const double* mu, const double* w,
@@ -552,11 +715,13 @@ int ls_launch_f64(const double* y, const double* mu, const double* w,
                   double thr, double* out_la, double* out_lp0,
                   double* out_dlp0, double* out_lp, double* out_dlp,
                   double* out_change, int* out_iter, int* out_accept,
-                  int* counter, void* stream) {
+                  int* counter, double* scratch, int scratch_rows,
+                  void* stream) {
   return launch<double>(y, mu, w, x, la0, pm, G, S, p, prior_var, kappa_0,
                         tol, min_la, maxit, use_prior, use_cr, thr, out_la,
                         out_lp0, out_dlp0, out_lp, out_dlp, out_change,
-                        out_iter, out_accept, counter, stream);
+                        out_iter, out_accept, counter, scratch, scratch_rows,
+                        stream);
 }
 
 }  // extern "C"

@@ -30,7 +30,20 @@
 // scratch row of the block's, and the two grams run on the FP64 tensor
 // cores in a pass each (common.cuh's float64 gram section: each warp's
 // run of 8 x 8 tiles in registers), the design tiles coming in by
-// cp.async.
+// cp.async.  In float32 with the Cox-Reid term (lp_dlp_rows) a trial
+// point's latency, not the SM's throughput, set the time at two blocks an
+// SM: its p x p algebra took half of it at p = 25 (`studies phases`,
+// PERF.md section 6: a Cholesky with three block barriers a column).  So
+// the per-sample terms come first (the weights to the block's global
+// scratch row), the grams' tiles are sample-major so that a thread's 4 x 4
+// blocks read a sample's four rows in one 128-bit load (gram_add_rows),
+// warp 0 factors (warp_cholesky_ll, one __syncwarp a column) while the
+// other warps wait, the inverse's loops keep four loads in flight
+// (block_chol_inverse_ld), and the kernel runs four blocks an SM (64
+// registers a thread, spills and all: at p = 33-64 faster than two or
+// three with their wider tiles).  Every sum runs in one fixed order; the
+// tile width, set by the four blocks' shared memory (224 samples at p =
+// 25, 32 at p = 64), sets which samples a group takes.
 #include "common.cuh"
 
 namespace {
@@ -43,9 +56,41 @@ constexpr double kArmijo = 1.0e-4;
 // factor and inverse) and b's factor inverse (then db)
 constexpr int kBlockMats = 2;
 
+// K2's float32 layout with the Cox-Reid term (block_layout's, its tile
+// buffers sample-major: common.cuh's rows_put, lay.ts = rows_ld(pr) the
+// row stride), and its tile width (block_tile's rule)
+__host__ __device__ inline BlockLayout ls_rows_layout(int p, int tw) {
+  BlockLayout l = block_layout(p, tw, kBlockMats, true);
+  l.ts = rows_ld(l.pr);
+  const size_t buf = 2 * (size_t)tw * l.ts;
+  const size_t scratch =
+      (size_t)(block_gram_groups(p) - 1) * block_gram_blocks(p) * 16;
+  l.tile = buf > scratch ? buf : scratch;
+  l.vals = kBlockMats * l.mat + l.vec + l.tile;
+  return l;
+}
+
+// the float32 kernel's resident blocks an SM (its launch bounds: 64
+// registers a thread) and the shared memory each may take for them (the
+// SM's 228 KB less the 1 KB a block the card keeps).  Four blocks an SM,
+// spills and all, measured faster at p = 33-64 than two or three there
+// with their wider tiles (`studies k2`, PERF.md section 6).
+constexpr int kRowsBlocks = 4;
+constexpr size_t kRowsSmemTarget = 233472 / kRowsBlocks - 1024;
+
+inline int ls_rows_tile(int p) {
+  int tw = kBlockThreads;
+  while (tw > 32 && ls_rows_layout(p, tw).vals * sizeof(float) >
+                        kRowsSmemTarget)
+    tw -= 32;
+  return tw;
+}
+
 // lp_dlp at a run-time p over a thread block (common.cuh's block
 // section): x the design transposed (p x S); mats, red and tile the
-// block's shared matrices, block sums' scratch and tile buffers.
+// block's shared matrices, block sums' scratch and tile buffers.  Without
+// the Cox-Reid term (both dtypes) a block only sums the likelihood terms;
+// with it float32 takes lp_dlp_rows and float64 lp_dlp_mma.
 template <typename T, bool UseW, bool UseCR>
 __device__ __forceinline__ void lp_dlp_block(const GramMap& gm, const T* yr,
                                              const T* mr, const T* wr,
@@ -55,22 +100,14 @@ __device__ __forceinline__ void lp_dlp_block(const GramMap& gm, const T* yr,
                                              T pm, T prior_var, int use_prior,
                                              T* mats, T* red, T* tile, T& lp,
                                              T& dlp) {
+  static_assert(!UseCR, "the Cox-Reid term takes lp_dlp_rows / lp_dlp_mma");
   const int t = threadIdx.x;
-  const int p = lay.p, tw = lay.tw, ts = lay.ts;
+  const int tw = lay.tw;
   const T alpha = d_exp(la);
   const NbConst<T> k = nb_const(T(1) / alpha);
   T acc[2] = {T(0), T(0)};
-  GramBlock<T> gb, gd;
-  T rz[4];
-  if constexpr (UseCR) {
-    gram_zero(gb);
-    gram_zero(gd);
-  }
-  T* xb = tile;
-  T* ub = tile + (size_t)lay.pr * ts;
   for (int base = 0; base < S; base += tw) {
     const int s = base + t;
-    if constexpr (UseCR) __syncthreads();
     if (t < tw && s < S) {
       const T yv = yr[s];
       const T m = mr[s];
@@ -81,44 +118,100 @@ __device__ __forceinline__ void lp_dlp_block(const GramMap& gm, const T* yr,
       nb_diffs(yv, k, lgd, dgd);
       acc[0] += wscale<UseW>(lgd - (yv + k.c) * l1p, wr, s);
       acc[1] += wscale<UseW>(l1p - mua * r + yv * alpha * r - dgd, wr, s);
-      if constexpr (UseCR) {
-        T w = m * r;
-        if constexpr (UseW) {
-          if (!cr_keeps(wr[s], thr)) w = T(0);
-        }
-        block_tile_put(xb, ub, x, S, s, p, ts, w);
-      }
-    }
-    if constexpr (UseCR) {
-      const int n = S - base < tw ? S - base : tw;
-      __syncthreads();
-      block_gram_add<T, true, false>(gm, gb, gd, rz, ub, xb,
-                                     static_cast<const T*>(nullptr), ts, n);
     }
   }
   block_allsum<T, 2>(acc, red);
-  if constexpr (UseCR) {
-    T* bm = mats;
-    T* dm = mats + lay.mat;
-    // the tile buffers are the reductions' scratch
-    block_gram_reduce(gm, gb, tile);
-    block_gram_reduce(gm, gd, tile);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) gd.a[i][j] = -gd.a[i][j];
-    }
-    block_gram_store(gm, gb, bm, p, cm, true, static_cast<const T*>(nullptr));
-    const T logdet = block_cholesky<T, true>(bm, p);
-    block_chol_inverse(bm, dm, bm, p);
-    block_gram_store(gm, gd, dm, p, cm, false, static_cast<const T*>(nullptr));
-    const T tr = block_trace_product(bm, dm, p, red);
-    lp = acc[0] - T(0.5) * logdet;
-    dlp = (acc[1] / (alpha * alpha) - T(0.5) * tr) * alpha;
-  } else {
-    lp = acc[0];
-    dlp = (acc[1] / (alpha * alpha)) * alpha;
+  lp = acc[0];
+  dlp = (acc[1] / (alpha * alpha)) * alpha;
+  if (use_prior) {
+    lp -= T(0.5) * (la - pm) * (la - pm) / prior_var;
+    dlp -= (la - pm) / prior_var;
   }
+}
+
+// lp_dlp_block in float32 with the Cox-Reid term.  The block first sums
+// every sample's likelihood terms, thread t its samples t, t + 256, ...
+// (every thread, whatever the tile width), writing the weights w to wscr
+// (the block's S values of global scratch; block_allsum's barrier makes
+// them visible to the block); then it walks the tiles, each thread
+// staging its sample's x_s and w x_s sample-major (rows_put) and adding
+// the tile to its 4 x 4 blocks of both grams with 128-bit loads
+// (gram_add_rows), in the tiles' order.  So no gram accumulator is live
+// while the special functions run.
+template <bool UseW>
+__device__ __forceinline__ void lp_dlp_rows(const GramMap& gm,
+                                            const float* yr, const float* mr,
+                                            const float* wr,
+                                            unsigned long long cm, float thr,
+                                            const float* x, int S,
+                                            const BlockLayout& lay, float la,
+                                            float pm, float prior_var,
+                                            int use_prior, float* mats,
+                                            float* red, float* tile,
+                                            float* wscr, float& lp,
+                                            float& dlp) {
+  using T = float;
+  const int t = threadIdx.x;
+  const int p = lay.p, tw = lay.tw, ts = lay.ts;
+  const T alpha = d_exp(la);
+  T acc[2] = {T(0), T(0)};
+  {
+    const NbConst<T> k = nb_const(T(1) / alpha);
+    for (int s = t; s < S; s += kBlockThreads) {
+      const T yv = yr[s];
+      const T m = mr[s];
+      const T mua = m * alpha;
+      const T l1p = d_log1p(mua);
+      const T r = T(1) / (T(1) + mua);
+      T lgd, dgd;
+      nb_diffs(yv, k, lgd, dgd);
+      acc[0] += wscale<UseW>(lgd - (yv + k.c) * l1p, wr, s);
+      acc[1] += wscale<UseW>(l1p - mua * r + yv * alpha * r - dgd, wr, s);
+      T w = m * r;
+      if constexpr (UseW) {
+        if (!cr_keeps(wr[s], thr)) w = T(0);
+      }
+      wscr[s] = w;
+    }
+  }
+  block_allsum<T, 2>(acc, red);
+  GramBlock<T> gb, gd;
+  gram_zero(gb);
+  gram_zero(gd);
+  T* xb = tile;
+  T* ub = tile + (size_t)tw * ts;
+  for (int base = 0; base < S; base += tw) {
+    const int s = base + t;
+    __syncthreads();
+    if (t < tw && s < S) rows_put(xb, ub, x, S, s, p, lay.pr, ts, t, wscr[s]);
+    const int n = S - base < tw ? S - base : tw;
+    __syncthreads();
+    gram_add_rows(gm, gb, gd, ub, xb, ts, n);
+  }
+  T* bm = mats;
+  T* dm = mats + lay.mat;
+  // the tile buffers are the reductions' scratch
+  block_gram_reduce(gm, gb, tile);
+  block_gram_reduce(gm, gd, tile);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) gd.a[i][j] = -gd.a[i][j];
+  }
+  block_gram_store(gm, gb, bm, p, cm, true, static_cast<const T*>(nullptr));
+  // the factor on warp 0 (block_cholesky's bits), its log determinant to
+  // every thread through the sums' scratch
+  if (t < 32) {
+    const T ldet = warp_cholesky_ll(bm, p);
+    if (t == 0) red[0] = ldet;
+  }
+  __syncthreads();
+  const T logdet = red[0];
+  block_chol_inverse_ld(bm, dm, bm, p);
+  block_gram_store(gm, gd, dm, p, cm, false, static_cast<const T*>(nullptr));
+  const T tr = block_trace_product(bm, dm, p, red);
+  lp = acc[0] - T(0.5) * logdet;
+  dlp = (acc[1] / (alpha * alpha) - T(0.5) * tr) * alpha;
   if (use_prior) {
     lp -= T(0.5) * (la - pm) * (la - pm) / prior_var;
     dlp -= (la - pm) / prior_var;
@@ -203,7 +296,8 @@ __device__ __forceinline__ void lp_dlp_mma(const double* yr,
 template <typename T, bool UseCR>
 __host__ __device__ inline BlockLayout ls_layout(int p, int tw) {
   if constexpr (!is_f32<T>() && UseCR) return ls_mma_layout(p, tw);
-  return block_layout(p, tw, UseCR ? kBlockMats : 0, UseCR);
+  if constexpr (UseCR) return ls_rows_layout(p, tw);
+  return block_layout(p, tw, 0, false);
 }
 
 template <typename T, bool UseW, bool UseCR>
@@ -218,6 +312,9 @@ __device__ __forceinline__ void lp_dlp(const GramMap& gm, const T* yr,
   if constexpr (!is_f32<T>() && UseCR) {
     lp_dlp_mma<UseW>(yr, mr, wr, cm, thr, x, S, lay, la, pm, prior_var,
                      use_prior, mats, red, tile, wscr, lp, dlp);
+  } else if constexpr (UseCR) {
+    lp_dlp_rows<UseW>(gm, yr, mr, wr, cm, thr, x, S, lay, la, pm, prior_var,
+                      use_prior, mats, red, tile, wscr, lp, dlp);
   } else {
     lp_dlp_block<T, UseW, UseCR>(gm, yr, mr, wr, cm, thr, x, S, lay, la, pm,
                                  prior_var, use_prior, mats, red, tile, lp,
@@ -366,6 +463,20 @@ __global__ void __launch_bounds__(kBlockThreads)
     ls_block_kernel<double, true, true>(DK_LS_BLOCK_PARAMS(double)) {
   DK_LS_BLOCK_BODY(double, true, true)
 }
+
+// The float32 instantiations with the Cox-Reid term: kRowsBlocks resident
+// blocks an SM
+template <>
+__global__ void __launch_bounds__(kBlockThreads, kRowsBlocks)
+    ls_block_kernel<float, false, true>(DK_LS_BLOCK_PARAMS(float)) {
+  DK_LS_BLOCK_BODY(float, false, true)
+}
+
+template <>
+__global__ void __launch_bounds__(kBlockThreads, kRowsBlocks)
+    ls_block_kernel<float, true, true>(DK_LS_BLOCK_PARAMS(float)) {
+  DK_LS_BLOCK_BODY(float, true, true)
+}
 #undef DK_LS_BLOCK_PARAMS
 #undef DK_LS_BLOCK_BODY
 
@@ -377,9 +488,12 @@ inline size_t block_smem(int p, bool use_cr, int* tw) {
     *tw = block_mma_tile(p, kBlockMats, (p + 7) >> 3, 1, 0);
     return ls_mma_layout(p, *tw).vals * sizeof(T);
   }
-  const int nmat = use_cr ? kBlockMats : 0;
-  *tw = use_cr ? block_tile<T>(p, nmat, true) : kBlockThreads;
-  return block_layout(p, *tw, nmat, use_cr).vals * sizeof(T);
+  if (use_cr) {
+    *tw = ls_rows_tile(p);
+    return ls_rows_layout(p, *tw).vals * sizeof(T);
+  }
+  *tw = kBlockThreads;
+  return block_layout(p, *tw, 0, false).vals * sizeof(T);
 }
 
 template <typename T, bool UseW, bool UseCR>
@@ -396,8 +510,7 @@ int launch_block(const T* y, const T* mu, const T* w, const T* x,
   if (err) return err;
   const int blocks = persistent_gene_blocks(kernel, smem, G, &err);
   if (err) return err;
-  if (!is_f32<T>() && UseCR && blocks > scratch_rows)
-    return (int)cudaErrorInvalidValue;
+  if (UseCR && blocks > scratch_rows) return (int)cudaErrorInvalidValue;
   kernel<<<blocks, kBlockThreads, smem, st>>>(
       y, mu, w, x, la0, pm, G, S, p, tw, prior_var, kappa_0, tol, min_la,
       maxit, use_prior, out_la, out_lp0, out_dlp0, out_lp, out_dlp,
@@ -406,11 +519,11 @@ int launch_block(const T* y, const T* mu, const T* w, const T* x,
 }
 
 // Rows of global scratch (S values each) a launch needs: one a resident
-// block in float64 with the Cox-Reid term (lp_dlp_mma's weights), else 0;
-// -1 on a refusal.
+// block with the Cox-Reid term (the weights of lp_dlp_mma and
+// lp_dlp_rows), else 0; -1 on a refusal.
 template <typename T, bool UseW, bool UseCR>
 int scratch_rows_block(int p, int G) {
-  if (is_f32<T>() || !UseCR) return 0;
+  if (!UseCR) return 0;
   int tw = 0;
   const size_t smem = block_smem<T>(p, UseCR, &tw);
   auto kernel = ls_block_kernel<T, UseW, UseCR>;

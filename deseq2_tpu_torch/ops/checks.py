@@ -245,6 +245,16 @@ def paired_design(S, subjects):
             np.where((j // subjects) % 2 == 0, "A", "B"))
 
 
+def paired_matrix(S, subjects):
+    """paired_design's model matrix [1, subject 1.., condition B]."""
+    _, cond = paired_design(S, subjects)
+    codes = np.arange(S) % subjects
+    return np.column_stack([np.ones(S)]
+                           + [(codes == k).astype(float)
+                              for k in range(1, subjects)]
+                           + [(cond == "B").astype(float)])
+
+
 def paired_gate_counts(G, S, subjects, seed=0):
     """bench.py's gate generator (gate_counts) on the paired design: NB
     counts with a subject effect N(0, 0.5) per gene and subject (log2

@@ -20,7 +20,11 @@ Each launch adds one to exactly one count: ``launches`` (unweighted),
 ``launches_weighted_nocr`` (without the Cox-Reid term), each with a
 ``_wide`` twin for the wide kernel and a ``_block`` twin for the block
 kernel, and ``launches_plain`` (p > 64 on the card, the plain version);
-``launches_by_device`` counts the kernels' launches per device.  Under
+``launches_by_device`` counts the kernels' launches per device.  With the
+Cox-Reid term the block kernel (both dtypes) and the wide kernel in
+float64 take global scratch, a row of S weights for each resident block
+(block) or warp (wide), which the wrapper allocates as the library's
+``*_scratch_rows`` says.  Under
 ops/placement.py:use_gene_mesh the call runs shard by shard over the
 mesh.
 """
@@ -122,28 +126,27 @@ def fit_disp_line_search(y, x, mu, log_alpha_init, prior_mean, prior_var,
         return out
     f64 = dtype == torch.float64
     scal = ctypes.c_double if f64 else ctypes.c_float
-    # the block kernels live in a library of their own (disp_ls_block.cu)
-    # and take global scratch (float64 with the Cox-Reid term: a row of S
-    # weights for each resident block)
+    # the block kernels live in a library of their own (disp_ls_block.cu);
+    # with the Cox-Reid term the block kernels and the float64 wide kernel
+    # take global scratch (a row of S weights for each resident block, or
+    # for each resident warp of the wide kernel)
     block = p > P_WIDE
     lib, sym = ("disp_ls_block", "ls_block") if block else ("disp_ls", "ls")
     fn = build.bind(build.load(lib),
                     f"{sym}_launch_f64" if f64 else f"{sym}_launch_f32",
                     [_P] * 6 + [_I, _I, _I] + [scal] * 4 + [_I, _I, _I,
                                                             scal]
-                    + [_P] * 9 + ([_P, _I] if block else []) + [_P])
+                    + [_P] * 9 + [_P, _I, _P])
     counter = torch.zeros(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        scratch = ()
-        if block:
-            rows = build.bind(build.load(lib), "ls_block_scratch_rows",
-                              [_I] * 5)(int(f64), int(w_ is not None), p,
-                                        int(bool(use_cr)), G)
-            if rows < 0:
-                raise RuntimeError(f"{lib} kernel refused p = {p}")
-            buf = torch.empty((rows, S), dtype=dtype, device=dev) \
-                if rows else None
-            scratch = (build.ptr(buf), rows)
+        rows = build.bind(build.load(lib), f"{sym}_scratch_rows",
+                          [_I] * 5)(int(f64), int(w_ is not None), p,
+                                    int(bool(use_cr)), G)
+        if rows < 0:
+            raise RuntimeError(f"{lib} kernel refused p = {p}")
+        buf = torch.empty((rows, S), dtype=dtype, device=dev) \
+            if rows else None
+        scratch = (build.ptr(buf), rows)
         err = fn(build.ptr(y_), build.ptr(mu_), build.ptr(w_),
                  build.ptr(x_), build.ptr(la0_), build.ptr(pm_), G, S, p,
                  float(prior_var), float(kappa_0), float(tol),

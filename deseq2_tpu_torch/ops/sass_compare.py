@@ -1,8 +1,7 @@
 """Compare the machine code (SASS) of the kernels' default
 instantiations, unweighted and weighted, between two checkouts of the
-repository (the templated kernels for p = 1..8 and the wide kernels for 8
-< p <= 16, both dtypes; the block kernels for 16 < p <= 64 in float32,
-whose float64 instantiations of K1 and K2 run the tensor-core gram):
+repository (the templated kernels for p = 1..8, the wide kernels for 8 <
+p <= 16 and the block kernels for 16 < p <= 64, both dtypes):
 
     python -m deseq2_tpu_torch.ops.sass_compare OLD_ROOT NEW_ROOT [KERNEL ...]
 
@@ -94,9 +93,7 @@ def compare(old_root, new_root, kernels=KERNELS):
         old, new = (functions(out / f"{tag}_{k}.cubin")
                     for tag in ("old", "new"))
         block = k.endswith("_block")
-        dtypes = (("f", "float"),) if block else (("f", "float"),
-                                                  ("d", "double"))
-        for t, dname in dtypes:
+        for t, dname in (("f", "float"), ("d", "double")):
             for p in ("block",) if block else (*range(1, 9), "wide"):
                 for w, wname in ((0, "unweighted"), (1, "weighted")):
                     a, b = (_pick(f, SYMBOL[k], t, p, w) for f in (old, new))

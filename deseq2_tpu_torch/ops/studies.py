@@ -4,6 +4,7 @@ ROADMAP.md:
     python -m deseq2_tpu_torch.ops.studies eigvalsh
     python -m deseq2_tpu_torch.ops.studies ls [N_SEEDS]
     python -m deseq2_tpu_torch.ops.studies kernels PARENT_ROOT [REPS]
+    python -m deseq2_tpu_torch.ops.studies k2 PARENT_ROOT[,ROOT...] [REPS [P:DTYPE ...]]
     python -m deseq2_tpu_torch.ops.studies edges [N_PERM [wide]]
     python -m deseq2_tpu_torch.ops.studies expanded
     python -m deseq2_tpu_torch.ops.studies mainpath PARENT_ROOT [CALLS]
@@ -12,7 +13,7 @@ ROADMAP.md:
     python -m deseq2_tpu_torch.ops.studies crossover [REPS]
     python -m deseq2_tpu_torch.ops.studies variant smem|minp [REPS]
     python -m deseq2_tpu_torch.ops.studies phases
-    python -m deseq2_tpu_torch.ops.studies paired PARENT_ROOT [P [CALLS]]
+    python -m deseq2_tpu_torch.ops.studies paired PARENT_ROOT [P [CALLS [DTYPE [ENGINE]]]]
     python -m deseq2_tpu_torch.ops.studies rlog [N_SEEDS]
     python -m deseq2_tpu_torch.ops.studies sc [G S]
     python -m deseq2_tpu_torch.ops.studies batch_rows
@@ -52,7 +53,9 @@ inputs at 60,000 x 1,024 (the per-sample terms, the tiles' staging and
 tensor-core products, the Cholesky, the solve, the inverse, the sandwich,
 the hat diagonal).
 `paired`: the public paired deseq() + results() (~ subject + condition,
-p = P, default 64, float64, 60,000 x 1,024 of the main path's counts)
+p = P, default 64, in DTYPE, float64 by default or float32, 60,000 x 1,024
+of the main path's counts, through ENGINE: auto, deseq()'s default, or
+host)
 timed in fresh processes in PARENT_ROOT's checkout and this one, in turns
 parent, change, change, parent (a cold call, then CALLS warm ones).
 
@@ -68,8 +71,16 @@ process in one checkout that builds that checkout's kernels and times each
 one: the median of REPS launches (default 7), each between its own CUDA
 events, after at least 0.5 s of warm-up launches; the turns run parent,
 change, change, parent. Per kernel it prints every turn's time, the
-parent's mean over the change's, and whether the two turns of each
-checkout gave the same outputs bit for bit.
+change's mean over the parent's, whether the two turns of each checkout
+gave the same outputs bit for bit, and whether the two checkouts did.
+
+`k2`: the gene-wise line search (K2) on the paired pipeline inputs at
+60,000 x 1,024 (chip_smoke.py's ~ subject + condition; by default p = 10,
+the wide kernel, and p = 25, the block kernel, float32 and float64; or
+the cases P:DTYPE given, e.g. 16:float64 64:float32), timed and printed
+as `kernels` times its cases (REPS launches a turn, default 5).  Each
+further ROOT (a study variant's checkout) is timed beside the change, in
+turns parent, change, ROOT..., ROOT... reversed, change, parent.
 
 `edges` (the card if there is one, else the CPU): the float32 readings of
 ops/checks.py at checks.EDGES and SHAPES' S = 24 row, taken between the
@@ -571,8 +582,8 @@ def _time_kernels(path, reps):
         t = {k: v.to(dev) if torch.is_tensor(v) else v for k, v in d.items()}
         ls_args = (t["y"], t["x"], t["mu"], t["la0"], t["la0"], 1.0,
                    t["min_la"])
-        irls_args = (t["y"], t["x"], t["sf"], t["alpha"], t["beta0"],
-                     t["ridge"])
+        irls_args = tuple(t.get(k) for k in ("y", "x", "sf", "alpha",
+                                             "beta0", "ridge"))
         calls = {
             "disp_ls": lambda: cuda_ls.fit_disp_line_search(
                 *ls_args, weights=t.get("w_ge")),
@@ -581,6 +592,9 @@ def _time_kernels(path, reps):
             "disp_grid": lambda: {"log_alpha": cuda_grid.fit_disp_grid(
                 t["gy"], t["x"], t["gmu"], t["grid"], t["gpm"], 1.0,
                 weights=t.get("gw"))}}
+        # a case without K1's or K3's inputs (the k2 study's) times K2 alone
+        if "sf" not in t:
+            calls = {"disp_ls": calls["disp_ls"]}
         for name, fn in calls.items():
             res = fn()
             h = hashlib.sha256()
@@ -646,18 +660,23 @@ def _kernel_inputs(dev):
     return data
 
 
-def kernels_study(dev, parent_root, reps):
+def _kernel_turns(data, name, parent_root, reps, others=()):
+    """Save `data` (case -> inputs) to build/<name>.pt and time it in turns
+    parent, change, change, parent (_time_kernels in fresh processes), or
+    with `others` (further checkouts, tagged by their directory's name)
+    parent, change, others..., others reversed, change, parent; print each
+    case's times, each checkout's mean over the parent's, and whether each
+    checkout's turns, and each checkout and the parent, gave the same
+    bits."""
     change_root = Path(__file__).resolve().parents[2]
-    data = _kernel_inputs(dev)
-    path = change_root / "build" / "study_kernels_inputs.pt"
+    path = change_root / "build" / f"{name}.pt"
     path.parent.mkdir(parents=True, exist_ok=True)
     torch.save(data, path)
-    del data
     torch.cuda.empty_cache()
-    turns = (("parent", parent_root), ("change", change_root),
-             ("change", change_root), ("parent", parent_root))
+    half = [("parent", parent_root), ("change", change_root)] \
+        + [(Path(r).name, Path(r)) for r in others]
     got = []
-    for tag, root in turns:
+    for tag, root in half + half[::-1]:
         t0 = time.perf_counter()
         got.append((tag, _run_turn(_time_kernels, (str(path), reps), root)))
         print(f"turn {tag} ({root}): {time.perf_counter() - t0:.1f} s",
@@ -672,9 +691,59 @@ def kernels_study(dev, parent_root, reps):
         same = {t: len({v[1] for v in r}) == 1 for t, r in by.items()}
         times = "; ".join(f"{t} " + "/".join(f"{v[0]:.3f}" for v in r)
                           for t, r in by.items())
-        print(f"{case}: {times}; parent/change "
-              f"{mean['parent'] / mean['change']:.2f}x; repeat-identical "
-              f"{same}")
+        vs = "; ".join(f"{t}/parent {mean[t] / mean['parent']:.3f}, "
+                       f"bit-identical to the parent "
+                       f"{by['parent'][0][1] == by[t][0][1]}"
+                       for t, _ in half[2:])
+        print(f"{case}: {times}; change/parent "
+              f"{mean['change'] / mean['parent']:.3f}; repeat-identical "
+              f"{same}; the checkouts bit-identical "
+              f"{by['parent'][0][1] == by['change'][0][1]}"
+              + (f"; {vs}" if vs else ""), flush=True)
+
+
+def kernels_study(dev, parent_root, reps):
+    _kernel_turns(_kernel_inputs(dev), "study_kernels_inputs", parent_root,
+                  reps)
+
+
+# `k2`'s default cases: the paired design's width and dtype
+K2_CASES = ((10, "float64"), (10, "float32"), (25, "float32"),
+            (25, "float64"))
+
+
+def k2_args(args):
+    """`k2`'s arguments PARENT_ROOT[,ROOT...] [REPS [P:DTYPE ...]]: (root,
+    reps, ((p, dtype name), ...), further roots), K2_CASES without
+    cases."""
+    cases = []
+    for a in args[2:]:
+        p, _, dtype = a.partition(":")
+        if not p.isdigit() or not 8 < int(p) <= 64 \
+                or dtype not in ("float64", "float32"):
+            raise SystemExit(f"k2: a case is P:DTYPE, 8 < P <= 64, DTYPE "
+                             f"float64 or float32, not {a}")
+        cases.append((int(p), dtype))
+    roots = [Path(r).resolve() for r in args[0].split(",")]
+    return (roots[0], int(args[1]) if len(args) > 1 else 5,
+            tuple(cases) or K2_CASES, tuple(roots[1:]))
+
+
+def k2_study(dev, parent_root, reps, cases=K2_CASES, others=()):
+    """K2 on the paired pipeline inputs in both checkouts (see the
+    module's docstring)."""
+    import chip_smoke as cs
+    counts, _ = cs.make_inputs(cs.G_MAIN, cs.S_MAIN)
+    data = {}
+    for p, dname in cases:
+        d = checks.pipeline_inputs(counts, checks.paired_matrix(cs.S_MAIN,
+                                                               p - 1),
+                                   getattr(torch, dname), dev)
+        data[f"p={p} {dname}"] = {k: d[k].cpu() if torch.is_tensor(d[k])
+                                  else d[k] for k in
+                                  ("y", "x", "mu", "la0", "min_la")}
+        del d
+    _kernel_turns(data, "study_k2_inputs", parent_root, reps, others)
 
 
 def wide_study(dev, reps):
@@ -897,7 +966,11 @@ def variant_study(dev, which, reps):
 # K2 (lp_dlp_mma): (anchor, the anchor with a timer before or after it);
 # DK_T0 starts a timer, DK_T(k, v) adds its clocks on thread 0 to slot k
 # and restarts it (each region ends at a barrier, so thread 0's clocks are
-# the block's)
+# the block's).  The wide K2 (ls_wide_kernel, both dtypes) and the float32
+# block K2 (lp_dlp_block) keep their clocks per warp (DK_TW: lane 0 of each
+# warp; DK_TB: thread 0 of the block) in slots of their own (dk_wclk, 16 a
+# warp, no atomics), slot k one of _K2_PHASES and slot 8 the trial points
+# (DK_TN).
 _PHASES = {
     "irls_block.cu": [
         ("  T dev[1] = {T(0)};\n  for (int s = threadIdx.x;",
@@ -933,8 +1006,45 @@ _PHASES = {
          "    if (t == 0) atomicAdd(&dk_clk[11], 1ull);\n"),
     ],
     "disp_ls_block.cu": [
-        ("  T acc[2] = {T(0), T(0)};\n  {\n",
-         "  DK_T0(c0)\n  T acc[2] = {T(0), T(0)};\n  {\n"),
+        # lp_dlp_rows (the float32 block K2), then the float64 lp_dlp_mma
+        ("  const int p = lay.p, tw = lay.tw, ts = lay.ts;\n"
+         "  const T alpha = d_exp(la);\n  T acc[2] = {T(0), T(0)};\n",
+         "  const int p = lay.p, tw = lay.tw, ts = lay.ts;\n  DK_T0(c0)\n"
+         "  const T alpha = d_exp(la);\n  T acc[2] = {T(0), T(0)};\n"),
+        ("  block_allsum<T, 2>(acc, red);\n  GramBlock<T> gb, gd;\n",
+         "  block_allsum<T, 2>(acc, red);\n  DK_TB(0, c0)\n"
+         "  GramBlock<T> gb, gd;\n"),
+        ("    if (t < tw && s < S) rows_put(xb, ub, x, S, s, p, lay.pr, ts, t, "
+         "wscr[s]);\n",
+         "    DK_TB(2, c0)\n"
+         "    if (t < tw && s < S) rows_put(xb, ub, x, S, s, p, lay.pr, ts, t, "
+         "wscr[s]);\n"),
+        ("    __syncthreads();\n    gram_add_rows(gm, gb, gd, ub, xb, ts, n);\n",
+         "    __syncthreads();\n    DK_TB(1, c0)\n"
+         "    gram_add_rows(gm, gb, gd, ub, xb, ts, n);\n"),
+        ("  block_gram_store(gm, gb, bm, p, cm, true, "
+         "static_cast<const T*>(nullptr));\n  // the factor on warp 0",
+         "  __syncthreads();\n  DK_TB(2, c0)\n"
+         "  block_gram_store(gm, gb, bm, p, cm, true, "
+         "static_cast<const T*>(nullptr));\n  DK_TB(3, c0)\n"
+         "  // the factor on warp 0"),
+        ("  const T logdet = red[0];\n"
+         "  block_chol_inverse_ld(bm, dm, bm, p);\n"
+         "  block_gram_store(gm, gd, dm, p, cm, false, "
+         "static_cast<const T*>(nullptr));\n"
+         "  const T tr = block_trace_product(bm, dm, p, red);\n",
+         "  const T logdet = red[0];\n  DK_TB(4, c0)\n"
+         "  block_chol_inverse_ld(bm, dm, bm, p);\n  DK_TB(5, c0)\n"
+         "  block_gram_store(gm, gd, dm, p, cm, false, "
+         "static_cast<const T*>(nullptr));\n  DK_TB(3, c0)\n"
+         "  const T tr = block_trace_product(bm, dm, p, red);\n"
+         "  DK_TB(6, c0)\n  DK_TN(threadIdx.x == 0)\n"),
+        ("  T acc[2] = {T(0), T(0)};\n  {\n"
+         "    const NbConst<T> k = nb_const(T(1) / alpha);\n"
+         "    for (int s = threadIdx.x;",
+         "  DK_T0(c0)\n  T acc[2] = {T(0), T(0)};\n  {\n"
+         "    const NbConst<T> k = nb_const(T(1) / alpha);\n"
+         "    for (int s = threadIdx.x;"),
         ("  block_allsum<T, 2>(acc, red);\n  const MmaRun",
          "  block_allsum<T, 2>(acc, red);\n  DK_T(12, c0)\n  const MmaRun"),
         ("nullptr);\n  gram_mma_store(run, g, false,",
@@ -956,6 +1066,99 @@ _PHASES = {
          "  const T tr = block_trace_product(bm, dm, p, red);\n"
          "  DK_T(17, c0)\n"
          "  if (threadIdx.x == 0) atomicAdd(&dk_clk[18], 1ull);\n"),
+        # the step control of every block K2 (ls_block_genes)
+        ("      ++iters;\n      const T a_propose",
+         "      ++iters;\n      DK_T0(cs)\n      const T a_propose"),
+        ("      T lp_new, dlp_next;\n      lp_dlp<T, UseW, UseCR>(gm,",
+         "      T lp_new, dlp_next;\n      DK_TB(7, cs)\n"
+         "      lp_dlp<T, UseW, UseCR>(gm,"),
+        ("                             lp_new, dlp_next);\n",
+         "                             lp_new, dlp_next);\n"
+         "      DK_TR(cs)\n"),
+        ("      if ((accept && (conv || under)) || stalled) break;\n",
+         "      DK_TB(7, cs)\n"
+         "      if ((accept && (conv || under)) || stalled) break;\n"),
+    ],
+    "disp_ls.cu": [
+        # ls_wide_kernel's float32 evaluation (lp_dlp_wide)
+        ("  const GramMap gm = gram_map(p);\n  const T alpha = d_exp(la);\n"
+         "  const NbConst<T> k = nb_const(T(1) / alpha);\n",
+         "  DK_T0(c0)\n  const GramMap gm = gram_map(p);\n"
+         "  const T alpha = d_exp(la);\n"
+         "  const NbConst<T> k = nb_const(T(1) / alpha);\n  DK_TW(0, c0)\n"),
+        ("        tile_put(xb, ub, x, S, s, p, w);\n",
+         "        DK_TW(0, c0)\n        tile_put(xb, ub, x, S, s, p, w);\n"
+         "        DK_TW(1, c0)\n"),
+        ("      __syncwarp();\n"
+         "      gram_add<T, true, false>(gm, gb, gd, rz, ub, xb,\n"
+         "                               static_cast<const T*>(nullptr), n);\n"
+         "      __syncwarp();\n",
+         "      __syncwarp();\n      DK_TW(1, c0)\n"
+         "      gram_add<T, true, false>(gm, gb, gd, rz, ub, xb,\n"
+         "                               static_cast<const T*>(nullptr), n);\n"
+         "      __syncwarp();\n      DK_TW(2, c0)\n"),
+        ("    gram_store(gm, gd, dm, p, cm, false, "
+         "static_cast<const T*>(nullptr));\n"
+         "    const T logdet = warp_cholesky<T, true>(bm, p);\n"
+         "    warp_chol_inverse(bm, li, bm, p);\n"
+         "    const T tr = warp_trace_product(bm, dm, p);\n",
+         "    gram_store(gm, gd, dm, p, cm, false, "
+         "static_cast<const T*>(nullptr));\n    DK_TW(3, c0)\n"
+         "    const T logdet = warp_cholesky<T, true>(bm, p);\n"
+         "    DK_TW(4, c0)\n"
+         "    warp_chol_inverse(bm, li, bm, p);\n    DK_TW(5, c0)\n"
+         "    const T tr = warp_trace_product(bm, dm, p);\n"
+         "    DK_TW(6, c0)\n    DK_TN(lane_id() == 0)\n"),
+        # its float64 evaluation (lp_dlp_wide_mma; the pass's staging and
+        # products are marked in common.cuh's gram_mma_pass)
+        ("  using T = double;\n  const T alpha = d_exp(la);\n",
+         "  using T = double;\n  DK_T0(c0)\n  const T alpha = d_exp(la);\n"),
+        ("  warp_allsum<T, 2>(acc);\n  const BlockLayout lay =\n",
+         "  warp_allsum<T, 2>(acc);\n  DK_TW(0, c0)\n"
+         "  const BlockLayout lay =\n"),
+        ("                                             nullptr, gd);\n",
+         "                                             nullptr, gd);\n"
+         "  DK_TR(c0)\n"),
+        ("  gram_mma_store<kMmaRunWide, 1, kPWide>(run, gd, true, dm, p, cm, "
+         "false,\n                                         nullptr, nullptr);\n"
+         "  const T logdet = warp_cholesky<T, true>(bm, p);\n"
+         "  warp_chol_inverse(bm, li, bm, p);\n"
+         "  const T tr = warp_trace_product(bm, dm, p);\n",
+         "  gram_mma_store<kMmaRunWide, 1, kPWide>(run, gd, true, dm, p, cm, "
+         "false,\n                                         nullptr, nullptr);\n"
+         "  DK_TW(3, c0)\n"
+         "  const T logdet = warp_cholesky<T, true>(bm, p);\n  DK_TW(4, c0)\n"
+         "  warp_chol_inverse(bm, li, bm, p);\n  DK_TW(5, c0)\n"
+         "  const T tr = warp_trace_product(bm, dm, p);\n  DK_TW(6, c0)\n"
+         "  DK_TN(lane_id() == 0)\n"),
+        # ls_wide_kernel's step control
+        ("                                   prior_var, use_prior, wv, wscr, "
+         "lp0,\n                                   dlp0);\n",
+         "                                   prior_var, use_prior, wv, wscr, "
+         "lp0,\n                                   dlp0);\n    DK_T0(cs)\n"),
+        ("      T lp_new, dlp_next;\n      lp_dlp_wide_at<",
+         "      T lp_new, dlp_next;\n      DK_TW(7, cs)\n"
+         "      lp_dlp_wide_at<"),
+        ("                                     lp_new, dlp_next);\n",
+         "                                     lp_new, dlp_next);\n"
+         "      DK_TR(cs)\n"),
+    ],
+    "common.cuh": [
+        # the float64 wide K2's pass (gram_mma_pass on one warp): staging
+        # (tile writes) and products (gram adds)
+        ("  for (int base = 0; base < S; base += tw) {\n"
+         "    const int n = S - base < tw ? S - base : tw;\n"
+         "    warps_sync<Warps>();\n",
+         "  DK_T0(cp)\n"
+         "  for (int base = 0; base < S; base += tw) {\n"
+         "    const int n = S - base < tw ? S - base : tw;\n"
+         "    warps_sync<Warps>();\n"),
+        ("    cp_async_wait_all();\n    warps_sync<Warps>();\n"
+         "    gram_mma_add<N, Sq, N, Both>(m, acc, tile, wb, n, sq);\n",
+         "    cp_async_wait_all();\n    warps_sync<Warps>();\n"
+         "    if constexpr (Warps == 1) DK_TW(1, cp)\n"
+         "    gram_mma_add<N, Sq, N, Both>(m, acc, tile, wb, n, sq);\n"
+         "    if constexpr (Warps == 1) DK_TW(2, cp)\n"),
     ],
 }
 
@@ -970,41 +1173,100 @@ _PHASE_NAMES = (
     "K2 point: Cholesky", "K2 point: inverse", "K2 point: db store, trace",
     "K2 points")
 
+# the slots of the wide and float32 block K2's clocks (DK_TW, DK_TB)
+_K2_PHASES = ("per-sample terms", "tile writes", "gram adds",
+              "group reduction and store", "Cholesky", "inverse", "trace",
+              "step control")
+# the most warps (wide) or blocks (block) a launch keeps resident: 16
+# blocks of 4 warps on each of 132 SMs
+_K2_SLOTS = 8448
+
+_PHASE_HEAD = (
+    "__device__ unsigned long long dk_clk[24];\n"
+    f"__device__ unsigned long long dk_wclk[{_K2_SLOTS} * 16];\n"
+    "#define DK_T0(v) long long v = clock64();\n"
+    "#define DK_T(k, v) { if (threadIdx.x == 0) atomicAdd(&dk_clk[k],"
+    " (unsigned long long)(clock64() - v)); v = clock64(); }\n"
+    "#define DK_SLOT(k) dk_wclk[(((size_t)blockIdx.x * (blockDim.x >> 5) + "
+    "(threadIdx.x >> 5)) << 4) + (k)]\n"
+    "#define DK_TW(k, v) { if ((threadIdx.x & 31) == 0) DK_SLOT(k) += "
+    "(unsigned long long)(clock64() - v); v = clock64(); }\n"
+    "#define DK_TB(k, v) { if (threadIdx.x == 0) DK_SLOT(k) += "
+    "(unsigned long long)(clock64() - v); v = clock64(); }\n"
+    "#define DK_TR(v) v = clock64();\n"
+    "#define DK_TN(first) { if (first) DK_SLOT(8) += 1ull; }\n")
+_PHASE_TAIL = (
+    "int dk_clk_read(unsigned long long* o) { return (int)"
+    "cudaMemcpyFromSymbol(o, dk_clk, sizeof(dk_clk)); }\n"
+    "int dk_clk_reset() { unsigned long long z[24] = {0}; return "
+    "(int)cudaMemcpyToSymbol(dk_clk, z, sizeof(z)); }\n"
+    "int dk_wclk_read(unsigned long long* o) { return (int)"
+    "cudaMemcpyFromSymbol(o, dk_wclk, sizeof(dk_wclk)); }\n"
+    "int dk_wclk_reset() { void* a = nullptr; int e = (int)"
+    "cudaGetSymbolAddress(&a, dk_wclk); return e ? e : (int)cudaMemset(a, "
+    "0, sizeof(dk_wclk)); }\n")
+
+
+def _marked_csrc(dst):
+    """A copy of csrc in dst with _PHASES' clock marks."""
+    import shutil
+    from . import build
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(build.CSRC, dst)
+    for name, marks in _PHASES.items():
+        s = (dst / name).read_text()
+        if name == "common.cuh":
+            s = s.replace("namespace dk {\n", _PHASE_HEAD + "namespace dk {\n",
+                          1)
+        for a, b in marks:
+            # the first match (each anchor names its function's text)
+            assert a in s, (name, a)
+            s = s.replace(a, b, 1)
+        s = s.replace('extern "C" {\n', 'extern "C" {\n' + _PHASE_TAIL, 1)
+        (dst / name).write_text(s)
+
+
+def _k2_clocks(lib, run):
+    """run() between a reset and a read of lib's per-warp (or per-block)
+    K2 clocks; prints each phase's clocks a trial point and its share."""
+    import ctypes
+    from . import build
+    build.bind(build.load(lib), "dk_wclk_reset", [])()
+    torch.cuda.synchronize()
+    run()
+    torch.cuda.synchronize()
+    buf = np.zeros(_K2_SLOTS * 16, dtype=np.uint64)
+    build.bind(build.load(lib), "dk_wclk_read", [ctypes.c_void_p])(
+        buf.ctypes.data_as(ctypes.c_void_p))
+    tot = buf.reshape(-1, 16).sum(axis=0, dtype=np.float64)
+    points = max(tot[8], 1.0)
+    whole = tot[:len(_K2_PHASES)].sum()
+    print(f"  {int(tot[8])} trial points, {whole / points:,.0f} clocks a "
+          "trial point (a warp's or a block's own clock)", flush=True)
+    for k, n in enumerate(_K2_PHASES):
+        print(f"  {n}: {tot[k] / points:,.0f} clocks a trial point, share "
+              f"{tot[k] / max(whole, 1.0):.3f}", flush=True)
+
 
 def phases_study(dev):
-    """The float64 block K1 and K2 timed phase by phase: a copy of csrc
-    under build/ with clock64 marks (_PHASES) is built and run on the
-    paired p = 64 and p = 25 pipeline inputs at 60,000 x 1,024; prints
-    each phase's clocks a gene (K1) or a trial point (K2) and its share.
-    Run in a process of its own (it points ops/build.py at the copy)."""
+    """The float64 block K1 and K2, the wide K2 and the float32 block K2
+    timed phase by phase: a copy of csrc under build/ with clock64 marks
+    (_PHASES) is built and run on the paired pipeline inputs at 60,000 x
+    1,024: the float64 block K1 and K2 at p = 64 and 25 (each phase's
+    clocks a gene (K1) or a trial point (K2) and its share), the wide K2
+    at p = 10 in float64 and float32 and the float32 block K2 at p = 25
+    (_K2_PHASES' clocks a trial point and their shares).  Run in a process
+    of its own (it points ops/build.py at the copy)."""
     import ctypes
-    import shutil
 
     import chip_smoke as cs
     from . import build
     from .cuda_irls import fit_beta
     from .cuda_ls import fit_disp_line_search
     dst = build.BUILD_DIR / "phases_csrc"
-    shutil.rmtree(dst, ignore_errors=True)
-    shutil.copytree(build.CSRC, dst)
-    head = ("__device__ unsigned long long dk_clk[24];\n"
-            "#define DK_T0(v) long long v = clock64();\n"
-            "#define DK_T(k, v) { if (threadIdx.x == 0) atomicAdd(&dk_clk[k],"
-            " (unsigned long long)(clock64() - v)); v = clock64(); }\n")
-    tail = ("int dk_clk_read(unsigned long long* o) { return (int)"
-            "cudaMemcpyFromSymbol(o, dk_clk, sizeof(dk_clk)); }\n"
-            "int dk_clk_reset() { unsigned long long z[24] = {0}; return "
-            "(int)cudaMemcpyToSymbol(dk_clk, z, sizeof(z)); }\n")
-    for name, marks in _PHASES.items():
-        s = (dst / name).read_text()
-        s = s.replace("namespace {\n", head + "namespace {\n", 1)
-        for a, b in marks:
-            # the first match: the float64 path precedes the float32 one
-            assert a in s, (name, a)
-            s = s.replace(a, b, 1)
-        s = s.replace('extern "C" {\n', 'extern "C" {\n' + tail, 1)
-        (dst / name).write_text(s)
+    _marked_csrc(dst)
     build.CSRC = dst
+    build.build_all(("irls_block", "disp_ls_block", "disp_ls"))
     counts, _ = cs.make_inputs(cs.G_MAIN, cs.S_MAIN)
     libs = ("irls_block", "disp_ls_block")
     for p in (64, 25):
@@ -1037,12 +1299,27 @@ def phases_study(dev):
                     print(f"  {n}: {v / max(clk[unit], 1):,.0f} clocks a "
                           f"{unit.split()[1][:-1]}, share {v / tot:.3f}",
                           flush=True)
+        del pin, k2, i_args
+    for p, dtype, lib in ((10, torch.float64, "disp_ls"),
+                          (10, torch.float32, "disp_ls"),
+                          (25, torch.float32, "disp_ls_block")):
+        pin = checks.pipeline_inputs(counts, cs.paired_x(cs.S_MAIN, p),
+                                     dtype, dev)
+        ls_args = (pin["y"], pin["x"], pin["mu"], pin["la0"], pin["la0"],
+                   1.0, pin["min_la"])
+        fit_disp_line_search(*ls_args)
+        print(f"p={p} {str(dtype)[6:]} K2 "
+              f"({'ls_wide_kernel' if p <= 16 else 'ls_block_kernel'}):",
+              flush=True)
+        _k2_clocks(lib, lambda: fit_disp_line_search(*ls_args))
+        del pin
 
-def _time_paired(counts_path, subjects, dtype, calls):
+
+def _time_paired(counts_path, subjects, dtype, calls, engine="auto"):
     """One turn of the paired study: a cold call, then `calls` warm calls
     of deseq() + results() on ~ subject + condition (sample j in subject
-    j % subjects, the condition alternating within each subject); prints
-    their wall seconds as one JSON line."""
+    j % subjects, the condition alternating within each subject) through
+    `engine`; prints their wall seconds as one JSON line."""
     import json
     import time
     import numpy as np
@@ -1057,7 +1334,7 @@ def _time_paired(counts_path, subjects, dtype, calls):
         dds = dt.dataset_from_matrix(counts, col_data,
                                      "~ subject + condition",
                                      config=dt.DESeqConfig(dtype=dtype))
-        dt.results(dt.deseq(dds))
+        dt.results(dt.deseq(dds, engine=engine))
         torch.cuda.synchronize()
 
     call()
@@ -1069,8 +1346,21 @@ def _time_paired(counts_path, subjects, dtype, calls):
     print(json.dumps(out))
 
 
-def paired_study(parent_root, p, calls):
-    """The paired float64 call at p columns in both checkouts."""
+def paired_args(args):
+    """`paired`'s arguments PARENT_ROOT [P [CALLS [DTYPE [ENGINE]]]]:
+    (root, p, calls, dtype name, engine)."""
+    dtype = args[3] if len(args) > 3 else "float64"
+    if dtype not in ("float64", "float32"):
+        raise SystemExit(f"paired: DTYPE is float64 or float32, not {dtype}")
+    engine = args[4] if len(args) > 4 else "auto"
+    if engine not in ("auto", "host"):
+        raise SystemExit(f"paired: ENGINE is auto or host, not {engine}")
+    return (Path(args[0]).resolve(), int(args[1]) if len(args) > 1 else 64,
+            int(args[2]) if len(args) > 2 else 1, dtype, engine)
+
+
+def paired_study(parent_root, p, calls, dtype="float64", engine="auto"):
+    """The paired call at p columns in dtype in both checkouts."""
     import numpy as np
     change_root = Path(__file__).resolve().parents[2]
     counts, _ = checks.bench_counts(60000, 1024)
@@ -1079,9 +1369,9 @@ def paired_study(parent_root, p, calls):
     np.save(path, counts)
     for tag, root in (("parent", parent_root), ("change", change_root),
                       ("change", change_root), ("parent", parent_root)):
-        secs = _run_turn(_time_paired, (str(path), p - 1, "float64", calls),
-                         root)
-        print(f"turn {tag}: paired p = {p} float64 warm seconds "
+        secs = _run_turn(_time_paired,
+                         (str(path), p - 1, dtype, calls, engine), root)
+        print(f"turn {tag}: paired p = {p} {dtype} {engine} warm seconds "
               + ", ".join(f"{t:.3f}" for t in secs), flush=True)
 
 
@@ -1259,14 +1549,14 @@ if __name__ == "__main__":
     elif sys.argv[1] == "phases":
         phases_study(dev)
     elif sys.argv[1] == "paired":
-        paired_study(Path(sys.argv[2]).resolve(),
-                     int(sys.argv[3]) if len(sys.argv) > 3 else 64,
-                     int(sys.argv[4]) if len(sys.argv) > 4 else 1)
+        paired_study(*paired_args(sys.argv[2:]))
     elif sys.argv[1] == "sc":
         sc_study(dev, *[int(a) for a in sys.argv[2:5]])
     elif sys.argv[1] == "scpaths":
         scpaths_study(Path(sys.argv[2]).resolve(),
                       int(sys.argv[3]) if len(sys.argv) > 3 else 2)
+    elif sys.argv[1] == "k2":
+        k2_study(dev, *k2_args(sys.argv[2:]))
     elif sys.argv[1] == "kernels":
         kernels_study(dev, Path(sys.argv[2]).resolve(),
                       int(sys.argv[3]) if len(sys.argv) > 3 else 7)

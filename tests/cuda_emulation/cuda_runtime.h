@@ -1,6 +1,7 @@
 // A host emulation of what the block kernels (deseq2_tpu_torch/csrc/
-// *_block.cu) take from CUDA, for tests/test_torch_block_emulation.py: one
-// thread block at a time as kThreads std::threads sharing memory,
+// *_block.cu) and the wide K2 (disp_ls.cu) take from CUDA, for
+// tests/test_torch_block_emulation.py: one thread block at a time as its
+// launch's std::threads (at most kThreads) sharing memory,
 // __syncthreads as a barrier, warp shuffles, votes and mma.sync as an
 // exchange between a warp's 32 threads.  The sources compile with g++
 // -std=c++20 once emulate.py has replaced their inline PTX and launch
@@ -40,6 +41,13 @@ inline float sqrtf(float v) { return std::sqrt(v); }
 inline float lgammaf(float v) { return std::lgamma(v); }
 inline float fabsf(float v) { return std::fabs(v); }
 
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
+
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9 };
@@ -66,6 +74,8 @@ inline int cudaGetLastError() { return 0; }
 
 namespace emu {
 constexpr int kThreads = 256;
+// the running launch's threads a block
+inline int nthreads = kThreads;
 inline thread_local int tid = 0;
 struct Dim {
   unsigned x, y, z;
@@ -124,15 +134,16 @@ inline unsigned long long reduce_or(unsigned long long v) {
 }
 
 template <class K, class... A>
-void launch_kernel(size_t bytes, K kernel, A... args) {
+void launch_kernel(int block_threads, size_t bytes, K kernel, A... args) {
+  nthreads = block_threads;
   smem = static_cast<unsigned char*>(
       std::aligned_alloc(16, (bytes + 15) / 16 * 16));
   std::memset(smem, 0xff, bytes);  // NaN: a read before a write shows
-  std::barrier<> bar(kThreads);
+  std::barrier<> bar(nthreads);
   block_bar = &bar;
   for (auto& b : warp_bar) b = new std::barrier<>(32);
   std::vector<std::thread> threads;
-  for (int t = 0; t < kThreads; ++t)
+  for (int t = 0; t < nthreads; ++t)
     threads.emplace_back([t, &kernel, &args...] {
       tid = t;
       kernel(args...);
@@ -144,7 +155,7 @@ void launch_kernel(size_t bytes, K kernel, A... args) {
 }  // namespace emu
 
 #define threadIdx (emu::Dim{(unsigned)emu::tid, 0u, 0u})
-#define blockDim (emu::Dim{(unsigned)emu::kThreads, 1u, 1u})
+#define blockDim (emu::Dim{(unsigned)emu::nthreads, 1u, 1u})
 #define blockIdx (emu::Dim{0u, 0u, 0u})
 
 inline void __syncthreads() { emu::block_bar->arrive_and_wait(); }

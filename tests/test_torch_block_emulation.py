@@ -1,14 +1,18 @@
-"""The float64 block kernels' CUDA sources on the CPU: the tensor-core K1
-(irls_block_mma) and K2 (lp_dlp_mma) of deseq2_tpu_torch/csrc, built for
-the host by tests/cuda_emulation/emulate.py (g++, an address sanitizer,
-a thread block emulated by 256 threads, mma.sync by a warp's exchange)
-and held to their plain PyTorch versions with phase 3's float64 readings
-(ops/checks.py), each launch twice and bit-identical.  The cases cover the
-8-column tiles' edges: a design whose width is a multiple of 8 (K1's X'Wz
-then takes a column tile of its own), a one-column last tile, a last tile
-of samples shorter than the rest, weights, and warps left without a tile.
-No card: the sources' indexing, layouts and fixed order are what is
-checked; the card runs the same checks in chip_smoke.py's phase 3.
+"""The block kernels' and the wide K2's CUDA sources on the CPU: the
+tensor-core K1 (irls_block_mma) and K2 (lp_dlp_mma, and the wide K2's
+lp_dlp_wide_mma on one warp) of deseq2_tpu_torch/csrc, and the float32
+block K2 (sample-major tiles, the algebra on one warp), built for the host
+by tests/cuda_emulation/emulate.py (g++, an address sanitizer, a thread
+block emulated by its launch's threads, mma.sync by a warp's exchange) and
+held to their plain PyTorch versions with phase 3's readings
+(ops/checks.py; in float32 held to the plain version in float64, a reading
+past TOL to the plain version's permutation spread), each launch twice
+and bit-identical.  The cases cover the 8-column tiles' edges: a design
+whose width is a multiple of 8 (K1's X'Wz then takes a column tile of its
+own), a one-column last tile, a last tile of samples shorter than the
+rest, weights, and warps left without a tile.  No card: the sources'
+indexing, layouts and fixed order are what is checked; the card runs the
+same checks in chip_smoke.py's phase 3.
 """
 
 import json
@@ -24,12 +28,23 @@ from torch_threads import one_torch_thread  # noqa: F401
 
 EMU = Path(__file__).resolve().parent / "cuda_emulation"
 
-# (kernel, p, S, G, weighted): K1 at p = 17 on 300 samples (two tiles of
-# samples, the last of 44; runs of one tile) weighted, K1 at p = 40 (X'Wz's
-# column tile), K2 at p = 24 (whole tiles), K2 at p = 57 (a one-column
-# last tile) weighted; two genes each (the emulation's barriers are slow)
-CASES = [("irls", 17, 300, 2, True), ("irls", 40, 120, 2, False),
-         ("ls", 24, 72, 2, False), ("ls", 57, 171, 2, True)]
+# (kernel, p, S, G, weighted, dtype): K1 at p = 17 on 300 samples (two
+# tiles of samples, the last of 44; runs of one tile) weighted, K1 at p =
+# 40 (X'Wz's column tile), K2 at p = 24 (whole tiles), K2 at p = 57 (a
+# one-column last tile) weighted; the wide K2 in float64 at p = 9 (a
+# one-column last tile; a last tile of 4 samples) weighted and at p = 16;
+# the float32 block K2 at p = 25 weighted and at p = 48 (tiles narrower
+# than the samples: three tiles, the last of 22, and the per-sample terms
+# on threads past the tile width); two genes each (the emulation's
+# barriers are slow)
+CASES = [("irls", 17, 300, 2, True, "float64"),
+         ("irls", 40, 120, 2, False, "float64"),
+         ("ls", 24, 72, 2, False, "float64"),
+         ("ls", 57, 171, 2, True, "float64"),
+         ("ls", 9, 100, 2, True, "float64"),
+         ("ls", 16, 72, 2, False, "float64"),
+         ("ls", 25, 75, 2, True, "float32"),
+         ("ls", 48, 150, 2, False, "float32")]
 
 
 @pytest.fixture(scope="module")
@@ -53,15 +68,16 @@ def emulated(tmp_path_factory):
 
 
 @pytest.mark.parametrize("case", CASES, ids=[
-    f"{k}-p{p}-S{S}-{'w' if w else 'u'}" for k, p, S, _, w in CASES])
+    f"{k}-p{p}-S{S}-{'w' if w else 'u'}" + ("-f32" if t == "float32" else "")
+    for k, p, S, _, w, t in CASES])
 def test_block_kernel_source_matches_plain(emulated, case):
     lib_dir, asan = emulated
-    kernel, p, S, G, weighted = case
+    kernel, p, S, G, weighted, dtype = case
     env = dict(os.environ, LD_PRELOAD=asan,
                ASAN_OPTIONS="detect_leaks=0", OMP_NUM_THREADS="1")
     run = subprocess.run(
         [sys.executable, str(EMU / "emulate.py"), str(lib_dir), kernel,
-         str(p), str(S), str(G), str(int(weighted))],
+         str(p), str(S), str(G), str(int(weighted)), dtype],
         capture_output=True, text=True, env=env, timeout=600)
     assert run.returncode == 0, run.stderr[-4000:]
     readings = json.loads(run.stdout.strip().splitlines()[-1])

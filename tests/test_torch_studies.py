@@ -17,3 +17,60 @@ def test_phase_marks_match_the_sources(name):
         assert anchor in src, anchor
         assert "DK_T" in marked
         assert all(line in marked for line in anchor.split("\n")), anchor
+
+
+@pytest.mark.parametrize("args, want", [
+    (["root"], (64, 1, "float64", "auto")),
+    (["root", "25", "2", "float32"], (25, 2, "float32", "auto")),
+    (["root", "10", "1", "float64"], (10, 1, "float64", "auto")),
+    (["root", "10", "4", "float64", "host"], (10, 4, "float64", "host")),
+])
+def test_paired_study_arguments(args, want):
+    # `studies paired PARENT_ROOT [P [CALLS [DTYPE [ENGINE]]]]`: the dtype
+    # argument times the float32 paired calls beside the float64 ones, the
+    # engine argument the host engine's
+    root, p, calls, dtype, engine = studies.paired_args(args)
+    assert root.name == "root"
+    assert (p, calls, dtype, engine) == want
+
+
+def test_paired_study_refuses_other_dtypes():
+    with pytest.raises(SystemExit):
+        studies.paired_args(["root", "25", "1", "float16"])
+
+
+def test_paired_study_refuses_other_engines():
+    with pytest.raises(SystemExit):
+        studies.paired_args(["root", "10", "1", "float64", "xla"])
+
+
+@pytest.mark.parametrize("args, want", [
+    (["root"], (5, studies.K2_CASES, ())),
+    (["root", "3", "16:float64", "64:float32"],
+     (3, ((16, "float64"), (64, "float32")), ())),
+    (["root,a,b", "3", "25:float32"], (3, ((25, "float32"),), ("a", "b"))),
+])
+def test_k2_study_arguments(args, want):
+    # `studies k2 PARENT_ROOT[,ROOT...] [REPS [P:DTYPE ...]]`: the widths
+    # past the default cases (the wide kernel's p = 16, the block kernel's
+    # 17-64), and study variants timed beside the change
+    root, reps, cases, others = studies.k2_args(args)
+    assert root.name == "root"
+    assert (reps, cases, tuple(r.name for r in others)) == want
+
+
+@pytest.mark.parametrize("case", ["8:float64", "65:float32", "16:float16",
+                                  "16"])
+def test_k2_study_refuses_other_cases(case):
+    with pytest.raises(SystemExit):
+        studies.k2_args(["root", "3", case])
+
+
+def test_phase_marks_build_a_marked_copy(tmp_path):
+    # the clock slots and their macros head the shared header; every marked
+    # library source reads them out
+    studies._marked_csrc(tmp_path)
+    assert "dk_wclk[" in (tmp_path / "common.cuh").read_text()
+    for name in studies._PHASES:
+        if name.endswith(".cu"):
+            assert "dk_wclk_read" in (tmp_path / name).read_text()
