@@ -16,7 +16,10 @@ Phases; any failure exits non-zero and no phase's failure is caught:
    tensor-core) instruction counts: the float64 K1 and K2 block kernels
    must issue DMMA and spill nothing, and so must the float64 wide K2
    (ls_wide_kernel<double>, every mode printed: with the Cox-Reid term its
-   grams run on the FP64 tensor cores; none may spill).  While nvcc runs, the script computes
+   grams run on the FP64 tensor cores; none may spill); the float32 wide
+   K1 must spill nothing and hold the 5 blocks an SM of its launch bounds,
+   the float32 block K1 the 4 its launch bounds and tiles are sized for
+   (K1_WIDE_F32_BLOCKS, K1_BLOCK_F32_BLOCKS).  While nvcc runs, the script computes
    the float64 CPU references of phase 8's paired gates and phase 10's
    single-cell gates (they need no kernel; prefetch_cpu_references).
 3. hold each kernel, unweighted and weighted, against its plain PyTorch
@@ -32,7 +35,7 @@ Phases; any failure exits non-zero and no phase's failure is caught:
    held to the float64 fit off the design's null direction.  The wide
    kernels at p = 9, 10, 12, 16 (checks.WIDE_P), checks.SHAPES, every
    mode, both dtypes, every launch twice (float32: K1 held to the float64
-   fit, a K2/K3 reading past TOL held to the plain version's spread over
+   fit, its beta and each of its other outputs, a K2/K3 reading past TOL held to the plain version's spread over
    permutations, checks.within_plain_spread); no plain version may run on
    the card there.  The block kernels likewise at p = 17, 33, 64
    (checks.BLOCK_P) at S = 24, 1,024 and 3,000 (checks.BLOCK_SHAPES; a
@@ -40,7 +43,8 @@ Phases; any failure exits non-zero and no phase's failure is caught:
    beyond the first 32 bits of the Cox-Reid mask dropped) and without the
    Cox-Reid term (checks.BLOCK_MODES), and in float64 at the repeat shapes
    (the widths of checks.BLOCK_REPEAT that checks.BLOCK_P lacks: p = 57, a
-   one-column last tile of the tensor-core gram), each launch twice.
+   one-column last tile of the tensor-core gram) and the float32 K1 there
+   (held to the float64 fit, every output), each launch twice.
 4. the main path at full width: 60,000 genes x 1,024 samples, ~ condition,
    public deseq() + results() in float32 (a cold and a warm call; the
    launch counters are zeroed just before the warm call and read just
@@ -233,6 +237,12 @@ G_GATE = 2048
 # multiply-adds at; float32 grams stay off the tensor cores (TF32 would cut
 # X'WX's precision: deseq2_tpu/__init__.py)
 HBM_BPS = 3.35e12
+# the resident blocks an SM of the float32 K1 designs: the wide kernel's
+# (blocks of 4 warps; 80 registers and 0 spill bytes give six, PERF.md
+# section 6) and the block kernel's launch bounds and tiles
+# (irls_block.cu kRowsBlocks)
+K1_WIDE_F32_BLOCKS = 6
+K1_BLOCK_F32_BLOCKS = 4
 PEAK_OPS = {"float32": 67e12, "float64": 34e12, "float64 tensor": 67e12}
 GRAM_PEAK = {"float32": "float32", "float64": "float64 tensor"}
 
@@ -293,6 +303,12 @@ def kernel_resources():
                     log(f"  {key} p={p}: {regs} registers, {spill} spill "
                         f"bytes, {warps * blocks} resident warps per SM at "
                         f"S={S_MAIN}")
+                    # the float32 wide K1: no spills, at the blocks an SM
+                    # of its design
+                    if name == "irls" and tag and t == "f" and (
+                            spill != 0 or blocks != K1_WIDE_F32_BLOCKS):
+                        failed.append(f"{key}: {spill} spill bytes, "
+                                      f"{blocks} blocks an SM")
     # the float64 wide K2 (ls_wide_kernel<double, W, CR>): every mode's
     # registers, spills, resident warps and DMMA count; with the Cox-Reid
     # term its grams run on the FP64 tensor cores
@@ -352,9 +368,15 @@ def kernel_resources():
                     log(f"  {key}: {regs} registers, {spill} spill bytes, "
                         f"{8 * blocks} resident warps per SM, {dmma} DMMA "
                         f"instructions")
+                    # the float32 block K1 (irls_block_rows): the blocks an
+                    # SM its launch bounds and tiles are sized for
+                    if name == "irls_block" and t == "f" \
+                            and blocks != K1_BLOCK_F32_BLOCKS:
+                        failed.append(f"{key}: {blocks} blocks an SM")
     if failed:
         raise SystemExit(f"float64 wide K2 or block K1/K2 without DMMA or "
-                         f"with spills: {failed}")
+                         f"with spills, or a float32 K1 spilling or off its "
+                         f"blocks an SM: {failed}")
     return out
 
 
@@ -389,8 +411,13 @@ def gate_inputs(g, s, seed=0):
 # ---------------------------------------------------------------------------
 
 def fmt(r):
-    return " ".join(f"{k}={v:.3g}" if isinstance(v, float) else f"{k}={v}"
-                    for k, v in r.items() if k != "ok")
+    def one(v):
+        if isinstance(v, float):
+            return f"{v:.3g}"
+        if isinstance(v, dict):
+            return "{" + ",".join(f"{k}:{one(x)}" for k, x in v.items()) + "}"
+        return f"{v}"
+    return " ".join(f"{k}={one(v)}" for k, v in r.items() if k != "ok")
 
 
 def check_kernels(torch, dev, modes=(False, True)):
@@ -524,7 +551,8 @@ def check_wide_kernels(torch, dev, worst, failed, route="wide"):
     in checks.BLOCK_P below S, in the modes of checks.BLOCK_MODES (K1 in
     the default two), float32 and float64, every launch twice and
     bit-identical.  float64 is gated under checks.TOL.  In float32, K1 is
-    held to the float64 fit (checks.check_irls_f64), and a K2 or K3
+    held to the float64 fit (checks.check_irls_f64: beta, and each of
+    deviance, beta_var, hat_diag and mu), and a K2 or K3
     reading that fails checks.TOL is held to the plain version's own
     spread over permutations of the samples and of the design's columns
     (checks.within_plain_spread), which rounding alone moves past TOL at
@@ -572,8 +600,8 @@ def check_wide_kernels(torch, dev, worst, failed, route="wide"):
                     pl1 = checks.run_irls(irls.fit_beta_plain, d)
                     r1 = checks.check_irls_f64(k1, pl1, checks.run_irls(
                         irls.fit_beta_plain, checks.as_tensors(
-                            raw, torch.float64, dev))) if f32 else \
-                        checks.check_irls(k1, pl1)
+                            raw, torch.float64, dev)), outputs=True) \
+                        if f32 else checks.check_irls(k1, pl1)
                     torch.cuda.synchronize()
                     log(f"  {case} irls: {fmt(r1)} repeat_differs={rep}")
                     if not r1["ok"] or rep:
@@ -624,9 +652,25 @@ def check_wide_kernels(torch, dev, worst, failed, route="wide"):
         # the repeat shapes at widths the checks above leave out
         # (checks.BLOCK_REPEAT; p = 57 leaves a one-column last 8-column
         # tile of the float64 tensor-core gram) in float64: each kernel
-        # twice, bit-identical, and against its plain version
+        # twice, bit-identical, and against its plain version; and the
+        # float32 K1 there, twice, held to the float64 fit (every output)
         for S, G, p in (r for r in checks.BLOCK_REPEAT
                         if r[2] not in checks.BLOCK_P):
+            raw = checks.solver_inputs(G, S, p, checks.seed_of(p, S))
+            d32 = checks.as_tensors(raw, torch.float32, dev)
+            k1 = checks.run_irls(fit_beta, d32)
+            rep = checks.differing_outputs(k1, checks.run_irls(fit_beta, d32))
+            r = checks.check_irls_f64(
+                k1, checks.run_irls(irls.fit_beta_plain, d32),
+                checks.run_irls(irls.fit_beta_plain, checks.as_tensors(
+                    raw, torch.float64, dev)), outputs=True)
+            torch.cuda.synchronize()
+            log(f"  float32 block repeat p={p} S={S} G={G} irls: {fmt(r)} "
+                f"repeat_differs={rep}")
+            if not r["ok"] or rep:
+                failed.append(f"float32 block repeat p={p} S={S} irls")
+            worst["irls_block_f32"] = max(worst["irls_block_f32"],
+                                          r["max_abs_err"])
             d = checks.as_tensors(checks.solver_inputs(
                 G, S, p, checks.seed_of(p, S)), torch.float64, dev)
             k1 = checks.run_irls(fit_beta, d)
@@ -1461,7 +1505,8 @@ def kernel_timings(torch, dev, launches, worst, weighted=False,
     design `x_np` of more than 8 columns (phase 8's paired design) the
     wide kernels (p <= 16) or the block kernels (p <= 64) in `dname`, rows
     named <kernel>_wide_f64 / _f32 or <kernel>_block_p<p>_f64 / _f32: K1
-    held to the float64 fit in float32, as phase 3 holds it."""
+    held to the float64 fit in float32 (every output), as phase 3 holds
+    it."""
     from deseq2_tpu_torch.ops import checks, disp, irls
     from deseq2_tpu_torch.ops.cuda_grid import fit_disp_grid
     from deseq2_tpu_torch.ops.cuda_irls import fit_beta
@@ -1594,7 +1639,7 @@ def kernel_timings(torch, dev, launches, worst, weighted=False,
     if wide and f32:
         r1 = checks.check_irls_f64(k1, pl1, irls.fit_beta_plain(
             *(a.double() for a in i_args),
-            weights=None if w_n is None else w_n.double()))
+            weights=None if w_n is None else w_n.double()), outputs=True)
     else:
         r1 = checks.check_irls(k1, pl1)
     log(f"  irls{rsfx}: {fmt(r1)}")

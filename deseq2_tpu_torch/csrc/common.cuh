@@ -805,8 +805,8 @@ __device__ __forceinline__ void tile_put(T* xb, T* ub, const T* xt, int S,
 //   section below; K3 and float32 keep these blocks);
 // - the p x p algebra (Cholesky, solve, inverse, log determinant) runs on
 //   matrices of row stride p in the block's dynamic shared memory, with a
-//   __syncthreads between columns (block_cholesky, block_chol_solve,
-//   block_chol_inverse), each entry reduced in the wide kernels' order;
+//   __syncthreads between columns (block_cholesky, block_chol_inverse),
+//   each entry reduced in the wide kernels' order;
 // - the gene's sums are reduced by warp butterflies and then over the
 //   warps in warp order (block_allsum), on every thread, so the solver
 //   control runs on the same values in every thread.
@@ -959,14 +959,12 @@ __device__ __forceinline__ T block_max(T v, T* red) {
   return v;
 }
 
-// Add a tile's first n samples to the thread's blocks, as gram_add does
-// over a warp (ts the tile buffers' column stride).
-template <typename T, bool D2, bool Rz>
+// Add a tile's first n samples to the thread's block, g += u_t v_t', as
+// gram_add does over a warp (ts the tile buffers' column stride).
+template <typename T>
 __device__ __forceinline__ void block_gram_add(const GramMap& m,
-                                               GramBlock<T>& g1,
-                                               GramBlock<T>& g2, T (&rz)[4],
-                                               const T* u, const T* v,
-                                               const T* z, int ts, int n) {
+                                               GramBlock<T>& g, const T* u,
+                                               const T* v, int ts, int n) {
   if (!m.active) return;
   for (int t = m.grp; t < n; t += m.ng) {
     T ur[4], vc[4];
@@ -978,24 +976,7 @@ __device__ __forceinline__ void block_gram_add(const GramMap& m,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) g1.a[i][j] += ur[i] * vc[j];
-    }
-    if constexpr (D2) {
-      T uc[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) uc[j] = u[(m.c0 + j) * ts + t];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) g2.a[i][j] += ur[i] * uc[j];
-      }
-    }
-    if constexpr (Rz) {
-      if (m.diag) {
-        const T zt = z[t];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) rz[j] += zt * vc[j];
-      }
+      for (int j = 0; j < 4; ++j) g.a[i][j] += ur[i] * vc[j];
     }
   }
 }
@@ -1092,32 +1073,6 @@ __device__ __forceinline__ T block_cholesky(T* a, int p) {
   return logdet;
 }
 
-// x = a^-1 r given block_cholesky's factor L of a: r (p values of shared
-// memory) holds the right-hand side on entry and x on return, with
-// warp_chol_solve's order of reduction; warp 0 computes it.  Every thread
-// of the block calls it; it ends with a __syncthreads.
-template <typename T>
-__device__ __forceinline__ void block_chol_solve(const T* L, int p, T* r) {
-  if (threadIdx.x < 32) {
-    const int lane = lane_id();
-    for (int i = 0; i < p; ++i) {
-      __syncwarp();
-      const T wi = r[i] / L[i * p + i];
-      __syncwarp();
-      for (int k = i + 1 + lane; k < p; k += 32) r[k] -= L[k * p + i] * wi;
-      if (lane == 0) r[i] = wi;
-    }
-    for (int i = p - 1; i >= 0; --i) {
-      __syncwarp();
-      const T xi = r[i] / L[i * p + i];
-      __syncwarp();
-      for (int k = lane; k < i; k += 32) r[k] -= L[i * p + k] * xi;
-      if (lane == 0) r[i] = xi;
-    }
-  }
-  __syncthreads();
-}
-
 // a^-1 = L^-T L^-1 given block_cholesky's factor L: thread j < p computes
 // column j of L^-1 into li, as warp_chol_inverse does, then the threads
 // share out the entries of a^-1, written to both triangles of `out` (which
@@ -1193,8 +1148,8 @@ __device__ __forceinline__ void rows_put(float* xb, float* ub, const float* xt,
   }
 }
 
-// block_gram_add<float, true, false> on sample-major tiles (u the tile of
-// w x, v of x): the thread's group adds its samples t = group, group +
+// block_gram_add's sums on sample-major tiles (u the tile of w x, v of x),
+// with a second gram: the thread's group adds its samples t = group, group +
 // ng, ... < n in that order to g1 (u_t v_t') and g2 (u_t u_t')
 // (block_gram_map's map).
 __device__ __forceinline__ void gram_add_rows(const GramMap& m,
@@ -1233,20 +1188,21 @@ __device__ __forceinline__ void gram_add_rows(const GramMap& m,
 
 // The lower Cholesky factor L of the p x p SPD matrix a (both triangles
 // given), written to a's lower triangle and its transpose to the upper
-// one, returning log det(a) on every lane.  Left-looking, a column at a
-// time: lane l computes entries i = j + l and j + l + 32 of column j as
-// a_ij - L_i0 L_j0 - L_i1 L_j1 - ... (the order in which block_cholesky's
-// updates reach a_ij), reading the earlier columns from the upper copy
-// (row k of L', consecutive lanes on consecutive values); the pivot comes
-// by shuffle.  Every lane of the warp calls it.
-template <typename T>
+// one, returning log det(a) on every lane (0 without LogDet).
+// Left-looking, a column at a time: lane l computes entries i = j + l and
+// (Rows = 2, p <= 64) j + l + 32 of column j as a_ij - L_i0 L_j0 - L_i1
+// L_j1 - ... (the order in which block_cholesky's updates reach a_ij),
+// reading the earlier columns from the upper copy (row k of L',
+// consecutive lanes on consecutive values); the pivot comes by shuffle.
+// Rows = 1 takes p <= 32.  Every lane of the warp calls it.
+template <typename T, int Rows = 2, bool LogDet = true>
 __device__ __forceinline__ T warp_cholesky_ll(T* a, int p) {
   const int lane = lane_id();
   T logdet = T(0);
   for (int j = 0; j < p; ++j) {
     const int i0 = j + lane, i1 = i0 + 32;
     T s0 = i0 < p ? a[j * p + i0] : T(1);
-    T s1 = i1 < p ? a[j * p + i1] : T(1);
+    T s1 = Rows == 2 && i1 < p ? a[j * p + i1] : T(1);
     const T* uj = a + j;
     int k = 0;
     for (; k + 4 <= j; k += 4) {
@@ -1255,22 +1211,24 @@ __device__ __forceinline__ T warp_cholesky_ll(T* a, int p) {
       for (int e = 0; e < 4; ++e) {
         lj[e] = uj[(k + e) * p];
         l0[e] = i0 < p ? a[(k + e) * p + i0] : T(0);
-        l1[e] = i1 < p ? a[(k + e) * p + i1] : T(0);
+        if constexpr (Rows == 2) l1[e] = i1 < p ? a[(k + e) * p + i1] : T(0);
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         s0 -= l0[e] * lj[e];
-        s1 -= l1[e] * lj[e];
+        if constexpr (Rows == 2) s1 -= l1[e] * lj[e];
       }
     }
     for (; k < j; ++k) {
       const T lj = uj[k * p];
       if (i0 < p) s0 -= a[k * p + i0] * lj;
-      if (i1 < p) s1 -= a[k * p + i1] * lj;
+      if constexpr (Rows == 2) {
+        if (i1 < p) s1 -= a[k * p + i1] * lj;
+      }
     }
     const T piv = __shfl_sync(kFullMask, s0, 0);
     const T d = d_sqrt(piv > T(1e-30) ? piv : T(1e-30));
-    logdet += T(2) * d_log(d);
+    if constexpr (LogDet) logdet += T(2) * d_log(d);
     if (lane == 0) {
       a[j * p + j] = d;
     } else if (i0 < p) {
@@ -1278,10 +1236,12 @@ __device__ __forceinline__ T warp_cholesky_ll(T* a, int p) {
       a[j * p + i0] = l;
       a[i0 * p + j] = l;
     }
-    if (i1 < p) {
-      const T l = s1 / d;
-      a[j * p + i1] = l;
-      a[i1 * p + j] = l;
+    if constexpr (Rows == 2) {
+      if (i1 < p) {
+        const T l = s1 / d;
+        a[j * p + i1] = l;
+        a[i1 * p + j] = l;
+      }
     }
     __syncwarp();
   }
@@ -1347,6 +1307,186 @@ __device__ __forceinline__ void block_chol_inverse_ld(const T* L, T* li,
     out[c * p + r] = s;
   }
   __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// The float32 K1's pieces (irls_block_kernel<float> over a block; of
+// them irls_wide_kernel<float> takes k1_inverse, over one warp)
+// ---------------------------------------------------------------------------
+//
+// - a pass stages a tile's samples sample-major: x_s at t ld (ld =
+//   rows_ld(pr), zero past p), its weight w_s and w_s z_s beside (k1_row
+//   a sample, k1_stage a tile over a block), and a gram thread reads a
+//   sample's four rows or columns in one 128-bit load, forming w x_r
+//   itself (k1_gram_add): the product the column-major tiles stored, so
+//   one buffer holds a tile;
+// - after the fit the factor's inverse L^-1 is kept, its rows padded to
+//   lt = rows_ld(pr) values, zero past the diagonal (k1_inverse), and the
+//   hat diagonal is w_s |L^-1 x_s|^2 (k1_hat_part): the lower triangle's
+//   p (p + 1) / 2 multiply-adds a sample in 128-bit loads, a dependent
+//   chain a row, where x_s' A^-1 x_s took p^2 in one chain;
+// - the sandwich's diagonal entry a_t' X'WX a_t (a_t: column t of A^-1) is
+//   shared out over k threads (k1_sandwich_part), where one thread ran
+//   its p^2 chain.
+
+// Slot t of the tile takes sample s's design row, four values a 128-bit
+// store (xt the design transposed, p x S); returns x_s' sb summed in k's
+// order (the pass's eta at the coefficients sb).
+__device__ __forceinline__ float k1_row(float* xb, const float* xt, int S,
+                                        int s, int p, int pr, int ld, int t,
+                                        const float* sb) {
+  float eta = 0.f;
+  for (int k = 0; k < pr; k += 4) {
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[e] = k + e < p ? __ldg(xt + (size_t)(k + e) * S + s) : 0.f;
+      if (k + e < p) eta += sb[k + e] * v[e];
+    }
+    *reinterpret_cast<float4*>(xb + t * ld + k) =
+        make_float4(v[0], v[1], v[2], v[3]);
+  }
+  return eta;
+}
+
+// The n design rows of a tile from sample base on (k1_row's layout,
+// rows of ld values, zero past p), their quads shared out over the
+// block: warp w the quads w, w + 8, ..., its lanes consecutive samples, so
+// that they read a column's consecutive samples.
+__device__ __forceinline__ void k1_stage(float* xb, const float* xt, int S,
+                                         int base, int n, int p, int pr,
+                                         int ld) {
+  for (int k = 4 * (threadIdx.x >> 5); k < pr; k += 4 * kBlockWarpsN) {
+    for (int i = lane_id(); i < n; i += 32) {
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = k + e < p ? __ldg(xt + (size_t)(k + e) * S + base + i) : 0.f;
+      *reinterpret_cast<float4*>(xb + i * ld + k) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+// Add a tile's first n samples to the thread's block (a GramMap over the
+// block or the warp): its group's samples t = group, group + ng, ... < n
+// in that order, g += (w_t x_t[r]) x_t[c]' and rz += (w_t z_t) x_t[c]
+// (X'Wz at a diagonal block's rows; wz the tile's w z): the products and
+// roundings of gram_add's u = w x and w z tiles.
+__device__ __forceinline__ void k1_gram_add(const GramMap& m,
+                                            GramBlock<float>& g,
+                                            float (&rz)[4], const float* xb,
+                                            const float* wb, const float* wz,
+                                            int ld, int n) {
+  if (!m.active) return;
+#pragma unroll 1
+  for (int t = m.grp; t < n; t += m.ng) {
+    const float w = wb[t], zt = wz[t];
+    const float4 a = *reinterpret_cast<const float4*>(xb + t * ld + m.r0);
+    const float4 b = *reinterpret_cast<const float4*>(xb + t * ld + m.c0);
+    const float ur[4] = {w * a.x, w * a.y, w * a.z, w * a.w};
+    const float vc[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) g.a[i][j] += ur[i] * vc[j];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) rz[j] += zt * vc[j];
+  }
+}
+
+// From the lower factor L (row stride lda) of A: L^-1 into li (rows of lt
+// values, zero above the diagonal and in the columns p..pr-1) and A^-1 =
+// L^-T L^-1 into out (both triangles, row stride lda; out may be L), each
+// value as block_chol_inverse_ld computes it.  The reciprocals of L's
+// diagonal go first to rd (p values of scratch), then thread j < pr of the
+// Warps warps (the block's, or the wide kernel's one) computes column j of
+// L^-1, and they share out A^-1's entries.  Ends with their barrier.
+template <int Warps>
+__device__ __forceinline__ void k1_inverse(const float* L, int lda,
+                                           float* li, int lt, float* out,
+                                           int p, int pr, float* rd) {
+  const int j = Warps == 1 ? lane_id() : (int)threadIdx.x;
+  if (j < p) rd[j] = 1.f / L[j * lda + j];
+  warps_sync<Warps>();
+  if (j < pr) {
+    for (int i = 0; i < p && i < j; ++i) li[i * lt + j] = 0.f;
+    if (j < p) {
+      li[j * lt + j] = rd[j];
+      for (int i = j + 1; i < p; ++i) {
+        const float s = dot_ld(L + i * lda, li + j, lt, j, i, 0.f);
+        li[i * lt + j] = -s * rd[i];
+      }
+    }
+  }
+  warps_sync<Warps>();
+  const int nt = p * (p + 1) / 2;
+  for (int e = j; e < nt; e += 32 * Warps) {
+    int r = 0;
+    while ((r + 1) * (r + 2) / 2 <= e) ++r;
+    const int c = e - r * (r + 1) / 2;  // c <= r
+    float s = 0.f;
+    int k = r;
+    for (; k + 4 <= p; k += 4) {
+      float x[4], y[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        x[q] = li[(k + q) * lt + r];
+        y[q] = li[(k + q) * lt + c];
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) s += x[q] * y[q];
+    }
+    for (; k < p; ++k) s += li[k * lt + r] * li[k * lt + c];
+    out[r * lda + c] = s;
+    out[c * lda + r] = s;
+  }
+  warps_sync<Warps>();
+}
+
+// The share j of k of |L^-1 x|^2 for a staged row xr: the rows i = j,
+// j + k, ... < p of L^-1 (k1_inverse's li), each (L^-1 x)_i over the
+// quads up to its diagonal's, squared and added in i's order.
+__device__ __forceinline__ float k1_hat_part(const float* li, int lt,
+                                             const float* xr, int p, int j,
+                                             int k) {
+  float q = 0.f;
+  for (int i = j; i < p; i += k) {
+    const float* lr = li + i * lt;
+    float y = 0.f;
+    for (int c = 0; c <= i; c += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(lr + c);
+      const float4 b = *reinterpret_cast<const float4*>(xr + c);
+      y += a.x * b.x;
+      y += a.y * b.y;
+      y += a.z * b.z;
+      y += a.w * b.w;
+    }
+    q += y * y;
+  }
+  return q;
+}
+
+// The share sub of k of the sandwich's diagonal entry col: the rows m =
+// sub, sub + k, ... < p of A^-1[col][m] (X'WX[m] . A^-1[col]) (both p x p,
+// row stride lda; A^-1's row col read as its column), in m's order.
+__device__ __forceinline__ float k1_sandwich_part(const float* ainv,
+                                                  const float* xw, int lda,
+                                                  int p, int col, int sub,
+                                                  int k) {
+  const float* ac = ainv + col * lda;
+  float s = 0.f;
+  for (int m = sub; m < p; m += k)
+    s += ac[m] * dot_ld(xw + m * lda, ac, 1, 0, p, 0.f);
+  return s;
+}
+
+// Sum v over the k consecutive lanes of a group (k a power of 2 dividing
+// 32) by an xor butterfly: the same bits on each of them.
+__device__ __forceinline__ float lanes_sum(float v, int k) {
+  for (int o = 1; o < k; o <<= 1) v += __shfl_xor_sync(kFullMask, v, o);
+  return v;
 }
 
 // The weighted Cox-Reid column mask at p <= 64 columns, a 64-bit word on
@@ -1699,10 +1839,10 @@ __device__ __forceinline__ void gram_mma_store(const MmaRun<N>& m,
 // values are kept in col (p values of shared scratch) so that the lanes
 // read them without bank conflicts, a[jj] is written in the update phase
 // (two barriers a column), and the factor's transpose fills the upper
-// triangle.  Then block_chol_solve's solution by warp 0 with r in its
-// registers (lane l: r_l and r_{l+32}), each step's value broadcast by
-// shuffle and multiplied by the pivot's reciprocal (computed first;
-// block_chol_solve divides), the forward steps reading L's columns as the
+// triangle.  Then the solution by warp 0 (warp_chol_solve's order of
+// reduction) with r in its registers (lane l: r_l and r_{l+32}), each
+// step's value broadcast by shuffle and multiplied by the pivot's
+// reciprocal (computed first), the forward steps reading L's columns as the
 // upper triangle's rows.  K1's float64 path (irls_block_mma).
 __device__ __forceinline__ void block_cholesky_rows(double* a, int p,
                                                     double* col) {

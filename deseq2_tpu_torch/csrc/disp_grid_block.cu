@@ -54,8 +54,7 @@ __device__ __forceinline__ T log_post_block(const GramMap& gm, const T* yr,
   const T alpha = d_exp(la);
   const LgConst<T> k = lg_const(T(1) / alpha);
   T acc[1] = {T(0)};
-  GramBlock<T> gb, unused;
-  T rz[4];
+  GramBlock<T> gb;
   if constexpr (UseCR) gram_zero(gb);
   T* xb = tile;
   T* ub = tile + (size_t)lay.pr * ts;
@@ -80,8 +79,7 @@ __device__ __forceinline__ T log_post_block(const GramMap& gm, const T* yr,
     if constexpr (UseCR) {
       const int n = S - base < tw ? S - base : tw;
       __syncthreads();
-      block_gram_add<T, false, false>(gm, gb, unused, rz, ub, xb,
-                                      static_cast<const T*>(nullptr), ts, n);
+      block_gram_add(gm, gb, ub, xb, ts, n);
     }
   }
   block_allsum<T, 1>(acc, red);

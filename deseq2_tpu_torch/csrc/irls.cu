@@ -56,7 +56,14 @@
 // X'Wz at the diagonal blocks' rows; the ridge system is factored and
 // solved in the warp's shared memory.
 // The post-fit inverse, the sandwich and the hat diagonal follow the
-// templated kernel's order of operations on the same shared matrices.
+// templated kernel's order of operations on the same shared matrices.  In
+// float32 the hat diagonal's 16 x 16 predicated loop a sample took 0.25 of
+// a gene at p = 10 (`studies phases k1`, PERF.md section 6): there the
+// inverse keeps L^-1 (k1_inverse, common.cuh's float32 K1 section) and the
+// hat diagonal is w |L^-1 x|^2, a row of L^-1 up to its diagonal in
+// 128-bit loads.  Sample-major tiles and a launch bound for fewer
+// registers (a fork of this kernel) ran slower than this one (`studies
+// k1`).
 #include "common.cuh"
 
 namespace {
@@ -310,8 +317,14 @@ int launch_p(const T* y, const T* nf, long long nf_gstride, const T* w,
 // shared values per warp: the tile buffers of x and w x, the tile's w z,
 // and the coefficients mu is computed at.  Between passes the ridge
 // system's matrix takes the x buffer's room; after the last sweep the
-// post-fit matrices take both buffers'.
+// post-fit matrices take both buffers'.  In float32 a warp's values (and
+// the staged factor row before them) take whole 16 bytes, so that L^-1's
+// rows give 128-bit loads.
 constexpr int kWideWarpVals = 2 * kTileVals + kTileStride + kPWide;
+template <typename T>
+__host__ __device__ constexpr int wide_warp_vals() {
+  return is_f32<T>() ? (kWideWarpVals + 3) & ~3 : kWideWarpVals;
+}
 
 // One pass over a gene's samples (x the design transposed, p x S) at the
 // coefficients sb: X'WX (gb, the lane's block) and X'Wz (rz, a diagonal
@@ -420,15 +433,18 @@ __global__ void __launch_bounds__(kWarpBlock)
     lnf_shared = sm + S;
     __syncthreads();
   }
-  T* wv = sm + (stage_nf ? 2 * (size_t)S : 0) +
-          (size_t)(threadIdx.x >> 5) * kWideWarpVals;
+  const size_t staged = !stage_nf    ? 0
+                        : is_f32<T>() ? (2 * (size_t)S + 3) & ~(size_t)3
+                                      : 2 * (size_t)S;
+  T* wv = sm + staged + (size_t)(threadIdx.x >> 5) * wide_warp_vals<T>();
   T* xb = wv;
   T* ub = wv + kTileVals;
   T* zb = wv + 2 * kTileVals;
   T* sb = zb + kTileStride;
   T* amat = wv;               // the ridge system, then its inverse
   T* gmat = wv + kMat;        // the post-fit X'WX
-  T* li = wv + kTileVals;     // the post-fit factor's inverse
+  T* li = wv + kTileVals;     // the post-fit factor's inverse (float32:
+                              // rows of rows_ld(pr) values, k1_inverse)
   const int lane = lane_id();
   const GramMap gm = gram_map(p);
   const T eps = Eps<T>::value;
@@ -507,7 +523,12 @@ __global__ void __launch_bounds__(kWarpBlock)
     gram_store(gm, gb, gmat, p, ~0u, false, static_cast<const T*>(nullptr));
     gram_store(gm, gb, amat, p, ~0u, false, ridge);
     warp_cholesky<T, false>(amat, p);
-    warp_chol_inverse(amat, li, amat, p);
+    // float32 keeps L^-1 for the hat diagonal
+    const int pr = (p + 3) & ~3, lt = rows_ld(pr);
+    if constexpr (is_f32<T>())
+      k1_inverse<1>(amat, kPWide, li, lt, amat, p, pr, zb);
+    else
+      warp_chol_inverse(amat, li, amat, p);
     if (lane < p) {
       // ainv is symmetric: column `lane` read as its row
       T sv = T(0);
@@ -524,7 +545,9 @@ __global__ void __launch_bounds__(kWarpBlock)
       dev_out[g] = dev;
       iter_out[g] = iters;
     }
-    // last pass: the final mu and the hat diagonal
+    // last pass: the final mu and the hat diagonal, x_s' A^-1 x_s (float32:
+    // |L^-1 x_s|^2, (L^-1 x_s)_i from the quads of L^-1's row i up to its
+    // diagonal's)
     T* mu_g = mu_out + (size_t)g * S;
     T* hat_g = hat_out + (size_t)g * S;
     for (int s = lane; s < S; s += 32) {
@@ -538,12 +561,31 @@ __global__ void __launch_bounds__(kWarpBlock)
       const T mm = nfr[s] * d_exp(eta);
       const T m = mm > min_mu ? mm : min_mu;
       T q = T(0);
+      if constexpr (is_f32<T>()) {
 #pragma unroll
-      for (int i = 0; i < kPWide; ++i) {
-        if (i < p) {
+        for (int i = 0; i < kPWide; ++i) {
+          if (i < p) {
+            T yi = T(0);
 #pragma unroll
-          for (int j = 0; j < kPWide; ++j) {
-            if (j < p) q += amat[i * kPWide + j] * (xv[i] * xv[j]);
+            for (int c = 0; c <= i; c += 4) {
+              const float4 a =
+                  *reinterpret_cast<const float4*>(li + i * lt + c);
+              yi += a.x * xv[c];
+              yi += a.y * xv[c + 1];
+              yi += a.z * xv[c + 2];
+              yi += a.w * xv[c + 3];
+            }
+            q += yi * yi;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < kPWide; ++i) {
+          if (i < p) {
+#pragma unroll
+            for (int j = 0; j < kPWide; ++j) {
+              if (j < p) q += amat[i * kPWide + j] * (xv[i] * xv[j]);
+            }
           }
         }
       }
@@ -559,7 +601,8 @@ template <typename T>
 inline size_t wide_smem(int S, bool shared_nf, bool* stage_nf) {
   const size_t nfb = shared_nf ? block_stage_bytes<T>(S, 2) : 0;
   *stage_nf = nfb > 0;
-  return nfb + (size_t)kBlockWarps * kWideWarpVals * sizeof(T);
+  const size_t staged = is_f32<T>() ? (nfb + 15) & ~(size_t)15 : nfb;
+  return staged + (size_t)kBlockWarps * wide_warp_vals<T>() * sizeof(T);
 }
 
 template <typename T, bool UseW>

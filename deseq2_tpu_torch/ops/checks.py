@@ -466,12 +466,31 @@ def check_irls(k, pl, maxit=100):
     return r
 
 
-def check_irls_f64(k, pl, ref, maxit=100):
+# K1's outputs besides beta and the sweep count
+IRLS_OUTPUTS = ("deviance", "beta_var", "hat_diag", "mu")
+
+
+def irls_outputs_rel(res, ref, conv):
+    """For each of IRLS_OUTPUTS, the largest |v - v_ref| / (|v_ref| +
+    1e-8) of fit res against fit ref over the genes conv (0 without
+    one)."""
+    out = {}
+    for n in IRLS_OUTPUTS:
+        a, b = res[n].double()[conv], ref[n].double()[conv]
+        rel = (a - b).abs() / (b.abs() + 1e-8)
+        out[n] = rel.max().item() if rel.numel() else 0.0
+    return out
+
+
+def check_irls_f64(k, pl, ref, maxit=100, outputs=False):
     """K1 readings in float32 where rounding alone moves beta past TOL's
     beta (ROUNDING_BOUND): the kernel's fit k and the plain float32 fit pl
     against the float64 fit ref, |dbeta| / (1 + |beta|) over the genes
     converged in all three.  The kernel may be no further from ref than the
-    plain version plus TOL's beta."""
+    plain version plus TOL's beta.  With `outputs` each of IRLS_OUTPUTS is
+    held so too (irls_outputs_rel on the same genes): the kernel's largest
+    relative distance from ref no more than the plain version's plus TOL's
+    beta."""
     tol = TOL["float32"]
     conv = (k["iter"] < maxit) & (pl["iter"] < maxit) & (ref["iter"] < maxit)
     rb = ref["beta"].double()[conv]
@@ -485,6 +504,13 @@ def check_irls_f64(k, pl, ref, maxit=100):
     r["ok"] = (r["beta_rel_f64_kernel"]
                <= r["beta_rel_f64_plain"] + tol["beta"]
                and r["same_conv"] >= tol["same_conv"])
+    if outputs:
+        rk, rp = irls_outputs_rel(k, ref, conv), irls_outputs_rel(pl, ref,
+                                                                   conv)
+        r.update(outputs_rel_f64_kernel=rk, outputs_rel_f64_plain=rp,
+                 outputs_past=[n for n in IRLS_OUTPUTS
+                               if not rk[n] <= rp[n] + tol["beta"]])
+        r["ok"] = r["ok"] and not r["outputs_past"]
     return r
 
 

@@ -5,6 +5,7 @@ ROADMAP.md:
     python -m deseq2_tpu_torch.ops.studies ls [N_SEEDS]
     python -m deseq2_tpu_torch.ops.studies kernels PARENT_ROOT [REPS]
     python -m deseq2_tpu_torch.ops.studies k2 PARENT_ROOT[,ROOT...] [REPS [P:DTYPE ...]]
+    python -m deseq2_tpu_torch.ops.studies k1 PARENT_ROOT[,ROOT...] [REPS [P:DTYPE ...]]
     python -m deseq2_tpu_torch.ops.studies edges [N_PERM [wide]]
     python -m deseq2_tpu_torch.ops.studies expanded
     python -m deseq2_tpu_torch.ops.studies mainpath PARENT_ROOT [CALLS]
@@ -12,7 +13,7 @@ ROADMAP.md:
     python -m deseq2_tpu_torch.ops.studies block [REPS]
     python -m deseq2_tpu_torch.ops.studies crossover [REPS]
     python -m deseq2_tpu_torch.ops.studies variant smem|minp [REPS]
-    python -m deseq2_tpu_torch.ops.studies phases
+    python -m deseq2_tpu_torch.ops.studies phases [k1 [ROOT]]
     python -m deseq2_tpu_torch.ops.studies paired PARENT_ROOT [P [CALLS [DTYPE [ENGINE]]]]
     python -m deseq2_tpu_torch.ops.studies rlog [N_SEEDS]
     python -m deseq2_tpu_torch.ops.studies sc [G S]
@@ -51,13 +52,22 @@ the float64 block K1 and K2 and prints each phase's clocks a gene (K1) or
 trial point (K2) and its share, on the paired p = 64 and 25 pipeline
 inputs at 60,000 x 1,024 (the per-sample terms, the tiles' staging and
 tensor-core products, the Cholesky, the solve, the inverse, the sandwich,
-the hat diagonal).
+the hat diagonal).  `phases k1 [ROOT]` prints the float32 K1 kernels'
+registers, spill bytes and resident warps an SM (of ROOT's checkout, by
+default this one), then builds a copy of ROOT's csrc with clock64 marks
+in them (_K1_MARKS: a checkout of this design) and prints, on the
+paired pipeline inputs at p = 10 (the wide K1), 25 and 64 (the block K1),
+sweeps a gene and each phase's clocks a gene and share (the per-sample
+terms, the tile writes, the gram adds, the groups' reduction and the
+store, the per-sweep Cholesky, solve and control, the post-fit factor
+and inverse, the sandwich, the hat-diagonal pass).
 `paired`: the public paired deseq() + results() (~ subject + condition,
 p = P, default 64, in DTYPE, float64 by default or float32, 60,000 x 1,024
 of the main path's counts, through ENGINE: auto, deseq()'s default, or
 host)
 timed in fresh processes in PARENT_ROOT's checkout and this one, in turns
-parent, change, change, parent (a cold call, then CALLS warm ones).
+parent, change, change, parent (a cold call, then CALLS warm ones), and
+each checkout's median and quartiles over its warm calls.
 
 `kernels`: K1 (csrc/irls.cu), K2 (csrc/disp_ls.cu) and K3
 (csrc/disp_grid.cu, on the genes whose float32 line search did not
@@ -81,6 +91,12 @@ the cases P:DTYPE given, e.g. 16:float64 64:float32), timed and printed
 as `kernels` times its cases (REPS launches a turn, default 5).  Each
 further ROOT (a study variant's checkout) is timed beside the change, in
 turns parent, change, ROOT..., ROOT... reversed, change, parent.
+
+`k1`: K1 (the IRLS) on the paired pipeline inputs at 60,000 x 1,024 (the
+dispersions from this checkout's line search, the pipeline's start; by
+default p = 10, the wide kernel, and p = 25, the block kernel, in float32
+and float64; or the cases P:DTYPE given), timed and printed as `k2`
+times its cases.
 
 `edges` (the card if there is one, else the CPU): the float32 readings of
 ops/checks.py at checks.EDGES and SHAPES' S = 24 row, taken between the
@@ -580,8 +596,8 @@ def _time_kernels(path, reps):
     out = {}
     for case, d in torch.load(path).items():
         t = {k: v.to(dev) if torch.is_tensor(v) else v for k, v in d.items()}
-        ls_args = (t["y"], t["x"], t["mu"], t["la0"], t["la0"], 1.0,
-                   t["min_la"])
+        ls_args = tuple(t.get(k) for k in ("y", "x", "mu", "la0", "la0")) \
+            + (1.0, t.get("min_la"))
         irls_args = tuple(t.get(k) for k in ("y", "x", "sf", "alpha",
                                              "beta0", "ridge"))
         calls = {
@@ -592,9 +608,12 @@ def _time_kernels(path, reps):
             "disp_grid": lambda: {"log_alpha": cuda_grid.fit_disp_grid(
                 t["gy"], t["x"], t["gmu"], t["grid"], t["gpm"], 1.0,
                 weights=t.get("gw"))}}
-        # a case without K1's or K3's inputs (the k2 study's) times K2 alone
+        # a case without K1's or K3's inputs (the k2 study's) times K2
+        # alone, one without K2's (the k1 study's) K1 alone
         if "sf" not in t:
             calls = {"disp_ls": calls["disp_ls"]}
+        elif "mu" not in t:
+            calls = {"irls": calls["irls"]}
         for name, fn in calls.items():
             res = fn()
             h = hashlib.sha256()
@@ -712,21 +731,26 @@ K2_CASES = ((10, "float64"), (10, "float32"), (25, "float32"),
             (25, "float64"))
 
 
-def k2_args(args):
-    """`k2`'s arguments PARENT_ROOT[,ROOT...] [REPS [P:DTYPE ...]]: (root,
-    reps, ((p, dtype name), ...), further roots), K2_CASES without
-    cases."""
+def _case_args(study, args, default):
+    """A kernel study's arguments PARENT_ROOT[,ROOT...] [REPS [P:DTYPE
+    ...]]: (root, reps, ((p, dtype name), ...), further roots), `default`
+    without cases."""
     cases = []
     for a in args[2:]:
         p, _, dtype = a.partition(":")
         if not p.isdigit() or not 8 < int(p) <= 64 \
                 or dtype not in ("float64", "float32"):
-            raise SystemExit(f"k2: a case is P:DTYPE, 8 < P <= 64, DTYPE "
-                             f"float64 or float32, not {a}")
+            raise SystemExit(f"{study}: a case is P:DTYPE, 8 < P <= 64, "
+                             f"DTYPE float64 or float32, not {a}")
         cases.append((int(p), dtype))
     roots = [Path(r).resolve() for r in args[0].split(",")]
     return (roots[0], int(args[1]) if len(args) > 1 else 5,
-            tuple(cases) or K2_CASES, tuple(roots[1:]))
+            tuple(cases) or default, tuple(roots[1:]))
+
+
+def k2_args(args):
+    """`k2`'s arguments (_case_args), K2_CASES without cases."""
+    return _case_args("k2", args, K2_CASES)
 
 
 def k2_study(dev, parent_root, reps, cases=K2_CASES, others=()):
@@ -744,6 +768,40 @@ def k2_study(dev, parent_root, reps, cases=K2_CASES, others=()):
                                   ("y", "x", "mu", "la0", "min_la")}
         del d
     _kernel_turns(data, "study_k2_inputs", parent_root, reps, others)
+
+
+# `k1`'s default cases: the paired designs' widths, the wide K1 (p = 10)
+# and the block K1 (p = 25), in the bench dtype and in float64
+K1_CASES = ((10, "float32"), (25, "float32"), (10, "float64"),
+            (25, "float64"))
+
+
+def k1_args(args):
+    """`k1`'s arguments (_case_args), K1_CASES without cases."""
+    return _case_args("k1", args, K1_CASES)
+
+
+def k1_study(dev, parent_root, reps, cases=K1_CASES, others=()):
+    """K1 on the paired pipeline inputs in both checkouts (see the
+    module's docstring): the line search's dispersions (this checkout's
+    K2) and the pipeline's start, as chip_smoke.py's kernel rows take
+    them."""
+    import chip_smoke as cs
+    from .cuda_ls import fit_disp_line_search
+    counts, _ = cs.make_inputs(cs.G_MAIN, cs.S_MAIN)
+    data = {}
+    for p, dname in cases:
+        d = checks.pipeline_inputs(counts, checks.paired_matrix(cs.S_MAIN,
+                                                               p - 1),
+                                   getattr(torch, dname), dev)
+        k2 = fit_disp_line_search(d["y"], d["x"], d["mu"], d["la0"],
+                                  d["la0"], 1.0, d["min_la"])
+        i_args = checks.irls_start(d, k2["log_alpha"])
+        data[f"p={p} {dname}"] = {
+            k: v.cpu() for k, v in zip(("y", "x", "sf", "alpha", "beta0",
+                                        "ridge"), i_args)}
+        del d, k2, i_args
+    _kernel_turns(data, "study_k1_inputs", parent_root, reps, others)
 
 
 def wide_study(dev, reps):
@@ -1181,6 +1239,121 @@ _K2_PHASES = ("per-sample terms", "tile writes", "gram adds",
 # blocks of 4 warps on each of 132 SMs
 _K2_SLOTS = 8448
 
+# The float32 K1 kernels' clocks (`phases k1`), per warp as K2's (the wide
+# K1: DK_TW, each warp's gene on its lane 0's clock; the block K1: DK_TB,
+# thread 0's), slot k one of _K1_PHASES, slot 8 the genes (DK_TN) and slot
+# 9 the sweeps (DK_TC).  A region that ends at a barrier holds the wait
+# for the block's slowest thread.
+_K1_PHASES = ("per-sample terms", "tile writes", "gram adds",
+              "group reduction and store", "Cholesky, solve and control",
+              "post-fit factor and inverse", "sandwich", "hat-diagonal pass")
+
+# The marks of the float32 K1 kernels: the wide K1 (its tiles
+# column-major, a tile's terms on its lanes; the deviance constant's pass
+# at beta0 counts in the same slots) and the block K1 (sample-major tiles,
+# its terms first on every thread, its algebra on warp 0).
+_K1_MARKS = {
+    "irls.cu": [
+        ("  T dev[1] = {T(0)};\n  __syncwarp();\n",
+         "  T dev[1] = {T(0)};\n  __syncwarp();\n  DK_T0(c0)\n"),
+        ("      for (int k = 0; k < p; ++k)\n"
+         "        ub[k * kTileStride + lane] = w * xb[k * kTileStride + lane];\n",
+         "      DK_TW(0, c0)\n"
+         "      for (int k = 0; k < p; ++k)\n"
+         "        ub[k * kTileStride + lane] = w * xb[k * kTileStride + lane];\n"),
+        ("    __syncwarp();\n"
+         "    gram_add<T, false, true>(gm, gb, unused, rz, ub, xb, zb, n);\n"
+         "    __syncwarp();\n",
+         "    __syncwarp();\n    DK_TW(1, c0)\n"
+         "    gram_add<T, false, true>(gm, gb, unused, rz, ub, xb, zb, n);\n"
+         "    __syncwarp();\n    DK_TW(2, c0)\n"),
+        ("  gram_reduce<T, 4>(gm, rz, ub);\n  return dev[0];",
+         "  gram_reduce<T, 4>(gm, rz, ub);\n  DK_TW(3, c0)\n  return dev[0];"),
+        ("      ++iters;\n"
+         "      gram_store(gm, gb, amat, p, ~0u, false, ridge);\n"
+         "      const T r = wide_rhs(gm, rz, zb, p);\n",
+         "      ++iters;\n      DK_T0(c1)\n      DK_TC(9, lane == 0)\n"
+         "      gram_store(gm, gb, amat, p, ~0u, false, ridge);\n"
+         "      const T r = wide_rhs(gm, rz, zb, p);\n      DK_TW(3, c1)\n"),
+        ("      if (lane < p) sb[lane] = bn;\n      __syncwarp();\n",
+         "      if (lane < p) sb[lane] = bn;\n      __syncwarp();\n"
+         "      DK_TW(4, c1)\n"),
+        ("    __syncwarp();\n    gram_store(gm, gb, gmat, p,",
+         "    DK_T0(c2)\n    __syncwarp();\n    gram_store(gm, gb, gmat, p,"),
+        ("      warp_chol_inverse(amat, li, amat, p);\n    if (lane < p) {\n",
+         "      warp_chol_inverse(amat, li, amat, p);\n    DK_TW(5, c2)\n"
+         "    if (lane < p) {\n"),
+        ("    if (lane == 0) {\n      dev_out[g] = dev;",
+         "    __syncwarp();\n    DK_TW(6, c2)\n"
+         "    if (lane == 0) {\n      dev_out[g] = dev;"),
+        ("              if (j < p) q += amat[i * kPWide + j] * (xv[i] * xv[j]);\n"
+         "            }\n          }\n        }\n      }\n"
+         "      hat_g[s] = wscale<UseW>(m / (T(1) + alpha * m), wr, s) * q;\n"
+         "      mu_g[s] = m;\n    }\n",
+         "              if (j < p) q += amat[i * kPWide + j] * (xv[i] * xv[j]);\n"
+         "            }\n          }\n        }\n      }\n"
+         "      hat_g[s] = wscale<UseW>(m / (T(1) + alpha * m), wr, s) * q;\n"
+         "      mu_g[s] = m;\n    }\n"
+         "    __syncwarp();\n    DK_TW(7, c2)\n    DK_TN(lane == 0)\n"),
+    ],
+    "irls_block.cu": [
+        ("  T dev[1] = {T(0)};\n  T* xb = tile;\n",
+         "  DK_T0(c0)\n  T dev[1] = {T(0)};\n  T* xb = tile;\n"),
+        # the pass staging its terms (a tile holds the block's samples)
+        ("        wb[t] = w;\n        zb[t] = wz;\n      }\n"
+         "      __syncthreads();\n"
+         "      k1_gram_add(gm, gb, rz, xb, wb, zb, ld, n);\n    }\n",
+         "        wb[t] = w;\n        zb[t] = wz;\n        DK_TB(0, c0)\n"
+         "      }\n      __syncthreads();\n      DK_TB(1, c0)\n"
+         "      k1_gram_add(gm, gb, rz, xb, wb, zb, ld, n);\n"
+         "      DK_TB(2, c0)\n    }\n"),
+        # the pass with its terms first
+        ("    block_allsum<T, 1>(dev, red);\n"
+         "    for (int base = 0; base < S; base += tw) {\n",
+         "    block_allsum<T, 1>(dev, red);\n    DK_TB(0, c0)\n"
+         "    for (int base = 0; base < S; base += tw) {\n"),
+        ("      __syncthreads();\n"
+         "      k1_stage(xb, x, S, base, n, p, lay.pr, ld);\n",
+         "      __syncthreads();\n      DK_TB(2, c0)\n"
+         "      k1_stage(xb, x, S, base, n, p, lay.pr, ld);\n"),
+        ("        zb[t] = zg[base + t];\n      }\n      __syncthreads();\n"
+         "      k1_gram_add(gm, gb, rz, xb, wb, zb, ld, n);\n    }\n",
+         "        zb[t] = zg[base + t];\n      }\n      __syncthreads();\n"
+         "      DK_TB(1, c0)\n"
+         "      k1_gram_add(gm, gb, rz, xb, wb, zb, ld, n);\n    }\n"),
+        ("  // the tile is the reduction's scratch\n"
+         "  rows_reduce(gm, gb, rz, tile, G, amat, ridge, xz, p);\n",
+         "  __syncthreads();\n  DK_TB(2, c0)\n"
+         "  // the tile is the reduction's scratch\n"
+         "  rows_reduce(gm, gb, rz, tile, G, amat, ridge, xz, p);\n"
+         "  DK_TB(3, c0)\n"),
+        # the sweep: its factor, solve and control
+        ("      ++iters;\n      // the ridge system and X'Wz from the last pass",
+         "      ++iters;\n      DK_T0(c1)\n      DK_TC(9, t == 0)\n"
+         "      // the ridge system and X'Wz from the last pass"),
+        ("      const T dbeta = flag[1], bmax = flag[2];\n",
+         "      const T dbeta = flag[1], bmax = flag[2];\n      DK_TB(4, c1)\n"),
+        # after the fit
+        ("    if (t < p) beta_out[(size_t)g * p + t] = rhs[t];\n",
+         "    DK_T0(c2)\n    if (t < p) beta_out[(size_t)g * p + t] = rhs[t];\n"),
+        ("    k1_inverse<kBlockWarpsN>(amat, p, li, ld, amat, p, lay.pr, rhs);\n",
+         "    k1_inverse<kBlockWarpsN>(amat, p, li, ld, amat, p, lay.pr, rhs);\n"
+         "    DK_TB(5, c2)\n"),
+        ("      if (col < p && t % ks == 0) bvar_out[(size_t)g * p + col] = v;\n"
+         "    }\n",
+         "      if (col < p && t % ks == 0) bvar_out[(size_t)g * p + col] = v;\n"
+         "    }\n    __syncthreads();\n    DK_TB(6, c2)\n"),
+        ("                   k1_hat_part(li, ld, tile + t * ld, p, 0, 1);\n"
+         "      }\n      continue;\n",
+         "                   k1_hat_part(li, ld, tile + t * ld, p, 0, 1);\n"
+         "      }\n      __syncthreads();\n      DK_TB(7, c2)\n"
+         "      DK_TN(t == 0)\n      continue;\n"),
+        ("      if (r < n && t % kh == 0) hat_g[base + r] *= q;\n    }\n",
+         "      if (r < n && t % kh == 0) hat_g[base + r] *= q;\n    }\n"
+         "    __syncthreads();\n    DK_TB(7, c2)\n    DK_TN(t == 0)\n"),
+    ],
+}
+
 _PHASE_HEAD = (
     "__device__ unsigned long long dk_clk[24];\n"
     f"__device__ unsigned long long dk_wclk[{_K2_SLOTS} * 16];\n"
@@ -1194,7 +1367,8 @@ _PHASE_HEAD = (
     "#define DK_TB(k, v) { if (threadIdx.x == 0) DK_SLOT(k) += "
     "(unsigned long long)(clock64() - v); v = clock64(); }\n"
     "#define DK_TR(v) v = clock64();\n"
-    "#define DK_TN(first) { if (first) DK_SLOT(8) += 1ull; }\n")
+    "#define DK_TN(first) { if (first) DK_SLOT(8) += 1ull; }\n"
+    "#define DK_TC(k, first) { if (first) DK_SLOT(k) += 1ull; }\n")
 _PHASE_TAIL = (
     "int dk_clk_read(unsigned long long* o) { return (int)"
     "cudaMemcpyFromSymbol(o, dk_clk, sizeof(dk_clk)); }\n"
@@ -1207,18 +1381,20 @@ _PHASE_TAIL = (
     "0, sizeof(dk_wclk)); }\n")
 
 
-def _marked_csrc(dst):
-    """A copy of csrc in dst with _PHASES' clock marks."""
+def _marked_csrc(dst, src=None):
+    """A copy of the csrc at src (default: this checkout's) in dst with
+    _PHASES' clock marks and the float32 K1's (_K1_MARKS)."""
     import shutil
     from . import build
+    src = build.CSRC if src is None else src
     shutil.rmtree(dst, ignore_errors=True)
-    shutil.copytree(build.CSRC, dst)
-    for name, marks in _PHASES.items():
+    shutil.copytree(src, dst)
+    for name in _PHASES.keys() | _K1_MARKS.keys():
         s = (dst / name).read_text()
         if name == "common.cuh":
             s = s.replace("namespace dk {\n", _PHASE_HEAD + "namespace dk {\n",
                           1)
-        for a, b in marks:
+        for a, b in _PHASES.get(name, []) + _K1_MARKS.get(name, []):
             # the first match (each anchor names its function's text)
             assert a in s, (name, a)
             s = s.replace(a, b, 1)
@@ -1226,9 +1402,9 @@ def _marked_csrc(dst):
         (dst / name).write_text(s)
 
 
-def _k2_clocks(lib, run):
+def _warp_clocks(lib, run):
     """run() between a reset and a read of lib's per-warp (or per-block)
-    K2 clocks; prints each phase's clocks a trial point and its share."""
+    clocks; returns each slot's total over the warps."""
     import ctypes
     from . import build
     build.bind(build.load(lib), "dk_wclk_reset", [])()
@@ -1238,7 +1414,13 @@ def _k2_clocks(lib, run):
     buf = np.zeros(_K2_SLOTS * 16, dtype=np.uint64)
     build.bind(build.load(lib), "dk_wclk_read", [ctypes.c_void_p])(
         buf.ctypes.data_as(ctypes.c_void_p))
-    tot = buf.reshape(-1, 16).sum(axis=0, dtype=np.float64)
+    return buf.reshape(-1, 16).sum(axis=0, dtype=np.float64)
+
+
+def _k2_clocks(lib, run):
+    """run() between a reset and a read of lib's per-warp (or per-block)
+    K2 clocks; prints each phase's clocks a trial point and its share."""
+    tot = _warp_clocks(lib, run)
     points = max(tot[8], 1.0)
     whole = tot[:len(_K2_PHASES)].sum()
     print(f"  {int(tot[8])} trial points, {whole / points:,.0f} clocks a "
@@ -1315,6 +1497,89 @@ def phases_study(dev):
         del pin
 
 
+# `phases k1`'s widths: the wide K1 at p = 10, the block K1 at 25 and 64
+K1_PHASE_P = (10, 25, 64)
+
+
+def k1_resources(p, S=1024):
+    """Registers, spill bytes (ptxas, from the built library) and resident
+    warps an SM of the float32 K1 at p (the wide or the block kernel), for
+    each mode: {weighted: (registers, spill bytes, warps)}."""
+    import ctypes
+    import re
+    from . import build
+    from .cuda_ls import P_WIDE
+    name = "irls" if p <= P_WIDE else "irls_block"
+    funcs = build.ptxas_resources(name)
+    if name == "irls":
+        q = build.bind(build.load(name), "irls_blocks_per_sm",
+                       [ctypes.c_int] * 5)
+        warps = lambda w: 4 * q(0, w, p, S, 1)   # noqa: E731
+    else:
+        q = build.bind(build.load(name), "irls_block_blocks_per_sm",
+                       [ctypes.c_int] * 3)
+        warps = lambda w: 8 * q(0, w, p)   # noqa: E731
+    sym = "irls_wide_kernel" if name == "irls" else "irls_block_kernel"
+    out = {}
+    for w in (0, 1):
+        hit = [v for k, v in funcs.items()
+               if re.search(rf"{sym}IfLb{w}EE", k)]
+        regs, spill = hit[0] if len(hit) == 1 else (-1, -1)
+        out[bool(w)] = (regs, spill, warps(w))
+    return out
+
+
+def k1_phases_study(dev, root=None):
+    """The float32 K1 kernels phase by phase (`phases k1 [ROOT]`): the
+    registers, spill bytes and resident warps of ROOT's kernels (default:
+    this checkout's), then a copy of its csrc with clock64 marks
+    (_K1_MARKS) on the paired pipeline inputs at 60,000 x 1,024, p in
+    K1_PHASE_P: sweeps a gene, each phase's clocks a gene and its share
+    (_K1_PHASES).  The line search that gives K1 its dispersions runs on
+    this checkout's kernels.  Run in a process of its own (it points
+    ops/build.py at other sources)."""
+    import chip_smoke as cs
+    from . import build
+    from .cuda_irls import fit_beta
+    from .cuda_ls import P_WIDE, fit_disp_line_search
+    counts, _ = cs.make_inputs(cs.G_MAIN, cs.S_MAIN)
+    args = {}
+    for p in K1_PHASE_P:
+        pin = checks.pipeline_inputs(counts, cs.paired_x(cs.S_MAIN, p),
+                                     torch.float32, dev)
+        k2 = fit_disp_line_search(pin["y"], pin["x"], pin["mu"], pin["la0"],
+                                  pin["la0"], 1.0, pin["min_la"])
+        args[p] = checks.irls_start(pin, k2["log_alpha"])
+        del pin, k2
+    src = build.CSRC if root is None else \
+        Path(root).resolve() / "deseq2_tpu_torch" / "csrc"
+    build.CSRC = src
+    build._libs.clear()
+    build.build_all(("irls", "irls_block"))
+    for p in K1_PHASE_P:
+        for w, (regs, spill, warps) in k1_resources(p).items():
+            print(f"p={p} float32 K1 weighted={w} ({src}): {regs} registers,"
+                  f" {spill} spill bytes, {warps} resident warps an SM",
+                  flush=True)
+    dst = build.BUILD_DIR / "phases_k1_csrc"
+    _marked_csrc(dst, src)
+    build.CSRC = dst
+    build._libs.clear()
+    build.build_all(("irls", "irls_block"))
+    for p in K1_PHASE_P:
+        lib = "irls" if p <= P_WIDE else "irls_block"
+        fit_beta(*args[p])
+        tot = _warp_clocks(lib, lambda: fit_beta(*args[p]))
+        genes = max(tot[8], 1.0)
+        whole = tot[:len(_K1_PHASES)].sum()
+        print(f"p={p} float32 K1: {int(tot[8])} genes, "
+              f"{tot[9] / genes:.3f} sweeps a gene, {whole / genes:,.0f} "
+              f"clocks a gene (a warp's or a block's own clock)", flush=True)
+        for k, n in enumerate(_K1_PHASES):
+            print(f"  {n}: {tot[k] / genes:,.0f} clocks a gene, share "
+                  f"{tot[k] / max(whole, 1.0):.3f}", flush=True)
+
+
 def _time_paired(counts_path, subjects, dtype, calls, engine="auto"):
     """One turn of the paired study: a cold call, then `calls` warm calls
     of deseq() + results() on ~ subject + condition (sample j in subject
@@ -1367,12 +1632,19 @@ def paired_study(parent_root, p, calls, dtype="float64", engine="auto"):
     path = change_root / "build" / "study_main_counts.npy"
     path.parent.mkdir(parents=True, exist_ok=True)
     np.save(path, counts)
+    import statistics
+    got = {}
     for tag, root in (("parent", parent_root), ("change", change_root),
                       ("change", change_root), ("parent", parent_root)):
         secs = _run_turn(_time_paired,
                          (str(path), p - 1, dtype, calls, engine), root)
+        got.setdefault(tag, []).extend(secs)
         print(f"turn {tag}: paired p = {p} {dtype} {engine} warm seconds "
               + ", ".join(f"{t:.3f}" for t in secs), flush=True)
+    for tag, v in got.items():
+        q = statistics.quantiles(v, n=4) if len(v) > 1 else [v[0]] * 3
+        print(f"{tag}: median {statistics.median(v):.4f} s over {len(v)} "
+              f"warm calls, quartiles {q[0]:.4f}-{q[2]:.4f}", flush=True)
 
 
 def rlog_study(dev, n_seeds):
@@ -1546,6 +1818,8 @@ if __name__ == "__main__":
     elif sys.argv[1] == "variant":
         variant_study(dev, sys.argv[2],
                       int(sys.argv[3]) if len(sys.argv) > 3 else 3)
+    elif sys.argv[1] == "phases" and sys.argv[2:3] == ["k1"]:
+        k1_phases_study(dev, *sys.argv[3:4])
     elif sys.argv[1] == "phases":
         phases_study(dev)
     elif sys.argv[1] == "paired":
@@ -1557,6 +1831,8 @@ if __name__ == "__main__":
                       int(sys.argv[3]) if len(sys.argv) > 3 else 2)
     elif sys.argv[1] == "k2":
         k2_study(dev, *k2_args(sys.argv[2:]))
+    elif sys.argv[1] == "k1":
+        k1_study(dev, *k1_args(sys.argv[2:]))
     elif sys.argv[1] == "kernels":
         kernels_study(dev, Path(sys.argv[2]).resolve(),
                       int(sys.argv[3]) if len(sys.argv) > 3 else 7)

@@ -181,6 +181,7 @@ inline T __shfl_sync(unsigned, T v, int src) {
 inline unsigned __reduce_or_sync(unsigned, unsigned v) {
   return (unsigned)emu::reduce_or(v);
 }
+inline bool __any_sync(unsigned, bool p) { return emu::reduce_or(p) != 0; }
 template <class T>
 inline T __ldg(const T* p) {
   return *p;

@@ -1,26 +1,27 @@
-"""Build the block kernels' and the wide K2's CUDA sources for the host
-and run them there.
+"""Build the block kernels' and the wide K1's and K2's CUDA sources for
+the host and run them there.
 
 `build(out_dir)` copies deseq2_tpu_torch/csrc/irls_block.cu,
-disp_ls_block.cu and disp_ls.cu with common.cuh, replaces their inline
-PTX (mma.sync, cp.async) by cuda_runtime.h's emulation, their dynamic
-shared memory by the emulated launch's buffer and their kernel launches
-by emu::launch_kernel, and compiles each with g++ -std=c++20 and an
-address sanitizer into a shared library with the sources' own C
-interface.  disp_ls.cu is built without its templated kernels for p <=
-8 (DK_DISPATCH_P dispatches none): its wide kernel is what is emulated.
+disp_ls_block.cu, disp_ls.cu and irls.cu with common.cuh, replaces their
+inline PTX (mma.sync, cp.async) by cuda_runtime.h's emulation, their
+dynamic shared memory by the emulated launch's buffer and their kernel
+launches by emu::launch_kernel, and compiles each with g++ -std=c++20 and
+an address sanitizer into a shared library with the sources' own C
+interface.  disp_ls.cu and irls.cu are built without their templated
+kernels for p <= 8 (DK_DISPATCH_P dispatches none): their wide kernels
+are what is emulated.
 
     python emulate.py LIB_DIR KERNEL P S G WEIGHTED [DTYPE]
 
 (run under LD_PRELOAD of the sanitizer's runtime, as
-tests/test_torch_block_emulation.py does) holds the emulated K1 (KERNEL
-irls, float64) or K2 (ls, with and without the prior: the wide kernel for
-p <= 16, the block kernel past it; DTYPE float64, the default, or
-float32) against the plain PyTorch version on ops/checks.py's inputs
-with phase 3's readings (in float32: held to the plain version in
-float64, a reading past checks.TOL held to the plain version's spread
-over permutations, as phase 3 holds it), runs each launch twice, and
-prints the readings as one JSON line.
+tests/test_torch_block_emulation.py does) holds the emulated K1 (irls)
+or K2 (ls, with and without the prior), the wide kernel for p <= 16 and
+the block kernel past it, DTYPE float64 (the default) or float32,
+against the plain PyTorch version on ops/checks.py's inputs with phase
+3's readings (in float32: K1 held to the fit in float64, a K2 reading
+past checks.TOL held to the plain version's spread over permutations, as
+phase 3 holds them), runs each launch twice, and prints the readings as
+one JSON line.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 REPO = HERE.parents[1]
 CSRC = REPO / "deseq2_tpu_torch" / "csrc"
-LIBS = ("irls_block", "disp_ls_block", "disp_ls")
+LIBS = ("irls_block", "disp_ls_block", "disp_ls", "irls")
 
 
 def _body(text, head, body):
@@ -102,22 +103,28 @@ def run(lib_dir, kernel, p, S, G, weighted, dtype="float64"):
     d = checks.as_tensors(raw, f64, torch.device("cpu"))
     out = {}
     if kernel == "irls":
-        lib = ctypes.CDLL(str(Path(lib_dir) / "libirls_block.so"))
-        fn = lib.irls_block_launch_f64
-        fn.argtypes = [P, P, L, P, P, P, P, P, I, I, I, D, I, D] + [P] * 8
+        # the wide kernel (irls.cu) for p <= 16, the block kernel past it
+        sym = "irls_block" if p > 16 else "irls"
+        lib = ctypes.CDLL(str(Path(lib_dir) / f"lib{sym}.so"))
+        kdt = getattr(torch, dtype)
+        scal = D if dtype == "float64" else ctypes.c_float
+        fn = getattr(lib, f"{sym}_launch_"
+                     f"{'f64' if dtype == 'float64' else 'f32'}")
+        fn.argtypes = [P, P, L, P, P, P, P, P, I, I, I, scal, I, scal] \
+            + [P] * 8
         fn.restype = I
 
         def k1(y, x, nf, alpha, beta_init, ridge, tol=1e-8, maxit=100,
                min_mu=0.5, weights=None):
-            c = [t.to(f64).contiguous() for t in
+            c = [t.to(kdt).contiguous() for t in
                  (y, x.t(), nf, alpha, beta_init, ridge)]
-            w = None if weights is None else weights.to(f64).contiguous()
-            res = dict(beta=torch.empty(G, p, dtype=f64),
-                       beta_var=torch.empty(G, p, dtype=f64),
-                       deviance=torch.empty(G, dtype=f64),
+            w = None if weights is None else weights.to(kdt).contiguous()
+            res = dict(beta=torch.empty(G, p, dtype=kdt),
+                       beta_var=torch.empty(G, p, dtype=kdt),
+                       deviance=torch.empty(G, dtype=kdt),
                        iter=torch.empty(G, dtype=torch.int32),
-                       mu=torch.empty(G, S, dtype=f64),
-                       hat_diag=torch.empty(G, S, dtype=f64))
+                       mu=torch.empty(G, S, dtype=kdt),
+                       hat_diag=torch.empty(G, S, dtype=kdt))
             counter = torch.zeros(1, dtype=torch.int32)
             err = fn(_ptr(c[0]), _ptr(c[2]), 0, _ptr(w), _ptr(c[3]),
                      _ptr(c[4]), _ptr(c[5]), _ptr(c[1]), G, S, p, tol,
@@ -129,16 +136,25 @@ def run(lib_dir, kernel, p, S, G, weighted, dtype="float64"):
             assert err == 0, err
             return res
 
-        a = checks.run_irls(k1, d)
-        pl = checks.run_irls(irls.fit_beta_plain, d)
-        r = checks.check_irls(a, pl)
-        conv = (a["iter"] < 100) & (pl["iter"] < 100)
-        rel = {k: float(((a[k] - pl[k]).abs() / (pl[k].abs() + 1e-8))
-                        [conv].max())
-               for k in ("deviance", "beta_var", "hat_diag", "mu")}
-        out["irls"] = dict(ok=r["ok"], beta_rel=r["beta_rel"], rel=rel,
+        dk = checks.as_tensors(raw, kdt, torch.device("cpu"))
+        a = checks.run_irls(k1, dk)
+        pl = checks.run_irls(irls.fit_beta_plain, dk)
+        # K1's other outputs against the fit in float64 (in float32 beside
+        # the plain version's, checks.check_irls_f64's outputs rule), on
+        # the genes the fits converged
+        if dtype == "float64":
+            r = checks.check_irls(a, pl)
+            r["outputs_rel_f64_kernel"] = checks.irls_outputs_rel(
+                a, pl, (a["iter"] < 100) & (pl["iter"] < 100))
+        else:
+            ref = checks.run_irls(irls.fit_beta_plain, d)
+            r = checks.check_irls_f64(a, pl, ref, outputs=True)
+        out["irls"] = dict(ok=r["ok"], beta_rel=r["beta_rel"],
+                           rel=r["outputs_rel_f64_kernel"],
                            repeat_differs=checks.differing_outputs(
-                               a, checks.run_irls(k1, d)))
+                               a, checks.run_irls(k1, dk)))
+        if dtype == "float32":
+            out["irls"]["rel_plain"] = r["outputs_rel_f64_plain"]
     else:
         # the wide kernel (disp_ls.cu) for p <= 16, the block kernel past it
         sym = "ls_block" if p > 16 else "ls"

@@ -1,11 +1,12 @@
-"""The block kernels' and the wide K2's CUDA sources on the CPU: the
-tensor-core K1 (irls_block_mma) and K2 (lp_dlp_mma, and the wide K2's
-lp_dlp_wide_mma on one warp) of deseq2_tpu_torch/csrc, and the float32
-block K2 (sample-major tiles, the algebra on one warp), built for the host
-by tests/cuda_emulation/emulate.py (g++, an address sanitizer, a thread
+"""The block kernels' and the wide K1's and K2's CUDA sources on the CPU:
+the tensor-core K1 (irls_block_mma) and K2 (lp_dlp_mma, and the wide K2's
+lp_dlp_wide_mma on one warp) of deseq2_tpu_torch/csrc, the float32 block
+K2 (sample-major tiles, the algebra on one warp), and the float32 block
+K1 (irls_block_rows) and wide K1 (irls_wide_kernel<float>), built for the
+host by tests/cuda_emulation/emulate.py (g++, an address sanitizer, a thread
 block emulated by its launch's threads, mma.sync by a warp's exchange) and
 held to their plain PyTorch versions with phase 3's readings
-(ops/checks.py; in float32 held to the plain version in float64, a reading
+(ops/checks.py; in float32 K1 held to the fit in float64, a K2 reading
 past TOL to the plain version's permutation spread), each launch twice
 and bit-identical.  The cases cover the 8-column tiles' edges: a design
 whose width is a multiple of 8 (K1's X'Wz then takes a column tile of its
@@ -24,6 +25,7 @@ from pathlib import Path
 
 import pytest
 
+from deseq2_tpu_torch.ops import checks
 from torch_threads import one_torch_thread  # noqa: F401
 
 EMU = Path(__file__).resolve().parent / "cuda_emulation"
@@ -35,8 +37,12 @@ EMU = Path(__file__).resolve().parent / "cuda_emulation"
 # one-column last tile; a last tile of 4 samples) weighted and at p = 16;
 # the float32 block K2 at p = 25 weighted and at p = 48 (tiles narrower
 # than the samples: three tiles, the last of 22, and the per-sample terms
-# on threads past the tile width); two genes each (the emulation's
-# barriers are slow)
+# on threads past the tile width); the float32 block K1 at p = 25
+# weighted and at p = 48 on 340 samples (tiles of 160: three, the last of
+# 20; the per-sample terms on threads past the tile width; the hat in
+# rounds of 128 samples, two threads a sample), the float32 wide K1 at p
+# = 10 (a last tile of 4 samples) and p = 16 weighted; two genes each (the
+# emulation's barriers are slow)
 CASES = [("irls", 17, 300, 2, True, "float64"),
          ("irls", 40, 120, 2, False, "float64"),
          ("ls", 24, 72, 2, False, "float64"),
@@ -44,7 +50,11 @@ CASES = [("irls", 17, 300, 2, True, "float64"),
          ("ls", 9, 100, 2, True, "float64"),
          ("ls", 16, 72, 2, False, "float64"),
          ("ls", 25, 75, 2, True, "float32"),
-         ("ls", 48, 150, 2, False, "float32")]
+         ("ls", 48, 150, 2, False, "float32"),
+         ("irls", 25, 75, 2, True, "float32"),
+         ("irls", 48, 340, 2, False, "float32"),
+         ("irls", 10, 100, 2, False, "float32"),
+         ("irls", 16, 100, 2, True, "float32")]
 
 
 @pytest.fixture(scope="module")
@@ -84,6 +94,12 @@ def test_block_kernel_source_matches_plain(emulated, case):
     for name, r in readings.items():
         assert r["ok"], (name, r)
         assert r["repeat_differs"] == [], (name, r)
-        # K1's other outputs, on the genes both fits converged
+        # K1's other outputs, on the genes the fits converged: in float64
+        # against the plain version, in float32 against the fit in float64
+        # no further than the plain float32 version plus TOL's beta
         for k, v in r.get("rel", {}).items():
-            assert v < 1e-6, (name, k, v)
+            if "rel_plain" in r:
+                limit = r["rel_plain"][k] + checks.TOL["float32"]["beta"]
+                assert v <= limit, (name, k, v, limit)
+            else:
+                assert v < 1e-6, (name, k, v)

@@ -12,7 +12,9 @@ and weighted (observation weights, with forced Cox-Reid column drops for
 p >= 2).  Every kernel also runs at checks.EDGES (sample counts where a
 warp's lanes wrap, p = 5 and 8), where the float32 readings that rounding
 alone fails (checks.ROUNDING_BOUND) hold K1 to the float64 fit and leave
-K2's and K3's out, and twice on the same inputs, where its outputs must be
+K2's and K3's out (float32 K1 also past p = 8, on the wide and block
+kernels at 1,024 samples; each of its float32 outputs is held to the
+float64 fit, checks.check_irls_f64's outputs rule), and twice on the same inputs, where its outputs must be
 the same bit for bit.  K2 and K3 also run in their other modes (without
 the Cox-Reid term; the weighted row cut at 0.5), the wrappers' p > 8
 routes (the wide kernels for p <= 16, the block kernels for p <= 64) are
@@ -31,7 +33,7 @@ import torch
 from deseq2_tpu_torch.ops import checks, disp, irls
 from deseq2_tpu_torch.ops.cuda_grid import fit_disp_grid
 from deseq2_tpu_torch.ops.cuda_irls import fit_beta
-from deseq2_tpu_torch.ops.cuda_ls import fit_disp_line_search
+from deseq2_tpu_torch.ops.cuda_ls import fit_disp_line_search, width_suffix
 
 pytestmark = pytest.mark.gpu
 
@@ -57,6 +59,10 @@ CASES = [(dt, p, S, G, wt) for wt in (False, True)
 EDGE_CASES = [(dt, p, S, G, wt) for wt in (False, True)
               for dt in (torch.float32, torch.float64)
               for S, G, p in checks.EDGES]
+# K1 only: the float32 wide (8 < p <= 16) and block (16 < p <= 64) kernels
+# at the paired calls' sample count
+ROUTE_CASES = [(torch.float32, p, 1024, 131, wt) for wt in (False, True)
+               for p in (10, 16, 25, 64)]
 
 
 def _rounding_bound(kernel, case, use_prior=None):
@@ -87,20 +93,29 @@ def _counter(fn, weighted):
     return fn.launches_weighted if weighted else fn.launches
 
 
-@pytest.mark.parametrize("case", CASES + EDGE_CASES, ids=_id)
+@pytest.mark.parametrize("case", CASES + EDGE_CASES + ROUTE_CASES, ids=_id)
 def test_irls_kernel_matches_plain(cuda, case):
+    """float32 past p = 8 (ROUTE_CASES) and where rounding alone fails
+    TOL: beta held to the float64 fit; every float32 case: deviance,
+    beta_var, hat_diag and mu held to the float64 fit
+    (check_irls_f64's outputs rule)."""
     dt, p, S, G, wt = case
     d = _inputs(G, S, p, 10 * p + S, dt, cuda, wt)
-    n0 = _counter(fit_beta, wt)
+    name = ("launches" + width_suffix(p) if p > 8
+            else "launches_weighted" if wt else "launches")
+    n0 = getattr(fit_beta, name)
     k = checks.run_irls(fit_beta, d)
     torch.cuda.synchronize()
-    assert _counter(fit_beta, wt) == n0 + 1
+    assert getattr(fit_beta, name) == n0 + 1
     pl = checks.run_irls(irls.fit_beta_plain, d)
-    if _rounding_bound("irls", case):
+    if dt == torch.float32:
         ref = checks.run_irls(irls.fit_beta_plain,
                               _inputs(G, S, p, 10 * p + S, torch.float64,
                                       cuda, wt))
-        r = checks.check_irls_f64(k, pl, ref)
+        r = checks.check_irls_f64(k, pl, ref, outputs=True)
+        if not _rounding_bound("irls", case) and p <= 8:
+            r0 = checks.check_irls(k, pl)
+            r["ok"] = r["ok"] and r0["ok"]
     else:
         r = checks.check_irls(k, pl)
     assert r["ok"], r
@@ -264,7 +279,7 @@ def test_wide_route_on_card_matches_cpu(cuda, weighted, p):
     (checks.solver_inputs): their wide weighted designs are
     ill-conditioned enough that the card's and the CPU's rounding moves a
     beta by ~4e-6 relative, and the deviance by ~1.3e-8 relative."""
-    from deseq2_tpu_torch.ops.cuda_ls import mode_counter, width_suffix
+    from deseq2_tpu_torch.ops.cuda_ls import mode_counter
     raw = checks.solver_inputs(64, 40 if p <= 16 else 3 * p, p, 5,
                                weighted=weighted)
     card = checks.as_tensors(raw, torch.float64, cuda)

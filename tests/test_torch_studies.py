@@ -1,7 +1,8 @@
 """The card studies' source edits, checked on the CPU: `studies phases`
-inserts clock64 marks into a copy of the float64 block kernels' sources at
-anchors (studies._PHASES); each anchor must still be in its source, so
-that the study builds what it says it times."""
+inserts clock64 marks into a copy of the kernels' sources at anchors
+(studies._PHASES, and the float32 K1's studies._K1_MARKS); each anchor
+must still be in its source, so that the study builds what it says it
+times."""
 
 import pytest
 
@@ -66,11 +67,51 @@ def test_k2_study_refuses_other_cases(case):
         studies.k2_args(["root", "3", case])
 
 
+def test_k1_phase_marks_match_the_sources():
+    # `phases k1` marks this checkout's float32 K1 (the wide and the block
+    # kernel): each anchor once per source and its lines kept
+    for name, ms in studies._K1_MARKS.items():
+        src = (build.CSRC / name).read_text()
+        for anchor, marked in ms:
+            assert src.count(anchor) == 1, anchor
+            assert "DK_T" in marked
+            assert all(line in marked for line in anchor.split("\n"))
+
+
+@pytest.mark.parametrize("name", ["irls.cu", "irls_block.cu"])
+def test_k1_phase_marks_time_every_phase(name):
+    # every K1 phase slot is read, and the genes and sweeps are counted
+    text = "".join(m for _, m in studies._K1_MARKS[name])
+    for k in range(len(studies._K1_PHASES)):
+        assert f"({k}, c" in text, k
+    assert "DK_TN(" in text and "DK_TC(9," in text
+
+
+@pytest.mark.parametrize("args, want", [
+    (["root"], (5, studies.K1_CASES, ())),
+    (["root", "3", "9:float32", "64:float32", "25:float64"],
+     (3, ((9, "float32"), (64, "float32"), (25, "float64")), ())),
+    (["root,v1", "2", "10:float32"], (2, ((10, "float32"),), ("v1",))),
+])
+def test_k1_study_arguments(args, want):
+    # `studies k1 PARENT_ROOT[,ROOT...] [REPS [P:DTYPE ...]]`: the paired
+    # widths of the wide and the block K1 in both dtypes by default
+    root, reps, cases, others = studies.k1_args(args)
+    assert root.name == "root"
+    assert (reps, cases, tuple(r.name for r in others)) == want
+
+
+@pytest.mark.parametrize("case", ["8:float32", "65:float64", "25:float16"])
+def test_k1_study_refuses_other_cases(case):
+    with pytest.raises(SystemExit):
+        studies.k1_args(["root", "3", case])
+
+
 def test_phase_marks_build_a_marked_copy(tmp_path):
     # the clock slots and their macros head the shared header; every marked
     # library source reads them out
     studies._marked_csrc(tmp_path)
     assert "dk_wclk[" in (tmp_path / "common.cuh").read_text()
-    for name in studies._PHASES:
+    for name in studies._PHASES.keys() | studies._K1_MARKS.keys():
         if name.endswith(".cu"):
             assert "dk_wclk_read" in (tmp_path / name).read_text()
