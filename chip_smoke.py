@@ -13,11 +13,12 @@ Phases; any failure exits non-zero and no phase's failure is caught:
    instantiations of K1, K2 and K3, their wide kernels (8 < p <= 16, one
    build) and their block kernels (at p = 25 and 64) their registers,
    spills and resident warps per SM, and the block kernels' DMMA (FP64
-   tensor-core) instruction counts: the float64 K1 and K2 block kernels
-   must issue DMMA and spill nothing, and so must the float64 wide K2
-   (ls_wide_kernel<double>, every mode printed: with the Cox-Reid term its
-   grams run on the FP64 tensor cores; none may spill); the float32 wide
-   K1 must spill nothing and hold the 5 blocks an SM of its launch bounds,
+   tensor-core) instruction counts: the float64 K1, K2 and K3 block
+   kernels must issue DMMA and spill nothing, and so must the float64 wide
+   K2 (ls_wide_kernel<double>, every mode printed: with the Cox-Reid term
+   its grams run on the FP64 tensor cores; none may spill); the float32
+   wide K1 and K2 must spill nothing, the wide K1 hold the 5 blocks an SM
+   of its launch bounds,
    the float32 block K1 the 4 its launch bounds and tiles are sized for
    (K1_WIDE_F32_BLOCKS, K1_BLOCK_F32_BLOCKS).  While nvcc runs, the script computes
    the float64 CPU references of phase 8's paired gates and phase 10's
@@ -270,8 +271,8 @@ def kernel_resources():
     and K3, of their wide kernels (p = 10; 8 < p <= 16 share one build),
     and of their block kernels (p = 25 and 64).  Fails if a float64 wide
     K2 instantiation spills or, with the Cox-Reid term, issues no DMMA
-    (its grams run on the FP64 tensor cores), or a float64 block K1/K2
-    instantiation does."""
+    (its grams run on the FP64 tensor cores), or a float64 block K1/K2/K3
+    instantiation does, or a float32 wide K1 or K2 spills."""
     import ctypes
     import re
 
@@ -304,11 +305,13 @@ def kernel_resources():
                         f"bytes, {warps * blocks} resident warps per SM at "
                         f"S={S_MAIN}")
                     # the float32 wide K1: no spills, at the blocks an SM
-                    # of its design
+                    # of its design; the float32 wide K2: no spills
                     if name == "irls" and tag and t == "f" and (
                             spill != 0 or blocks != K1_WIDE_F32_BLOCKS):
                         failed.append(f"{key}: {spill} spill bytes, "
                                       f"{blocks} blocks an SM")
+                    if name == "disp_ls" and tag and t == "f" and spill:
+                        failed.append(f"{key}: {spill} spill bytes")
     # the float64 wide K2 (ls_wide_kernel<double, W, CR>): every mode's
     # registers, spills, resident warps and DMMA count; with the Cox-Reid
     # term its grams run on the FP64 tensor cores
@@ -334,7 +337,7 @@ def kernel_resources():
                 failed.append(key)
     # the block kernels (16 < p <= 64, csrc/*_block.cu; 8 warps a block,
     # the layout and so the occupancy set by p): at p = 25 and 64; the
-    # float64 K1 and K2 run their grams on the FP64 tensor cores (DMMA
+    # float64 K1, K2 and K3 run their grams on the FP64 tensor cores (DMMA
     # instructions in their machine code, counted by cuobjdump)
     for name, sym, query, extra in (
             ("disp_ls_block", "ls_block_kernel", "ls_block_blocks_per_sm",
@@ -344,9 +347,7 @@ def kernel_resources():
             ("disp_grid_block", "grid_block_kernel",
              "grid_block_blocks_per_sm", (1,))):
         funcs = build.ptxas_resources(name)
-        # (K3 runs no tensor-core gram: its machine code is not read)
-        sass = {} if name == "disp_grid_block" else \
-            sass_compare.functions(build.so_path(name))
+        sass = sass_compare.functions(build.so_path(name))
         fn = build.bind(build.load(name), query,
                         [ctypes.c_int] * (3 + len(extra)))
         for t, dname in (("f", "float32"), ("d", "float64")):
@@ -357,8 +358,7 @@ def kernel_resources():
                 code = [v for k, v in sass.items() if re.search(pat, k)]
                 dmma = sum(bool(re.search(r"\bDMMA", i)) for i in code[0]) \
                     if len(code) == 1 else "-"
-                if t == "d" and name != "disp_grid_block" \
-                        and (dmma in ("-", 0) or spill != 0):
+                if t == "d" and (dmma in ("-", 0) or spill != 0):
                     failed.append(f"{name} {dname} weighted={w}")
                 for p in (25, 64):
                     blocks = fn(int(t == "d"), w, p, *extra)
@@ -374,9 +374,10 @@ def kernel_resources():
                             and blocks != K1_BLOCK_F32_BLOCKS:
                         failed.append(f"{key}: {blocks} blocks an SM")
     if failed:
-        raise SystemExit(f"float64 wide K2 or block K1/K2 without DMMA or "
-                         f"with spills, or a float32 K1 spilling or off its "
-                         f"blocks an SM: {failed}")
+        raise SystemExit(f"float64 wide K2 or block K1/K2/K3 without DMMA or "
+                         f"with spills, a float32 wide K2 spilling, or a "
+                         f"float32 K1 spilling or off its blocks an SM: "
+                         f"{failed}")
     return out
 
 
@@ -1625,9 +1626,12 @@ def kernel_timings(torch, dev, launches, worst, weighted=False,
                     ms=ms3, plain_ms=pms3, bound_ms=b3, bound_by=by3,
                     library_ms=None)
     # a wide row only where the paired path launched the kernel (in float64
-    # the line search converges on every gene at this width)
+    # the line search converges on every gene at this width); its time is
+    # printed either way
     if not wide or grid_row["launches"]:
         rows.append(grid_row)
+    log(f"  disp_grid{rsfx}: {ms3:.3f} ms (plain {pms3:.1f} ms, bound "
+        f"{b3:.3f} ms by {by3}), launches {grid_row['launches']}")
     log(f"  disp_grid{rsfx}: {n_need} genes need the grid at this shape "
         f"(timed on {Gn}); bound {b3:.4f} ms ({b3_old:.4f} ms by the earlier "
         f"count, which charged the point's constants to every sample)")

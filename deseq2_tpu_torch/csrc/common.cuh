@@ -152,6 +152,95 @@ __device__ __forceinline__ void nb_diffs(T y, const NbConst<T>& k, T& lgd,
   }
 }
 
+// lgamma(z) and digamma(z) for z > 0 from one shift: z is shifted up by
+// ones to zs >= kShift (8 in float64; 3 in float32, below which Stirling's
+// series no longer reaches float32's precision), and the shifts'
+// reciprocals 1/z + 1/(z+1) + ... are summed as one fraction num/den built
+// by multiply-adds (den the product of the shifted arguments: below
+// kShift^kShift, and at least 4.5e-5 for the line search's c = 1/alpha >=
+// e^-10, so no float32 overflow).  Then
+//   digamma(z) = log zs - 1/(2 zs) - (Stirling's series in 1/zs^2)
+//                - num/den,
+//   lgamma(z)  = (zs - 1/2)(log zs - 1) + log(2 pi)/2 - 1/2
+//                + Stirling's series in 1/zs - log den,
+// each series through its zs^-14 or zs^-13 term: two logs and two
+// divisions a call, where lgammaf and digamma_pos take a lgamma, up to
+// nine divisions and a log.  Near lgamma's roots (z = 1, 2) the result is
+// the difference of two terms of about log Gamma(zs), so a smaller zs
+// rounds less: with zs >= 8 float32 read 28 float32 epsilons there, with
+// zs >= 3 about 4 (tests/test_torch_k3k2_emulation.py), and float64 with
+// zs >= 8 stays within 1e-13 of the functions.  The float32 wide K2 takes
+// its digamma only: with this lgamma in place of lgammaf its float32
+// searches stopped far from the optimum on a gene of two of phase 3's S =
+// 24 readings, at either zs (PERF.md section 6).
+template <typename T>
+struct LgDg {
+  T lg, dg;
+};
+
+template <typename T>
+__device__ __forceinline__ LgDg<T> lgamma_digamma(T z) {
+  constexpr int kShift = is_f32<T>() ? 3 : 8;
+  T num = T(0), den = T(1);
+#pragma unroll
+  for (int i = 0; i < kShift; ++i) {
+    if (z < T(kShift)) {
+      num = num * z + den;
+      den = den * z;
+      z += T(1);
+    }
+  }
+  const T inv = T(1) / z;
+  const T inv2 = inv * inv;
+  const T lz = d_log(z);
+  const T sd =
+      inv2 *
+      (T(1.0 / 12.0) -
+       inv2 * (T(1.0 / 120.0) -
+               inv2 * (T(1.0 / 252.0) -
+                       inv2 * (T(1.0 / 240.0) -
+                               inv2 * (T(1.0 / 132.0) -
+                                       inv2 * (T(691.0 / 32760.0) -
+                                               inv2 * T(1.0 / 12.0)))))));
+  const T sl =
+      inv * (T(1.0 / 12.0) -
+             inv2 * (T(1.0 / 360.0) -
+                     inv2 * (T(1.0 / 1260.0) -
+                             inv2 * (T(1.0 / 1680.0) -
+                                     inv2 * (T(1.0 / 1188.0) -
+                                             inv2 * (T(691.0 / 360360.0) -
+                                                     inv2 / T(156)))))));
+  LgDg<T> f;
+  f.dg = lz - T(0.5) * inv - sd - num / den;
+  f.lg = (z - T(0.5)) * (lz - T(1)) + T(0.41893853320467274178) + sl -
+         d_log(den);
+  return f;
+}
+
+// nb_const with digamma(c) from lgamma_digamma (the float32 wide K2's
+// constants; the other kernels keep nb_const)
+template <typename T>
+__device__ __forceinline__ NbConst<T> nb_const_shift(T c) {
+  NbConst<T> k;
+  static_cast<LgConst<T>&>(k) = lg_const(c);
+  k.dgc = lgamma_digamma(c).dg;
+  return k;
+}
+
+// nb_diffs with digamma(y + c) from lgamma_digamma, so that both sides of
+// the difference carry the same approximation; lgamma and the float32
+// large-c series branch are nb_diffs'.
+template <typename T>
+__device__ __forceinline__ void nb_diffs_shift(T y, const NbConst<T>& k,
+                                               T& lgd, T& dgd) {
+  if (large_c(y, k.c)) {
+    nb_diffs(y, k, lgd, dgd);
+  } else {
+    lgd = d_lgamma(y + k.c) - k.lgc - y * k.logc;
+    dgd = lgamma_digamma(y + k.c).dg - k.dgc;
+  }
+}
+
 // Fill the full symmetric matrix from its packed upper triangle (row-major
 // order: (0,0), (0,1), ..., (0,P-1), (1,1), ...).
 template <typename T, int P>

@@ -61,9 +61,15 @@
 // float32 a lane computes its sample's likelihood terms and Cox-Reid
 // weight w and writes x_s and w x_s into the warp's tile buffers, and the
 // lanes add the tile to b = X'WX and to X'W^2X (db's negation) in 4 x 4
-// blocks they own.  In float64 (lp_dlp_wide_mma) the warp first computes
-// every sample's terms, the weights w to a global scratch row of its own,
-// then walks 32-sample tiles staged by cp.async and sums both grams as
+// blocks they own.  The float32 terms take digamma of y + c, and the
+// point's of c, from common.cuh's lgamma_digamma (one shift to z >= 3 as
+// a single fraction: a log and two divisions, wide_const, wide_diffs),
+// where digamma_pos's up to eight divisions a sample took much of the
+// half of a trial point its terms took; lgammaf and the large-c series
+// branch are nb_diffs'.  In
+// float64 (lp_dlp_wide_mma) the warp first computes every sample's terms,
+// the weights w to a global scratch row of its own, then walks 32-sample
+// tiles staged by cp.async and sums both grams as
 // mma.sync m8n8k4 products on the FP64 tensor cores, the warp's run of the
 // three upper 8 x 8 tiles in registers (common.cuh's float64 gram section
 // on one warp), so that no accumulator is live across the special
@@ -278,6 +284,28 @@ __host__ __device__ constexpr int wide_warp_vals() {
   return wide_mma<T, UseCR>() ? kWideMmaVals : kWideWarpVals;
 }
 
+// The wide K2's special functions (the header): float32 takes
+// lgamma_digamma's (nb_const_shift, nb_diffs_shift), float64 keeps
+// nb_const and nb_diffs.
+template <typename T>
+__device__ __forceinline__ NbConst<T> wide_const(T c) {
+  if constexpr (is_f32<T>()) {
+    return nb_const_shift(c);
+  } else {
+    return nb_const(c);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void wide_diffs(T y, const NbConst<T>& k, T& lgd,
+                                           T& dgd) {
+  if constexpr (is_f32<T>()) {
+    nb_diffs_shift(y, k, lgd, dgd);
+  } else {
+    nb_diffs(y, k, lgd, dgd);
+  }
+}
+
 // lp_dlp at a run-time p: x the design transposed (p x S), wv the warp's
 // shared values.
 template <typename T, bool UseW, bool UseCR>
@@ -289,7 +317,7 @@ __device__ __forceinline__ void lp_dlp_wide(const T* yr, const T* mr,
   const int lane = lane_id();
   const GramMap gm = gram_map(p);
   const T alpha = d_exp(la);
-  const NbConst<T> k = nb_const(T(1) / alpha);
+  const NbConst<T> k = wide_const(T(1) / alpha);
   T acc[2] = {T(0), T(0)};
   GramBlock<T> gb, gd;
   T rz[4];
@@ -309,7 +337,7 @@ __device__ __forceinline__ void lp_dlp_wide(const T* yr, const T* mr,
       const T l1p = d_log1p(mua);
       const T r = T(1) / (T(1) + mua);
       T lgd, dgd;
-      nb_diffs(yv, k, lgd, dgd);
+      wide_diffs(yv, k, lgd, dgd);
       acc[0] += wscale<UseW>(lgd - (yv + k.c) * l1p, wr, s);
       acc[1] += wscale<UseW>(l1p - mua * r + yv * alpha * r - dgd, wr, s);
       if constexpr (UseCR) {

@@ -12,8 +12,11 @@ package's XLA core for p > 8); p > 64 runs the plain version on the card;
 a CPU tensor runs the plain version, ops/disp.py:fit_disp_grid_plain.  The
 route is chosen from the tensor's device and p alone, before any launch.
 The counts are cuda_ls.py's, one per mode and width (cuda_ls.COUNTERS),
-and ``launches_by_device``.  Under ops/placement.py:use_gene_mesh the call
-runs shard by shard over the mesh.
+and ``launches_by_device``.  The block kernel in float64 with the Cox-Reid
+term takes global scratch, two rows of S weights for each resident block,
+which the wrapper allocates as the library's ``grid_block_scratch_rows``
+says, and a zeroed gene counter.  Under ops/placement.py:use_gene_mesh the
+call runs shard by shard over the mesh.
 """
 
 from __future__ import annotations
@@ -78,18 +81,33 @@ def fit_disp_grid(y, x, mu, disp_grid, prior_mean, prior_var,
         return out
     f64 = dtype == torch.float64
     scal = ctypes.c_double if f64 else ctypes.c_float
-    # the block kernels live in a library of their own (disp_grid_block.cu)
-    lib, sym = ("disp_grid_block", "grid_block") if p > P_WIDE \
+    # the block kernels live in a library of their own (disp_grid_block.cu),
+    # and take a gene counter and global scratch (two rows of S weights for
+    # each resident block of the float64 kernel with the Cox-Reid term)
+    block = p > P_WIDE
+    lib, sym = ("disp_grid_block", "grid_block") if block \
         else ("disp_grid", "grid")
     fn = build.bind(build.load(lib),
                     f"{sym}_launch_f64" if f64 else f"{sym}_launch_f32",
-                    [_P] * 6 + [_I] * 4 + [scal, _I, _I, scal, _P, _P])
+                    [_P] * 6 + [_I] * 4 + [scal, _I, _I, scal, _P]
+                    + ([_P, _P, _I] if block else []) + [_P])
     with torch.cuda.device(dev):
+        extra = ()
+        if block:
+            rows = build.bind(build.load(lib), f"{sym}_scratch_rows",
+                              [_I] * 5)(int(f64), int(w_ is not None), p,
+                                        int(bool(use_cr)), G)
+            if rows < 0:
+                raise RuntimeError(f"{lib} kernel refused p = {p}")
+            counter = torch.zeros(1, dtype=torch.int32, device=dev)
+            buf = torch.empty((rows, S), dtype=dtype, device=dev) \
+                if rows else None
+            extra = (build.ptr(counter), build.ptr(buf), rows)
         err = fn(build.ptr(y_), build.ptr(mu_), build.ptr(w_),
                  build.ptr(x_), build.ptr(grid_), build.ptr(pm_), G, S, p, n,
                  float(prior_var), int(bool(use_prior)),
                  int(bool(use_cr)), float(weight_threshold),
-                 build.ptr(out), build.stream_of(mu_))
+                 build.ptr(out), *extra, build.stream_of(mu_))
     build.check(err, lib)
     build.count_launch(fit_disp_grid,
                        mode_counter(w_, use_cr, weight_threshold, p), dev)

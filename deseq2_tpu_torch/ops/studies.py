@@ -6,6 +6,7 @@ ROADMAP.md:
     python -m deseq2_tpu_torch.ops.studies kernels PARENT_ROOT [REPS]
     python -m deseq2_tpu_torch.ops.studies k2 PARENT_ROOT[,ROOT...] [REPS [P:DTYPE ...]]
     python -m deseq2_tpu_torch.ops.studies k1 PARENT_ROOT[,ROOT...] [REPS [P:DTYPE ...]]
+    python -m deseq2_tpu_torch.ops.studies k3 PARENT_ROOT[,ROOT...] [REPS [P:DTYPE ...]]
     python -m deseq2_tpu_torch.ops.studies edges [N_PERM [wide]]
     python -m deseq2_tpu_torch.ops.studies expanded
     python -m deseq2_tpu_torch.ops.studies mainpath PARENT_ROOT [CALLS]
@@ -48,11 +49,20 @@ designs past 8 columns (-DDK_BLOCK_MIN_P=8), routes p = 10 and 16 to them
 and times them there (against `crossover`'s wide rows), each also read
 against the plain version (largest |beta| and |log alpha| difference).
 `phases` (its own process) builds a copy of csrc with clock64 marks in
-the float64 block K1 and K2 and prints each phase's clocks a gene (K1) or
-trial point (K2) and its share, on the paired p = 64 and 25 pipeline
-inputs at 60,000 x 1,024 (the per-sample terms, the tiles' staging and
-tensor-core products, the Cholesky, the solve, the inverse, the sandwich,
-the hat diagonal).  `phases k1 [ROOT]` prints the float32 K1 kernels'
+the float64 block K1, K2 and K3 and prints each phase's clocks a gene (K1),
+trial point (K2) or grid point (K3) and its share, on the paired p = 64
+and 25 pipeline inputs at 60,000 x 1,024 (the per-sample terms, the
+tiles' staging and tensor-core products, the Cholesky, the solve, the
+inverse, the sandwich, the hat diagonal; K3 on the genes the line search
+leaves, or the first 4,096: its terms, its tiles (the tensor-core
+design's staging and products, or the 4 x 4 design's tile writes and gram
+adds), the store, the Cholesky with its log determinant, the prior), then
+the wide K2 at p = 10 in both dtypes and the float32 block K2 at p = 25 a
+trial point, with the float32 wide K2's samples counted by the branch
+their special functions take (the large-c series; a shift of z = y + c <
+8, and the shifts a sample; none).  The marks fit either K3 design, so
+`phases` run in a checkout of an earlier commit with this module copied
+in marks that commit's kernels.  `phases k1 [ROOT]` prints the float32 K1 kernels'
 registers, spill bytes and resident warps an SM (of ROOT's checkout, by
 default this one), then builds a copy of ROOT's csrc with clock64 marks
 in them (_K1_MARKS: a checkout of this design) and prints, on the
@@ -97,6 +107,13 @@ dispersions from this checkout's line search, the pipeline's start; by
 default p = 10, the wide kernel, and p = 25, the block kernel, in float32
 and float64; or the cases P:DTYPE given), timed and printed as `k2`
 times its cases.
+
+`k3`: the grid search (K3) on the paired pipeline inputs at 60,000 x
+1,024 (by default the block kernel in float64 at p = 17, 24, 25, 32, 40,
+48, 56, 64; or the cases P:DTYPE given), on the genes the line search
+(this checkout's K2) leaves, or on the first 4,096 genes where it leaves
+none (in float64 it converges everywhere: chip_smoke.py's kernel rows
+time the same genes), timed and printed as `k2` times its cases.
 
 `edges` (the card if there is one, else the CPU): the float32 readings of
 ops/checks.py at checks.EDGES and SHAPES' S = 24 row, taken between the
@@ -609,8 +626,11 @@ def _time_kernels(path, reps):
                 t["gy"], t["x"], t["gmu"], t["grid"], t["gpm"], 1.0,
                 weights=t.get("gw"))}}
         # a case without K1's or K3's inputs (the k2 study's) times K2
-        # alone, one without K2's (the k1 study's) K1 alone
-        if "sf" not in t:
+        # alone, one without K2's (the k1 study's) K1 alone, one with K3's
+        # alone (the k3 study's) K3 alone
+        if "y" not in t:
+            calls = {"disp_grid": calls["disp_grid"]}
+        elif "sf" not in t:
             calls = {"disp_ls": calls["disp_ls"]}
         elif "mu" not in t:
             calls = {"irls": calls["irls"]}
@@ -768,6 +788,44 @@ def k2_study(dev, parent_root, reps, cases=K2_CASES, others=()):
                                   ("y", "x", "mu", "la0", "min_la")}
         del d
     _kernel_turns(data, "study_k2_inputs", parent_root, reps, others)
+
+
+# `k3`'s default cases: the block K3 in float64 from 17 to 64 columns
+K3_CASES = tuple((p, "float64") for p in (17, 24, 25, 32, 40, 48, 56, 64))
+
+
+def k3_args(args):
+    """`k3`'s arguments (_case_args), K3_CASES without cases."""
+    return _case_args("k3", args, K3_CASES)
+
+
+def k3_study(dev, parent_root, reps, cases=K3_CASES, others=()):
+    """K3 on the paired pipeline inputs in both checkouts (see the
+    module's docstring): the genes this checkout's line search leaves, or
+    the first 4,096 where it leaves none, as chip_smoke.py's kernel rows
+    take them."""
+    import chip_smoke as cs
+    from .cuda_ls import fit_disp_line_search
+    counts, _ = cs.make_inputs(cs.G_MAIN, cs.S_MAIN)
+    data = {}
+    for p, dname in cases:
+        dt = getattr(torch, dname)
+        d = checks.pipeline_inputs(counts, checks.paired_matrix(cs.S_MAIN,
+                                                               p - 1),
+                                   dt, dev)
+        k2 = fit_disp_line_search(d["y"], d["x"], d["mu"], d["la0"],
+                                  d["la0"], 1.0, d["min_la"])
+        need = torch.nonzero((k2["iter"] >= 100)
+                             | (k2["iter"] == 1)).squeeze(1)
+        if need.numel() == 0:
+            need = torch.arange(4096, device=dev)
+        print(f"k3 p={p} {dname}: {len(need)} genes", flush=True)
+        data[f"p={p} {dname}"] = dict(
+            x=d["x"].cpu(), grid=d["grid"].cpu(), gy=d["y"][need].cpu(),
+            gmu=d["mu"][need].cpu(),
+            gpm=torch.zeros(len(need), dtype=dt))
+        del d, k2
+    _kernel_turns(data, "study_k3_inputs", parent_root, reps, others)
 
 
 # `k1`'s default cases: the paired designs' widths, the wide K1 (p = 10)
@@ -1140,10 +1198,10 @@ _PHASES = {
     "disp_ls.cu": [
         # ls_wide_kernel's float32 evaluation (lp_dlp_wide)
         ("  const GramMap gm = gram_map(p);\n  const T alpha = d_exp(la);\n"
-         "  const NbConst<T> k = nb_const(T(1) / alpha);\n",
-         "  DK_T0(c0)\n  const GramMap gm = gram_map(p);\n"
+         "  const NbConst<T> k = wide_const(T(1) / alpha);\n",
+         "  DK_T0(c0)\n  DK_TK0\n  const GramMap gm = gram_map(p);\n"
          "  const T alpha = d_exp(la);\n"
-         "  const NbConst<T> k = nb_const(T(1) / alpha);\n  DK_TW(0, c0)\n"),
+         "  const NbConst<T> k = wide_const(T(1) / alpha);\n  DK_TW(0, c0)\n"),
         ("        tile_put(xb, ub, x, S, s, p, w);\n",
          "        DK_TW(0, c0)\n        tile_put(xb, ub, x, S, s, p, w);\n"
          "        DK_TW(1, c0)\n"),
@@ -1166,7 +1224,7 @@ _PHASES = {
          "    DK_TW(4, c0)\n"
          "    warp_chol_inverse(bm, li, bm, p);\n    DK_TW(5, c0)\n"
          "    const T tr = warp_trace_product(bm, dm, p);\n"
-         "    DK_TW(6, c0)\n    DK_TN(lane_id() == 0)\n"),
+         "    DK_TW(6, c0)\n    DK_TN(lane_id() == 0)\n    DK_TKW\n"),
         # its float64 evaluation (lp_dlp_wide_mma; the pass's staging and
         # products are marked in common.cuh's gram_mma_pass)
         ("  using T = double;\n  const T alpha = d_exp(la);\n",
@@ -1200,6 +1258,73 @@ _PHASES = {
         ("                                     lp_new, dlp_next);\n",
          "                                     lp_new, dlp_next);\n"
          "      DK_TR(cs)\n"),
+        # lp_dlp_wide's samples by the branch their special functions take
+        # (DK_TK; DK_TK0 and DK_TKW with the marks above)
+        ("      wide_diffs(yv, k, lgd, dgd);\n"
+         "      acc[0] += wscale<UseW>(lgd - (yv + k.c) * l1p, wr, s);\n"
+         "      acc[1] += wscale<UseW>(l1p - mua * r + yv * alpha * r - "
+         "dgd, wr, s);\n      if constexpr (UseCR) {\n",
+         "      wide_diffs(yv, k, lgd, dgd);\n      DK_TK(yv, k.c)\n"
+         "      acc[0] += wscale<UseW>(lgd - (yv + k.c) * l1p, wr, s);\n"
+         "      acc[1] += wscale<UseW>(l1p - mua * r + yv * alpha * r - "
+         "dgd, wr, s);\n      if constexpr (UseCR) {\n"),
+    ],
+    "disp_grid_block.cu": [
+        # the float64 block K3 with the Cox-Reid term, either design (an
+        # earlier checkout's source without log_post_pair takes the rest):
+        # the tensor-core log_post_pair (two points: their terms first,
+        # both grams' tiles on the tensor cores, then each gram's store and
+        # warp 0's factor with the log determinant; a point's clocks are a
+        # pair's shared phases halved) and the 4 x 4 blocks' log_post_block
+        # (the terms on the tile's threads, tile writes, gram adds, the
+        # groups' reduction and store, block_cholesky; float32's and the
+        # mode without the Cox-Reid term's where log_post_pair is there);
+        # the points' constants count with the terms
+        ("  T acc[2] = {T(0), T(0)};\n  {\n"
+         "    const LgConst<T> k0 = lg_const(T(1) / alpha[0]);\n",
+         "  DK_T0(c0)\n  T acc[2] = {T(0), T(0)};\n  {\n"
+         "    const LgConst<T> k0 = lg_const(T(1) / alpha[0]);\n"),
+        ("  const T alpha = d_exp(la);\n"
+         "  const LgConst<T> k = lg_const(T(1) / alpha);\n",
+         "  const T alpha = d_exp(la);\n  DK_T0(c0)\n"
+         "  const LgConst<T> k = lg_const(T(1) / alpha);\n"),
+        ("  block_allsum<T, 2>(acc, red);\n"
+         "  const int p = lay.p, tw = lay.tw, ts = lay.ts;\n",
+         "  block_allsum<T, 2>(acc, red);\n  DK_T(0, c0)\n"
+         "  const int p = lay.p, tw = lay.tw, ts = lay.ts;\n"),
+        ("    pair_add<kMmaRunK2>(run, ga, gb, tile, wa, wb, n);\n  }\n",
+         "    pair_add<kMmaRunK2>(run, ga, gb, tile, wa, wb, n);\n  }\n"
+         "  __syncthreads();\n  DK_T(1, c0)\n"),
+        ("    gram_mma_store(run, e ? gb : ga, false, bm, p, cm, true, nullptr,\n"
+         "                   nullptr);\n",
+         "    gram_mma_store(run, e ? gb : ga, false, bm, p, cm, true, nullptr,\n"
+         "                   nullptr);\n    DK_T(3, c0)\n"),
+        ("    __syncthreads();\n    lp[e] = acc[e] - T(0.5) * *ldet;\n",
+         "    __syncthreads();\n    DK_T(4, c0)\n"
+         "    lp[e] = acc[e] - T(0.5) * *ldet;\n"),
+        ("    if (use_prior) lp[e] -= T(0.5) * (la[e] - pm) * (la[e] - pm) / "
+         "prior_var;\n",
+         "    if (use_prior) lp[e] -= T(0.5) * (la[e] - pm) * (la[e] - pm) / "
+         "prior_var;\n    DK_T(5, c0)\n"
+         "    if (threadIdx.x == 0) atomicAdd(&dk_clk[8], 1ull);\n"),
+        ("        block_tile_put(xb, ub, x, S, s, p, ts, w);\n",
+         "        DK_T(0, c0)\n        block_tile_put(xb, ub, x, S, s, p, ts, "
+         "w);\n        DK_T(1, c0)\n"),
+        ("      __syncthreads();\n"
+         "      block_gram_add(gm, gb, ub, xb, ts, n);\n",
+         "      __syncthreads();\n      DK_T(1, c0)\n"
+         "      block_gram_add(gm, gb, ub, xb, ts, n);\n      DK_T(2, c0)\n"),
+        ("    if constexpr (UseCR) __syncthreads();\n",
+         "    if constexpr (UseCR) __syncthreads();\n    DK_T(2, c0)\n"),
+        ("    lp = acc[0] - T(0.5) * block_cholesky<T, true>(bm, p);\n",
+         "    DK_T(3, c0)\n"
+         "    lp = acc[0] - T(0.5) * block_cholesky<T, true>(bm, p);\n"
+         "    DK_T(4, c0)\n"),
+        ("  if (use_prior) lp -= T(0.5) * (la - pm) * (la - pm) / prior_var;\n"
+         "  return lp;",
+         "  if (use_prior) lp -= T(0.5) * (la - pm) * (la - pm) / prior_var;\n"
+         "  DK_T(5, c0)\n  if (threadIdx.x == 0) atomicAdd(&dk_clk[8], 1ull);\n"
+         "  return lp;"),
     ],
     "common.cuh": [
         # the float64 wide K2's pass (gram_mma_pass on one warp): staging
@@ -1230,6 +1355,16 @@ _PHASE_NAMES = (
     "K2 point: both grams' tiles (x staging, mma)", "K2 point: b store",
     "K2 point: Cholesky", "K2 point: inverse", "K2 point: db store, trace",
     "K2 points")
+
+# the slots of the block K3's clocks (DK_T, thread 0 of each block; slot 8
+# the grid points)
+_K3_PHASES = ("per-sample terms",
+              "tile writes (tensor cores: the tiles' cp.async staging and "
+              "mma)",
+              "gram adds (4 x 4 blocks)",
+              "reduction (4 x 4 blocks: the groups') and store",
+              "Cholesky and log determinant",
+              "prior (the scan's compare is unmarked)")
 
 # the slots of the wide and float32 block K2's clocks (DK_TW, DK_TB)
 _K2_PHASES = ("per-sample terms", "tile writes", "gram adds",
@@ -1354,6 +1489,10 @@ _K1_MARKS = {
     ],
 }
 
+# the names an earlier checkout's sources give the marked functions
+# (the float32 wide K2's special functions were nb_const and nb_diffs)
+_EARLIER_NAMES = (("wide_const(", "nb_const("), ("wide_diffs(", "nb_diffs("))
+
 _PHASE_HEAD = (
     "__device__ unsigned long long dk_clk[24];\n"
     f"__device__ unsigned long long dk_wclk[{_K2_SLOTS} * 16];\n"
@@ -1368,7 +1507,15 @@ _PHASE_HEAD = (
     "(unsigned long long)(clock64() - v); v = clock64(); }\n"
     "#define DK_TR(v) v = clock64();\n"
     "#define DK_TN(first) { if (first) DK_SLOT(8) += 1ull; }\n"
-    "#define DK_TC(k, first) { if (first) DK_SLOT(k) += 1ull; }\n")
+    "#define DK_TC(k, first) { if (first) DK_SLOT(k) += 1ull; }\n"
+    "#define DK_TK0 unsigned dk_nt = 0, dk_nl = 0, dk_ns = 0, dk_sh = 0;\n"
+    "#define DK_TK(yv, c) { const bool l_ = large_c(yv, c); "
+    "const double z_ = (double)(yv) + (double)(c); ++dk_nt; dk_nl += l_; "
+    "if (!l_ && z_ < 8.0) { ++dk_ns; dk_sh += (unsigned)ceil(8.0 - z_); } }\n"
+    "#define DK_TKW { unsigned v_[4] = {dk_nt, dk_nl, dk_ns, dk_sh}; "
+    "for (int i_ = 0; i_ < 4; ++i_) { const unsigned s_ = "
+    "__reduce_add_sync(0xffffffffu, v_[i_]); if ((threadIdx.x & 31) == 0) "
+    "DK_SLOT(9 + i_) += s_; } }\n")
 _PHASE_TAIL = (
     "int dk_clk_read(unsigned long long* o) { return (int)"
     "cudaMemcpyFromSymbol(o, dk_clk, sizeof(dk_clk)); }\n"
@@ -1395,8 +1542,13 @@ def _marked_csrc(dst, src=None):
             s = s.replace("namespace dk {\n", _PHASE_HEAD + "namespace dk {\n",
                           1)
         for a, b in _PHASES.get(name, []) + _K1_MARKS.get(name, []):
-            # the first match (each anchor names its function's text)
-            assert a in s, (name, a)
+            # the first match (each anchor names its function's text); an
+            # earlier checkout's source (src given) may name its functions
+            # as before (_EARLIER_NAMES) or lack a design's functions
+            # (the float64 K3's log_post_pair), whose marks it skips
+            for new, old in _EARLIER_NAMES if a not in s else ():
+                a, b = a.replace(new, old), b.replace(new, old)
+            assert a in s or src != build.CSRC, (name, a)
             s = s.replace(a, b, 1)
         s = s.replace('extern "C" {\n', 'extern "C" {\n' + _PHASE_TAIL, 1)
         (dst / name).write_text(s)
@@ -1428,17 +1580,65 @@ def _k2_clocks(lib, run):
     for k, n in enumerate(_K2_PHASES):
         print(f"  {n}: {tot[k] / points:,.0f} clocks a trial point, share "
               f"{tot[k] / max(whole, 1.0):.3f}", flush=True)
+    if tot[9]:
+        # DK_TK's counts (the float32 wide K2): its samples by branch
+        n = tot[9]
+        print(f"  samples: {int(n)}; the large-c series {tot[10] / n:.4f}, "
+              f"digamma's shifts (z = y + c < 8) {tot[11] / n:.4f} "
+              f"({tot[12] / max(tot[11], 1.0):.3f} shifts each), z >= 8 "
+              f"unshifted {(n - tot[10] - tot[11]) / n:.4f}", flush=True)
+
+
+def _k3_clocks(pin, k2, p):
+    """The float64 block K3 (marked) on the genes the line search k2 left
+    (chip_smoke.py's kernel rows: the first 4,096 genes when it left none):
+    its registers and spills, then each phase's clocks a grid point (thread
+    0 of the block's clock) and share (_K3_PHASES)."""
+    import ctypes
+    import re
+    from . import build
+    from .cuda_grid import fit_disp_grid
+    for sym, (regs, spill) in sorted(
+            build.ptxas_resources("disp_grid_block").items()):
+        if re.search(r"grid_block_kernelIdLb\dELb1EE", sym):
+            print(f"  {sym}: {regs} registers, {spill} spill bytes (marked "
+                  f"build)", flush=True)
+    conv = (k2["iter"] < 100) & (k2["iter"] != 1)
+    need = torch.nonzero(~conv).squeeze(1)
+    if need.numel() == 0:
+        need = torch.arange(4096, device=pin["y"].device)
+    args = (pin["y"][need], pin["x"], pin["mu"][need], pin["grid"],
+            torch.zeros(len(need), dtype=torch.float64,
+                        device=pin["y"].device), 1.0)
+    fit_disp_grid(*args)
+    lib = build.load("disp_grid_block")
+    build.bind(lib, "dk_clk_reset", [])()
+    torch.cuda.synchronize()
+    fit_disp_grid(*args)
+    torch.cuda.synchronize()
+    buf = (ctypes.c_ulonglong * 24)()
+    build.bind(lib, "dk_clk_read", [ctypes.c_void_p])(
+        ctypes.cast(buf, ctypes.c_void_p))
+    points = max(buf[8], 1)
+    whole = sum(buf[k] for k in range(len(_K3_PHASES)))
+    print(f"p={p} K3 (grid_block_kernel<double>, {len(need)} genes): "
+          f"{buf[8]} grid points, {whole / points:,.0f} clocks a grid point",
+          flush=True)
+    for k, n in enumerate(_K3_PHASES):
+        print(f"  {n}: {buf[k] / points:,.0f} clocks a grid point, share "
+              f"{buf[k] / max(whole, 1):.3f}", flush=True)
 
 
 def phases_study(dev):
-    """The float64 block K1 and K2, the wide K2 and the float32 block K2
-    timed phase by phase: a copy of csrc under build/ with clock64 marks
+    """The float64 block K1, K2 and K3, the wide K2 and the float32 block
+    K2 timed phase by phase: a copy of csrc under build/ with clock64 marks
     (_PHASES) is built and run on the paired pipeline inputs at 60,000 x
-    1,024: the float64 block K1 and K2 at p = 64 and 25 (each phase's
-    clocks a gene (K1) or a trial point (K2) and its share), the wide K2
-    at p = 10 in float64 and float32 and the float32 block K2 at p = 25
-    (_K2_PHASES' clocks a trial point and their shares).  Run in a process
-    of its own (it points ops/build.py at the copy)."""
+    1,024: the float64 block K1, K2 and K3 at p = 64 and 25 (each phase's
+    clocks a gene (K1), a trial point (K2) or a grid point (K3) and its
+    share), the wide K2 at p = 10 in float64 and float32 and the float32
+    block K2 at p = 25 (_K2_PHASES' clocks a trial point and their shares;
+    the float32 wide K2's samples by branch).  Run in a process of its own
+    (it points ops/build.py at the copy)."""
     import ctypes
 
     import chip_smoke as cs
@@ -1448,7 +1648,8 @@ def phases_study(dev):
     dst = build.BUILD_DIR / "phases_csrc"
     _marked_csrc(dst)
     build.CSRC = dst
-    build.build_all(("irls_block", "disp_ls_block", "disp_ls"))
+    build.build_all(("irls_block", "disp_ls_block", "disp_ls",
+                     "disp_grid_block"))
     counts, _ = cs.make_inputs(cs.G_MAIN, cs.S_MAIN)
     libs = ("irls_block", "disp_ls_block")
     for p in (64, 25):
@@ -1481,6 +1682,7 @@ def phases_study(dev):
                     print(f"  {n}: {v / max(clk[unit], 1):,.0f} clocks a "
                           f"{unit.split()[1][:-1]}, share {v / tot:.3f}",
                           flush=True)
+        _k3_clocks(pin, k2, p)
         del pin, k2, i_args
     for p, dtype, lib in ((10, torch.float64, "disp_ls"),
                           (10, torch.float32, "disp_ls"),
@@ -1833,6 +2035,8 @@ if __name__ == "__main__":
         k2_study(dev, *k2_args(sys.argv[2:]))
     elif sys.argv[1] == "k1":
         k1_study(dev, *k1_args(sys.argv[2:]))
+    elif sys.argv[1] == "k3":
+        k3_study(dev, *k3_args(sys.argv[2:]))
     elif sys.argv[1] == "kernels":
         kernels_study(dev, Path(sys.argv[2]).resolve(),
                       int(sys.argv[3]) if len(sys.argv) > 3 else 7)

@@ -2,26 +2,31 @@
 the host and run them there.
 
 `build(out_dir)` copies deseq2_tpu_torch/csrc/irls_block.cu,
-disp_ls_block.cu, disp_ls.cu and irls.cu with common.cuh, replaces their
+disp_ls_block.cu, disp_grid_block.cu, disp_ls.cu and irls.cu with
+common.cuh, replaces their
 inline PTX (mma.sync, cp.async) by cuda_runtime.h's emulation, their
 dynamic shared memory by the emulated launch's buffer and their kernel
-launches by emu::launch_kernel, and compiles each with g++ -std=c++20 and
+launches by emu::launch_kernel (the launch's blocks one after another), and compiles each with g++ -std=c++20 and
 an address sanitizer into a shared library with the sources' own C
 interface.  disp_ls.cu and irls.cu are built without their templated
 kernels for p <= 8 (DK_DISPATCH_P dispatches none): their wide kernels
 are what is emulated.
 
-    python emulate.py LIB_DIR KERNEL P S G WEIGHTED [DTYPE]
+    python emulate.py LIB_DIR KERNEL P S G WEIGHTED [DTYPE [MODE]]
 
 (run under LD_PRELOAD of the sanitizer's runtime, as
 tests/test_torch_block_emulation.py does) holds the emulated K1 (irls)
 or K2 (ls, with and without the prior), the wide kernel for p <= 16 and
-the block kernel past it, DTYPE float64 (the default) or float32,
+the block kernel past it, or the float64 block K3 (grid, p > 16, with
+and without the prior; MODE nocr: without the Cox-Reid term), DTYPE
+float64 (the default) or float32,
 against the plain PyTorch version on ops/checks.py's inputs with phase
 3's readings (in float32: K1 held to the fit in float64, a K2 reading
 past checks.TOL held to the plain version's spread over permutations, as
-phase 3 holds them), runs each launch twice, and prints the readings as
-one JSON line.
+phase 3 holds them; K3 by phase 3's reading and by its pick: the plain
+version's, or a point whose log posterior is within 1e-12 of the plain
+pick's, relative), runs each launch twice, and prints the readings as one
+JSON line.
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 REPO = HERE.parents[1]
 CSRC = REPO / "deseq2_tpu_torch" / "csrc"
-LIBS = ("irls_block", "disp_ls_block", "disp_ls", "irls")
+LIBS = ("irls_block", "disp_ls_block", "disp_grid_block", "disp_ls",
+        "irls")
 
 
 def _body(text, head, body):
@@ -52,9 +58,9 @@ def _body(text, head, body):
     raise ValueError(head)
 
 
-def build(out_dir):
-    """Patch and compile the two libraries into out_dir; returns
-    {name: path}."""
+def build(out_dir, names=LIBS):
+    """Patch and compile the libraries `names` (default: all of LIBS) into
+    out_dir; returns {name: path}."""
     out = Path(out_dir)
     common = (CSRC / "common.cuh").read_text()
     common = _body(common, "void mma_f64(", " emu::mma(c, a, b); ")
@@ -66,30 +72,103 @@ def build(out_dir):
     common = (common[:i] + "#define DK_DISPATCH_P(p, ...) "
               "return (int)cudaErrorInvalidValue;\n")
     (out / "common.cuh").write_text(common)
-    paths = {}
-    for name in LIBS:
+    paths, procs = {}, {}
+    for name in names:
         src = (CSRC / f"{name}.cu").read_text()
         src = src.replace(
             "extern __shared__ __align__(16) unsigned char smem_raw[];",
             "unsigned char* smem_raw = emu::smem;")
         src = re.sub(r"kernel<<<blocks, (\w+), smem, st>>>\(",
-                     r"emu::launch_kernel(\1, smem, kernel, ", src)
+                     r"emu::launch_kernel(blocks, \1, smem, kernel, ", src)
         cpp = out / f"{name}.cpp"
         cpp.write_text("#include <cuda_runtime.h>\n" + src)
         paths[name] = out / f"lib{name}.so"
-        subprocess.run(
+        # one g++ a library, all started together
+        procs[name] = subprocess.Popen(
             ["g++", "-std=c++20", "-O1", "-fsanitize=address",
              "-fno-omit-frame-pointer", "-shared", "-fPIC", "-w", "-pthread",
              "-I", str(out), "-I", str(HERE), "-o", str(paths[name]),
-             str(cpp)], check=True, capture_output=True, text=True)
+             str(cpp)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed for {name}:\n{log[-4000:]}")
     return paths
+
+
+def build_special(out_dir):
+    """common.cuh's lgamma_digamma for the host: special.cpp against the
+    patched common.cuh that build(out_dir) wrote, without the sanitizer
+    (the library is loaded in the test's own process); returns its
+    path."""
+    out = Path(out_dir)
+    path = out / "libspecial.so"
+    subprocess.run(
+        ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-w", "-I",
+         str(out), "-I", str(HERE), "-o", str(path),
+         str(HERE / "special.cpp")], check=True, capture_output=True,
+        text=True)
+    return path
 
 
 def _ptr(t):
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
-def run(lib_dir, kernel, p, S, G, weighted, dtype="float64"):
+def run_grid(lib_dir, raw, p, S, G, mode=None):
+    """The emulated float64 block K3 against the plain version on raw's
+    inputs, with and without the prior: phase 3's reading (check_grid) and
+    the pick rule (the module's docstring)."""
+    import torch
+    from deseq2_tpu_torch.ops import checks, disp
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    lib = ctypes.CDLL(str(Path(lib_dir) / "libdisp_grid_block.so"))
+    fn = lib.grid_block_launch_f64
+    fn.argtypes = [P] * 6 + [I] * 4 + [D, I, I, D, P, P, P, I, P]
+    fn.restype = I
+    rows = lib.grid_block_scratch_rows
+    rows.argtypes = [I] * 5
+    rows.restype = I
+    d = checks.as_tensors(raw, torch.float64, torch.device("cpu"))
+    if mode is not None:
+        d = checks.with_mode(d, mode)
+
+    def k3(y, x, mu, grid, pm, prior_var, use_prior=False, weights=None,
+           use_cr=True, weight_threshold=checks.CR_WEIGHT_THRESHOLD):
+        c = [t.double().contiguous() for t in (y, mu, x.t(), grid, pm)]
+        w = None if weights is None else weights.double().contiguous()
+        out = torch.empty(G, dtype=torch.float64)
+        n = rows(1, int(w is not None), p, int(use_cr), G)
+        scratch = torch.full((max(n, 1), S), float("nan"),
+                             dtype=torch.float64)
+        counter = torch.zeros(1, dtype=torch.int32)
+        err = fn(_ptr(c[0]), _ptr(c[1]), _ptr(w), _ptr(c[2]), _ptr(c[3]),
+                 _ptr(c[4]), G, S, p, len(grid), float(prior_var),
+                 int(use_prior), int(use_cr), float(weight_threshold),
+                 _ptr(out), _ptr(counter), _ptr(scratch), n, None)
+        assert err == 0, err
+        return out
+
+    out = {}
+    for use_prior in (False, True):
+        a = checks.run_grid(k3, d, use_prior)
+        pl = checks.run_grid(disp.fit_disp_grid_plain, d, use_prior)
+        r = checks.check_grid(a, pl, d, use_prior)
+        la, lpl = (checks.lp_at(v, d, use_prior, checks.PRIOR_VAR)
+                   for v in (a, pl))
+        close = (lpl - la).abs() <= 1e-12 * lpl.abs()
+        out[f"grid prior={use_prior}"] = dict(
+            ok=r["ok"] and bool(((a == pl) | close).all()),
+            lp_rel=r["lp_rel"], same=r["same"],
+            other_pick=int((a != pl).sum()),
+            repeat_differs=checks.differing_outputs(
+                {"log_alpha": a},
+                {"log_alpha": checks.run_grid(k3, d, use_prior)}))
+    return out
+
+
+def run(lib_dir, kernel, p, S, G, weighted, dtype="float64", mode=None):
     """The emulated kernel against the plain version (see the module's
     docstring); returns the readings."""
     import torch
@@ -102,6 +181,8 @@ def run(lib_dir, kernel, p, S, G, weighted, dtype="float64"):
     raw = checks.solver_inputs(G, S, p, 10 * p + S, weighted=weighted)
     d = checks.as_tensors(raw, f64, torch.device("cpu"))
     out = {}
+    if kernel == "grid":
+        return run_grid(lib_dir, raw, p, S, G, mode)
     if kernel == "irls":
         # the wide kernel (irls.cu) for p <= 16, the block kernel past it
         sym = "irls_block" if p > 16 else "irls"
@@ -215,4 +296,4 @@ def run(lib_dir, kernel, p, S, G, weighted, dtype="float64"):
 if __name__ == "__main__":
     lib_dir, kernel, p, S, G, weighted = sys.argv[1:7]
     print(json.dumps(run(lib_dir, kernel, int(p), int(S), int(G),
-                         weighted == "1", *sys.argv[7:8])))
+                         weighted == "1", *sys.argv[7:9])))

@@ -4,7 +4,8 @@ lp_dlp_wide_mma on one warp) of deseq2_tpu_torch/csrc, the float32 block
 K2 (sample-major tiles, the algebra on one warp), and the float32 block
 K1 (irls_block_rows) and wide K1 (irls_wide_kernel<float>), built for the
 host by tests/cuda_emulation/emulate.py (g++, an address sanitizer, a thread
-block emulated by its launch's threads, mma.sync by a warp's exchange) and
+block emulated by its launch's threads as fibers, mma.sync by a warp's
+exchange) and
 held to their plain PyTorch versions with phase 3's readings
 (ops/checks.py; in float32 K1 held to the fit in float64, a K2 reading
 past TOL to the plain version's permutation spread), each launch twice
