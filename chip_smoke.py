@@ -27,7 +27,8 @@ Phases; any failure exits non-zero and no phase's failure is caught:
    version on the card, in float32 and float64, for p = 1, 2, 3, at S = 24
    and S = 3000 with a ragged gene count (weighted: forced Cox-Reid column
    drops); in float32 both are also held against the plain version run in
-   float64 (readings and limits: deseq2_tpu_torch/ops/checks.py).  Also
+   float64 (readings and limits: deseq2_tpu_torch/ops/checks.py; a
+   float64 K1 on every output and its sweep counts).  Also
    at checks.EDGES (S = 31, 33, 65; p = 5, 8; the float32 readings that
    rounding alone fails, checks.ROUNDING_BOUND, held to the float64 fit
    (K1) or printed (K2, K3)), and every launch twice, bit-identical.
@@ -49,7 +50,8 @@ Phases; any failure exits non-zero and no phase's failure is caught:
 4. the main path at full width: 60,000 genes x 1,024 samples, ~ condition,
    public deseq() + results() in float32 (a cold and a warm call; the
    launch counters are zeroed just before the warm call and read just
-   after it), then the same in float64, then one more float32 call with
+   after it), then the same in float64 (deseq()'s default dtype; its warm
+   call's launches read likewise: K1 and K2 needed), then one more float32 call with
    the stage timers on under torch.profiler (stage table, kernels by
    device time, the device's busy share).  Then two variants at the same
    width in float32, cold and warm, each with its own counters:
@@ -70,7 +72,10 @@ Phases; any failure exits non-zero and no phase's failure is caught:
    pipeline's own stages hand it (the weighted modes at the weighted
    path's inputs): held against its plain version and the float64
    reference with phase 3's limits, then timed beside its plain version
-   and its bound.
+   and its bound; then K1-K3 in float64 on the float64 call's inputs with
+   its launches (rows irls_f64, disp_ls_f64, disp_grid_f64; K3 on the
+   genes the float64 search leaves, or where it leaves none on the float32
+   search's, as the log says).
 7. betaPrior, contrasts and shrinkage at 60,000 x 1,024 in float32 on a
    three-level condition (A the first half of the samples, B and C the
    second half split evenly), each call cold then warm with the counters
@@ -269,7 +274,9 @@ def kernel_resources():
     """Registers, spill bytes and resident warps per SM (the occupancy
     calculator at the main path's S) of the p = 2 instantiations of K1, K2
     and K3, of their wide kernels (p = 10; 8 < p <= 16 share one build),
-    and of their block kernels (p = 25 and 64).  Fails if a float64 wide
+    and of their block kernels (p = 25 and 64), and the registers and
+    spills of every float64 templated K1 and K2 (p = 1-8, every mode).
+    Fails if a float64 K1 or K2 at p = 2 spills, a float64 wide
     K2 instantiation spills or, with the Cox-Reid term, issues no DMMA
     (its grams run on the FP64 tensor cores), or a float64 block K1/K2/K3
     instantiation does, or a float32 wide K1 or K2 spills."""
@@ -312,6 +319,21 @@ def kernel_resources():
                                       f"{blocks} blocks an SM")
                     if name == "disp_ls" and tag and t == "f" and spill:
                         failed.append(f"{key}: {spill} spill bytes")
+    # the float64 templated K1 and K2 (irls_kernel<double, P, W>,
+    # ls_kernel<double, P, W, CR>; P = 1-8, every mode): registers and
+    # spill bytes; at the main path's p = 2 none may spill
+    for name, sym in (("irls", "irls_kernel"), ("disp_ls", "ls_kernel")):
+        for k, (regs, spill) in sorted(build.ptxas_resources(name).items()):
+            m = re.search(rf"{sym}IdLi(\d)E(Lb\dE)+", k)
+            if m is None:
+                continue
+            flags = re.findall(r"Lb(\d)E", m.group(0))
+            key = (f"{name} float64 p={m.group(1)} weighted={flags[0]}"
+                   + (f" use_cr={flags[1]}" if len(flags) > 1 else ""))
+            out[key] = dict(registers=regs, spill_bytes=spill)
+            log(f"  {key}: {regs} registers, {spill} spill bytes")
+            if m.group(1) == "2" and spill:
+                failed.append(f"{key}: {spill} spill bytes")
     # the float64 wide K2 (ls_wide_kernel<double, W, CR>): every mode's
     # registers, spills, resident warps and DMMA count; with the Cox-Reid
     # term its grams run on the FP64 tensor cores
@@ -375,7 +397,8 @@ def kernel_resources():
                         failed.append(f"{key}: {blocks} blocks an SM")
     if failed:
         raise SystemExit(f"float64 wide K2 or block K1/K2/K3 without DMMA or "
-                         f"with spills, a float32 wide K2 spilling, or a "
+                         f"with spills, a float64 K1 or K2 at p = 2 "
+                         f"spilling, a float32 wide K2 spilling, or a "
                          f"float32 K1 spilling or off its blocks an SM: "
                          f"{failed}")
     return out
@@ -427,26 +450,29 @@ def check_kernels(torch, dev, modes=(False, True)):
     a warp's lanes wrap, p = 5 and 8).  Every reading is gated under
     checks.TOL but the float32 ones in checks.ROUNDING_BOUND, which
     rounding alone fails: there K1 is held to the float64 fit
-    (checks.check_irls_f64) and K2's and K3's readings are printed.  Every
-    kernel runs twice on every input and must give the same outputs bit
-    for bit."""
+    (checks.check_irls_f64) and K2's and K3's readings are printed.  A
+    float64 K1 is held on every output and its sweep counts too
+    (check_irls(..., outputs=True)).  Every kernel runs twice on every
+    input and must give the same outputs bit for bit."""
     from deseq2_tpu_torch.ops import checks, disp, irls
     from deseq2_tpu_torch.ops.cuda_grid import fit_disp_grid
     from deseq2_tpu_torch.ops.cuda_irls import fit_beta
     from deseq2_tpu_torch.ops.cuda_ls import fit_disp_line_search
 
-    worst = {k + sfx: 0.0 for k in ("irls", "disp_ls", "disp_grid",
-                                    "irls_expanded")
-             for sfx in ("", "_w")}
+    # the largest reading per kernel and mode (K1-K3: in float32, and with
+    # _f64 in float64)
+    worst = {k + sfx + dsfx: 0.0 for k in ("irls", "disp_ls", "disp_grid")
+             for sfx in ("", "_w") for dsfx in ("", "_f64")}
+    worst.update(irls_expanded=0.0, irls_expanded_w=0.0)
     failed = []
     log(f"  limits: {checks.TOL}; float32 rounding-bound readings: "
         f"{sorted(checks.ROUNDING_BOUND, key=str)}")
     cases = [(S, G, p) for S, G in checks.SHAPES for p in (1, 2, 3)]
     for weighted in modes:
-        sfx = "_w" if weighted else ""
         for dname in ("float32", "float64"):
             dt = getattr(torch, dname)
             f32 = dname == "float32"
+            sfx = ("_w" if weighted else "") + ("" if f32 else "_f64")
             for S, G, p in cases + list(checks.EDGES):
                 def bound(kernel, prior=None):
                     return f32 and (kernel, S, p, weighted,
@@ -466,7 +492,8 @@ def check_kernels(torch, dev, modes=(False, True)):
                                                      raw, torch.float64,
                                                      dev)))
                 else:
-                    r1 = checks.check_irls(k1, pl1)
+                    # float64: every output and the sweep counts too
+                    r1 = checks.check_irls(k1, pl1, outputs=not f32)
                 torch.cuda.synchronize()
                 case = f"{dname} p={p} S={S} G={G} weighted={weighted}"
                 log(f"  {case} irls: {fmt(r1)} repeat_differs={rep}"
@@ -755,20 +782,23 @@ def check_kernel_modes(torch, dev, worst, failed):
     against their plain versions on the card at checks.SHAPES for p = 1,
     2, 3 and at checks.EDGES, in float32 and float64, gated under
     checks.TOL as the default mode is (float32 also against the float64
-    plain version); every launch twice, bit-identical.  Fills worst[name]
-    for each mode's row."""
+    plain version); every launch twice, bit-identical.  Fills
+    worst[<kernel><mode>] with the float32 readings and
+    worst[<kernel><mode>_f64] with the float64 ones, whose rows they
+    are."""
     from deseq2_tpu_torch.ops import checks, disp
     from deseq2_tpu_torch.ops.cuda_grid import fit_disp_grid
     from deseq2_tpu_torch.ops.cuda_ls import fit_disp_line_search
 
     cases = [(S, G, p) for S, G in checks.SHAPES for p in (1, 2, 3)]
     for mode, weighted in (("nocr", False), ("nocr", True), ("thr", True)):
-        sfx = ("_w" if weighted else "") + "_" + mode
-        for k in ("disp_ls", "disp_grid"):
-            worst.setdefault(k + sfx, 0.0)
         for dname in ("float32", "float64"):
             dt = getattr(torch, dname)
             f32 = dname == "float32"
+            sfx = (("_w" if weighted else "") + "_" + mode
+                   + ("" if f32 else "_f64"))
+            for k in ("disp_ls", "disp_grid"):
+                worst.setdefault(k + sfx, 0.0)
             for S, G, p in cases + list(checks.EDGES):
                 raw = checks.solver_inputs(G, S, p, 10 * p + S + 7,
                                            weighted=weighted)
@@ -927,8 +957,7 @@ def main_path(torch):
         t0 = time.perf_counter()
         public_run(torch, counts, dname)
         cold = time.perf_counter() - t0
-        if dname == "float32":
-            zero_counts()
+        zero_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res, _ = public_run(torch, counts, dname)
@@ -943,14 +972,17 @@ def main_path(torch):
         if stat.shape != (G_MAIN,) or np.isfinite(stat).mean() <= 0.95 \
                 or np.isfinite(padj).mean() <= 0.5:
             raise SystemExit(f"main path output malformed ({dname})")
-        if dname == "float32":
-            launches = read_counts()
-            log(f"  float32 warm-call kernel launches: {launches}")
-            missing = [k for k in ("irls", "disp_ls", "disp_grid")
-                       if launches[k] == 0]
-            if missing:
-                raise SystemExit(f"main path never launched {missing}")
-            out["launches"] = launches
+        # each dtype's warm-call launches (float64 is deseq()'s default
+        # dtype); in float64 the line search may leave no gene to K3
+        launches = read_counts()
+        log(f"  {dname} warm-call kernel launches: {launches}")
+        missing = [k for k in ("irls", "disp_ls", "disp_grid")
+                   if launches[k] == 0
+                   and (dname == "float32" or k != "disp_grid")]
+        if missing:
+            raise SystemExit(f"main path never launched {missing} "
+                             f"({dname})")
+        out["launches" if dname == "float32" else "launches_f64"] = launches
         out[dname] = dict(cold_s=cold, warm_s=warm,
                           genes_per_s=G_MAIN / warm, peak_gib=peak)
     return out
@@ -1495,7 +1527,7 @@ def bound(bytes_, ops, dname):
 
 
 def kernel_timings(torch, dev, launches, worst, weighted=False,
-                   dname="float32", x_np=None):
+                   dname="float32", x_np=None, k3_genes=None):
     """Each kernel at the main path's shapes (float32, 60,000 x 1,024,
     ~ condition), on the inputs the pipeline hands it, built by the
     pipeline's own stages: held against its plain version and the float64
@@ -1507,7 +1539,10 @@ def kernel_timings(torch, dev, launches, worst, weighted=False,
     wide kernels (p <= 16) or the block kernels (p <= 64) in `dname`, rows
     named <kernel>_wide_f64 / _f32 or <kernel>_block_p<p>_f64 / _f32: K1
     held to the float64 fit in float32 (every output), as phase 3 holds
-    it."""
+    it.  At p <= 8 in float64 (deseq()'s default dtype) the rows are named
+    <kernel>[_w]_f64, and K3 runs on the genes the float64 search leaves
+    or, where it leaves none, on the float32 search's, which a float32
+    call records in `k3_genes` (a dict, by `weighted`)."""
     from deseq2_tpu_torch.ops import checks, disp, irls
     from deseq2_tpu_torch.ops.cuda_grid import fit_disp_grid
     from deseq2_tpu_torch.ops.cuda_irls import fit_beta
@@ -1530,9 +1565,9 @@ def kernel_timings(torch, dev, launches, worst, weighted=False,
     dsfx = "_f32" if f32 else "_f64"
     # launch keys, worst-reading keys and the row names' suffix
     sfx = route if wide else "_w" if weighted else ""
-    wsfx = sfx + dsfx if wide else sfx
+    wsfx = sfx + ("" if f32 and not wide else dsfx)
     rsfx = (route + (f"_p{P}" if route == "_block" else "") + dsfx
-            if wide else sfx)
+            if wide else sfx + ("" if f32 else dsfx))
     rows, failed = [], []
     # the block kernels at p = 64 take seconds a launch: their check
     # launch is the warm-up and one launch is timed
@@ -1592,8 +1627,15 @@ def kernel_timings(torch, dev, launches, worst, weighted=False,
     conv = (k2["iter"] < 100) & (k2["iter"] != 1)
     need = torch.nonzero(~conv).squeeze(1)
     n_need = int(need.numel())
-    if n_need == 0:
+    genes_of = f"the {dname} search's"
+    if f32 and not wide and k3_genes is not None:
+        k3_genes[weighted] = need
+    if n_need == 0 and not wide and not f32 and k3_genes is not None:
+        need = k3_genes[weighted]
+        genes_of = "the float32 search's: the float64 search leaves none"
+    elif n_need == 0:
         need = torch.arange(4096, device=dev)
+        genes_of = "the first 4,096: the search leaves none"
     gy, gm, gpm = y_s[need], mu_s[need], torch.zeros(len(need), dtype=dt,
                                                       device=dev)
     gw = None if w_ge is None else w_ge[need]
@@ -1633,7 +1675,7 @@ def kernel_timings(torch, dev, launches, worst, weighted=False,
     log(f"  disp_grid{rsfx}: {ms3:.3f} ms (plain {pms3:.1f} ms, bound "
         f"{b3:.3f} ms by {by3}), launches {grid_row['launches']}")
     log(f"  disp_grid{rsfx}: {n_need} genes need the grid at this shape "
-        f"(timed on {Gn}); bound {b3:.4f} ms ({b3_old:.4f} ms by the earlier "
+        f"(timed on {Gn}, {genes_of}); bound {b3:.4f} ms ({b3_old:.4f} ms by the earlier "
         f"count, which charged the point's constants to every sample)")
 
     # K1: the final ridge IRLS at the gene-wise dispersions
@@ -1645,7 +1687,7 @@ def kernel_timings(torch, dev, launches, worst, weighted=False,
             *(a.double() for a in i_args),
             weights=None if w_n is None else w_n.double()), outputs=True)
     else:
-        r1 = checks.check_irls(k1, pl1)
+        r1 = checks.check_irls(k1, pl1, outputs=not (f32 or wide))
     log(f"  irls{rsfx}: {fmt(r1)}")
     if not r1["ok"]:
         failed.append("irls" + rsfx)
@@ -1966,7 +2008,7 @@ def mode_timings(torch, dev, launches, worst):
                 name=name + sfx, route="cuda",
                 source=f"deseq2_tpu_torch/csrc/{src}", replaces=rep,
                 launches=launches.get(name + sfx, 0),
-                max_abs_err=max(worst.get(name + sfx, 0.0),
+                max_abs_err=max(worst.get(name + sfx + "_f64", 0.0),
                                 r["max_abs_err"]),
                 ms=ms, plain_ms=pms, bound_ms=b, bound_by=by,
                 library_ms=None))
@@ -3232,10 +3274,16 @@ def main():
     gates = variant_gates(torch)
     done("5")
 
-    phase("6", "[6] kernel timings at the main path's shapes (float32)")
-    rows = kernel_timings(torch, dev, main_out["launches"], worst)
+    phase("6", "[6] kernel timings at the main path's shapes (float32, "
+          "float64)")
+    k3_genes = {}
+    rows = kernel_timings(torch, dev, main_out["launches"], worst,
+                          k3_genes=k3_genes)
     rows += kernel_timings(torch, dev, main_out["weights"]["launches"],
                            worst, weighted=True)
+    # deseq()'s default dtype, with the float64 warm call's launches
+    rows += kernel_timings(torch, dev, main_out["launches_f64"], worst,
+                           dname="float64", k3_genes=k3_genes)
     done("6")
 
     phase("7", f"[7] betaPrior, contrasts and shrinkage at {G_MAIN} x "

@@ -178,6 +178,35 @@ struct LgDg {
   T lg, dg;
 };
 
+// Stirling's series in inv = 1/zs (inv2 = inv^2): digamma(zs) = log zs -
+// inv/2 - stirling_dg(inv2), lgamma(zs) = (zs - 1/2)(log zs - 1) +
+// kLgStirling + stirling_lg(inv, inv2)
+template <typename T>
+__device__ __forceinline__ T stirling_dg(T inv2) {
+  return inv2 *
+         (T(1.0 / 12.0) -
+          inv2 * (T(1.0 / 120.0) -
+                  inv2 * (T(1.0 / 252.0) -
+                          inv2 * (T(1.0 / 240.0) -
+                                  inv2 * (T(1.0 / 132.0) -
+                                          inv2 * (T(691.0 / 32760.0) -
+                                                  inv2 * T(1.0 / 12.0)))))));
+}
+
+template <typename T>
+__device__ __forceinline__ T stirling_lg(T inv, T inv2) {
+  return inv * (T(1.0 / 12.0) -
+                inv2 * (T(1.0 / 360.0) -
+                        inv2 * (T(1.0 / 1260.0) -
+                                inv2 * (T(1.0 / 1680.0) -
+                                        inv2 * (T(1.0 / 1188.0) -
+                                                inv2 * (T(691.0 / 360360.0) -
+                                                        inv2 / T(156)))))));
+}
+
+// log(2 pi)/2 - 1/2
+constexpr double kLgStirling = 0.41893853320467274178;
+
 template <typename T>
 __device__ __forceinline__ LgDg<T> lgamma_digamma(T z) {
   constexpr int kShift = is_f32<T>() ? 3 : 8;
@@ -193,27 +222,11 @@ __device__ __forceinline__ LgDg<T> lgamma_digamma(T z) {
   const T inv = T(1) / z;
   const T inv2 = inv * inv;
   const T lz = d_log(z);
-  const T sd =
-      inv2 *
-      (T(1.0 / 12.0) -
-       inv2 * (T(1.0 / 120.0) -
-               inv2 * (T(1.0 / 252.0) -
-                       inv2 * (T(1.0 / 240.0) -
-                               inv2 * (T(1.0 / 132.0) -
-                                       inv2 * (T(691.0 / 32760.0) -
-                                               inv2 * T(1.0 / 12.0)))))));
-  const T sl =
-      inv * (T(1.0 / 12.0) -
-             inv2 * (T(1.0 / 360.0) -
-                     inv2 * (T(1.0 / 1260.0) -
-                             inv2 * (T(1.0 / 1680.0) -
-                                     inv2 * (T(1.0 / 1188.0) -
-                                             inv2 * (T(691.0 / 360360.0) -
-                                                     inv2 / T(156)))))));
+  const T sd = stirling_dg(inv2);
+  const T sl = stirling_lg(inv, inv2);
   LgDg<T> f;
   f.dg = lz - T(0.5) * inv - sd - num / den;
-  f.lg = (z - T(0.5)) * (lz - T(1)) + T(0.41893853320467274178) + sl -
-         d_log(den);
+  f.lg = (z - T(0.5)) * (lz - T(1)) + T(kLgStirling) + sl - d_log(den);
   return f;
 }
 
@@ -238,6 +251,101 @@ __device__ __forceinline__ void nb_diffs_shift(T y, const NbConst<T>& k,
   } else {
     lgd = d_lgamma(y + k.c) - k.lgc - y * k.logc;
     dgd = lgamma_digamma(y + k.c).dg - k.dgc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The narrow float64 K2's special functions (disp_ls.cu: ls_kernel<double>)
+// ---------------------------------------------------------------------------
+//
+// A trial point's terms lgamma(y + c) - lgamma(c) - y log c and digamma(y +
+// c) - digamma(c), c = 1/alpha, come from lgamma_digamma's shift and
+// Stirling series (float64, zs >= 8) in one of two forms, chosen per point
+// (so the same on every lane of the warp):
+// - c < kLargeC: the point's lgamma(c) and digamma(c) from one
+//   lgamma_digamma call and its log c; per sample the routine on y + c,
+//   its two divisions (1/zs and num/den) and the sample's 1/(1 + mu alpha)
+//   taken from one reciprocal of their product, and log(den) only where y
+//   + c was shifted (ls_terms64);
+// - c >= kLargeC (no shift for c, nor for y + c): the difference of the two
+//   Stirling forms, with t = log1p(y alpha) = log((y + c)/c),
+//     lgamma(y+c) - lgamma(c) - y log c = (y + c - 1/2) t - y
+//                                         + stirling_lg(y+c) - stirling_lg(c),
+//     digamma(y+c) - digamma(c) = t + y alpha / (2 (y + c))
+//                                 - stirling_dg(y+c) + stirling_dg(c),
+//   a log1p and one reciprocal a sample, and no difference of two large
+//   values: lgamma(c) ~ c log c (2.1e10 at c = 1e9, the line search's
+//   smallest alpha) is never formed, where the direct form loses the
+//   difference's digits to its rounding.
+// nb_const / nb_diffs (the float32, wide and block kernels') stay as they
+// were.
+constexpr double kLargeC = 8.0;
+
+struct LsPoint64 {
+  double alpha, c;
+  bool large;               // c >= kLargeC
+  double lgc, dgc, logc;    // c < kLargeC
+  double slc, sdc;          // c >= kLargeC: the series at c
+};
+
+__device__ __forceinline__ LsPoint64 ls_point64(double alpha) {
+  LsPoint64 k;
+  k.alpha = alpha;
+  k.c = 1.0 / alpha;
+  k.large = k.c >= kLargeC;
+  if (k.large) {
+    const double inv2 = alpha * alpha;
+    k.slc = stirling_lg(alpha, inv2);
+    k.sdc = stirling_dg(inv2);
+  } else {
+    const LgDg<double> f = lgamma_digamma(k.c);
+    k.lgc = f.lg;
+    k.dgc = f.dg;
+    k.logc = log(k.c);
+  }
+  return k;
+}
+
+// Sample (y, mua = mu alpha)'s terms at point k: l1p = log1p(mua), r = 1 /
+// (1 + mua), lgd = lgamma(y + c) - lgamma(c) - y log c and dgd = digamma(y
+// + c) - digamma(c), every division from one reciprocal.
+__device__ __forceinline__ void ls_terms64(double y, double mua,
+                                           const LsPoint64& k, double& l1p,
+                                           double& r, double& lgd,
+                                           double& dgd) {
+  l1p = log1p(mua);
+  const double opm = 1.0 + mua;
+  if (k.large) {
+    const double z = y + k.c;
+    const double t = log1p(y * k.alpha);
+    const double q = 1.0 / (z * opm);
+    r = z * q;
+    const double inv = opm * q;
+    const double inv2 = inv * inv;
+    lgd = (z - 0.5) * t - y + (stirling_lg(inv, inv2) - k.slc);
+    dgd = t + 0.5 * y * k.alpha * inv - (stirling_dg(inv2) - k.sdc);
+  } else {
+    double z = y + k.c, num = 0.0, den = 1.0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (z < 8.0) {
+        num = num * z + den;
+        den = den * z;
+        z += 1.0;
+      }
+    }
+    // q = 1 / (zs den (1 + mua)): 1/zs, 1/den and r are its products
+    const double zd = z * den;
+    const double q = 1.0 / (zd * opm);
+    r = zd * q;
+    const double inv = den * opm * q;
+    const double inv2 = inv * inv;
+    const double lz = log(z);
+    dgd = lz - 0.5 * inv - stirling_dg(inv2) - num * (z * opm * q) - k.dgc;
+    lgd = (z - 0.5) * (lz - 1.0) + kLgStirling + stirling_lg(inv, inv2) -
+          k.lgc - y * k.logc;
+    // log(den) only where a lane shifted (y + c < 8)
+    if (den != 1.0) lgd -= log(den);
   }
 }
 

@@ -35,7 +35,16 @@
 // - the design x staged once per block in shared memory (when S p values
 //   fit in kBlockStageBytes); the gene's rows (y, mu, the weights) read
 //   through L1/L2 at every trial point: staged per warp in shared memory
-//   they measured slower (PERF.md section 6).
+//   they measured slower (PERF.md section 6);
+// - in float64 (deseq()'s default dtype) the terms come from common.cuh's
+//   narrow float64 K2 section (ls_point64, ls_terms64): below c = 8 the
+//   point's lgamma(c), digamma(c) from one lgamma_digamma and per sample
+//   the routine on y + c, its two divisions and 1/(1 + mu alpha) from one
+//   reciprocal; from c = 8 on the difference of the two Stirling forms
+//   in t = log1p(y alpha), a log1p and a reciprocal a sample, which forms
+//   no lgamma(c), where CUDA's lgamma, digamma_pos (up to nine divisions
+//   and a log) and a reciprocal took 1.5x the time at p = 2 (PERF.md
+//   section 6).
 //
 // Weighted mode (UseW; pallas_ls.py:152-247 use_w): the likelihood terms of
 // lp and of s1 are multiplied by the gene's weights.  The Cox-Reid term is
@@ -89,6 +98,16 @@ using namespace dk;
 
 constexpr double kArmijo = 1.0e-4;
 
+// A trial point's constants: float32's nb_const, float64's ls_point64
+// (common.cuh's narrow float64 K2 section)
+__device__ __forceinline__ NbConst<float> ls_point(float alpha) {
+  return nb_const(1.0f / alpha);
+}
+
+__device__ __forceinline__ LsPoint64 ls_point(double alpha) {
+  return ls_point64(alpha);
+}
+
 // lp and dlp at log-alpha `la`, on every lane of the gene's warp.  wr,
 // cm (the column-mask bits) and thr are read in the weighted mode only.
 template <typename T, int P, bool UseW, bool UseCR>
@@ -99,7 +118,7 @@ __device__ __forceinline__ void lp_dlp(const T* yr, const T* mr, const T* wr,
   constexpr int NT = P * (P + 1) / 2;
   constexpr int NV = UseCR ? 2 + 2 * NT : 2;
   const T alpha = d_exp(la);
-  const NbConst<T> k = nb_const(T(1) / alpha);
+  const auto k = ls_point(alpha);
   T acc[NV];
 #pragma unroll
   for (int i = 0; i < NV; ++i) acc[i] = T(0);
@@ -107,10 +126,14 @@ __device__ __forceinline__ void lp_dlp(const T* yr, const T* mr, const T* wr,
     const T yv = yr[s];
     const T m = mr[s];
     const T mua = m * alpha;
-    const T l1p = d_log1p(mua);
-    const T r = T(1) / (T(1) + mua);
-    T lgd, dgd;
-    nb_diffs(yv, k, lgd, dgd);
+    T l1p, r, lgd, dgd;
+    if constexpr (is_f32<T>()) {
+      l1p = d_log1p(mua);
+      r = T(1) / (T(1) + mua);
+      nb_diffs(yv, k, lgd, dgd);
+    } else {
+      ls_terms64(yv, mua, k, l1p, r, lgd, dgd);
+    }
     acc[0] += wscale<UseW>(lgd - (yv + k.c) * l1p, wr, s);
     acc[1] += wscale<UseW>(l1p - mua * r + yv * alpha * r - dgd, wr, s);
     if constexpr (UseCR) {

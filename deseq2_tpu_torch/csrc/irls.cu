@@ -34,10 +34,21 @@
 //   per gene; the design x, an (S,) factor row and its logs staged once
 //   per block in shared memory (when they fit in kBlockStageBytes); a
 //   (G,S) factor row's log is taken per sample, as the plain version does.
-//   The working response keeps the plain version's log(mu) - log(nf): the
-//   x'beta it equals off the min_mu clamp saves a log per sample, but its
-//   other rounding moved float32 fits of ill-conditioned p = 5 and 8 genes
-//   to other points of their flat valleys (PERF.md section 6).
+//   The float32 working response keeps the plain version's log(mu) -
+//   log(nf): the x'beta it equals off the min_mu clamp saves a log per
+//   sample, but its other rounding moved float32 fits of ill-conditioned p
+//   = 5 and 8 genes to other points of their flat valleys (PERF.md section
+//   6).
+// - float64 (deseq()'s default dtype; irls_kernel<double>): a pass took an
+//   exp, three logs (mu, nf: at S = 1,024 the design and the factor row
+//   take 32 KB, past kBlockStageBytes, so nothing was staged; size + mu)
+//   and two divisions a sample.  It takes log(mu) = x'beta + log(nf) off
+//   the clamp (log(min_mu) on it), w = mu / (1 + alpha mu) and (y - mu)/mu
+//   from one reciprocal of mu (1 + alpha mu) (acc_normal64), stages the
+//   (S,) factor row and its logs alone where the design does not fit
+//   (kStageNf): an exp, log(size + mu) and one division a sample and pass.
+//   The first pass's lgammas are CUDA's up to P = 3 and lgamma_digamma's
+//   from P = 4 on (k1_lgamma).
 //
 // Weighted mode (UseW; pallas_irls.py:106-124, 156-169, 221-258 use_w): the
 // gene's observation weights multiply W in the normal equations, every
@@ -81,6 +92,38 @@ __device__ __forceinline__ T mu_at(const T (&beta)[P], const T (&xs)[P],
   return m > min_mu ? m : min_mu;
 }
 
+// mu_at, also giving x'beta (the float64 kernel's log(mu / nf) off the
+// min_mu clamp)
+template <int P>
+__device__ __forceinline__ double mu_xb(const double (&beta)[P],
+                                        const double (&xs)[P], double nfs,
+                                        double min_mu, double& xb) {
+  xb = 0.0;
+#pragma unroll
+  for (int k = 0; k < P; ++k) xb += beta[k] * xs[k];
+  const double m = nfs * exp(xb);
+  return m > min_mu ? m : min_mu;
+}
+
+// acc_normal in float64: lmr = log(mu / nf) (x'beta off the clamp), and
+// w = mu / (1 + alpha mu), (y - mu) / mu from one reciprocal 1 / (mu (1 +
+// alpha mu)).
+template <int P, bool UseW>
+__device__ __forceinline__ void acc_normal64(double* acc, double m, double lmr,
+                                             double yv, double alpha,
+                                             const double (&xs)[P],
+                                             const double* wr, int s) {
+  constexpr int NT = P * (P + 1) / 2;
+  const double opm = 1.0 + alpha * m;
+  const double q = 1.0 / (m * opm);
+  const double w = wscale<UseW>(m * m * q, wr, s);
+  const double z = lmr + (yv - m) * (opm * q);
+  acc_outer<double, P>(acc, w, xs);
+  const double wz = w * z;
+#pragma unroll
+  for (int i = 0; i < P; ++i) acc[NT + i] += wz * xs[i];
+}
+
 // Add sample s's terms of X'WX (packed) and X'Wz at mu m to acc[0..NT+P);
 // lm = log(mu), lnf = log(nf).
 template <typename T, int P, bool UseW>
@@ -94,6 +137,22 @@ __device__ __forceinline__ void acc_normal(T* acc, T m, T lm, T lnf, T yv,
   const T wz = w * z;
 #pragma unroll
   for (int i = 0; i < P; ++i) acc[NT + i] += wz * xs[i];
+}
+
+// irls_kernel's stage_block: what the block stages (k1_stage)
+constexpr int kStageX = 1;
+constexpr int kStageNf = 2;
+
+// lgamma in the first pass: CUDA's (lgammaf in float32; in float64 up to
+// P = 3), from P = 4 on in float64 lgamma_digamma's (its digamma unused),
+// measured faster there and slower below (PERF.md section 6)
+template <typename T, int P>
+__device__ __forceinline__ T k1_lgamma(T z) {
+  if constexpr (is_f32<T>() || P <= 3) {
+    return d_lgamma(z);
+  } else {
+    return lgamma_digamma(z).lg;
+  }
 }
 
 template <typename T, int P, bool UseW>
@@ -116,22 +175,45 @@ __global__ void __launch_bounds__(kWarpBlock)
   const T* xr = x;
   const T* nf_shared = nf;
   const T* lnf_shared = nullptr;
-  if (stage_block) {
-    T* sx = reinterpret_cast<T*>(smem_raw);
-    block_stage(sx, x, S * P);
-    xr = sx;
+  if constexpr (is_f32<T>()) {
+    if (stage_block) {
+      T* sx = reinterpret_cast<T*>(smem_raw);
+      block_stage(sx, x, S * P);
+      xr = sx;
+      if (shared_nf) {
+        T* snf = sx + (size_t)S * P;
+        for (int i = threadIdx.x; i < S; i += blockDim.x) {
+          const T v = __ldg(nf + i);
+          snf[i] = v;
+          snf[S + i] = d_log(v);
+        }
+        nf_shared = snf;
+        lnf_shared = snf + S;
+      }
+      __syncthreads();
+    }
+  } else if (stage_block) {
+    // kStageX: the design and an (S,) factor row with its logs; kStageNf:
+    // the factor row and its logs alone (k1_stage)
+    T* sv = reinterpret_cast<T*>(smem_raw);
+    if (stage_block == kStageX) {
+      block_stage(sv, x, S * P);
+      xr = sv;
+      sv += (size_t)S * P;
+    }
     if (shared_nf) {
-      T* snf = sx + (size_t)S * P;
       for (int i = threadIdx.x; i < S; i += blockDim.x) {
         const T v = __ldg(nf + i);
-        snf[i] = v;
-        snf[S + i] = d_log(v);
+        sv[i] = v;
+        sv[S + i] = d_log(v);
       }
-      nf_shared = snf;
-      lnf_shared = snf + S;
+      nf_shared = sv;
+      lnf_shared = sv + S;
     }
     __syncthreads();
   }
+  // float64: log(min_mu), the clamped samples' log(mu)
+  const T lmin = is_f32<T>() ? T(0) : d_log(min_mu);
   T rdg[P];
 #pragma unroll
   for (int k = 0; k < P; ++k) rdg[k] = __ldg(ridge + k);
@@ -146,7 +228,7 @@ __global__ void __launch_bounds__(kWarpBlock)
     const T* wr = UseW ? wts + (size_t)g * S : nullptr;
     const T alpha = alpha_in[g];
     const T size = T(1) / alpha;
-    const T lgs = d_lgamma(size);
+    const T lgs = k1_lgamma<T, P>(size);
     const T sls = size * d_log(size);
 
     // beta: mu's coefficients; bret: the returned ones (they differ only
@@ -167,13 +249,27 @@ __global__ void __launch_bounds__(kWarpBlock)
       T xs[P];
       x_row<T, P>(xr, s, xs);
       const T nfs = nfr[s];
-      const T m = mu_at<T, P>(beta, xs, nfs, min_mu);
-      const T yv = yr[s];
-      acc[NA] += wscale<UseW>(
-          d_lgamma(yv + size) - lgs - d_lgamma(yv + T(1)) + sls, wr, s);
-      acc_normal<T, P, UseW>(acc, m, d_log(m),
-                             lnf_shared ? lnf_shared[s] : d_log(nfs), yv,
-                             alpha, xs, wr, s);
+      if constexpr (is_f32<T>()) {
+        const T m = mu_at<T, P>(beta, xs, nfs, min_mu);
+        const T yv = yr[s];
+        acc[NA] += wscale<UseW>(
+            d_lgamma(yv + size) - lgs - d_lgamma(yv + T(1)) + sls, wr, s);
+        acc_normal<T, P, UseW>(acc, m, d_log(m),
+                               lnf_shared ? lnf_shared[s] : d_log(nfs), yv,
+                               alpha, xs, wr, s);
+      } else {
+        T xb;
+        const T m = mu_xb<P>(beta, xs, nfs, min_mu, xb);
+        const T yv = yr[s];
+        acc[NA] += wscale<UseW>(
+            k1_lgamma<T, P>(yv + size) - lgs - k1_lgamma<T, P>(yv + T(1)) +
+                sls,
+            wr, s);
+        const T lmr = m > min_mu
+                          ? xb
+                          : lmin - (lnf_shared ? lnf_shared[s] : d_log(nfs));
+        acc_normal64<P, UseW>(acc, m, lmr, yv, alpha, xs, wr, s);
+      }
     }
     warp_allsum<T, NA + 1>(acc);
     const T dev_const = T(-2) * acc[NA];
@@ -211,15 +307,30 @@ __global__ void __launch_bounds__(kWarpBlock)
         T xs[P];
         x_row<T, P>(xr, s, xs);
         const T nfs = nfr[s];
-        const T m = mu_at<T, P>(bn, xs, nfs, min_mu);
-        const T yv = yr[s];
-        const T lm = d_log(m);
-        const T lsm = d_log(size + m);
-        const T tt = yv > T(0) ? yv * (lm - lsm) : T(0);
-        acc[NA] += wscale<UseW>(-size * lsm + tt, wr, s);
-        acc_normal<T, P, UseW>(acc, m, lm,
-                               lnf_shared ? lnf_shared[s] : d_log(nfs), yv,
-                               alpha, xs, wr, s);
+        if constexpr (is_f32<T>()) {
+          const T m = mu_at<T, P>(bn, xs, nfs, min_mu);
+          const T yv = yr[s];
+          const T lm = d_log(m);
+          const T lsm = d_log(size + m);
+          const T tt = yv > T(0) ? yv * (lm - lsm) : T(0);
+          acc[NA] += wscale<UseW>(-size * lsm + tt, wr, s);
+          acc_normal<T, P, UseW>(acc, m, lm,
+                                 lnf_shared ? lnf_shared[s] : d_log(nfs), yv,
+                                 alpha, xs, wr, s);
+        } else {
+          // log(mu) = x'beta + log(nf) off the clamp, log(min_mu) on it
+          T xb;
+          const T m = mu_xb<P>(bn, xs, nfs, min_mu, xb);
+          const T yv = yr[s];
+          const T lnf = lnf_shared ? lnf_shared[s] : d_log(nfs);
+          const bool open = m > min_mu;
+          const T lm = open ? xb + lnf : lmin;
+          const T lsm = d_log(size + m);
+          const T tt = yv > T(0) ? yv * (lm - lsm) : T(0);
+          acc[NA] += wscale<UseW>(-size * lsm + tt, wr, s);
+          acc_normal64<P, UseW>(acc, m, open ? xb : lmin - lnf, yv, alpha,
+                                xs, wr, s);
+        }
       }
       warp_allsum<T, NA + 1>(acc);
       const T dev_new = dev_const + T(-2) * acc[NA];
@@ -294,19 +405,33 @@ __global__ void __launch_bounds__(kWarpBlock)
   }
 }
 
+// The block's staged values of a launch (irls_kernel's stage_block) and
+// their bytes: the design and an (S,) factor row with its logs when they
+// fit in kBlockStageBytes (kStageX), else in float64 an (S,) factor row and
+// its logs alone when they fit (kStageNf: the float64 kernel takes log(mu)
+// from x'beta + log(nf)), else nothing (0).
+template <typename T>
+inline size_t k1_stage(int S, int P, bool shared_nf, int* mode) {
+  const size_t all = block_stage_bytes<T>(S, P + (shared_nf ? 2 : 0));
+  const size_t nfb = shared_nf ? block_stage_bytes<T>(S, 2) : 0;
+  *mode = all > 0 ? kStageX : (!is_f32<T>() && nfb > 0 ? kStageNf : 0);
+  return all > 0 ? all : (*mode ? nfb : 0);
+}
+
 template <typename T, int P, bool UseW>
 int launch_p(const T* y, const T* nf, long long nf_gstride, const T* w,
              const T* alpha, const T* beta0, const T* ridge, const T* x, int G,
              int S, T tol, int maxit, T min_mu, T* beta, T* bvar, T* dev,
              int* iters, T* mu, T* hat, int* counter, cudaStream_t st) {
-  const size_t smem = block_stage_bytes<T>(S, P + (nf_gstride == 0 ? 2 : 0));
+  int mode = 0;
+  const size_t smem = k1_stage<T>(S, P, nf_gstride == 0, &mode);
   auto kernel = irls_kernel<T, P, UseW>;
   int err = 0;
   const int blocks = persistent_blocks(kernel, smem, G, &err);
   if (err) return err;
   kernel<<<blocks, kWarpBlock, smem, st>>>(
       y, nf, nf_gstride, w, alpha, beta0, ridge, x, G, S, tol, maxit, min_mu,
-      smem > 0, beta, bvar, dev, iters, mu, hat, counter);
+      mode, beta, bvar, dev, iters, mu, hat, counter);
   return (int)cudaGetLastError();
 }
 
@@ -675,9 +800,10 @@ int occupancy(int p, int S, int shared_nf) {
   if (p > kPNarrow && p <= kPWide) return occupancy_wide<T, UseW>(S, shared_nf);
   int err = 0;
   DK_DISPATCH_P(p, {
-    const int n = blocks_per_sm(
-        irls_kernel<T, P, UseW>,
-        block_stage_bytes<T>(S, P + (shared_nf ? 2 : 0)), &err);
+    int mode = 0;
+    const int n = blocks_per_sm(irls_kernel<T, P, UseW>,
+                                k1_stage<T>(S, P, shared_nf != 0, &mode),
+                                &err);
     return err ? -1 : n;
   })
   return -1;

@@ -451,8 +451,12 @@ def differing_outputs(a, b):
     return [k for k in a if not torch.equal(_bits(a[k]), _bits(b[k]))]
 
 
-def check_irls(k, pl, maxit=100):
-    """K1 readings: kernel fit k against the plain fit pl (same dtype)."""
+def check_irls(k, pl, maxit=100, outputs=False):
+    """K1 readings: kernel fit k against the plain fit pl (same dtype).
+    With `outputs` (float64) also each of IRLS_OUTPUTS on the genes both
+    fits converged, within TOL's beta relative (irls_outputs_rel), and the
+    share of genes whose sweep count is the plain fit's, at least TOL's
+    same_conv."""
     tol = TOL["float32" if _is_f32(pl["beta"]) else "float64"]
     kc, pc = k["iter"] < maxit, pl["iter"] < maxit
     conv = kc & pc
@@ -463,6 +467,11 @@ def check_irls(k, pl, maxit=100):
     r = dict(beta_rel=beta_rel, same_conv=same_conv,
              max_abs_err=diff.max().item() if diff.numel() else 0.0)
     r["ok"] = beta_rel <= tol["beta"] and same_conv >= tol["same_conv"]
+    if outputs:
+        r["outputs_rel"] = irls_outputs_rel(k, pl, conv)
+        r["same_iter"] = (k["iter"] == pl["iter"]).double().mean().item()
+        r["ok"] = (r["ok"] and max(r["outputs_rel"].values()) <= tol["beta"]
+                   and r["same_iter"] >= tol["same_conv"])
     return r
 
 

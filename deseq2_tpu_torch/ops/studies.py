@@ -97,8 +97,11 @@ gave the same outputs bit for bit, and whether the two checkouts did.
 `k2`: the gene-wise line search (K2) on the paired pipeline inputs at
 60,000 x 1,024 (chip_smoke.py's ~ subject + condition; by default p = 10,
 the wide kernel, and p = 25, the block kernel, float32 and float64; or
-the cases P:DTYPE given, e.g. 16:float64 64:float32), timed and printed
-as `kernels` times its cases (REPS launches a turn, default 5).  Each
+the cases P:DTYPE given, e.g. 16:float64 64:float32, P from 1 to 64: at
+P <= 8 the templated kernels on the main path's counts with
+study_matrix's design, an intercept at P = 1, ~ condition at P = 2, the
+paired design past it), timed and printed as `kernels` times its cases
+(REPS launches a turn, default 5).  Each
 further ROOT (a study variant's checkout) is timed beside the change, in
 turns parent, change, ROOT..., ROOT... reversed, change, parent.
 
@@ -758,14 +761,27 @@ def _case_args(study, args, default):
     cases = []
     for a in args[2:]:
         p, _, dtype = a.partition(":")
-        if not p.isdigit() or not 8 < int(p) <= 64 \
+        if not p.isdigit() or not 1 <= int(p) <= 64 \
                 or dtype not in ("float64", "float32"):
-            raise SystemExit(f"{study}: a case is P:DTYPE, 8 < P <= 64, "
+            raise SystemExit(f"{study}: a case is P:DTYPE, 1 <= P <= 64, "
                              f"DTYPE float64 or float32, not {a}")
         cases.append((int(p), dtype))
     roots = [Path(r).resolve() for r in args[0].split(",")]
     return (roots[0], int(args[1]) if len(args) > 1 else 5,
             tuple(cases) or default, tuple(roots[1:]))
+
+
+def study_matrix(S, p):
+    """The design of a kernel study's case of p columns: an intercept at p
+    = 1, the main path's ~ condition (the samples' first half A, the
+    second B) at p = 2, else the paired design ~ subject + condition of p
+    - 1 subjects (checks.paired_matrix)."""
+    if p == 1:
+        return np.ones((S, 1))
+    if p == 2:
+        return np.column_stack([np.ones(S), np.repeat([0.0, 1.0],
+                                                      [S // 2, S - S // 2])])
+    return checks.paired_matrix(S, p - 1)
 
 
 def k2_args(args):
@@ -780,8 +796,7 @@ def k2_study(dev, parent_root, reps, cases=K2_CASES, others=()):
     counts, _ = cs.make_inputs(cs.G_MAIN, cs.S_MAIN)
     data = {}
     for p, dname in cases:
-        d = checks.pipeline_inputs(counts, checks.paired_matrix(cs.S_MAIN,
-                                                               p - 1),
+        d = checks.pipeline_inputs(counts, study_matrix(cs.S_MAIN, p),
                                    getattr(torch, dname), dev)
         data[f"p={p} {dname}"] = {k: d[k].cpu() if torch.is_tensor(d[k])
                                   else d[k] for k in
@@ -810,8 +825,7 @@ def k3_study(dev, parent_root, reps, cases=K3_CASES, others=()):
     data = {}
     for p, dname in cases:
         dt = getattr(torch, dname)
-        d = checks.pipeline_inputs(counts, checks.paired_matrix(cs.S_MAIN,
-                                                               p - 1),
+        d = checks.pipeline_inputs(counts, study_matrix(cs.S_MAIN, p),
                                    dt, dev)
         k2 = fit_disp_line_search(d["y"], d["x"], d["mu"], d["la0"],
                                   d["la0"], 1.0, d["min_la"])
@@ -849,8 +863,7 @@ def k1_study(dev, parent_root, reps, cases=K1_CASES, others=()):
     counts, _ = cs.make_inputs(cs.G_MAIN, cs.S_MAIN)
     data = {}
     for p, dname in cases:
-        d = checks.pipeline_inputs(counts, checks.paired_matrix(cs.S_MAIN,
-                                                               p - 1),
+        d = checks.pipeline_inputs(counts, study_matrix(cs.S_MAIN, p),
                                    getattr(torch, dname), dev)
         k2 = fit_disp_line_search(d["y"], d["x"], d["mu"], d["la0"],
                                   d["la0"], 1.0, d["min_la"])

@@ -8,18 +8,22 @@ inline PTX (mma.sync, cp.async) by cuda_runtime.h's emulation, their
 dynamic shared memory by the emulated launch's buffer and their kernel
 launches by emu::launch_kernel (the launch's blocks one after another), and compiles each with g++ -std=c++20 and
 an address sanitizer into a shared library with the sources' own C
-interface.  disp_ls.cu and irls.cu are built without their templated
-kernels for p <= 8 (DK_DISPATCH_P dispatches none): their wide kernels
-are what is emulated.
+interface.  disp_ls.cu and irls.cu are built with their templated
+kernels for p <= 8 at P = 1 and 2 in float64 alone (DK_DISPATCH_P
+dispatches no other): those and their wide kernels are what is
+emulated.
 
     python emulate.py LIB_DIR KERNEL P S G WEIGHTED [DTYPE [MODE]]
 
 (run under LD_PRELOAD of the sanitizer's runtime, as
 tests/test_torch_block_emulation.py does) holds the emulated K1 (irls)
-or K2 (ls, with and without the prior), the wide kernel for p <= 16 and
-the block kernel past it, or the float64 block K3 (grid, p > 16, with
-and without the prior; MODE nocr: without the Cox-Reid term), DTYPE
-float64 (the default) or float32,
+or K2 (ls, with and without the prior), the templated kernel for p <= 2
+(float64), the wide kernel for p <= 16 and the block kernel past it, or
+the float64 block K3 (grid, p > 16, with and without the prior), DTYPE
+float64 (the default) or float32, in K2's and K3's MODE (nocr: without
+the Cox-Reid term; thr: the weighted row cut at 0.5; checks.MODES) or
+K1's (sf: an (S,) row of normalization factors exp(N(0, 0.4)); gsnf: a
+(G,S) matrix of them; else unit factors),
 against the plain PyTorch version on ops/checks.py's inputs with phase
 3's readings (in float32: K1 held to the fit in float64, a K2 reading
 past checks.TOL held to the plain version's spread over permutations, as
@@ -67,9 +71,14 @@ def build(out_dir, names=LIBS):
     common = _body(common, "void cp_async8(",
                    " *dst = valid ? *src : 0.0; ")
     common = _body(common, "void cp_async_wait_all(", " ")
-    # no templated instantiation (p <= 8) is built or dispatched
+    # of the templated instantiations (p <= 8) only P = 1 and 2 in float64
+    # are built and dispatched
     i = common.index("#define DK_DISPATCH_P(p, ...)")
     common = (common[:i] + "#define DK_DISPATCH_P(p, ...) "
+              "if constexpr (!dk::is_f32<T>()) { switch (p) { "
+              "case 1: { constexpr int P = 1; __VA_ARGS__; } break; "
+              "case 2: { constexpr int P = 2; __VA_ARGS__; } break; "
+              "default: break; } } "
               "return (int)cudaErrorInvalidValue;\n")
     (out / "common.cuh").write_text(common)
     paths, procs = {}, {}
@@ -171,6 +180,7 @@ def run_grid(lib_dir, raw, p, S, G, mode=None):
 def run(lib_dir, kernel, p, S, G, weighted, dtype="float64", mode=None):
     """The emulated kernel against the plain version (see the module's
     docstring); returns the readings."""
+    import numpy as np
     import torch
     sys.path.insert(0, str(REPO))
     from deseq2_tpu_torch.ops import checks, disp, irls
@@ -178,9 +188,15 @@ def run(lib_dir, kernel, p, S, G, weighted, dtype="float64", mode=None):
     P, I, L, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_double
     f64 = torch.float64
-    raw = checks.solver_inputs(G, S, p, 10 * p + S, weighted=weighted)
+    # K2's modes on phase 3's inputs of its modes (check_kernel_modes)
+    raw = checks.solver_inputs(
+        G, S, p, checks.seed_of(p, S, mode if kernel == "ls" else None),
+        weighted=weighted)
     d = checks.as_tensors(raw, f64, torch.device("cpu"))
     out = {}
+    # the templated kernels (p <= 8) take the design as (S, p), the others
+    # transposed
+    xt = (lambda x: x) if p <= 8 else (lambda x: x.t())
     if kernel == "grid":
         return run_grid(lib_dir, raw, p, S, G, mode)
     if kernel == "irls":
@@ -198,7 +214,7 @@ def run(lib_dir, kernel, p, S, G, weighted, dtype="float64", mode=None):
         def k1(y, x, nf, alpha, beta_init, ridge, tol=1e-8, maxit=100,
                min_mu=0.5, weights=None):
             c = [t.to(kdt).contiguous() for t in
-                 (y, x.t(), nf, alpha, beta_init, ridge)]
+                 (y, xt(x), nf, alpha, beta_init, ridge)]
             w = None if weights is None else weights.to(kdt).contiguous()
             res = dict(beta=torch.empty(G, p, dtype=kdt),
                        beta_var=torch.empty(G, p, dtype=kdt),
@@ -207,7 +223,8 @@ def run(lib_dir, kernel, p, S, G, weighted, dtype="float64", mode=None):
                        mu=torch.empty(G, S, dtype=kdt),
                        hat_diag=torch.empty(G, S, dtype=kdt))
             counter = torch.zeros(1, dtype=torch.int32)
-            err = fn(_ptr(c[0]), _ptr(c[2]), 0, _ptr(w), _ptr(c[3]),
+            err = fn(_ptr(c[0]), _ptr(c[2]), S if nf.dim() == 2 else 0,
+                     _ptr(w), _ptr(c[3]),
                      _ptr(c[4]), _ptr(c[5]), _ptr(c[1]), G, S, p, tol,
                      maxit, min_mu,
                      *(_ptr(res[k]) for k in ("beta", "beta_var",
@@ -218,8 +235,21 @@ def run(lib_dir, kernel, p, S, G, weighted, dtype="float64", mode=None):
             return res
 
         dk = checks.as_tensors(raw, kdt, torch.device("cpu"))
-        a = checks.run_irls(k1, dk)
-        pl = checks.run_irls(irls.fit_beta_plain, dk)
+        run_k1 = checks.run_irls
+        if mode in ("sf", "gsnf"):
+            # normalization factors exp(N(0, 0.4)): an (S,) row (sf) or a
+            # (G,S) matrix (gsnf), where run_irls' unit factors leave
+            # log(nf) = 0
+            rng = np.random.default_rng(S)
+            nf = torch.as_tensor(np.exp(rng.normal(
+                0.0, 0.4, (G, S) if mode == "gsnf" else S)), dtype=kdt)
+
+            def run_k1(f, dd):
+                ridge = checks.ridge_for(p, kdt, torch.device("cpu"))
+                return f(dd["y"], dd["x"], nf, dd["alpha"], dd["b0"], ridge,
+                         maxit=100, min_mu=0.5, weights=dd.get("w"))
+        a = run_k1(k1, dk)
+        pl = run_k1(irls.fit_beta_plain, dk)
         # K1's other outputs against the fit in float64 (in float32 beside
         # the plain version's, checks.check_irls_f64's outputs rule), on
         # the genes the fits converged
@@ -227,21 +257,25 @@ def run(lib_dir, kernel, p, S, G, weighted, dtype="float64", mode=None):
             r = checks.check_irls(a, pl)
             r["outputs_rel_f64_kernel"] = checks.irls_outputs_rel(
                 a, pl, (a["iter"] < 100) & (pl["iter"] < 100))
+            r["same_iter"] = (a["iter"] == pl["iter"]).double().mean().item()
         else:
-            ref = checks.run_irls(irls.fit_beta_plain, d)
+            ref = run_k1(irls.fit_beta_plain, d)
             r = checks.check_irls_f64(a, pl, ref, outputs=True)
         out["irls"] = dict(ok=r["ok"], beta_rel=r["beta_rel"],
                            rel=r["outputs_rel_f64_kernel"],
                            repeat_differs=checks.differing_outputs(
-                               a, checks.run_irls(k1, dk)))
+                               a, run_k1(k1, dk)))
         if dtype == "float32":
             out["irls"]["rel_plain"] = r["outputs_rel_f64_plain"]
+        else:
+            out["irls"]["same_iter"] = r["same_iter"]
     else:
         # the wide kernel (disp_ls.cu) for p <= 16, the block kernel past it
         sym = "ls_block" if p > 16 else "ls"
         lib = ctypes.CDLL(str(Path(lib_dir) / f"libdisp_{sym}.so"))
         kdt = getattr(torch, dtype)
-        d = checks.as_tensors(raw, kdt, torch.device("cpu"))
+        d = checks.with_mode(checks.as_tensors(raw, kdt,
+                                               torch.device("cpu")), mode)
         scal = D if dtype == "float64" else ctypes.c_float
         fn = getattr(lib, f"{sym}_launch_"
                      f"{'f64' if dtype == 'float64' else 'f32'}")
@@ -257,7 +291,7 @@ def run(lib_dir, kernel, p, S, G, weighted, dtype="float64", mode=None):
         def k2(y, x, mu, la0, pm, prior_var, min_la, kappa_0=1.0, tol=1e-6,
                maxit=100, use_prior=False, weights=None, use_cr=True,
                weight_threshold=checks.CR_WEIGHT_THRESHOLD):
-            c = [t.to(kdt).contiguous() for t in (y, mu, x.t(), la0, pm)]
+            c = [t.to(kdt).contiguous() for t in (y, mu, xt(x), la0, pm)]
             w = None if weights is None else weights.to(kdt).contiguous()
             res = {k: torch.empty(G, dtype=kdt) for k in names}
             res["iter"] = torch.empty(G, dtype=torch.int32)

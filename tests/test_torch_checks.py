@@ -126,6 +126,22 @@ def test_irls_check(dtype):
     assert not checks.check_irls(off, pl)["ok"]
 
 
+def test_irls_check_outputs():
+    # `outputs`: every other output and the sweep counts are gated too
+    d = _data(24, 333, 2, torch.float64)
+    args = (d["y"], d["x"], torch.ones(24, dtype=torch.float64), d["alpha"],
+            d["b0"], checks.ridge_for(2, torch.float64, "cpu"))
+    pl = irls.fit_beta_plain(*args)
+    r = checks.check_irls(pl, pl, outputs=True)
+    assert r["ok"] and r["same_iter"] == 1.0
+    assert max(r["outputs_rel"].values()) == 0.0
+    off = dict(pl, hat_diag=pl["hat_diag"] * (1 + 1e-6))
+    assert checks.check_irls(off, pl)["ok"]
+    assert not checks.check_irls(off, pl, outputs=True)["ok"]
+    slow = dict(pl, iter=pl["iter"] + (torch.arange(333) % 10 == 0).int())
+    assert not checks.check_irls(slow, pl, outputs=True)["ok"]
+
+
 def test_check_irls_min_mu_gates_float32_off_zero_rows():
     """float64 is read on every gene; float32 off the zero-group genes,
     with the every-gene reading beside it."""

@@ -50,17 +50,20 @@ def test_paired_study_refuses_other_engines():
     (["root", "3", "16:float64", "64:float32"],
      (3, ((16, "float64"), (64, "float32")), ())),
     (["root,a,b", "3", "25:float32"], (3, ((25, "float32"),), ("a", "b"))),
+    (["root", "3", "1:float64", "2:float64", "8:float32"],
+     (3, ((1, "float64"), (2, "float64"), (8, "float32")), ())),
 ])
 def test_k2_study_arguments(args, want):
     # `studies k2 PARENT_ROOT[,ROOT...] [REPS [P:DTYPE ...]]`: the widths
-    # past the default cases (the wide kernel's p = 16, the block kernel's
-    # 17-64), and study variants timed beside the change
+    # past the default cases (the templated kernels' p = 1-8, the wide
+    # kernel's p = 16, the block kernel's 17-64), and study variants timed
+    # beside the change
     root, reps, cases, others = studies.k2_args(args)
     assert root.name == "root"
     assert (reps, cases, tuple(r.name for r in others)) == want
 
 
-@pytest.mark.parametrize("case", ["8:float64", "65:float32", "16:float16",
+@pytest.mark.parametrize("case", ["0:float64", "65:float32", "16:float16",
                                   "16"])
 def test_k2_study_refuses_other_cases(case):
     with pytest.raises(SystemExit):
@@ -92,6 +95,8 @@ def test_k1_phase_marks_time_every_phase(name):
     (["root", "3", "9:float32", "64:float32", "25:float64"],
      (3, ((9, "float32"), (64, "float32"), (25, "float64")), ())),
     (["root,v1", "2", "10:float32"], (2, ((10, "float32"),), ("v1",))),
+    (["root", "3", "2:float64", "5:float64"],
+     (3, ((2, "float64"), (5, "float64")), ())),
 ])
 def test_k1_study_arguments(args, want):
     # `studies k1 PARENT_ROOT[,ROOT...] [REPS [P:DTYPE ...]]`: the paired
@@ -101,10 +106,20 @@ def test_k1_study_arguments(args, want):
     assert (reps, cases, tuple(r.name for r in others)) == want
 
 
-@pytest.mark.parametrize("case", ["8:float32", "65:float64", "25:float16"])
+@pytest.mark.parametrize("case", ["0:float32", "65:float64", "25:float16"])
 def test_k1_study_refuses_other_cases(case):
     with pytest.raises(SystemExit):
         studies.k1_args(["root", "3", case])
+
+
+@pytest.mark.parametrize("p, want", [(1, [[1.0]] * 4),
+                                     (2, [[1, 0], [1, 0], [1, 1], [1, 1]]),
+                                     (3, [[1, 0, 0], [1, 1, 0], [1, 0, 1],
+                                          [1, 1, 1]])])
+def test_study_matrix_at_narrow_widths(p, want):
+    # the narrow cases' designs: an intercept, the main path's ~ condition,
+    # then the paired design (two subjects at p = 3)
+    assert studies.study_matrix(4, p).tolist() == want
 
 
 def test_phase_marks_build_a_marked_copy(tmp_path):
