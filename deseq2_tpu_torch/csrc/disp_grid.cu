@@ -131,75 +131,113 @@ __device__ __forceinline__ int first_max(const T* cand_lp,
   return best_j;
 }
 
+// The templated kernel's body (DK_GRID_KERNEL_BODY, over T, P, UseW and
+// UseCR and the parameters DK_GRID_KERNEL_PARAMS names): each warp keeps
+// its candidate (lp, j) per stage (0 coarse, 1 fine) in shared memory; its
+// points j = warp, warp + kGridWarps, ... of a stage run in increasing j,
+// strict > (the first maximum wins, a NaN or -inf never does); the coarse
+// stage runs over the shared grid and every thread reads its pick, then
+// the fine stage over a_hat +- delta.  One macro, so that the
+// instantiations with other launch bounds (below) run the same code.
+#define DK_GRID_KERNEL_PARAMS(T)                                             \
+  const T *__restrict__ y, const T *__restrict__ mu,                         \
+      const T *__restrict__ x, const T *__restrict__ grid,                   \
+      const T *__restrict__ prior_mean, int S, int n, T prior_var,           \
+      int use_prior, int stage_x, T *__restrict__ out,                       \
+      const T *__restrict__ wts, T thr
+#define DK_GRID_KERNEL_BODY                                                   \
+  __shared__ T cand_lp[2][kGridWarps];                                        \
+  __shared__ int cand_j[2][kGridWarps];                                       \
+  extern __shared__ __align__(16) unsigned char smem_raw[];                   \
+                                                                              \
+  const int g = blockIdx.x;                                                   \
+  const int warp = threadIdx.x >> 5;                                          \
+  const T* yr = y + (size_t)g * S;                                            \
+  const T* mr = mu + (size_t)g * S;                                           \
+  const T* wr = UseW ? wts + (size_t)g * S : nullptr;                         \
+  const T* xr = x;                                                            \
+  if (stage_x) {                                                              \
+    T* sx = reinterpret_cast<T*>(smem_raw);                                   \
+    block_stage(sx, x, S * P);                                                \
+    xr = sx;                                                                  \
+    __syncthreads();                                                          \
+  }                                                                           \
+  unsigned cm = ~0u;                                                          \
+  if constexpr (UseW && UseCR) cm = warp_cr_col_mask<T, P>(wr, xr, S, thr);   \
+  const T pm = prior_mean[g];                                                 \
+                                                                              \
+  auto stage_max = [&](auto point, int st) {                                  \
+    T best_lp = -INFINITY;                                                    \
+    int best_j = -1;                                                          \
+    for (int j = warp; j < n; j += kGridWarps) {                              \
+      const T lp = log_post<T, P, UseW, UseCR>(yr, mr, wr, cm, thr, xr, S,    \
+                                               point(j), pm, prior_var,       \
+                                               use_prior);                    \
+      if (lp > best_lp) {                                                     \
+        best_lp = lp;                                                         \
+        best_j = j;                                                           \
+      }                                                                       \
+    }                                                                         \
+    if (lane_id() == 0) {                                                     \
+      cand_lp[st][warp] = best_lp;                                            \
+      cand_j[st][warp] = best_j;                                              \
+    }                                                                         \
+  };                                                                          \
+                                                                              \
+  stage_max([&](int j) { return grid[j]; }, 0);                               \
+  __syncthreads();                                                            \
+  const int jc = first_max(cand_lp[0], cand_j[0]);                            \
+  const T a_hat = jc < 0 ? T(0) : grid[jc];                                   \
+  const T delta = grid[1] - grid[0];                                          \
+  const T lo = a_hat - delta;                                                 \
+  const T span = T(2) * delta;                                                \
+  const double step = 1.0 / (double)(n - 1);                                  \
+  auto fine = [&](int j) { return lo + mul_rn(span, (T)((double)j * step)); }; \
+                                                                              \
+  stage_max(fine, 1);                                                         \
+  __syncthreads();                                                            \
+  if (threadIdx.x == 0) {                                                     \
+    const int jf = first_max(cand_lp[1], cand_j[1]);                          \
+    out[g] = jf < 0 ? T(0) : fine(jf);                                        \
+  }
+
 // The weighted mode's parameter comes last, as in the other kernels.
 template <typename T, int P, bool UseW, bool UseCR>
 __global__ void __launch_bounds__(32 * kGridWarps)
-    grid_kernel(const T* __restrict__ y, const T* __restrict__ mu,
-                const T* __restrict__ x, const T* __restrict__ grid,
-                const T* __restrict__ prior_mean, int S, int n, T prior_var,
-                int use_prior, int stage_x, T* __restrict__ out,
-                const T* __restrict__ wts, T thr) {
-  // each warp's candidate (lp, j) per stage: 0 coarse, 1 fine
-  __shared__ T cand_lp[2][kGridWarps];
-  __shared__ int cand_j[2][kGridWarps];
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-
-  const int g = blockIdx.x;
-  const int warp = threadIdx.x >> 5;
-  const T* yr = y + (size_t)g * S;
-  const T* mr = mu + (size_t)g * S;
-  const T* wr = UseW ? wts + (size_t)g * S : nullptr;
-  const T* xr = x;
-  if (stage_x) {
-    T* sx = reinterpret_cast<T*>(smem_raw);
-    block_stage(sx, x, S * P);
-    xr = sx;
-    __syncthreads();
-  }
-  unsigned cm = ~0u;
-  if constexpr (UseW && UseCR) cm = warp_cr_col_mask<T, P>(wr, xr, S, thr);
-  const T pm = prior_mean[g];
-
-  // this warp's points j = warp, warp + kGridWarps, ... of a stage, in
-  // increasing j; strict >: the first maximum wins, a NaN or -inf never
-  // does
-  auto stage_max = [&](auto point, int st) {
-    T best_lp = -INFINITY;
-    int best_j = -1;
-    for (int j = warp; j < n; j += kGridWarps) {
-      const T lp = log_post<T, P, UseW, UseCR>(yr, mr, wr, cm, thr, xr, S,
-                                               point(j), pm, prior_var,
-                                               use_prior);
-      if (lp > best_lp) {
-        best_lp = lp;
-        best_j = j;
-      }
-    }
-    if (lane_id() == 0) {
-      cand_lp[st][warp] = best_lp;
-      cand_j[st][warp] = best_j;
-    }
-  };
-
-  // coarse stage over the shared grid; every thread reads the pick
-  stage_max([&](int j) { return grid[j]; }, 0);
-  __syncthreads();
-  const int jc = first_max(cand_lp[0], cand_j[0]);
-  const T a_hat = jc < 0 ? T(0) : grid[jc];
-  const T delta = grid[1] - grid[0];
-  const T lo = a_hat - delta;
-  const T span = T(2) * delta;
-  const double step = 1.0 / (double)(n - 1);
-  auto fine = [&](int j) { return lo + mul_rn(span, (T)((double)j * step)); };
-
-  // fine stage over a_hat +- delta
-  stage_max(fine, 1);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const int jf = first_max(cand_lp[1], cand_j[1]);
-    out[g] = jf < 0 ? T(0) : fine(jf);
-  }
+    grid_kernel(DK_GRID_KERNEL_PARAMS(T)) {
+  DK_GRID_KERNEL_BODY
 }
+
+// The float64 instantiations with the Cox-Reid term at P = 3-6, and
+// unweighted at P = 1, ask for three resident blocks an SM (64 registers a
+// thread, spills and all).  A point is its special functions (CUDA's
+// lgamma, log1p and a reciprocal a sample: 0.86-0.90 of its time at p <=
+// 2), each warp a long chain of them, and at two blocks an SM (74-134
+// registers) their latency showed: three took 0.65-0.93 of the time
+// there (`studies k3`, PERF.md section 6).  Elsewhere three blocks
+// measured no faster (weighted P = 1, without the Cox-Reid term) or
+// slower (P = 7, 8: their grams spill kilobytes), and P = 2 keeps its
+// unspilled registers (chip_smoke.py phase 2 gates them).
+constexpr int kGridOccBlocks = 3;
+#define DK_GRID_OCC(PV, W)                                                   \
+  template <>                                                                \
+  __global__ void __launch_bounds__(32 * kGridWarps, kGridOccBlocks)         \
+      grid_kernel<double, PV, W, true>(DK_GRID_KERNEL_PARAMS(double)) {      \
+    using T = double;                                                        \
+    constexpr int P = PV;                                                    \
+    constexpr bool UseW = W, UseCR = true;                                   \
+    DK_GRID_KERNEL_BODY                                                      \
+  }
+DK_GRID_OCC(1, false)
+DK_GRID_OCC(3, false)
+DK_GRID_OCC(3, true)
+DK_GRID_OCC(4, false)
+DK_GRID_OCC(4, true)
+DK_GRID_OCC(5, false)
+DK_GRID_OCC(5, true)
+DK_GRID_OCC(6, false)
+DK_GRID_OCC(6, true)
+#undef DK_GRID_OCC
 
 template <typename T, int P, bool UseW, bool UseCR>
 int launch_p(const T* y, const T* mu, const T* w, const T* x, const T* grid,

@@ -14,29 +14,35 @@
 // What bounds it on the H100: past 16 columns, the gram.  Each of the 2n
 // = 40 points sums X'WX, p (p + 1) / 2 multiply-adds a sample, against the
 // per-sample lgamma, log1p and reciprocal, then factors it (~p^3 / 6).
-// The design (common.cuh's block section): one block of 256 threads per
-// gene evaluates the points of a stage in increasing order, each over all
-// its threads (samples in tiles of up to 256, the gram's 4 x 4 upper
-// blocks owned by the threads and reduced in group order, the Cholesky in
-// shared memory), and keeps the first maximum by the plain version's
-// strict `>` scan.  Every sum runs in one fixed order: two launches give
-// the same bits.
+// Every design evaluates a gene's points with the whole block of 256
+// threads and keeps the first maximum by the plain version's strict `>`
+// scan; every sum runs in one fixed order, so two launches give the same
+// bits and a gene's result does not depend on the genes beside it.
+// Without the Cox-Reid term (both dtypes, a block a gene) a point is the
+// likelihood terms' block sum alone.
 //
-// In float64 with the Cox-Reid term (grid_block_genes_mma) the gram runs
-// on the FP64 tensor cores, as the float64 block K2's do (common.cuh's
-// float64 gram section): persistent blocks take their next gene from the
-// launch's counter and evaluate a stage's points two at a time (a stage's
-// points are independent: the scan needs only their lp).  Every one of the
-// 256 threads first computes its samples' terms at both points (the lgamma
-// difference, the log1p term and the Cox-Reid weight w, which goes to two
-// global scratch rows of the block's), then one pass over tiles staged by
-// cp.async sums both points' X'WX as mma.sync m8n8k4 products, each
-// design fragment loaded once for both (each warp a run of the upper 8 x 8
-// tiles in registers, k-steps in ascending order), and warp 0 factors each
-// with its log determinant (warp_cholesky_ll: block_cholesky's operations
-// and order, one __syncwarp a column, where block_cholesky took three
-// block barriers a column and a third of the point, PERF.md section 6).
-// So no gram accumulator is live while the special functions run.
+// With the Cox-Reid term the blocks are persistent, each taking its next
+// gene from the launch's counter, and every one of the 256 threads first
+// computes its samples' terms (the lgamma difference, the log1p term and
+// the Cox-Reid weight w, which goes to the block's global scratch rows),
+// so that no gram accumulator is live while the special functions run;
+// then one pass over the tiles sums X'WX, and warp 0 factors it with its
+// log determinant (warp_cholesky_ll: block_cholesky's operations and
+// order, one __syncwarp a column, where block_cholesky took three block
+// barriers a column and a third of the point, PERF.md section 6).
+// - float64 (grid_block_genes_mma, log_post_pair): the gram on the FP64
+//   tensor cores, as the float64 block K2's (common.cuh's float64 gram
+//   section), two points of a stage a pass (a stage's points are
+//   independent: the scan needs only their lp), tiles staged by cp.async
+//   and each design fragment loaded once for both grams (each warp a run
+//   of the upper 8 x 8 tiles in registers, k-steps in ascending order);
+// - float32 (grid_block_genes_rows, log_post_rows): the float32 block K2's
+//   design (lp_dlp_rows) with one gram a point, two points of a stage a
+//   pass: sample-major design tiles that a thread's 4 x 4 blocks read in
+//   128-bit loads, each quad loaded once for both points' grams (the gram
+//   threads form w x from the two weight rows beside the tile), the
+//   groups' blocks reduced in group order, four blocks an SM (kRowsBlocks,
+//   64 registers a thread), the tile width set by their shared memory.
 #include "common.cuh"
 
 namespace {
@@ -54,29 +60,24 @@ __device__ __forceinline__ double mul_rn(double a, double b) {
 // factor
 constexpr int kBlockMats = 1;
 
-// log_post at a run-time p over a thread block (common.cuh's block
-// section): x the design transposed (p x S); bm, red and tile the block's
-// shared matrix, block sums' scratch and tile buffers.
-template <typename T, bool UseW, bool UseCR>
-__device__ __forceinline__ T log_post_block(const GramMap& gm, const T* yr,
-                                            const T* mr, const T* wr,
-                                            unsigned long long cm, T thr,
-                                            const T* x, int S,
+// log_post at a run-time p over a thread block without the Cox-Reid term
+// (both dtypes; with it float32 takes log_post_rows and float64
+// log_post_pair): the likelihood terms alone, each thread its samples of
+// the tiles of tw (common.cuh's block section); red the block sums'
+// scratch.
+template <typename T, bool UseW>
+__device__ __forceinline__ T log_post_block(const T* yr, const T* mr,
+                                            const T* wr, int S,
                                             const BlockLayout& lay, T la,
                                             T pm, T prior_var, int use_prior,
-                                            T* bm, T* red, T* tile) {
+                                            T* red) {
   const int t = threadIdx.x;
-  const int p = lay.p, tw = lay.tw, ts = lay.ts;
+  const int tw = lay.tw;
   const T alpha = d_exp(la);
   const LgConst<T> k = lg_const(T(1) / alpha);
   T acc[1] = {T(0)};
-  GramBlock<T> gb;
-  if constexpr (UseCR) gram_zero(gb);
-  T* xb = tile;
-  T* ub = tile + (size_t)lay.pr * ts;
   for (int base = 0; base < S; base += tw) {
     const int s = base + t;
-    if constexpr (UseCR) __syncthreads();
     if (t < tw && s < S) {
       const T yv = yr[s];
       const T m = mr[s];
@@ -84,29 +85,180 @@ __device__ __forceinline__ T log_post_block(const GramMap& gm, const T* yr,
       const T r = T(1) / (T(1) + mua);
       acc[0] +=
           wscale<UseW>(lg_diff(yv, k) - (yv + k.c) * d_log1p(mua), wr, s);
-      if constexpr (UseCR) {
-        T w = m * r;
-        if constexpr (UseW) {
-          if (!cr_keeps(wr[s], thr)) w = T(0);
-        }
-        block_tile_put(xb, ub, x, S, s, p, ts, w);
-      }
-    }
-    if constexpr (UseCR) {
-      const int n = S - base < tw ? S - base : tw;
-      __syncthreads();
-      block_gram_add(gm, gb, ub, xb, ts, n);
     }
   }
   block_allsum<T, 1>(acc, red);
   T lp = acc[0];
-  if constexpr (UseCR) {
-    block_gram_reduce(gm, gb, tile);   // the tile buffers are its scratch
-    block_gram_store(gm, gb, bm, p, cm, true, static_cast<const T*>(nullptr));
-    lp = acc[0] - T(0.5) * block_cholesky<T, true>(bm, p);
-  }
   if (use_prior) lp -= T(0.5) * (la - pm) * (la - pm) / prior_var;
   return lp;
+}
+
+// K3's float32 layout with the Cox-Reid term: the matrix (its values
+// rounded up to a multiple of 4, so that the tile's 128-bit stores stay
+// aligned), the vectors, then the sample-major design tile (x_row_put:
+// lay.ts = rows_ld(pr) the row stride) and two points' weight rows of tw
+// values, which the groups' reduction reuses as its scratch
+__host__ __device__ inline BlockLayout grid_rows_layout(int p, int tw) {
+  BlockLayout l = block_layout(p, tw, kBlockMats, true);
+  l.mat = (l.mat + 3) & ~(size_t)3;
+  l.ts = rows_ld(l.pr);
+  const size_t buf = (size_t)tw * l.ts + 2 * (size_t)tw;
+  const size_t scratch =
+      (size_t)(block_gram_groups(p) - 1) * block_gram_blocks(p) * 16;
+  l.tile = buf > scratch ? buf : scratch;
+  l.vals = kBlockMats * l.mat + l.vec + l.tile;
+  return l;
+}
+
+// the float32 kernel's resident blocks an SM (its launch bounds: 64
+// registers a thread, spills and all) and the shared memory each may take
+// for them (the SM's 228 KB less the 1 KB a block the card keeps); the
+// tile width follows from them and p alone, never from G, so that a
+// gene's sums run in one order in any launch (256 samples up to p = 40,
+// 192 at 48, 128 at 64).  Four blocks an SM measured faster than two and three
+// at p = 17-40, three at p = 64 (`studies k3`, PERF.md section 6).
+constexpr int kRowsBlocks = 4;
+constexpr size_t kRowsSmemTarget = 233472 / kRowsBlocks - 1024;
+
+inline int grid_rows_tile(int p) {
+  int tw = kBlockThreads;
+  while (tw > 32 && grid_rows_layout(p, tw).vals * sizeof(float) >
+                        kRowsSmemTarget)
+    tw -= 32;
+  return tw;
+}
+
+// Slot t of the tile takes sample s's design row, four values a 128-bit
+// store (rows_put's x half; xt the design transposed, p x S): each thread
+// its own sample, so a warp reads a column's consecutive samples.  (The
+// float32 K1's k1_stage, a warp a quad, measured 1.15-1.21x slower here.)
+__device__ __forceinline__ void x_row_put(float* xb, const float* xt, int S,
+                                          int s, int p, int pr, int ld,
+                                          int t) {
+  for (int k = 0; k < pr; k += 4) {
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      v[e] = k + e < p ? __ldg(xt + (size_t)(k + e) * S + s) : 0.f;
+    *reinterpret_cast<float4*>(xb + t * ld + k) =
+        make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// Add a tile's first n samples to the thread's blocks of two points'
+// grams, ga += (wa_t x_t[r]) x_t[c]' and gb += (wb_t x_t[r]) x_t[c]' (its
+// group's samples t = group, group + ng, ... < n in that order; xb the
+// tile's design rows, wa and wb its weights at the two points): each
+// design quad loaded once for both, the products w x of a tile of w x
+// (rows_put's), so each gram's bits are a one-point pass's.
+__device__ __forceinline__ void pair_add_rows(const GramMap& m,
+                                              GramBlock<float>& ga,
+                                              GramBlock<float>& gb,
+                                              const float* xb,
+                                              const float* wa,
+                                              const float* wb, int ld,
+                                              int n) {
+  if (!m.active) return;
+#pragma unroll 2
+  for (int t = m.grp; t < n; t += m.ng) {
+    const float4 a = *reinterpret_cast<const float4*>(xb + t * ld + m.r0);
+    const float4 b = *reinterpret_cast<const float4*>(xb + t * ld + m.c0);
+    const float w0 = wa[t], w1 = wb[t];
+    const float xr[4] = {a.x, a.y, a.z, a.w};
+    const float xc[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float u0 = w0 * xr[i], u1 = w1 * xr[i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        ga.a[i][j] += u0 * xc[j];
+        gb.a[i][j] += u1 * xc[j];
+      }
+    }
+  }
+}
+
+// log_post in float32 with the Cox-Reid term at two points la[0], la[1] of
+// a stage (the float32 block K2's lp_dlp_rows design with one gram a
+// point): every thread first sums its samples t, t + 256, ... (whatever
+// the tile width) at both points and writes their weights w to wscr (2 S
+// values of the block's global scratch; block_allsum's barrier makes them
+// visible to the block); then the block walks the tiles, staging the
+// design sample-major (x_row_put) with both points' weights beside it, and
+// adds each tile to the threads' 4 x 4 blocks of both grams with 128-bit
+// loads (pair_add_rows), in the tiles' order; each gram's blocks are then
+// reduced in group order and stored with the column mask, and warp 0
+// factors the matrix (warp_cholesky_ll: block_cholesky's operations and
+// order, one __syncwarp a column) and hands the log determinant to every
+// thread through `ldet` (a shared value of its own: `red` takes the next
+// pair's sums).  So no gram accumulator is live while the special
+// functions run.  The terms, the mask, the pivot floor and the prior are
+// the parent design's (a point at a time, the 4 x 4 blocks on
+// column-major tiles, block_cholesky).
+template <bool UseW>
+__device__ __forceinline__ void log_post_rows(
+    const GramMap& gm, const float* yr, const float* mr, const float* wr,
+    unsigned long long cm, float thr, const float* x, int S,
+    const BlockLayout& lay, const float (&la)[2], float pm, float prior_var,
+    int use_prior, float* bm, float* red, float* tile, float* wscr,
+    float* ldet, float (&lp)[2]) {
+  using T = float;
+  const int t = threadIdx.x;
+  const int p = lay.p, tw = lay.tw, ts = lay.ts;
+  const T alpha[2] = {d_exp(la[0]), d_exp(la[1])};
+  T acc[2] = {T(0), T(0)};
+  {
+    const LgConst<T> k0 = lg_const(T(1) / alpha[0]);
+    const LgConst<T> k1 = lg_const(T(1) / alpha[1]);
+    for (int s = t; s < S; s += kBlockThreads) {
+      const T yv = yr[s];
+      const T m = mr[s];
+      const bool keep = !UseW || cr_keeps(wr[s], thr);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const LgConst<T>& k = e ? k1 : k0;
+        const T mua = m * alpha[e];
+        const T r = T(1) / (T(1) + mua);
+        acc[e] +=
+            wscale<UseW>(lg_diff(yv, k) - (yv + k.c) * d_log1p(mua), wr, s);
+        wscr[(size_t)e * S + s] = keep ? m * r : T(0);
+      }
+    }
+  }
+  block_allsum<T, 2>(acc, red);
+  GramBlock<T> ga, gb;
+  gram_zero(ga);
+  gram_zero(gb);
+  T* xb = tile;
+  T* wa = tile + (size_t)tw * ts;
+  T* wb = wa + tw;
+  for (int base = 0; base < S; base += tw) {
+    const int s = base + t;
+    __syncthreads();
+    if (t < tw && s < S) {
+      x_row_put(xb, x, S, s, p, lay.pr, ts, t);
+      wa[t] = wscr[s];
+      wb[t] = wscr[(size_t)S + s];
+    }
+    const int n = S - base < tw ? S - base : tw;
+    __syncthreads();
+    pair_add_rows(gm, ga, gb, xb, wa, wb, ts, n);
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    GramBlock<T>& g = e ? gb : ga;
+    // the tile buffers are the reduction's scratch
+    block_gram_reduce(gm, g, tile);
+    block_gram_store(gm, g, bm, p, cm, true, static_cast<const T*>(nullptr));
+    if (t < 32) {
+      const T d = p <= 32 ? warp_cholesky_ll<T, 1>(bm, p)
+                          : warp_cholesky_ll<T, 2>(bm, p);
+      if (t == 0) *ldet = d;
+    }
+    __syncthreads();
+    lp[e] = acc[e] - 0.5f * *ldet;
+    if (use_prior) lp[e] -= 0.5f * (la[e] - pm) * (la[e] - pm) / prior_var;
+  }
 }
 
 // K3's float64 layout with the Cox-Reid term: the matrix, the vectors,
@@ -171,7 +323,7 @@ __device__ __forceinline__ void pair_add(const MmaRun<kMmaRunK2>& m,
 // lane l rows l and l + 32; one row a lane to 32 columns), which reaches
 // every thread through `ldet` (a shared value of its own: `red` takes the
 // next pair's sums before every thread has read it).  The terms, the
-// mask, the pivot floor and the prior are log_post_block's.
+// mask, the pivot floor and the prior are grid_wide_kernel's.
 template <bool UseW>
 __device__ __forceinline__ void log_post_pair(
     const double* yr, const double* mr, const double* wr,
@@ -242,15 +394,15 @@ __device__ __forceinline__ void log_post_pair(
 // evaluated two at a time by lp_pair (the last alone, as a pair of itself,
 // when n is odd): every thread gets the same index (-1 when no lp beats
 // -inf).
-template <typename Point, typename Lp>
+template <typename T, typename Point, typename Lp>
 __device__ __forceinline__ int stage_first_max_pairs(int n, Point point,
                                                      Lp lp_pair) {
-  double best_lp = -INFINITY;
+  T best_lp = -INFINITY;
   int best_j = -1;
   for (int j = 0; j < n; j += 2) {
     const int j2 = j + 1 < n ? j + 1 : j;
-    const double la[2] = {point(j), point(j2)};
-    double lp[2];
+    const T la[2] = {point(j), point(j2)};
+    T lp[2];
     lp_pair(la, lp);
     if (lp[0] > best_lp) {
       best_lp = lp[0];
@@ -304,13 +456,66 @@ __device__ __forceinline__ void grid_block_genes_mma(
       log_post_pair<UseW>(yr, mr, wr, cm, thr, x, S, lay, la, pm, prior_var,
                           use_prior, bm, red, tile, wscr, ldet, lp);
     };
-    const int jc = stage_first_max_pairs(
+    const int jc = stage_first_max_pairs<T>(
         n, [&](int j) { return grid[j]; }, lp_pair);
     const T lo = (jc < 0 ? T(0) : grid[jc]) - delta;
     auto fine = [&](int j) {
       return lo + mul_rn(span, (T)((double)j * step));
     };
-    const int jf = stage_first_max_pairs(n, fine, lp_pair);
+    const int jf = stage_first_max_pairs<T>(n, fine, lp_pair);
+    if (threadIdx.x == 0) out[g] = jf < 0 ? T(0) : fine(jf);
+  }
+}
+
+// grid_block_kernel<float, UseW, true>'s body: persistent blocks, each
+// gene's coarse and fine stages as grid_block_kernel runs them, their
+// points two at a time by log_post_rows.
+template <bool UseW>
+__device__ __forceinline__ void grid_block_genes_rows(
+    float* sm, const float* __restrict__ y, const float* __restrict__ mu,
+    const float* __restrict__ x, const float* __restrict__ grid,
+    const float* __restrict__ prior_mean, int G, int S, int p, int n,
+    int tw, float prior_var, int use_prior, float* __restrict__ out,
+    const float* __restrict__ wts, float thr, int* __restrict__ counter,
+    float* __restrict__ scratch) {
+  using T = float;
+  const BlockLayout lay = grid_rows_layout(p, tw);
+  T* bm = sm;
+  T* vec = sm + lay.mat;
+  T* red = vec + kBlockRed;
+  int* slot = reinterpret_cast<int*>(vec + kBlockSlots);
+  // the log determinant's slot: the value beside the gene index (the
+  // mask's 64 bits take the next two)
+  T* ldet = vec + kBlockSlots + 1;
+  unsigned long long* mslot =
+      reinterpret_cast<unsigned long long*>(vec + kBlockSlots + 2);
+  T* tile = vec + lay.vec;
+  T* wscr = scratch + (size_t)blockIdx.x * 2 * S;
+  const GramMap gm = block_gram_map(p);
+  const T delta = grid[1] - grid[0];
+  const T span = T(2) * delta;
+  const double step = 1.0 / (double)(n - 1);
+  for (;;) {
+    const int g = block_next_gene(counter, slot);
+    if (g >= G) break;
+    const T* yr = y + (size_t)g * S;
+    const T* mr = mu + (size_t)g * S;
+    const T* wr = UseW ? wts + (size_t)g * S : nullptr;
+    unsigned long long cm = ~0ull;
+    if constexpr (UseW) cm = block_cr_col_mask<T>(wr, x, S, p, thr, mslot);
+    const T pm = prior_mean[g];
+    auto lp_pair = [&](const T (&la)[2], T (&lp)[2]) {
+      log_post_rows<UseW>(gm, yr, mr, wr, cm, thr, x, S, lay, la, pm,
+                          prior_var, use_prior, bm, red, tile, wscr, ldet,
+                          lp);
+    };
+    const int jc = stage_first_max_pairs<T>(
+        n, [&](int j) { return grid[j]; }, lp_pair);
+    const T lo = (jc < 0 ? T(0) : grid[jc]) - delta;
+    auto fine = [&](int j) {
+      return lo + mul_rn(span, (T)((double)j * step));
+    };
+    const int jf = stage_first_max_pairs<T>(n, fine, lp_pair);
     if (threadIdx.x == 0) out[g] = jf < 0 ? T(0) : fine(jf);
   }
 }
@@ -323,42 +528,33 @@ __device__ __forceinline__ void grid_block_genes_mma(
       const T *__restrict__ wts, T thr, int G, int *__restrict__ counter,    \
       T *__restrict__ scratch
 
-// grid_kernel at a run-time p with a thread block per gene: the block
-// evaluates a stage's points in increasing j, each over all its threads,
-// and keeps the first maximum (strict >, as the plain version scans).
-// G, counter and scratch are the float64 instantiations' with the
-// Cox-Reid term (below); this body reads none of them.
+// grid_kernel at a run-time p with a thread block per gene, without the
+// Cox-Reid term (both dtypes): the block evaluates a stage's points in
+// increasing j, each over all its threads, and keeps the first maximum
+// (strict >, as the plain version scans).  G, counter and scratch are the
+// persistent instantiations' with the Cox-Reid term (below); this body
+// reads none of them.
 template <typename T, bool UseW, bool UseCR>
 __global__ void __launch_bounds__(kBlockThreads)
     grid_block_kernel(DK_GRID_BLOCK_PARAMS(T)) {
+  static_assert(!UseCR, "the Cox-Reid term takes the persistent bodies");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
-  const BlockLayout lay =
-      block_layout(p, tw, UseCR ? kBlockMats : 0, UseCR);
-  T* bm = sm;
-  T* vec = sm + (UseCR ? kBlockMats * lay.mat : 0);
-  T* red = vec + kBlockRed;
-  unsigned long long* mslot =
-      reinterpret_cast<unsigned long long*>(vec + kBlockSlots + 2);
-  T* tile = vec + lay.vec;
-  const GramMap gm = block_gram_map(p);
+  const BlockLayout lay = block_layout(p, tw, 0, false);
+  T* red = sm + kBlockRed;
 
   const int g = blockIdx.x;
   const T* yr = y + (size_t)g * S;
   const T* mr = mu + (size_t)g * S;
   const T* wr = UseW ? wts + (size_t)g * S : nullptr;
-  unsigned long long cm = ~0ull;
-  if constexpr (UseW && UseCR)
-    cm = block_cr_col_mask<T>(wr, x, S, p, thr, mslot);
   const T pm = prior_mean[g];
 
   auto stage_max = [&](auto point) {
     T best_lp = -INFINITY;
     int best_j = -1;
     for (int j = 0; j < n; ++j) {
-      const T lp = log_post_block<T, UseW, UseCR>(
-          gm, yr, mr, wr, cm, thr, x, S, lay, point(j), pm, prior_var,
-          use_prior, bm, red, tile);
+      const T lp = log_post_block<T, UseW>(yr, mr, wr, S, lay, point(j), pm,
+                                           prior_var, use_prior, red);
       if (lp > best_lp) {
         best_lp = lp;
         best_j = j;
@@ -393,26 +589,47 @@ __global__ void __launch_bounds__(kBlockThreads)
 DK_GRID_BLOCK_MMA(false)
 DK_GRID_BLOCK_MMA(true)
 #undef DK_GRID_BLOCK_MMA
+
+// The float32 instantiations with the Cox-Reid term: log_post_rows,
+// persistent blocks over the G genes by `counter`, kRowsBlocks resident
+// blocks an SM, each block with its row of `scratch`.
+#define DK_GRID_BLOCK_ROWS(W)                                                \
+  template <>                                                                \
+  __global__ void __launch_bounds__(kBlockThreads, kRowsBlocks)              \
+      grid_block_kernel<float, W, true>(DK_GRID_BLOCK_PARAMS(float)) {       \
+    extern __shared__ __align__(16) unsigned char smem_raw[];                \
+    grid_block_genes_rows<W>(reinterpret_cast<float*>(smem_raw), y, mu, x,   \
+                             grid, prior_mean, G, S, p, n, tw, prior_var,    \
+                             use_prior, out, wts, thr, counter, scratch);    \
+  }
+DK_GRID_BLOCK_ROWS(false)
+DK_GRID_BLOCK_ROWS(true)
+#undef DK_GRID_BLOCK_ROWS
 #undef DK_GRID_BLOCK_PARAMS
 
-// whether a launch takes the tensor-core path (persistent blocks, and a
-// global scratch row of S weights per resident block)
-template <typename T, bool UseCR>
-__host__ __device__ constexpr bool grid_mma() {
-  return !is_f32<T>() && UseCR;
+// Rows of global scratch (S values each) a resident block takes: with the
+// Cox-Reid term the launch's blocks are persistent and write the weights
+// of a stage's two points there (log_post_pair, log_post_rows), else
+// none.
+template <bool UseCR>
+__host__ __device__ constexpr int grid_scratch_per_block() {
+  return UseCR ? 2 : 0;
 }
 
 // dynamic shared memory and tile width of a block launch (the vectors
 // alone without the Cox-Reid term)
 template <typename T>
 inline size_t block_smem(int p, bool use_cr, int* tw) {
-  if (!is_f32<T>() && use_cr) {
-    *tw = block_mma_tile(p, kBlockMats, (p + 7) >> 3, 2, 0);
-    return grid_mma_layout(p, *tw).vals * sizeof(T);
+  if (!use_cr) {
+    *tw = kBlockThreads;
+    return block_layout(p, *tw, 0, false).vals * sizeof(T);
   }
-  const int nmat = use_cr ? kBlockMats : 0;
-  *tw = use_cr ? block_tile<T>(p, nmat, true) : kBlockThreads;
-  return block_layout(p, *tw, nmat, use_cr).vals * sizeof(T);
+  if (is_f32<T>()) {
+    *tw = grid_rows_tile(p);
+    return grid_rows_layout(p, *tw).vals * sizeof(T);
+  }
+  *tw = block_mma_tile(p, kBlockMats, (p + 7) >> 3, 2, 0);
+  return grid_mma_layout(p, *tw).vals * sizeof(T);
 }
 
 template <typename T, bool UseW, bool UseCR>
@@ -425,12 +642,13 @@ int launch_block(const T* y, const T* mu, const T* w, const T* x,
   auto kernel = grid_block_kernel<T, UseW, UseCR>;
   int err = allow_smem(kernel, smem);
   if (err) return err;
-  // a block a gene, or (the tensor-core path) persistent blocks
+  // a block a gene, or (with the Cox-Reid term) persistent blocks
   int blocks = G;
-  if constexpr (grid_mma<T, UseCR>()) {
+  if constexpr (UseCR) {
     blocks = persistent_gene_blocks(kernel, smem, G, &err);
     if (err) return err;
-    if (2 * blocks > scratch_rows) return (int)cudaErrorInvalidValue;
+    if (grid_scratch_per_block<UseCR>() * blocks > scratch_rows)
+      return (int)cudaErrorInvalidValue;
   }
   kernel<<<blocks, kBlockThreads, smem, st>>>(y, mu, x, grid, pm, S, p, n,
                                               tw, prior_var, use_prior, out,
@@ -438,18 +656,18 @@ int launch_block(const T* y, const T* mu, const T* w, const T* x,
   return (int)cudaGetLastError();
 }
 
-// Rows of global scratch (S values each) a launch needs: two a resident
-// block on the tensor-core path (log_post_pair's weights at its two
-// points), else 0; -1 on a refusal.
+// Rows of global scratch (S values each) a launch needs:
+// grid_scratch_per_block a resident block, 0 without the Cox-Reid term;
+// -1 on a refusal.
 template <typename T, bool UseW, bool UseCR>
 int scratch_rows_block(int p, int G) {
-  if (!grid_mma<T, UseCR>()) return 0;
+  if (!UseCR) return 0;
   int tw = 0;
   const size_t smem = block_smem<T>(p, UseCR, &tw);
   auto kernel = grid_block_kernel<T, UseW, UseCR>;
   int err = allow_smem(kernel, smem);
   const int blocks = err ? 0 : persistent_gene_blocks(kernel, smem, G, &err);
-  return err ? -1 : 2 * blocks;
+  return err ? -1 : grid_scratch_per_block<UseCR>() * blocks;
 }
 
 template <typename T, bool UseW, bool UseCR>
@@ -464,8 +682,8 @@ int occupancy_block(int p) {
 
 // w == nullptr selects the unweighted instantiations, use_cr == 0 the ones
 // without the Cox-Reid term; `counter` is one zeroed int of device memory
-// and scratch holds scratch_rows rows of S values (the float64 path with
-// the Cox-Reid term, as many as scratch_rows_mode says; else unread)
+// and scratch holds scratch_rows rows of S values (with the Cox-Reid term,
+// as many as scratch_rows_mode says; else unread)
 template <typename T>
 int launch(const T* y, const T* mu, const T* w, const T* x, const T* grid,
            const T* pm, int G, int S, int p, int n, T prior_var,
@@ -513,8 +731,7 @@ int scratch_rows_mode(int weighted, int use_cr, int p, int G) {
 extern "C" {
 
 // rows of S values of global scratch the launch takes (`scratch`,
-// `scratch_rows`; 0 in float32 and without the Cox-Reid term, -1 on a
-// refusal)
+// `scratch_rows`; 0 without the Cox-Reid term, -1 on a refusal)
 int grid_block_scratch_rows(int f64, int weighted, int p, int use_cr, int G) {
   return f64 ? scratch_rows_mode<double>(weighted, use_cr, p, G)
              : scratch_rows_mode<float>(weighted, use_cr, p, G);

@@ -12,11 +12,12 @@ package's XLA core for p > 8); p > 64 runs the plain version on the card;
 a CPU tensor runs the plain version, ops/disp.py:fit_disp_grid_plain.  The
 route is chosen from the tensor's device and p alone, before any launch.
 The counts are cuda_ls.py's, one per mode and width (cuda_ls.COUNTERS),
-and ``launches_by_device``.  The block kernel in float64 with the Cox-Reid
-term takes global scratch, two rows of S weights for each resident block,
-which the wrapper allocates as the library's ``grid_block_scratch_rows``
-says, and a zeroed gene counter.  Under ops/placement.py:use_gene_mesh the
-call runs shard by shard over the mesh.
+and ``launches_by_device``.  The block kernel with the Cox-Reid term takes
+global scratch, two rows of S weights for each resident block (a stage's
+two grid points'), which the wrapper allocates as the library's
+``grid_block_scratch_rows`` says, and a zeroed gene counter.  Under
+ops/placement.py:use_gene_mesh the call runs shard by shard over the
+mesh.
 """
 
 from __future__ import annotations
@@ -82,8 +83,8 @@ def fit_disp_grid(y, x, mu, disp_grid, prior_mean, prior_var,
     f64 = dtype == torch.float64
     scal = ctypes.c_double if f64 else ctypes.c_float
     # the block kernels live in a library of their own (disp_grid_block.cu),
-    # and take a gene counter and global scratch (two rows of S weights for
-    # each resident block of the float64 kernel with the Cox-Reid term)
+    # and take a gene counter and global scratch (rows of S weights for
+    # each resident block with the Cox-Reid term)
     block = p > P_WIDE
     lib, sym = ("disp_grid_block", "grid_block") if block \
         else ("disp_grid", "grid")

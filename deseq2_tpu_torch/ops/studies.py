@@ -6,7 +6,7 @@ ROADMAP.md:
     python -m deseq2_tpu_torch.ops.studies kernels PARENT_ROOT [REPS]
     python -m deseq2_tpu_torch.ops.studies k2 PARENT_ROOT[,ROOT...] [REPS [P:DTYPE ...]]
     python -m deseq2_tpu_torch.ops.studies k1 PARENT_ROOT[,ROOT...] [REPS [P:DTYPE ...]]
-    python -m deseq2_tpu_torch.ops.studies k3 PARENT_ROOT[,ROOT...] [REPS [P:DTYPE ...]]
+    python -m deseq2_tpu_torch.ops.studies k3 PARENT_ROOT[,ROOT...] [REPS [P:DTYPE[:w|nocr] ...]]
     python -m deseq2_tpu_torch.ops.studies edges [N_PERM [wide]]
     python -m deseq2_tpu_torch.ops.studies expanded
     python -m deseq2_tpu_torch.ops.studies mainpath PARENT_ROOT [CALLS]
@@ -14,7 +14,7 @@ ROADMAP.md:
     python -m deseq2_tpu_torch.ops.studies block [REPS]
     python -m deseq2_tpu_torch.ops.studies crossover [REPS]
     python -m deseq2_tpu_torch.ops.studies variant smem|minp [REPS]
-    python -m deseq2_tpu_torch.ops.studies phases [k1 [ROOT]]
+    python -m deseq2_tpu_torch.ops.studies phases [k1|k3 [ROOT]]
     python -m deseq2_tpu_torch.ops.studies paired PARENT_ROOT [P [CALLS [DTYPE [ENGINE]]]]
     python -m deseq2_tpu_torch.ops.studies rlog [N_SEEDS]
     python -m deseq2_tpu_torch.ops.studies sc [G S]
@@ -57,12 +57,16 @@ inverse, the sandwich, the hat diagonal; K3 on the genes the line search
 leaves, or the first 4,096: its terms, its tiles (the tensor-core
 design's staging and products, or the 4 x 4 design's tile writes and gram
 adds), the store, the Cholesky with its log determinant, the prior), then
-the wide K2 at p = 10 in both dtypes and the float32 block K2 at p = 25 a
-trial point, with the float32 wide K2's samples counted by the branch
-their special functions take (the large-c series; a shift of z = y + c <
-8, and the shifts a sample; none).  The marks fit either K3 design, so
-`phases` run in a checkout of an earlier commit with this module copied
-in marks that commit's kernels.  `phases k1 [ROOT]` prints the float32 K1 kernels'
+the float32 block K3 at p = 25 a grid point (its terms, the tiles'
+staging, both points' gram adds, each gram's reduction and store, the
+Cholesky, the prior), the wide K2 at p = 10 in both dtypes and the float32
+block K2 at p = 25 a trial point, with the float32 wide K2's samples
+counted by the branch their special functions take (the large-c series;
+a shift of z = y + c < 8, and the shifts a sample; none).  `phases k3
+[ROOT]` builds the block K3 alone, marked, from ROOT's checkout (default
+this one; an earlier checkout's 4 x 4 float32 design takes
+_K3_EARLIER_MARKS) and prints its split at p = 25 in both dtypes.
+`phases k1 [ROOT]` prints the float32 K1 kernels'
 registers, spill bytes and resident warps an SM (of ROOT's checkout, by
 default this one), then builds a copy of ROOT's csrc with clock64 marks
 in them (_K1_MARKS: a checkout of this design) and prints, on the
@@ -113,10 +117,12 @@ times its cases.
 
 `k3`: the grid search (K3) on the paired pipeline inputs at 60,000 x
 1,024 (by default the block kernel in float64 at p = 17, 24, 25, 32, 40,
-48, 56, 64; or the cases P:DTYPE given), on the genes the line search
-(this checkout's K2) leaves, or on the first 4,096 genes where it leaves
-none (in float64 it converges everywhere: chip_smoke.py's kernel rows
-time the same genes), timed and printed as `k2` times its cases.
+48, 56, 64 and in float32 at p = 25, and the templated kernel in float64
+at p = 2; or the cases P:DTYPE[:MODE] given, MODE w (weighted) or nocr
+(without the Cox-Reid term)), on the genes the line search (this
+checkout's K2) leaves, or on the first 4,096 genes where it leaves none
+(in float64 it converges everywhere: chip_smoke.py's kernel rows time the
+same genes), timed and printed as `k2` times its cases.
 
 `edges` (the card if there is one, else the CPU): the float32 readings of
 ops/checks.py at checks.EDGES and SHAPES' S = 24 row, taken between the
@@ -627,7 +633,7 @@ def _time_kernels(path, reps):
                                                weights=t.get("w_n")),
             "disp_grid": lambda: {"log_alpha": cuda_grid.fit_disp_grid(
                 t["gy"], t["x"], t["gmu"], t["grid"], t["gpm"], 1.0,
-                weights=t.get("gw"))}}
+                weights=t.get("gw"), use_cr=t.get("use_cr", True))}}
         # a case without K1's or K3's inputs (the k2 study's) times K2
         # alone, one without K2's (the k1 study's) K1 alone, one with K3's
         # alone (the k3 study's) K3 alone
@@ -754,18 +760,23 @@ K2_CASES = ((10, "float64"), (10, "float32"), (25, "float32"),
             (25, "float64"))
 
 
-def _case_args(study, args, default):
+def _case_args(study, args, default, modes=()):
     """A kernel study's arguments PARENT_ROOT[,ROOT...] [REPS [P:DTYPE
     ...]]: (root, reps, ((p, dtype name), ...), further roots), `default`
-    without cases."""
+    without cases.  With `modes`, a case may name one of them,
+    P:DTYPE:MODE, and is then (p, dtype name, mode)."""
     cases = []
     for a in args[2:]:
-        p, _, dtype = a.partition(":")
+        p, _, rest = a.partition(":")
+        dtype, _, mode = rest.partition(":")
         if not p.isdigit() or not 1 <= int(p) <= 64 \
-                or dtype not in ("float64", "float32"):
-            raise SystemExit(f"{study}: a case is P:DTYPE, 1 <= P <= 64, "
-                             f"DTYPE float64 or float32, not {a}")
-        cases.append((int(p), dtype))
+                or dtype not in ("float64", "float32") \
+                or (mode and mode not in modes):
+            raise SystemExit(f"{study}: a case is P:DTYPE"
+                             + (f"[:{'|'.join(modes)}]" if modes else "")
+                             + f", 1 <= P <= 64, DTYPE float64 or float32, "
+                             f"not {a}")
+        cases.append((int(p), dtype) + ((mode,) if mode else ()))
     roots = [Path(r).resolve() for r in args[0].split(",")]
     return (roots[0], int(args[1]) if len(args) > 1 else 5,
             tuple(cases) or default, tuple(roots[1:]))
@@ -805,39 +816,57 @@ def k2_study(dev, parent_root, reps, cases=K2_CASES, others=()):
     _kernel_turns(data, "study_k2_inputs", parent_root, reps, others)
 
 
-# `k3`'s default cases: the block K3 in float64 from 17 to 64 columns
-K3_CASES = tuple((p, "float64") for p in (17, 24, 25, 32, 40, 48, 56, 64))
+# `k3`'s default cases: the block K3 in float64 from 17 to 64 columns, the
+# float32 block K3 at the paired p = 25 and the narrow float64 K3 at the
+# main path's p = 2
+K3_CASES = tuple((p, "float64") for p in (17, 24, 25, 32, 40, 48, 56, 64)) \
+    + ((25, "float32"), (2, "float64"))
+
+
+# `k3`'s modes besides the default: weighted (the zinbwave-style weights
+# of chip_smoke.py's weighted path, the Cox-Reid row cut at its default)
+# and without the Cox-Reid term
+K3_MODES = ("w", "nocr")
 
 
 def k3_args(args):
-    """`k3`'s arguments (_case_args), K3_CASES without cases."""
-    return _case_args("k3", args, K3_CASES)
+    """`k3`'s arguments (_case_args: P:DTYPE[:MODE], MODE of K3_MODES),
+    K3_CASES without cases."""
+    return _case_args("k3", args, K3_CASES, K3_MODES)
 
 
 def k3_study(dev, parent_root, reps, cases=K3_CASES, others=()):
     """K3 on the paired pipeline inputs in both checkouts (see the
     module's docstring): the genes this checkout's line search leaves, or
     the first 4,096 where it leaves none, as chip_smoke.py's kernel rows
-    take them."""
+    take them; a case's mode (K3_MODES) weights them or drops the
+    Cox-Reid term."""
     import chip_smoke as cs
     from .cuda_ls import fit_disp_line_search
     counts, _ = cs.make_inputs(cs.G_MAIN, cs.S_MAIN)
     data = {}
-    for p, dname in cases:
+    for p, dname, *mode in cases:
         dt = getattr(torch, dname)
+        w = checks.variant_inputs(counts)[0] if mode == ["w"] else None
         d = checks.pipeline_inputs(counts, study_matrix(cs.S_MAIN, p),
-                                   dt, dev)
+                                   dt, dev, weights=w)
         k2 = fit_disp_line_search(d["y"], d["x"], d["mu"], d["la0"],
-                                  d["la0"], 1.0, d["min_la"])
+                                  d["la0"], 1.0, d["min_la"],
+                                  weights=d.get("w_ge"))
         need = torch.nonzero((k2["iter"] >= 100)
                              | (k2["iter"] == 1)).squeeze(1)
         if need.numel() == 0:
             need = torch.arange(4096, device=dev)
-        print(f"k3 p={p} {dname}: {len(need)} genes", flush=True)
-        data[f"p={p} {dname}"] = dict(
+        case = f"p={p} {dname}" + "".join(f" {m}" for m in mode)
+        print(f"k3 {case}: {len(need)} genes", flush=True)
+        data[case] = dict(
             x=d["x"].cpu(), grid=d["grid"].cpu(), gy=d["y"][need].cpu(),
             gmu=d["mu"][need].cpu(),
             gpm=torch.zeros(len(need), dtype=dt))
+        if w is not None:
+            data[case]["gw"] = d["w_ge"][need].cpu()
+        if mode == ["nocr"]:
+            data[case]["use_cr"] = False
         del d, k2
     _kernel_turns(data, "study_k3_inputs", parent_root, reps, others)
 
@@ -1283,24 +1312,19 @@ _PHASES = {
          "dgd, wr, s);\n      if constexpr (UseCR) {\n"),
     ],
     "disp_grid_block.cu": [
-        # the float64 block K3 with the Cox-Reid term, either design (an
-        # earlier checkout's source without log_post_pair takes the rest):
-        # the tensor-core log_post_pair (two points: their terms first,
-        # both grams' tiles on the tensor cores, then each gram's store and
-        # warp 0's factor with the log determinant; a point's clocks are a
-        # pair's shared phases halved) and the 4 x 4 blocks' log_post_block
-        # (the terms on the tile's threads, tile writes, gram adds, the
-        # groups' reduction and store, block_cholesky; float32's and the
-        # mode without the Cox-Reid term's where log_post_pair is there);
-        # the points' constants count with the terms
-        ("  T acc[2] = {T(0), T(0)};\n  {\n"
-         "    const LgConst<T> k0 = lg_const(T(1) / alpha[0]);\n",
-         "  DK_T0(c0)\n  T acc[2] = {T(0), T(0)};\n  {\n"
-         "    const LgConst<T> k0 = lg_const(T(1) / alpha[0]);\n"),
-        ("  const T alpha = d_exp(la);\n"
-         "  const LgConst<T> k = lg_const(T(1) / alpha);\n",
-         "  const T alpha = d_exp(la);\n  DK_T0(c0)\n"
-         "  const LgConst<T> k = lg_const(T(1) / alpha);\n"),
+        # the block K3 with the Cox-Reid term: the float64 tensor-core
+        # log_post_pair (two points: their terms first, both grams' tiles
+        # on the tensor cores, then each gram's store and warp 0's factor
+        # with the log determinant; a point's clocks are a pair's shared
+        # phases halved) and the float32 log_post_rows (likewise two
+        # points: their terms first, the sample-major tiles' staging and
+        # both grams' adds, then each gram's reduction and store and warp
+        # 0's factor); the points' constants count with the terms.  An earlier checkout's 4 x 4 design takes
+        # _K3_EARLIER_MARKS.
+        ("  using T = double;\n"
+         "  const T alpha[2] = {d_exp(la[0]), d_exp(la[1])};\n",
+         "  using T = double;\n"
+         "  const T alpha[2] = {d_exp(la[0]), d_exp(la[1])};\n  DK_T0(c0)\n"),
         ("  block_allsum<T, 2>(acc, red);\n"
          "  const int p = lay.p, tw = lay.tw, ts = lay.ts;\n",
          "  block_allsum<T, 2>(acc, red);\n  DK_T(0, c0)\n"
@@ -1320,24 +1344,28 @@ _PHASES = {
          "    if (use_prior) lp[e] -= T(0.5) * (la[e] - pm) * (la[e] - pm) / "
          "prior_var;\n    DK_T(5, c0)\n"
          "    if (threadIdx.x == 0) atomicAdd(&dk_clk[8], 1ull);\n"),
-        ("        block_tile_put(xb, ub, x, S, s, p, ts, w);\n",
-         "        DK_T(0, c0)\n        block_tile_put(xb, ub, x, S, s, p, ts, "
-         "w);\n        DK_T(1, c0)\n"),
-        ("      __syncthreads();\n"
-         "      block_gram_add(gm, gb, ub, xb, ts, n);\n",
-         "      __syncthreads();\n      DK_T(1, c0)\n"
-         "      block_gram_add(gm, gb, ub, xb, ts, n);\n      DK_T(2, c0)\n"),
-        ("    if constexpr (UseCR) __syncthreads();\n",
-         "    if constexpr (UseCR) __syncthreads();\n    DK_T(2, c0)\n"),
-        ("    lp = acc[0] - T(0.5) * block_cholesky<T, true>(bm, p);\n",
-         "    DK_T(3, c0)\n"
-         "    lp = acc[0] - T(0.5) * block_cholesky<T, true>(bm, p);\n"
-         "    DK_T(4, c0)\n"),
-        ("  if (use_prior) lp -= T(0.5) * (la - pm) * (la - pm) / prior_var;\n"
-         "  return lp;",
-         "  if (use_prior) lp -= T(0.5) * (la - pm) * (la - pm) / prior_var;\n"
-         "  DK_T(5, c0)\n  if (threadIdx.x == 0) atomicAdd(&dk_clk[8], 1ull);\n"
-         "  return lp;"),
+        ("  using T = float;\n  const int t = threadIdx.x;\n",
+         "  using T = float;\n  DK_T0(c0)\n  const int t = threadIdx.x;\n"),
+        ("  block_allsum<T, 2>(acc, red);\n  GramBlock<T> ga, gb;\n",
+         "  block_allsum<T, 2>(acc, red);\n  DK_T(0, c0)\n"
+         "  GramBlock<T> ga, gb;\n"),
+        ("    __syncthreads();\n"
+         "    pair_add_rows(gm, ga, gb, xb, wa, wb, ts, n);\n",
+         "    __syncthreads();\n    DK_T(1, c0)\n"
+         "    pair_add_rows(gm, ga, gb, xb, wa, wb, ts, n);\n"
+         "    DK_T(2, c0)\n"),
+        ("    block_gram_store(gm, g, bm, p, cm, true, static_cast<const T*>"
+         "(nullptr));\n    if (t < 32) {\n",
+         "    block_gram_store(gm, g, bm, p, cm, true, static_cast<const T*>"
+         "(nullptr));\n    DK_T(3, c0)\n    if (t < 32) {\n"),
+        ("    __syncthreads();\n    lp[e] = acc[e] - 0.5f * *ldet;\n"
+         "    if (use_prior) lp[e] -= 0.5f * (la[e] - pm) * (la[e] - pm) / "
+         "prior_var;\n",
+         "    __syncthreads();\n    DK_T(4, c0)\n"
+         "    lp[e] = acc[e] - 0.5f * *ldet;\n"
+         "    if (use_prior) lp[e] -= 0.5f * (la[e] - pm) * (la[e] - pm) / "
+         "prior_var;\n    DK_T(5, c0)\n"
+         "    if (threadIdx.x == 0) atomicAdd(&dk_clk[8], 1ull);\n"),
     ],
     "common.cuh": [
         # the float64 wide K2's pass (gram_mma_pass on one warp): staging
@@ -1502,6 +1530,38 @@ _K1_MARKS = {
     ],
 }
 
+# The block K3's marks in an earlier checkout's design (`phases k3 ROOT`:
+# the float32 log_post_block with the Cox-Reid term, a point at a time,
+# the terms on the tile's threads, tile writes, gram adds, the groups'
+# reduction and store, block_cholesky), applied only to another
+# checkout's sources
+_K3_EARLIER_MARKS = {
+    "disp_grid_block.cu": [
+        ("  const T alpha = d_exp(la);\n"
+         "  const LgConst<T> k = lg_const(T(1) / alpha);\n",
+         "  const T alpha = d_exp(la);\n  DK_T0(c0)\n"
+         "  const LgConst<T> k = lg_const(T(1) / alpha);\n"),
+        ("        block_tile_put(xb, ub, x, S, s, p, ts, w);\n",
+         "        DK_T(0, c0)\n        block_tile_put(xb, ub, x, S, s, p, ts, "
+         "w);\n        DK_T(1, c0)\n"),
+        ("      __syncthreads();\n"
+         "      block_gram_add(gm, gb, ub, xb, ts, n);\n",
+         "      __syncthreads();\n      DK_T(1, c0)\n"
+         "      block_gram_add(gm, gb, ub, xb, ts, n);\n      DK_T(2, c0)\n"),
+        ("    if constexpr (UseCR) __syncthreads();\n",
+         "    if constexpr (UseCR) __syncthreads();\n    DK_T(2, c0)\n"),
+        ("    lp = acc[0] - T(0.5) * block_cholesky<T, true>(bm, p);\n",
+         "    DK_T(3, c0)\n"
+         "    lp = acc[0] - T(0.5) * block_cholesky<T, true>(bm, p);\n"
+         "    DK_T(4, c0)\n"),
+        ("  if (use_prior) lp -= T(0.5) * (la - pm) * (la - pm) / prior_var;\n"
+         "  return lp;",
+         "  if (use_prior) lp -= T(0.5) * (la - pm) * (la - pm) / prior_var;\n"
+         "  DK_T(5, c0)\n  if (threadIdx.x == 0) atomicAdd(&dk_clk[8], 1ull);\n"
+         "  return lp;"),
+    ],
+}
+
 # the names an earlier checkout's sources give the marked functions
 # (the float32 wide K2's special functions were nb_const and nb_diffs)
 _EARLIER_NAMES = (("wide_const(", "nb_const("), ("wide_diffs(", "nb_diffs("))
@@ -1543,7 +1603,9 @@ _PHASE_TAIL = (
 
 def _marked_csrc(dst, src=None):
     """A copy of the csrc at src (default: this checkout's) in dst with
-    _PHASES' clock marks and the float32 K1's (_K1_MARKS)."""
+    _PHASES' clock marks and the float32 K1's (_K1_MARKS), and in another
+    checkout's sources the block K3's earlier design's
+    (_K3_EARLIER_MARKS)."""
     import shutil
     from . import build
     src = build.CSRC if src is None else src
@@ -1554,7 +1616,10 @@ def _marked_csrc(dst, src=None):
         if name == "common.cuh":
             s = s.replace("namespace dk {\n", _PHASE_HEAD + "namespace dk {\n",
                           1)
-        for a, b in _PHASES.get(name, []) + _K1_MARKS.get(name, []):
+        earlier = _K3_EARLIER_MARKS.get(name, []) if src != build.CSRC \
+            else []
+        for a, b in _PHASES.get(name, []) + _K1_MARKS.get(name, []) \
+                + earlier:
             # the first match (each anchor names its function's text); an
             # earlier checkout's source (src given) may name its functions
             # as before (_EARLIER_NAMES) or lack a design's functions
@@ -1603,17 +1668,19 @@ def _k2_clocks(lib, run):
 
 
 def _k3_clocks(pin, k2, p):
-    """The float64 block K3 (marked) on the genes the line search k2 left
-    (chip_smoke.py's kernel rows: the first 4,096 genes when it left none):
-    its registers and spills, then each phase's clocks a grid point (thread
-    0 of the block's clock) and share (_K3_PHASES)."""
+    """The block K3 (marked) in pin's dtype on the genes the line search
+    k2 left (chip_smoke.py's kernel rows: the first 4,096 genes when it
+    left none): its registers and spills, then each phase's clocks a grid
+    point (thread 0 of the block's clock) and share (_K3_PHASES)."""
     import ctypes
     import re
     from . import build
     from .cuda_grid import fit_disp_grid
+    dtype = pin["y"].dtype
+    t, tname = ("d", "double") if dtype == torch.float64 else ("f", "float")
     for sym, (regs, spill) in sorted(
             build.ptxas_resources("disp_grid_block").items()):
-        if re.search(r"grid_block_kernelIdLb\dELb1EE", sym):
+        if re.search(rf"grid_block_kernelI{t}Lb\dELb1EE", sym):
             print(f"  {sym}: {regs} registers, {spill} spill bytes (marked "
                   f"build)", flush=True)
     conv = (k2["iter"] < 100) & (k2["iter"] != 1)
@@ -1621,8 +1688,8 @@ def _k3_clocks(pin, k2, p):
     if need.numel() == 0:
         need = torch.arange(4096, device=pin["y"].device)
     args = (pin["y"][need], pin["x"], pin["mu"][need], pin["grid"],
-            torch.zeros(len(need), dtype=torch.float64,
-                        device=pin["y"].device), 1.0)
+            torch.zeros(len(need), dtype=dtype, device=pin["y"].device),
+            1.0)
     fit_disp_grid(*args)
     lib = build.load("disp_grid_block")
     build.bind(lib, "dk_clk_reset", [])()
@@ -1634,12 +1701,16 @@ def _k3_clocks(pin, k2, p):
         ctypes.cast(buf, ctypes.c_void_p))
     points = max(buf[8], 1)
     whole = sum(buf[k] for k in range(len(_K3_PHASES)))
-    print(f"p={p} K3 (grid_block_kernel<double>, {len(need)} genes): "
+    print(f"p={p} K3 (grid_block_kernel<{tname}>, {len(need)} genes): "
           f"{buf[8]} grid points, {whole / points:,.0f} clocks a grid point",
           flush=True)
     for k, n in enumerate(_K3_PHASES):
         print(f"  {n}: {buf[k] / points:,.0f} clocks a grid point, share "
               f"{buf[k] / max(whole, 1):.3f}", flush=True)
+
+
+# `phases`' and `phases k3`'s float32 block K3 reading: the paired p = 25
+K3_PHASE_F32_P = 25
 
 
 def phases_study(dev):
@@ -1697,6 +1768,13 @@ def phases_study(dev):
                           flush=True)
         _k3_clocks(pin, k2, p)
         del pin, k2, i_args
+    pin = checks.pipeline_inputs(counts, cs.paired_x(cs.S_MAIN,
+                                                     K3_PHASE_F32_P),
+                                 torch.float32, dev)
+    k2 = fit_disp_line_search(pin["y"], pin["x"], pin["mu"], pin["la0"],
+                              pin["la0"], 1.0, pin["min_la"])
+    _k3_clocks(pin, k2, K3_PHASE_F32_P)
+    del pin, k2
     for p, dtype, lib in ((10, torch.float64, "disp_ls"),
                           (10, torch.float32, "disp_ls"),
                           (25, torch.float32, "disp_ls_block")):
@@ -1710,6 +1788,38 @@ def phases_study(dev):
               flush=True)
         _k2_clocks(lib, lambda: fit_disp_line_search(*ls_args))
         del pin
+
+
+def k3_phases_study(dev, root=None):
+    """The block K3 phase by phase (`phases k3 [ROOT]`): a copy of ROOT's
+    csrc (default: this checkout's) with clock64 marks (_PHASES, and for
+    an earlier design _K3_EARLIER_MARKS) built and run at p = 25 in
+    float64 and float32 on the paired pipeline inputs at 60,000 x 1,024, on
+    the genes this checkout's line search leaves (_k3_clocks).  Run in a
+    process of its own (it points ops/build.py at other sources)."""
+    import chip_smoke as cs
+    from . import build
+    from .cuda_ls import fit_disp_line_search
+    counts, _ = cs.make_inputs(cs.G_MAIN, cs.S_MAIN)
+    runs = []
+    for dtype in (torch.float64, torch.float32):
+        pin = checks.pipeline_inputs(
+            counts, cs.paired_x(cs.S_MAIN, K3_PHASE_F32_P), dtype, dev)
+        k2 = fit_disp_line_search(pin["y"], pin["x"], pin["mu"], pin["la0"],
+                                  pin["la0"], 1.0, pin["min_la"])
+        runs.append(({k: pin[k] for k in ("y", "x", "mu", "grid")},
+                     {"iter": k2["iter"]}))
+        del pin, k2
+    src = build.CSRC if root is None else \
+        Path(root).resolve() / "deseq2_tpu_torch" / "csrc"
+    dst = build.BUILD_DIR / "phases_k3_csrc"
+    _marked_csrc(dst, src)
+    build.CSRC = dst
+    build._libs.clear()
+    build.build_all(("disp_grid_block",))
+    print(f"K3 phases of {src}", flush=True)
+    for pin, k2 in runs:
+        _k3_clocks(pin, k2, K3_PHASE_F32_P)
 
 
 # `phases k1`'s widths: the wide K1 at p = 10, the block K1 at 25 and 64
@@ -2035,6 +2145,8 @@ if __name__ == "__main__":
                       int(sys.argv[3]) if len(sys.argv) > 3 else 3)
     elif sys.argv[1] == "phases" and sys.argv[2:3] == ["k1"]:
         k1_phases_study(dev, *sys.argv[3:4])
+    elif sys.argv[1] == "phases" and sys.argv[2:3] == ["k3"]:
+        k3_phases_study(dev, *sys.argv[3:4])
     elif sys.argv[1] == "phases":
         phases_study(dev)
     elif sys.argv[1] == "paired":

@@ -1,7 +1,7 @@
 // A host emulation of what the block kernels (deseq2_tpu_torch/csrc/
-// *_block.cu) and the wide K1 and K2 (irls.cu, disp_ls.cu) take from CUDA,
-// for tests/test_torch_block_emulation.py and
-// tests/test_torch_k3k2_emulation.py: one thread block at a time, its
+// *_block.cu), the wide K1 and K2 (irls.cu, disp_ls.cu) and the templated
+// kernels (irls.cu, disp_ls.cu, disp_grid.cu) take from CUDA, for
+// tests/test_torch_*_emulation.py: one thread block at a time, its
 // launch's threads (at most kThreads) as fibers on the calling thread
 // (ucontext), each on a stack of its own, sharing memory; a fiber runs
 // until it reaches a barrier, then the next one runs (round robin), so
@@ -120,7 +120,8 @@ emu_switch:
 #endif
 
 namespace emu {
-constexpr int kThreads = 256;
+// the most threads a block: disp_grid.cu's kGridWarps = 10 warps
+constexpr int kThreads = 320;
 // a fiber's stack
 constexpr size_t kStack = size_t(1) << 18;
 // the running launch's threads a block, the running one and its block

@@ -2,16 +2,17 @@
 the host and run them there.
 
 `build(out_dir)` copies deseq2_tpu_torch/csrc/irls_block.cu,
-disp_ls_block.cu, disp_grid_block.cu, disp_ls.cu and irls.cu with
-common.cuh, replaces their
-inline PTX (mma.sync, cp.async) by cuda_runtime.h's emulation, their
-dynamic shared memory by the emulated launch's buffer and their kernel
-launches by emu::launch_kernel (the launch's blocks one after another), and compiles each with g++ -std=c++20 and
-an address sanitizer into a shared library with the sources' own C
-interface.  disp_ls.cu and irls.cu are built with their templated
-kernels for p <= 8 at P = 1 and 2 in float64 alone (DK_DISPATCH_P
-dispatches no other): those and their wide kernels are what is
-emulated.
+disp_ls_block.cu, disp_grid_block.cu, disp_ls.cu, irls.cu and
+disp_grid.cu with common.cuh, replaces their inline PTX (mma.sync,
+cp.async) by cuda_runtime.h's emulation, their dynamic shared memory by
+the emulated launch's buffer, their static shared arrays by static
+variables (one for the whole launch, whose blocks run one after
+another) and their kernel launches by emu::launch_kernel, and compiles
+each with g++ -std=c++20 and an address sanitizer into a shared library
+with the sources' own C interface.  disp_ls.cu, irls.cu and disp_grid.cu
+are built with their templated kernels for p <= 8 at P = 1 and 2 in
+float64 alone (DK_DISPATCH_P dispatches no other): those and their wide
+kernels are what is emulated.
 
     python emulate.py LIB_DIR KERNEL P S G WEIGHTED [DTYPE [MODE]]
 
@@ -19,18 +20,18 @@ emulated.
 tests/test_torch_block_emulation.py does) holds the emulated K1 (irls)
 or K2 (ls, with and without the prior), the templated kernel for p <= 2
 (float64), the wide kernel for p <= 16 and the block kernel past it, or
-the float64 block K3 (grid, p > 16, with and without the prior), DTYPE
-float64 (the default) or float32, in K2's and K3's MODE (nocr: without
-the Cox-Reid term; thr: the weighted row cut at 0.5; checks.MODES) or
-K1's (sf: an (S,) row of normalization factors exp(N(0, 0.4)); gsnf: a
-(G,S) matrix of them; else unit factors),
-against the plain PyTorch version on ops/checks.py's inputs with phase
-3's readings (in float32: K1 held to the fit in float64, a K2 reading
-past checks.TOL held to the plain version's spread over permutations, as
-phase 3 holds them; K3 by phase 3's reading and by its pick: the plain
-version's, or a point whose log posterior is within 1e-12 of the plain
-pick's, relative), runs each launch twice, and prints the readings as one
-JSON line.
+K3 (grid, with and without the prior: the templated kernel for p <= 2 in
+float64, the block kernel past 16 columns), DTYPE float64 (the default)
+or float32, in K2's and K3's MODE (nocr: without the Cox-Reid term; thr:
+the weighted row cut at 0.5; checks.MODES) or K1's (sf: an (S,) row of
+normalization factors exp(N(0, 0.4)); gsnf: a (G,S) matrix of them; else
+unit factors), against the plain PyTorch version on ops/checks.py's
+inputs with phase 3's readings (in float32: K1 held to the fit in
+float64, a K2 or K3 reading past checks.TOL held to the plain version's
+spread over permutations, as phase 3 holds them; in float64 K3 by phase
+3's reading and by its pick: the plain version's, or a point whose log
+posterior is within 1e-12 of the plain pick's, relative), runs each
+launch twice, and prints the readings as one JSON line.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ HERE = Path(__file__).resolve().parent
 REPO = HERE.parents[1]
 CSRC = REPO / "deseq2_tpu_torch" / "csrc"
 LIBS = ("irls_block", "disp_ls_block", "disp_grid_block", "disp_ls",
-        "irls")
+        "irls", "disp_grid")
 
 
 def _body(text, head, body):
@@ -87,8 +88,9 @@ def build(out_dir, names=LIBS):
         src = src.replace(
             "extern __shared__ __align__(16) unsigned char smem_raw[];",
             "unsigned char* smem_raw = emu::smem;")
-        src = re.sub(r"kernel<<<blocks, (\w+), smem, st>>>\(",
-                     r"emu::launch_kernel(blocks, \1, smem, kernel, ", src)
+        src = re.sub(r"(\w+(?:<[\w, ]+>)?)<<<(\w+), ([^,]+), smem, st>>>\(",
+                     r"emu::launch_kernel(\2, \3, smem, \1, ", src)
+        src = re.sub(r"__shared__ (\w+) (\w+)\[", r"static \1 \2[", src)
         cpp = out / f"{name}.cpp"
         cpp.write_text("#include <cuda_runtime.h>\n" + src)
         paths[name] = out / f"lib{name}.so"
@@ -125,37 +127,51 @@ def _ptr(t):
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
-def run_grid(lib_dir, raw, p, S, G, mode=None):
-    """The emulated float64 block K3 against the plain version on raw's
-    inputs, with and without the prior: phase 3's reading (check_grid) and
-    the pick rule (the module's docstring)."""
+def run_grid(lib_dir, raw, p, S, G, dtype="float64", mode=None):
+    """The emulated K3 (the templated kernel for p <= 8, the block kernel
+    past 16 columns) in dtype against the plain version on raw's inputs,
+    with and without the prior: phase 3's reading (check_grid; in float32
+    against the float64 reference, past checks.TOL the plain version's
+    spread) and in float64 the pick rule (the module's docstring)."""
     import torch
     from deseq2_tpu_torch.ops import checks, disp
-    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib = ctypes.CDLL(str(Path(lib_dir) / "libdisp_grid_block.so"))
-    fn = lib.grid_block_launch_f64
-    fn.argtypes = [P] * 6 + [I] * 4 + [D, I, I, D, P, P, P, I, P]
+    f64 = dtype == "float64"
+    kdt = getattr(torch, dtype)
+    block = p > 16
+    P, I = ctypes.c_void_p, ctypes.c_int
+    scal = ctypes.c_double if f64 else ctypes.c_float
+    name, sym = ("disp_grid_block", "grid_block") if block \
+        else ("disp_grid", "grid")
+    lib = ctypes.CDLL(str(Path(lib_dir) / f"lib{name}.so"))
+    fn = getattr(lib, f"{sym}_launch_{'f64' if f64 else 'f32'}")
+    fn.argtypes = [P] * 6 + [I] * 4 + [scal, I, I, scal, P] \
+        + ([P, P, I] if block else []) + [P]
     fn.restype = I
-    rows = lib.grid_block_scratch_rows
-    rows.argtypes = [I] * 5
-    rows.restype = I
-    d = checks.as_tensors(raw, torch.float64, torch.device("cpu"))
+    rows = lib.grid_block_scratch_rows if block else None
+    if block:
+        rows.argtypes = [I] * 5
+        rows.restype = I
+    d = checks.as_tensors(raw, kdt, torch.device("cpu"))
     if mode is not None:
         d = checks.with_mode(d, mode)
 
     def k3(y, x, mu, grid, pm, prior_var, use_prior=False, weights=None,
            use_cr=True, weight_threshold=checks.CR_WEIGHT_THRESHOLD):
-        c = [t.double().contiguous() for t in (y, mu, x.t(), grid, pm)]
-        w = None if weights is None else weights.double().contiguous()
-        out = torch.empty(G, dtype=torch.float64)
-        n = rows(1, int(w is not None), p, int(use_cr), G)
-        scratch = torch.full((max(n, 1), S), float("nan"),
-                             dtype=torch.float64)
-        counter = torch.zeros(1, dtype=torch.int32)
+        # the block kernel reads the design transposed
+        c = [t.to(kdt).contiguous() for t in
+             (y, mu, x.t() if block else x, grid, pm)]
+        w = None if weights is None else weights.to(kdt).contiguous()
+        out = torch.empty(G, dtype=kdt)
+        extra = ()
+        if block:
+            n = rows(int(f64), int(w is not None), p, int(use_cr), G)
+            scratch = torch.full((max(n, 1), S), float("nan"), dtype=kdt)
+            counter = torch.zeros(1, dtype=torch.int32)
+            extra = (_ptr(counter), _ptr(scratch), n)
         err = fn(_ptr(c[0]), _ptr(c[1]), _ptr(w), _ptr(c[2]), _ptr(c[3]),
                  _ptr(c[4]), G, S, p, len(grid), float(prior_var),
                  int(use_prior), int(use_cr), float(weight_threshold),
-                 _ptr(out), _ptr(counter), _ptr(scratch), n, None)
+                 _ptr(out), *extra, None)
         assert err == 0, err
         return out
 
@@ -163,17 +179,27 @@ def run_grid(lib_dir, raw, p, S, G, mode=None):
     for use_prior in (False, True):
         a = checks.run_grid(k3, d, use_prior)
         pl = checks.run_grid(disp.fit_disp_grid_plain, d, use_prior)
-        r = checks.check_grid(a, pl, d, use_prior)
-        la, lpl = (checks.lp_at(v, d, use_prior, checks.PRIOR_VAR)
-                   for v in (a, pl))
-        close = (lpl - la).abs() <= 1e-12 * lpl.abs()
-        out[f"grid prior={use_prior}"] = dict(
-            ok=r["ok"] and bool(((a == pl) | close).all()),
-            lp_rel=r["lp_rel"], same=r["same"],
-            other_pick=int((a != pl).sum()),
-            repeat_differs=checks.differing_outputs(
-                {"log_alpha": a},
-                {"log_alpha": checks.run_grid(k3, d, use_prior)}))
+        rep = checks.differing_outputs(
+            {"log_alpha": a},
+            {"log_alpha": checks.run_grid(k3, d, use_prior)})
+        if f64:
+            r = checks.check_grid(a, pl, d, use_prior)
+            la, lpl = (checks.lp_at(v, d, use_prior, checks.PRIOR_VAR)
+                       for v in (a, pl))
+            close = (lpl - la).abs() <= 1e-12 * lpl.abs()
+            out[f"grid prior={use_prior}"] = dict(
+                ok=r["ok"] and bool(((a == pl) | close).all()),
+                lp_rel=r["lp_rel"], same=r["same"],
+                other_pick=int((a != pl).sum()), repeat_differs=rep)
+        else:
+            ref = checks.grid_reference(d, use_prior)
+            r = checks.check_grid(a, pl, d, use_prior, ref=ref)
+            if not r["ok"]:
+                r = checks.within_plain_spread("grid", r, pl, d, use_prior,
+                                               ref)
+            out[f"grid prior={use_prior}"] = dict(
+                ok=r["ok"], short_kernel=r["short_kernel"],
+                same=r["same"], repeat_differs=rep)
     return out
 
 
@@ -198,7 +224,7 @@ def run(lib_dir, kernel, p, S, G, weighted, dtype="float64", mode=None):
     # transposed
     xt = (lambda x: x) if p <= 8 else (lambda x: x.t())
     if kernel == "grid":
-        return run_grid(lib_dir, raw, p, S, G, mode)
+        return run_grid(lib_dir, raw, p, S, G, dtype, mode)
     if kernel == "irls":
         # the wide kernel (irls.cu) for p <= 16, the block kernel past it
         sym = "irls_block" if p > 16 else "irls"

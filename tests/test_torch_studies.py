@@ -64,10 +64,56 @@ def test_k2_study_arguments(args, want):
 
 
 @pytest.mark.parametrize("case", ["0:float64", "65:float32", "16:float16",
-                                  "16"])
+                                  "16", "2:float64:w"])
 def test_k2_study_refuses_other_cases(case):
     with pytest.raises(SystemExit):
         studies.k2_args(["root", "3", case])
+
+
+def test_k3_phase_marks_time_every_phase_of_the_float32_point():
+    # `phases k3`: the float32 block K3's point (log_post_rows) is marked
+    # in every slot of _K3_PHASES and counts its points; the earlier
+    # design's marks (for an earlier checkout) keep their anchors' lines
+    src = (build.CSRC / "disp_grid_block.cu").read_text()
+    i = src.index("__device__ __forceinline__ void log_post_rows(")
+    body = src[i:src.index("\n}\n", i)]
+    text = "".join(m for a, m in studies._PHASES["disp_grid_block.cu"]
+                   if a in body)
+    for k in range(len(studies._K3_PHASES)):
+        assert f"DK_T({k}, c0)" in text, k
+    assert "DK_T0(c0)" in text and "dk_clk[8]" in text
+    # each anchor once in the source: a mark lands in its own function
+    for anchor, _ in studies._PHASES["disp_grid_block.cu"]:
+        assert src.count(anchor) == 1, anchor
+    for anchor, marked in studies._K3_EARLIER_MARKS["disp_grid_block.cu"]:
+        assert "DK_T" in marked
+        assert all(line in marked for line in anchor.split("\n")), anchor
+
+
+@pytest.mark.parametrize("args, want", [
+    (["root"], (5, studies.K3_CASES, ())),
+    (["root", "5", "17:float32", "2:float64"],
+     (5, ((17, "float32"), (2, "float64")), ())),
+    (["root", "3", "1:float64:w", "2:float64:nocr", "3:float64"],
+     (3, ((1, "float64", "w"), (2, "float64", "nocr"), (3, "float64")),
+      ())),
+])
+def test_k3_study_arguments(args, want):
+    # `studies k3 PARENT_ROOT[,ROOT...] [REPS [P:DTYPE[:MODE] ...]]`: by
+    # default the float64 block K3's widths, the float32 block K3 at p =
+    # 25 and the narrow float64 K3 at p = 2; a case may be weighted or
+    # without the Cox-Reid term
+    root, reps, cases, others = studies.k3_args(args)
+    assert root.name == "root"
+    assert (reps, cases, tuple(r.name for r in others)) == want
+    assert (25, "float32") in studies.K3_CASES
+    assert (2, "float64") in studies.K3_CASES
+
+
+@pytest.mark.parametrize("case", ["2:float64:thr", "2:float64:w:x", "0:float64"])
+def test_k3_study_refuses_other_cases(case):
+    with pytest.raises(SystemExit):
+        studies.k3_args(["root", "3", case])
 
 
 def test_k1_phase_marks_match_the_sources():
