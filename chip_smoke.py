@@ -17,10 +17,13 @@ Phases; any failure exits non-zero and no phase's failure is caught:
    kernels must issue DMMA and spill nothing, and so must the float64 wide
    K2 (ls_wide_kernel<double>, every mode printed: with the Cox-Reid term
    its grams run on the FP64 tensor cores; none may spill); the float32
-   wide K1 and K2 must spill nothing, the wide K1 hold the 5 blocks an SM
+   wide K1 and K2 must spill nothing, the wide K1 hold the 6 blocks an SM
    of its launch bounds,
    the float32 block K1 the 4 its launch bounds and tiles are sized for
-   (K1_WIDE_F32_BLOCKS, K1_BLOCK_F32_BLOCKS).  While nvcc runs, the script computes
+   (K1_WIDE_F32_BLOCKS, K1_BLOCK_F32_BLOCKS); the wide K3 with the
+   Cox-Reid term (grid_wide_kernel, both dtypes) must spill nothing at
+   the blocks an SM of its launch bounds (K3_WIDE_BLOCKS) or more, and in
+   float64 hold DMMA instructions.  While nvcc runs, the script computes
    the float64 CPU references of phase 8's paired gates and phase 10's
    single-cell gates (they need no kernel; prefetch_cpu_references).
 3. hold each kernel, unweighted and weighted, against its plain PyTorch
@@ -249,6 +252,10 @@ HBM_BPS = 3.35e12
 # (irls_block.cu kRowsBlocks)
 K1_WIDE_F32_BLOCKS = 6
 K1_BLOCK_F32_BLOCKS = 4
+# the least resident blocks an SM of the wide K3 with the Cox-Reid term by
+# dtype (blocks of 10 warps; disp_grid.cu wide_grid_blocks, its launch
+# bounds, at the main path's S)
+K3_WIDE_BLOCKS = {"float32": 2, "float64": 1}
 PEAK_OPS = {"float32": 67e12, "float64": 34e12, "float64 tensor": 67e12}
 GRAM_PEAK = {"float32": "float32", "float64": "float64 tensor"}
 
@@ -280,7 +287,9 @@ def kernel_resources():
     spills, a float64 wide
     K2 instantiation spills or, with the Cox-Reid term, issues no DMMA
     (its grams run on the FP64 tensor cores), or a float64 block K1/K2/K3
-    instantiation does, or a float32 wide K1 or K2 spills."""
+    instantiation does, or a float32 wide K1 or K2 spills, or a wide K3
+    with the Cox-Reid term spills or holds fewer than K3_WIDE_BLOCKS
+    blocks an SM (both dtypes), or in float64 has no DMMA instruction."""
     import ctypes
     import re
 
@@ -320,6 +329,12 @@ def kernel_resources():
                                       f"{blocks} blocks an SM")
                     if name == "disp_ls" and tag and t == "f" and spill:
                         failed.append(f"{key}: {spill} spill bytes")
+                    # the wide K3 with the Cox-Reid term, both dtypes: no
+                    # spills, at least the blocks an SM of its launch bounds
+                    if name == "disp_grid" and tag and (
+                            spill != 0 or blocks < K3_WIDE_BLOCKS[dname]):
+                        failed.append(f"{key}: {spill} spill bytes, "
+                                      f"{blocks} blocks an SM")
     # the float64 templated K1, K2 and K3 (irls_kernel<double, P, W>,
     # ls_kernel<double, P, W, CR>, grid_kernel<double, P, W, CR>; P = 1-8,
     # every mode): registers and spill bytes; at the main path's p = 2 none
@@ -362,6 +377,19 @@ def kernel_resources():
                 f"{warps} resident warps per SM, {dmma} DMMA instructions")
             if spill != 0 or (cr and dmma in ("-", 0)):
                 failed.append(key)
+    # the float64 wide K3 with the Cox-Reid term (grid_wide_kernel<double,
+    # W, true>): its grams on the FP64 tensor cores
+    sass = sass_compare.functions(build.so_path("disp_grid"))
+    for w in (0, 1):
+        code = [v for k, v in sass.items()
+                if re.search(rf"grid_wide_kernelIdLb{w}ELb1EE", k)]
+        dmma = sum(bool(re.search(r"\bDMMA", i)) for i in code[0]) \
+            if len(code) == 1 else "-"
+        key = f"disp_grid{'_w' if w else ''}_wide float64"
+        out[key]["dmma"] = dmma
+        log(f"  {key} p=10: {dmma} DMMA instructions")
+        if dmma in ("-", 0):
+            failed.append(f"{key}: no DMMA")
     # the block kernels (16 < p <= 64, csrc/*_block.cu; 8 warps a block,
     # the layout and so the occupancy set by p): at p = 25 and 64; the
     # float64 K1, K2 and K3 run their grams on the FP64 tensor cores (DMMA
@@ -401,9 +429,10 @@ def kernel_resources():
                             and blocks != K1_BLOCK_F32_BLOCKS:
                         failed.append(f"{key}: {blocks} blocks an SM")
     if failed:
-        raise SystemExit(f"float64 wide K2 or block K1/K2/K3 without DMMA or "
-                         f"with spills, a float64 K1, K2 or K3 at p = 2 "
-                         f"spilling, a float32 wide K2 spilling, or a "
+        raise SystemExit(f"float64 wide K2/K3 or block K1/K2/K3 without DMMA "
+                         f"or with spills, a float64 K1, K2 or K3 at p = 2 "
+                         f"spilling, a float32 wide K2 spilling, a wide K3 "
+                         f"spilling or below its blocks an SM, or a "
                          f"float32 K1 spilling or off its blocks an SM: "
                          f"{failed}")
     return out
@@ -1672,11 +1701,10 @@ def kernel_timings(torch, dev, launches, worst, weighted=False,
                                     r3["max_abs_err"]),
                     ms=ms3, plain_ms=pms3, bound_ms=b3, bound_by=by3,
                     library_ms=None)
-    # a wide row only where the paired path launched the kernel (in float64
-    # the line search converges on every gene at this width); its time is
-    # printed either way
-    if not wide or grid_row["launches"]:
-        rows.append(grid_row)
+    # every K3 row, also where the paired call launched no K3 (in float64
+    # the line search converges on every gene at these widths: launches 0,
+    # the row timed on the first 4,096 genes)
+    rows.append(grid_row)
     log(f"  disp_grid{rsfx}: {ms3:.3f} ms (plain {pms3:.1f} ms, bound "
         f"{b3:.3f} ms by {by3}), launches {grid_row['launches']}")
     log(f"  disp_grid{rsfx}: {n_need} genes need the grid at this shape "

@@ -1376,6 +1376,59 @@ __device__ __forceinline__ void gram_add_rows(const GramMap& m,
   }
 }
 
+// Slot t of the tile takes sample s's design row, four values a 128-bit
+// store (rows_put's x half; xt the design transposed, p x S): each thread
+// its own sample, so a warp reads a column's consecutive samples (the
+// float32 K3s': the block K3's tiles, the wide K3's staged design; the
+// float32 K1's k1_stage, a warp a quad, measured 1.15-1.21x slower in the
+// block K3).
+__device__ __forceinline__ void x_row_put(float* xb, const float* xt, int S,
+                                          int s, int p, int pr, int ld,
+                                          int t) {
+  for (int k = 0; k < pr; k += 4) {
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      v[e] = k + e < p ? __ldg(xt + (size_t)(k + e) * S + s) : 0.f;
+    *reinterpret_cast<float4*>(xb + t * ld + k) =
+        make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// Add a tile's first n samples to the thread's blocks of two points'
+// grams, ga += (wa_t x_t[r]) x_t[c]' and gb += (wb_t x_t[r]) x_t[c]' (its
+// group's samples t = group, group + ng, ... < n in that order; xb the
+// tile's design rows, wa and wb its weights at the two points; the map
+// over a block or a warp): each design quad loaded once for both, the
+// products w x of a tile of w x (rows_put's), so each gram's bits are a
+// one-point pass's.
+__device__ __forceinline__ void pair_add_rows(const GramMap& m,
+                                              GramBlock<float>& ga,
+                                              GramBlock<float>& gb,
+                                              const float* xb,
+                                              const float* wa,
+                                              const float* wb, int ld,
+                                              int n) {
+  if (!m.active) return;
+#pragma unroll 2
+  for (int t = m.grp; t < n; t += m.ng) {
+    const float4 a = *reinterpret_cast<const float4*>(xb + t * ld + m.r0);
+    const float4 b = *reinterpret_cast<const float4*>(xb + t * ld + m.c0);
+    const float w0 = wa[t], w1 = wb[t];
+    const float xr[4] = {a.x, a.y, a.z, a.w};
+    const float xc[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float u0 = w0 * xr[i], u1 = w1 * xr[i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        ga.a[i][j] += u0 * xc[j];
+        gb.a[i][j] += u1 * xc[j];
+      }
+    }
+  }
+}
+
 // The float32 block K2's p x p algebra (ls_block_kernel<float>, row stride
 // p <= 64): the same operations on every entry in the same order as
 // block_cholesky and block_chol_inverse (so the same bits), laid out for
@@ -1944,6 +1997,53 @@ __device__ __forceinline__ void gram_mma_add(const MmaRun<N>& m,
       gram_mma_add_len<L, N, Sq, Both>(m, acc, xb, wb, n, sq);
     else
       gram_mma_add<N, Sq, L - 1, Both>(m, acc, xb, wb, n, sq);
+  }
+}
+
+// Add a tile's first n samples to the warp's runs of two points' grams,
+// ga += (wa x) x' and gb += (wb x) x' (the float64 K3s': the block's runs,
+// or the wide kernel's one warp's): the design's fragments loaded once
+// for both (gram_mma_add_len's order and products, so each gram's bits are
+// a one-point pass's).  pair_add picks the run's length L.
+template <int L, int N>
+__device__ __forceinline__ void pair_add_len(const MmaRun<N>& m,
+                                             double (&ga)[N][2],
+                                             double (&gb)[N][2],
+                                             const double* xb,
+                                             const double* wa,
+                                             const double* wb, int n) {
+  const int c = lane_id() & 3;
+  for (int k0 = 0; k0 < n; k0 += 4) {
+    const double wka = wa[k0 + c], wkb = wb[k0 + c];
+    const double* xk = xb + k0;
+    int oa = m.offa, ob = m.offb;
+    double xa = xk[oa];
+#pragma unroll
+    for (int q = 0; q < L; ++q) {
+      const bool rs = (m.rowstart >> q) & 1u;
+      if (q > 0) {
+        oa = rs ? oa + m.step : oa;
+        ob = rs ? oa : ob + m.step;
+      }
+      const double b = xk[ob];
+      if (rs) xa = b;
+      mma_f64(ga[q], xa * wka, b);
+      mma_f64(gb[q], xa * wkb, b);
+    }
+  }
+}
+
+template <int N, int L = N>
+__device__ __forceinline__ void pair_add(const MmaRun<N>& m,
+                                         double (&ga)[N][2],
+                                         double (&gb)[N][2],
+                                         const double* xb, const double* wa,
+                                         const double* wb, int n) {
+  if constexpr (L > 0) {
+    if (m.n == L)
+      pair_add_len<L, N>(m, ga, gb, xb, wa, wb, n);
+    else
+      pair_add<N, L - 1>(m, ga, gb, xb, wa, wb, n);
   }
 }
 

@@ -51,9 +51,17 @@
 //
 // Designs wider than 8 columns (8 < p <= 16, grid_wide_kernel, p a launch
 // argument, every mode above): the same grid, stages and first-maximum
-// rule; each warp evaluates its points with the wide tile pass of
-// common.cuh (the line search's, disp_ls.cu) and the log determinant of
-// the Cox-Reid matrix factored in the warp's shared memory.
+// rule.  There the Cox-Reid gram, p (p + 1) / 2 multiply-adds a sample,
+// weighs as much as the special functions, and a point a pass read each
+// sample's y and mu, and loaded, stored and reloaded its design row, for
+// every point.  So each warp takes its points of a stage two at a time in
+// one pass over the samples (log_post_wide_pair): the block stages the
+// design in its shared memory (once a gene while S fits a chunk, else a
+// chunk at a time), each lane computes its sample's terms at both points,
+// and the warp adds the tile to both grams from the staged design, each
+// design value loaded once for both (float32: 4 x 4 blocks on sample-major
+// rows; float64: the FP64 tensor cores), then factors each in its shared
+// memory for the log determinant (warp_cholesky).
 #include "common.cuh"
 
 namespace {
@@ -253,68 +261,196 @@ int launch_p(const T* y, const T* mu, const T* w, const T* x, const T* grid,
 // 8 < p <= kPWide
 // ---------------------------------------------------------------------------
 
-// shared values per warp: the tile buffers of x and w x; after a point's
-// last tile the Cox-Reid matrix takes the x buffer's room
-constexpr int kWideWarpVals = 2 * kTileVals;
+// The samples of the design's chunk in the block's shared memory: the
+// whole design (staged once a gene) while S fits, else a chunk at a time,
+// staged anew for each pass (so any S runs).  float32: the samples'
+// design rows, sample-major, rows_ld(pr) values a sample (x_row_put: 80 KB
+// at p = 16); float64: the tensor cores' layout, the 16 design rows (zero
+// past p) of cw + 4 values each (mma_stage: 66 KB).
+constexpr int kWideChunkF32 = 1024;
+constexpr int kWideChunkF64 = 512;
 
-// log_post at a run-time p: x the design transposed (p x S), wv the warp's
-// shared values.
-template <typename T, bool UseW, bool UseCR>
-__device__ __forceinline__ T log_post_wide(const T* yr, const T* mr,
-                                           const T* wr, unsigned cm, T thr,
-                                           const T* x, int S, int p, T la,
-                                           T pm, T prior_var, int use_prior,
-                                           T* wv) {
-  const int lane = lane_id();
-  const GramMap gm = gram_map(p);
-  const T alpha = d_exp(la);
-  const LgConst<T> k = lg_const(T(1) / alpha);
-  T acc[1] = {T(0)};
-  GramBlock<T> gb, unused;
-  T rz[4];
-  if constexpr (UseCR) gram_zero(gb);
-  T* xb = wv;
-  T* ub = wv + kTileVals;
-  __syncwarp();
-  for (int base = 0; base < S; base += kTile) {
-    const int s = base + lane;
-    if (s < S) {
-      const T yv = yr[s];
-      const T m = mr[s];
-      const T mua = m * alpha;
-      const T r = T(1) / (T(1) + mua);
-      acc[0] +=
-          wscale<UseW>(lg_diff(yv, k) - (yv + k.c) * d_log1p(mua), wr, s);
-      if constexpr (UseCR) {
-        T w = m * r;
-        if constexpr (UseW) {
-          if (!cr_keeps(wr[s], thr)) w = T(0);
-        }
-        tile_put(xb, ub, x, S, s, p, w);
-      }
-    }
-    if constexpr (UseCR) {
-      const int n = S - base < kTile ? S - base : kTile;
-      __syncwarp();
-      gram_add<T, false, false>(gm, gb, unused, rz, ub, xb,
-                                static_cast<const T*>(nullptr), n);
-      __syncwarp();
-    }
-  }
-  warp_allsum<T, 1>(acc);
-  T lp = acc[0];
-  if constexpr (UseCR) {
-    gram_reduce(gm, gb, wv);   // the tile buffer is its scratch
-    gram_store(gm, gb, wv, p, cm, true, static_cast<const T*>(nullptr));
-    lp = acc[0] - T(0.5) * warp_cholesky<T, true>(wv, p);
-  }
-  if (use_prior) lp -= T(0.5) * (la - pm) * (la - pm) / prior_var;
-  return lp;
+// a warp's shared values besides the design: the gram's reduction
+// scratch (float32: gram_reduce's 16 values a lane) or its tensor-core
+// store (float64), in whose room the p x p matrix is factored, then the
+// two points' weights of a tile, then (float32) the points' LgConsts
+template <typename T>
+__host__ __device__ constexpr int wide_warp_vals() {
+  return (is_f32<T>() ? 16 * kTile + 2 * 4 : kMat) + 2 * kTile;
 }
 
-// grid_kernel at a run-time p, each warp with its own shared values
+// The shared-memory layout of a wide launch with the Cox-Reid term, in
+// values of T: the design's chunk (cw samples, row stride ld: float32 a
+// sample's values, float64 a design row's), then each warp's values.
+struct WideLayout {
+  int cw, ld;
+  size_t design, vals;
+};
+
+template <typename T>
+__host__ __device__ inline WideLayout wide_layout(int p, int S) {
+  WideLayout l;
+  const int chunk = is_f32<T>() ? kWideChunkF32 : kWideChunkF64;
+  const int s32 = (S + kTile - 1) / kTile * kTile;
+  l.cw = s32 < chunk ? s32 : chunk;
+  l.ld = is_f32<T>() ? rows_ld((p + 3) & ~3) : l.cw + 4;
+  l.design = (size_t)(is_f32<T>() ? l.cw : kPWide) * l.ld;
+  l.vals = l.design + (size_t)kGridWarps * wide_warp_vals<T>();
+  return l;
+}
+
+// The design's n samples from `base` into the block's chunk xs (every
+// thread of the block calls it; a __syncthreads must follow): float32 a
+// sample-major row a thread (x_row_put), float64 the design rows by
+// cp.async (mma_stage over the block's warps, zeros past n and p).
+template <typename T>
+__device__ __forceinline__ void wide_stage(T* xs, const T* x, int S, int base,
+                                           int n, int p,
+                                           const WideLayout& lay) {
+  if constexpr (is_f32<T>()) {
+    for (int t = threadIdx.x; t < n; t += 32 * kGridWarps)
+      x_row_put(xs, x, S, base + t, p, (p + 3) & ~3, lay.ld, t);
+  } else {
+    mma_stage<kGridWarps>(xs, x, S, base, n, p, kPWide, lay.ld, lay.cw, -1);
+    cp_async_wait_all();
+  }
+}
+
+// log_post at two points la[0], la[1] of a stage, at a run-time p, on
+// every lane of the calling warp (x the design transposed, p x S; xs the
+// block's design chunk, wv the warp's shared values; nchunks the chunks of
+// S: past one, every pass stages them, between block barriers).  Each
+// lane takes sample s of a 32-sample tile: its y, mu (and weight) read
+// once for both points, the likelihood terms of both summed on the lane,
+// the Cox-Reid weights w = mu / (1 + mu alpha) (0 on a row the weighted
+// mode cuts) written to the warp's two weight rows; then the warp adds
+// the tile to both points' grams X'WX from the staged design, each design
+// value loaded once for both:
+// - float32: the lanes' 4 x 4 blocks (gram_map) on the sample-major
+//   design, quads in 128-bit loads (pair_add_rows), then each gram's
+//   groups reduced in group order and stored with the column mask;
+// - float64: the FP64 tensor cores, the warp's run of the three upper
+//   8 x 8 tiles (mma_run on one warp, pair_add: k-steps in ascending
+//   order), stored by gram_mma_store.
+// warp_cholesky factors each gram in turn for its log determinant.  The
+// terms, the mask, the pivot floor and the prior are log_post's; the
+// float32 grams' products and order are the parent design's (a point a
+// pass, column-major tiles of x and w x), so their bits too.  Without the
+// Cox-Reid term a point is its likelihood terms (and prior) alone.
 template <typename T, bool UseW, bool UseCR>
-__global__ void __launch_bounds__(32 * kGridWarps)
+__device__ __forceinline__ void log_post_wide_pair(
+    const T* yr, const T* mr, const T* wr, unsigned cm, T thr, const T* x,
+    int S, int p, const WideLayout& lay, int nchunks, const T (&la)[2],
+    T pm, T prior_var, int use_prior, T* xs, T* wv, T (&lp)[2]) {
+  const int lane = lane_id();
+  const T alpha[2] = {d_exp(la[0]), d_exp(la[1])};
+  T acc[2] = {T(0), T(0)};
+  T* wa = wv + (is_f32<T>() ? 16 * kTile : kMat);
+  T* wb = wa + kTile;
+  // float32 with the Cox-Reid term: the points' constants in the warp's
+  // shared memory, read where a sample's terms use them (in registers
+  // they spilled at two blocks an SM, PERF.md section 6)
+  constexpr bool kShared = is_f32<T>() && UseCR;
+  LgConst<T>* kc = reinterpret_cast<LgConst<T>*>(wb + kTile);
+  LgConst<T> k0{}, k1{};
+  if constexpr (kShared) {
+    if (lane < 2) kc[lane] = lg_const(T(1) / (lane ? alpha[1] : alpha[0]));
+    __syncwarp();
+  } else {
+    k0 = lg_const(T(1) / alpha[0]);
+    k1 = lg_const(T(1) / alpha[1]);
+  }
+  using Gram =
+      std::conditional_t<is_f32<T>(), GramBlock<float>, double[kMmaRunWide][2]>;
+  Gram ga, gb;
+  const GramMap gm = gram_map(p);
+  const MmaRun<kMmaRunWide> run = mma_run<kMmaRunWide, 1>(2, 2, lay.ld);
+  if constexpr (UseCR) {
+    if constexpr (is_f32<T>()) {
+      gram_zero(ga);
+      gram_zero(gb);
+    } else {
+      gram_mma_zero(ga);
+      gram_mma_zero(gb);
+    }
+  }
+  for (int base = 0; base < S; base += lay.cw) {
+    const int cn = S - base < lay.cw ? S - base : lay.cw;
+    if (UseCR && nchunks > 1) {
+      __syncthreads();
+      wide_stage(xs, x, S, base, cn, p, lay);
+      __syncthreads();
+    }
+    for (int t0 = 0; t0 < cn; t0 += kTile) {
+      const int s = base + t0 + lane;
+      T w[2] = {T(0), T(0)};
+      if (s < S) {
+        const T yv = yr[s];
+        const T m = mr[s];
+        const bool keep = !UseW || cr_keeps(wr[s], thr);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const LgConst<T>& k = kShared ? kc[e] : e ? k1 : k0;
+          const T mua = m * alpha[e];
+          const T r = T(1) / (T(1) + mua);
+          acc[e] += wscale<UseW>(lg_diff(yv, k) - (yv + k.c) * d_log1p(mua),
+                                 wr, s);
+          w[e] = keep ? m * r : T(0);
+        }
+      }
+      if constexpr (UseCR) {
+        const int n = cn - t0 < kTile ? cn - t0 : kTile;
+        wa[lane] = w[0];
+        wb[lane] = w[1];
+        __syncwarp();
+        if constexpr (is_f32<T>()) {
+          pair_add_rows(gm, ga, gb, xs + (size_t)t0 * lay.ld, wa, wb, lay.ld,
+                        n);
+        } else {
+          pair_add<kMmaRunWide>(run, ga, gb, xs + t0, wa, wb, n);
+        }
+        __syncwarp();
+      }
+    }
+  }
+  warp_allsum<T, 2>(acc);
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    lp[e] = acc[e];
+    if constexpr (UseCR) {
+      if constexpr (is_f32<T>()) {
+        // the reduction's scratch, then the matrix, at wv
+        gram_reduce(gm, e ? gb : ga, wv);
+        gram_store(gm, e ? gb : ga, wv, p, cm, true,
+                   static_cast<const T*>(nullptr));
+      } else {
+        gram_mma_store<kMmaRunWide, 1, kPWide>(run, e ? gb : ga, false, wv, p,
+                                               cm, true, nullptr, nullptr);
+      }
+      lp[e] -= T(0.5) * warp_cholesky<T, true>(wv, p);
+    }
+    if (use_prior) lp[e] -= T(0.5) * (la[e] - pm) * (la[e] - pm) / prior_var;
+  }
+}
+
+// resident blocks an SM the wide kernel's launch bounds ask for: float32
+// two (96 registers a thread, no spill; faster than three at 68 and than
+// one), float64 one (two spilled 16-384 bytes; `studies k3`, PERF.md
+// section 6)
+template <typename T>
+__host__ __device__ constexpr int wide_grid_blocks() {
+  return is_f32<T>() ? 2 : 1;
+}
+
+// grid_kernel at a run-time p: each warp takes its points of a stage two
+// at a time, j and j + kGridWarps (then j + 2 kGridWarps and j + 3
+// kGridWarps, ...), in one pass over the samples (log_post_wide_pair),
+// and keeps their first maximum in increasing j; every warp takes the
+// same number of passes (a point past n is the stage's first, its lp
+// unread), so that the passes' chunk barriers match.  With the Cox-Reid
+// term the block first stages the design while S fits its chunk.
+template <typename T, bool UseW, bool UseCR>
+__global__ void __launch_bounds__(32 * kGridWarps, wide_grid_blocks<T>())
     grid_wide_kernel(const T* __restrict__ y, const T* __restrict__ mu,
                      const T* __restrict__ x, const T* __restrict__ grid,
                      const T* __restrict__ prior_mean, int S, int p, int n,
@@ -329,22 +465,35 @@ __global__ void __launch_bounds__(32 * kGridWarps)
   const T* yr = y + (size_t)g * S;
   const T* mr = mu + (size_t)g * S;
   const T* wr = UseW ? wts + (size_t)g * S : nullptr;
-  T* wv = reinterpret_cast<T*>(smem_raw) +
-          (UseCR ? (size_t)warp * kWideWarpVals : 0);
+  const WideLayout lay = wide_layout<T>(p, S);
+  const int nchunks = (S + lay.cw - 1) / lay.cw;
+  T* xs = reinterpret_cast<T*>(smem_raw);
+  T* wv = xs + lay.design + (size_t)warp * wide_warp_vals<T>();
   unsigned cm = ~0u;
   if constexpr (UseW && UseCR) cm = warp_cr_col_mask_wide<T>(wr, x, S, p, thr);
   const T pm = prior_mean[g];
+  if (UseCR && nchunks == 1) {
+    wide_stage(xs, x, S, 0, S, p, lay);
+    __syncthreads();
+  }
 
   auto stage_max = [&](auto point, int st) {
     T best_lp = -INFINITY;
     int best_j = -1;
-    for (int j = warp; j < n; j += kGridWarps) {
-      const T lp = log_post_wide<T, UseW, UseCR>(yr, mr, wr, cm, thr, x, S,
-                                                 p, point(j), pm, prior_var,
-                                                 use_prior, wv);
-      if (lp > best_lp) {
-        best_lp = lp;
+    for (int q = 0; q < n; q += 2 * kGridWarps) {
+      const int j = q + warp, j2 = j + kGridWarps;
+      const T la[2] = {point(j < n ? j : 0), point(j2 < n ? j2 : 0)};
+      T lp[2];
+      log_post_wide_pair<T, UseW, UseCR>(yr, mr, wr, cm, thr, x, S, p, lay,
+                                         nchunks, la, pm, prior_var,
+                                         use_prior, xs, wv, lp);
+      if (j < n && lp[0] > best_lp) {
+        best_lp = lp[0];
         best_j = j;
+      }
+      if (j2 < n && lp[1] > best_lp) {
+        best_lp = lp[1];
+        best_j = j2;
       }
     }
     if (lane_id() == 0) {
@@ -373,15 +522,15 @@ __global__ void __launch_bounds__(32 * kGridWarps)
 
 // dynamic shared memory of a wide launch (none without the Cox-Reid term)
 template <typename T>
-inline size_t wide_smem(bool use_cr) {
-  return use_cr ? (size_t)kGridWarps * kWideWarpVals * sizeof(T) : 0;
+inline size_t wide_smem(bool use_cr, int p, int S) {
+  return use_cr ? wide_layout<T>(p, S).vals * sizeof(T) : 0;
 }
 
 template <typename T, bool UseW, bool UseCR>
 int launch_wide(const T* y, const T* mu, const T* w, const T* x, const T* grid,
                 const T* pm, int G, int S, int p, int n, T prior_var,
                 int use_prior, T thr, T* out, cudaStream_t st) {
-  const size_t smem = wide_smem<T>(UseCR);
+  const size_t smem = wide_smem<T>(UseCR, p, S);
   auto kernel = grid_wide_kernel<T, UseW, UseCR>;
   const int err = allow_smem(kernel, smem);
   if (err) return err;
@@ -391,8 +540,8 @@ int launch_wide(const T* y, const T* mu, const T* w, const T* x, const T* grid,
 }
 
 template <typename T, bool UseW, bool UseCR>
-int occupancy_wide() {
-  const size_t smem = wide_smem<T>(UseCR);
+int occupancy_wide(int p, int S) {
+  const size_t smem = wide_smem<T>(UseCR, p, S);
   auto kernel = grid_wide_kernel<T, UseW, UseCR>;
   int err = allow_smem(kernel, smem);
   const int n = err ? 0 : blocks_per_sm(kernel, smem, &err, 32 * kGridWarps);
@@ -458,11 +607,11 @@ template <typename T>
 int occupancy_mode(int weighted, int use_cr, int p, int S) {
   if (p > kPNarrow && p <= kPWide) {
     if (weighted) {
-      return use_cr ? occupancy_wide<T, true, true>()
-                    : occupancy_wide<T, true, false>();
+      return use_cr ? occupancy_wide<T, true, true>(p, S)
+                    : occupancy_wide<T, true, false>(p, S);
     }
-    return use_cr ? occupancy_wide<T, false, true>()
-                  : occupancy_wide<T, false, false>();
+    return use_cr ? occupancy_wide<T, false, true>(p, S)
+                  : occupancy_wide<T, false, false>(p, S);
   }
   if (weighted) {
     return use_cr ? occupancy<T, true, true>(p, S)

@@ -63,9 +63,11 @@ Cholesky, the prior), the wide K2 at p = 10 in both dtypes and the float32
 block K2 at p = 25 a trial point, with the float32 wide K2's samples
 counted by the branch their special functions take (the large-c series;
 a shift of z = y + c < 8, and the shifts a sample; none).  `phases k3
-[ROOT]` builds the block K3 alone, marked, from ROOT's checkout (default
-this one; an earlier checkout's 4 x 4 float32 design takes
-_K3_EARLIER_MARKS) and prints its split at p = 25 in both dtypes.
+[ROOT]` builds the block and the wide K3 alone, marked, from ROOT's
+checkout (default this one; an earlier checkout's designs, the block
+K3's 4 x 4 float32 one and the wide K3's point a pass, take
+_K3_EARLIER_MARKS) and prints their split at p = 25 (the block K3) and
+p = 10 (the wide K3) in both dtypes.
 `phases k1 [ROOT]` prints the float32 K1 kernels'
 registers, spill bytes and resident warps an SM (of ROOT's checkout, by
 default this one), then builds a copy of ROOT's csrc with clock64 marks
@@ -117,8 +119,9 @@ times its cases.
 
 `k3`: the grid search (K3) on the paired pipeline inputs at 60,000 x
 1,024 (by default the block kernel in float64 at p = 17, 24, 25, 32, 40,
-48, 56, 64 and in float32 at p = 25, and the templated kernel in float64
-at p = 2; or the cases P:DTYPE[:MODE] given, MODE w (weighted) or nocr
+48, 56, 64 and in float32 at p = 25, the wide kernel at p = 10 in both
+dtypes, and the templated kernel in float64 at p = 2; or the cases
+P:DTYPE[:MODE] given, MODE w (weighted) or nocr
 (without the Cox-Reid term)), on the genes the line search (this
 checkout's K2) leaves, or on the first 4,096 genes where it leaves none
 (in float64 it converges everywhere: chip_smoke.py's kernel rows time the
@@ -817,10 +820,10 @@ def k2_study(dev, parent_root, reps, cases=K2_CASES, others=()):
 
 
 # `k3`'s default cases: the block K3 in float64 from 17 to 64 columns, the
-# float32 block K3 at the paired p = 25 and the narrow float64 K3 at the
-# main path's p = 2
+# float32 block K3 at the paired p = 25, the wide K3 at the paired p = 10
+# in both dtypes and the narrow float64 K3 at the main path's p = 2
 K3_CASES = tuple((p, "float64") for p in (17, 24, 25, 32, 40, 48, 56, 64)) \
-    + ((25, "float32"), (2, "float64"))
+    + ((25, "float32"), (10, "float32"), (10, "float64"), (2, "float64"))
 
 
 # `k3`'s modes besides the default: weighted (the zinbwave-style weights
@@ -1367,6 +1370,46 @@ _PHASES = {
          "prior_var;\n    DK_T(5, c0)\n"
          "    if (threadIdx.x == 0) atomicAdd(&dk_clk[8], 1ull);\n"),
     ],
+    "disp_grid.cu": [
+        # the wide K3 with the Cox-Reid term (log_post_wide_pair, two points
+        # a warp's pass, both dtypes): each tile's terms at both points on
+        # its lanes, the weights' tile writes (and, past one chunk, the
+        # block's design staging; else its staging once a gene, in the
+        # kernel), the gram adds (float32 4 x 4 blocks, float64 mma), then
+        # each gram's reduction and store, the factor, the prior; thread
+        # 0's clock: warp 0's points
+        ("  const int lane = lane_id();\n"
+         "  const T alpha[2] = {d_exp(la[0]), d_exp(la[1])};\n",
+         "  DK_T0(c0)\n  const int lane = lane_id();\n"
+         "  const T alpha[2] = {d_exp(la[0]), d_exp(la[1])};\n"),
+        ("      wide_stage(xs, x, S, base, cn, p, lay);\n      __syncthreads();\n",
+         "      wide_stage(xs, x, S, base, cn, p, lay);\n      __syncthreads();\n"
+         "      DK_T(1, c0)\n"),
+        ("      if constexpr (UseCR) {\n"
+         "        const int n = cn - t0 < kTile ? cn - t0 : kTile;\n",
+         "      DK_T(0, c0)\n      if constexpr (UseCR) {\n"
+         "        const int n = cn - t0 < kTile ? cn - t0 : kTile;\n"),
+        ("        wb[lane] = w[1];\n        __syncwarp();\n",
+         "        wb[lane] = w[1];\n        __syncwarp();\n        DK_T(1, c0)\n"),
+        ("          pair_add<kMmaRunWide>(run, ga, gb, xs + t0, wa, wb, n);\n"
+         "        }\n        __syncwarp();\n",
+         "          pair_add<kMmaRunWide>(run, ga, gb, xs + t0, wa, wb, n);\n"
+         "        }\n        __syncwarp();\n        DK_T(2, c0)\n"),
+        ("  warp_allsum<T, 2>(acc);\n#pragma unroll\n",
+         "  warp_allsum<T, 2>(acc);\n  DK_T(0, c0)\n#pragma unroll\n"),
+        ("      lp[e] -= T(0.5) * warp_cholesky<T, true>(wv, p);\n",
+         "      DK_T(3, c0)\n"
+         "      lp[e] -= T(0.5) * warp_cholesky<T, true>(wv, p);\n"
+         "      DK_T(4, c0)\n"),
+        ("    if (use_prior) lp[e] -= T(0.5) * (la[e] - pm) * (la[e] - pm) / "
+         "prior_var;\n  }\n}\n",
+         "    if (use_prior) lp[e] -= T(0.5) * (la[e] - pm) * (la[e] - pm) / "
+         "prior_var;\n    DK_T(5, c0)\n"
+         "    if (threadIdx.x == 0) atomicAdd(&dk_clk[8], 1ull);\n  }\n}\n"),
+        ("    wide_stage(xs, x, S, 0, S, p, lay);\n    __syncthreads();\n",
+         "    DK_T0(cz)\n    wide_stage(xs, x, S, 0, S, p, lay);\n"
+         "    __syncthreads();\n    DK_T(1, cz)\n"),
+    ],
     "common.cuh": [
         # the float64 wide K2's pass (gram_mma_pass on one warp): staging
         # (tile writes) and products (gram adds)
@@ -1530,12 +1573,48 @@ _K1_MARKS = {
     ],
 }
 
-# The block K3's marks in an earlier checkout's design (`phases k3 ROOT`:
-# the float32 log_post_block with the Cox-Reid term, a point at a time,
-# the terms on the tile's threads, tile writes, gram adds, the groups'
-# reduction and store, block_cholesky), applied only to another
+# The K3 marks in an earlier checkout's design (`phases k3 ROOT`: the
+# wide K3's log_post_wide, a point a pass on column-major tiles; the
+# float32 block K3's log_post_block with the Cox-Reid term, a point at a
+# time, the terms on the tile's threads, tile writes, gram adds, the
+# groups' reduction and store, block_cholesky), applied only to another
 # checkout's sources
 _K3_EARLIER_MARKS = {
+    "disp_grid.cu": [
+        # the wide K3's earlier point (log_post_wide, a point a pass): each
+        # tile's terms on its lanes, the design's tile writes (x and w x),
+        # the gram adds, then the groups' reduction and store, the factor,
+        # the prior
+        ("  const GramMap gm = gram_map(p);\n  const T alpha = d_exp(la);\n"
+         "  const LgConst<T> k = lg_const(T(1) / alpha);\n",
+         "  DK_T0(c0)\n  const GramMap gm = gram_map(p);\n"
+         "  const T alpha = d_exp(la);\n"
+         "  const LgConst<T> k = lg_const(T(1) / alpha);\n"),
+        ("        tile_put(xb, ub, x, S, s, p, w);\n",
+         "        DK_T(0, c0)\n        tile_put(xb, ub, x, S, s, p, w);\n"
+         "        DK_T(1, c0)\n"),
+        ("      __syncwarp();\n"
+         "      gram_add<T, false, false>(gm, gb, unused, rz, ub, xb,\n"
+         "                                static_cast<const T*>(nullptr), n);\n"
+         "      __syncwarp();\n",
+         "      __syncwarp();\n      DK_T(1, c0)\n"
+         "      gram_add<T, false, false>(gm, gb, unused, rz, ub, xb,\n"
+         "                                static_cast<const T*>(nullptr), n);\n"
+         "      __syncwarp();\n      DK_T(2, c0)\n"),
+        ("  warp_allsum<T, 1>(acc);\n  T lp = acc[0];\n",
+         "  warp_allsum<T, 1>(acc);\n  DK_T(0, c0)\n  T lp = acc[0];\n"),
+        ("    gram_store(gm, gb, wv, p, cm, true, static_cast<const T*>(nullptr));\n"
+         "    lp = acc[0] - T(0.5) * warp_cholesky<T, true>(wv, p);\n",
+         "    gram_store(gm, gb, wv, p, cm, true, static_cast<const T*>(nullptr));\n"
+         "    DK_T(3, c0)\n"
+         "    lp = acc[0] - T(0.5) * warp_cholesky<T, true>(wv, p);\n"
+         "    DK_T(4, c0)\n"),
+        ("  if (use_prior) lp -= T(0.5) * (la - pm) * (la - pm) / prior_var;\n"
+         "  return lp;\n}\n\n// grid_kernel at a run-time p",
+         "  if (use_prior) lp -= T(0.5) * (la - pm) * (la - pm) / prior_var;\n"
+         "  DK_T(5, c0)\n  if (threadIdx.x == 0) atomicAdd(&dk_clk[8], 1ull);\n"
+         "  return lp;\n}\n\n// grid_kernel at a run-time p"),
+    ],
     "disp_grid_block.cu": [
         ("  const T alpha = d_exp(la);\n"
          "  const LgConst<T> k = lg_const(T(1) / alpha);\n",
@@ -1668,19 +1747,23 @@ def _k2_clocks(lib, run):
 
 
 def _k3_clocks(pin, k2, p):
-    """The block K3 (marked) in pin's dtype on the genes the line search
-    k2 left (chip_smoke.py's kernel rows: the first 4,096 genes when it
-    left none): its registers and spills, then each phase's clocks a grid
-    point (thread 0 of the block's clock) and share (_K3_PHASES)."""
+    """The block K3 (p > 16) or the wide K3 (8 < p <= 16), marked, in
+    pin's dtype on the genes the line search k2 left (chip_smoke.py's
+    kernel rows: the first 4,096 genes when it left none): its registers
+    and spills, then each phase's clocks a grid point (thread 0's clock:
+    the block's, or warp 0's points of the wide kernel) and share
+    (_K3_PHASES)."""
     import ctypes
     import re
     from . import build
     from .cuda_grid import fit_disp_grid
+    from .cuda_ls import P_WIDE
     dtype = pin["y"].dtype
     t, tname = ("d", "double") if dtype == torch.float64 else ("f", "float")
-    for sym, (regs, spill) in sorted(
-            build.ptxas_resources("disp_grid_block").items()):
-        if re.search(rf"grid_block_kernelI{t}Lb\dELb1EE", sym):
+    name, kern = ("disp_grid", "grid_wide_kernel") if p <= P_WIDE \
+        else ("disp_grid_block", "grid_block_kernel")
+    for sym, (regs, spill) in sorted(build.ptxas_resources(name).items()):
+        if re.search(rf"{kern}I{t}Lb\dELb1EE", sym):
             print(f"  {sym}: {regs} registers, {spill} spill bytes (marked "
                   f"build)", flush=True)
     conv = (k2["iter"] < 100) & (k2["iter"] != 1)
@@ -1691,7 +1774,7 @@ def _k3_clocks(pin, k2, p):
             torch.zeros(len(need), dtype=dtype, device=pin["y"].device),
             1.0)
     fit_disp_grid(*args)
-    lib = build.load("disp_grid_block")
+    lib = build.load(name)
     build.bind(lib, "dk_clk_reset", [])()
     torch.cuda.synchronize()
     fit_disp_grid(*args)
@@ -1701,7 +1784,7 @@ def _k3_clocks(pin, k2, p):
         ctypes.cast(buf, ctypes.c_void_p))
     points = max(buf[8], 1)
     whole = sum(buf[k] for k in range(len(_K3_PHASES)))
-    print(f"p={p} K3 (grid_block_kernel<{tname}>, {len(need)} genes): "
+    print(f"p={p} K3 ({kern}<{tname}>, {len(need)} genes): "
           f"{buf[8]} grid points, {whole / points:,.0f} clocks a grid point",
           flush=True)
     for k, n in enumerate(_K3_PHASES):
@@ -1711,6 +1794,9 @@ def _k3_clocks(pin, k2, p):
 
 # `phases`' and `phases k3`'s float32 block K3 reading: the paired p = 25
 K3_PHASE_F32_P = 25
+# `phases k3`'s widths: the block K3 at the paired p = 25, the wide K3 at
+# the paired p = 10
+K3_PHASE_P = (K3_PHASE_F32_P, 10)
 
 
 def phases_study(dev):
@@ -1791,35 +1877,38 @@ def phases_study(dev):
 
 
 def k3_phases_study(dev, root=None):
-    """The block K3 phase by phase (`phases k3 [ROOT]`): a copy of ROOT's
-    csrc (default: this checkout's) with clock64 marks (_PHASES, and for
-    an earlier design _K3_EARLIER_MARKS) built and run at p = 25 in
-    float64 and float32 on the paired pipeline inputs at 60,000 x 1,024, on
-    the genes this checkout's line search leaves (_k3_clocks).  Run in a
-    process of its own (it points ops/build.py at other sources)."""
+    """The block and the wide K3 phase by phase (`phases k3 [ROOT]`): a
+    copy of ROOT's csrc (default: this checkout's) with clock64 marks
+    (_PHASES, and for an earlier design _K3_EARLIER_MARKS) built and run
+    at the widths of K3_PHASE_P in float64 and float32 on the paired
+    pipeline inputs at 60,000 x 1,024, on the genes this checkout's line
+    search leaves (_k3_clocks).  Run in a process of its own (it points
+    ops/build.py at other sources)."""
     import chip_smoke as cs
     from . import build
     from .cuda_ls import fit_disp_line_search
     counts, _ = cs.make_inputs(cs.G_MAIN, cs.S_MAIN)
     runs = []
-    for dtype in (torch.float64, torch.float32):
-        pin = checks.pipeline_inputs(
-            counts, cs.paired_x(cs.S_MAIN, K3_PHASE_F32_P), dtype, dev)
-        k2 = fit_disp_line_search(pin["y"], pin["x"], pin["mu"], pin["la0"],
-                                  pin["la0"], 1.0, pin["min_la"])
-        runs.append(({k: pin[k] for k in ("y", "x", "mu", "grid")},
-                     {"iter": k2["iter"]}))
-        del pin, k2
+    for p in K3_PHASE_P:
+        for dtype in (torch.float64, torch.float32):
+            pin = checks.pipeline_inputs(counts, cs.paired_x(cs.S_MAIN, p),
+                                         dtype, dev)
+            k2 = fit_disp_line_search(pin["y"], pin["x"], pin["mu"],
+                                      pin["la0"], pin["la0"], 1.0,
+                                      pin["min_la"])
+            runs.append((p, {k: pin[k] for k in ("y", "x", "mu", "grid")},
+                         {"iter": k2["iter"]}))
+            del pin, k2
     src = build.CSRC if root is None else \
         Path(root).resolve() / "deseq2_tpu_torch" / "csrc"
     dst = build.BUILD_DIR / "phases_k3_csrc"
     _marked_csrc(dst, src)
     build.CSRC = dst
     build._libs.clear()
-    build.build_all(("disp_grid_block",))
+    build.build_all(("disp_grid_block", "disp_grid"))
     print(f"K3 phases of {src}", flush=True)
-    for pin, k2 in runs:
-        _k3_clocks(pin, k2, K3_PHASE_F32_P)
+    for p, pin, k2 in runs:
+        _k3_clocks(pin, k2, p)
 
 
 # `phases k1`'s widths: the wide K1 at p = 10, the block K1 at 25 and 64

@@ -21,7 +21,8 @@ tests/test_torch_block_emulation.py does) holds the emulated K1 (irls)
 or K2 (ls, with and without the prior), the templated kernel for p <= 2
 (float64), the wide kernel for p <= 16 and the block kernel past it, or
 K3 (grid, with and without the prior: the templated kernel for p <= 2 in
-float64, the block kernel past 16 columns), DTYPE float64 (the default)
+float64, the wide kernel for 8 < p <= 16, the block kernel past 16
+columns), DTYPE float64 (the default)
 or float32, in K2's and K3's MODE (nocr: without the Cox-Reid term; thr:
 the weighted row cut at 0.5; checks.MODES) or K1's (sf: an (S,) row of
 normalization factors exp(N(0, 0.4)); gsnf: a (G,S) matrix of them; else
@@ -128,8 +129,9 @@ def _ptr(t):
 
 
 def run_grid(lib_dir, raw, p, S, G, dtype="float64", mode=None):
-    """The emulated K3 (the templated kernel for p <= 8, the block kernel
-    past 16 columns) in dtype against the plain version on raw's inputs,
+    """The emulated K3 (the templated kernel for p <= 8, the wide kernel
+    for 8 < p <= 16, the block kernel past 16 columns) in dtype against the
+    plain version on raw's inputs,
     with and without the prior: phase 3's reading (check_grid; in float32
     against the float64 reference, past checks.TOL the plain version's
     spread) and in float64 the pick rule (the module's docstring)."""
@@ -157,9 +159,9 @@ def run_grid(lib_dir, raw, p, S, G, dtype="float64", mode=None):
 
     def k3(y, x, mu, grid, pm, prior_var, use_prior=False, weights=None,
            use_cr=True, weight_threshold=checks.CR_WEIGHT_THRESHOLD):
-        # the block kernel reads the design transposed
+        # the wide and the block kernels read the design transposed
         c = [t.to(kdt).contiguous() for t in
-             (y, mu, x.t() if block else x, grid, pm)]
+             (y, mu, x.t() if p > 8 else x, grid, pm)]
         w = None if weights is None else weights.to(kdt).contiguous()
         out = torch.empty(G, dtype=kdt)
         extra = ()

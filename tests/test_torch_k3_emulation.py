@@ -1,10 +1,13 @@
-"""The float32 block K3 (16 < p <= 64) and the narrow float64 K3 (p <= 8),
-on the CPU.
+"""The float32 block K3 (16 < p <= 64), the wide K3 (8 < p <= 16) and the
+narrow float64 K3 (p <= 8), on the CPU.
 
 The CUDA sources of deseq2_tpu_torch/csrc (disp_grid_block.cu's
 grid_block_kernel<float> with the Cox-Reid term: log_post_rows, two grid
 points a pass on sample-major tiles, persistent blocks, the factor on
-warp 0; disp_grid.cu's grid_kernel<double, P>) are built for the host by
+warp 0; disp_grid.cu's grid_wide_kernel, both dtypes: log_post_wide_pair,
+two grid points a warp's pass over the block's staged design, float64 on
+the tensor cores; disp_grid.cu's grid_kernel<double, P>) are built for
+the host by
 tests/cuda_emulation/emulate.py (g++, an address sanitizer, a thread
 block as its launch's fibers, up to disp_grid.cu's 10 warps; of the
 templated instantiations P = 1 and 2 in float64) and held to their plain
@@ -22,7 +25,12 @@ launch twice and bit-identical:
   (one tile: the tile takes 192);
 - the narrow float64 K3 at p = 2 on 24 samples: unweighted, weighted,
   without the Cox-Reid term and with the weighted row cut at 0.5; and at
-  p = 1 on 100 samples.
+  p = 1 on 100 samples;
+- the wide K3 at p = 10 and 16 in both dtypes, each dtype unweighted,
+  weighted, without the Cox-Reid term and with the row cut at 0.5: on 24
+  samples (one partial tile), on 300 (tiles wrap) and past the design's
+  staged chunk (disp_grid.cu kWideChunkF32 / kWideChunkF64: 1,100 samples
+  in float32, 600 in float64, staged in two chunks every pass).
 """
 
 import json
@@ -45,14 +53,22 @@ CASES = [(25, 300, 3, True, "float32", ""),
          (2, 24, 40, True, "float64", ""),
          (2, 24, 40, False, "float64", "nocr"),
          (2, 24, 40, True, "float64", "thr"),
-         (1, 100, 20, False, "float64", "")]
+         (1, 100, 20, False, "float64", ""),
+         (10, 24, 8, False, "float32", ""),
+         (10, 1100, 2, True, "float32", ""),
+         (16, 24, 8, False, "float32", "nocr"),
+         (16, 300, 3, True, "float32", "thr"),
+         (10, 600, 2, False, "float64", ""),
+         (10, 24, 8, True, "float64", ""),
+         (16, 300, 3, True, "float64", "thr"),
+         (16, 24, 8, False, "float64", "nocr")]
 
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    """disp_grid_block.cu and disp_grid.cu (P = 1 and 2 in float64) built
-    for the host, and the sanitizer's runtime to preload; skips where g++
-    or its sanitizer is missing."""
+    """disp_grid_block.cu and disp_grid.cu (its wide kernel, and P = 1 and
+    2 in float64) built for the host, and the sanitizer's runtime to
+    preload; skips where g++ or its sanitizer is missing."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the CUDA sources for the host")
     asan = subprocess.run(["g++", "-print-file-name=libasan.so"],

@@ -90,6 +90,25 @@ def test_k3_phase_marks_time_every_phase_of_the_float32_point():
         assert all(line in marked for line in anchor.split("\n")), anchor
 
 
+def test_k3_phase_marks_time_every_phase_of_the_wide_point():
+    # `phases k3`: the wide K3's pair of points (log_post_wide_pair) is
+    # marked in every slot of _K3_PHASES and counts its points, each
+    # anchor once in disp_grid.cu; the earlier design's marks (a point a
+    # pass, for an earlier checkout) time every slot and keep their
+    # anchors' lines
+    src = (build.CSRC / "disp_grid.cu").read_text()
+    for marks in (studies._PHASES["disp_grid.cu"],
+                  studies._K3_EARLIER_MARKS["disp_grid.cu"]):
+        text = "".join(m for _, m in marks)
+        for k in range(len(studies._K3_PHASES)):
+            assert f"DK_T({k}, c" in text, k
+        assert "dk_clk[8]" in text
+        for anchor, marked in marks:
+            assert all(line in marked for line in anchor.split("\n"))
+    for anchor, _ in studies._PHASES["disp_grid.cu"]:
+        assert src.count(anchor) == 1, anchor
+
+
 @pytest.mark.parametrize("args, want", [
     (["root"], (5, studies.K3_CASES, ())),
     (["root", "5", "17:float32", "2:float64"],
@@ -108,6 +127,8 @@ def test_k3_study_arguments(args, want):
     assert (reps, cases, tuple(r.name for r in others)) == want
     assert (25, "float32") in studies.K3_CASES
     assert (2, "float64") in studies.K3_CASES
+    # the wide K3 at the paired p = 10, both dtypes
+    assert {(10, "float32"), (10, "float64")} <= set(studies.K3_CASES)
 
 
 @pytest.mark.parametrize("case", ["2:float64:thr", "2:float64:w:x", "0:float64"])
